@@ -1,0 +1,36 @@
+"""Architecture registry of the port: the archs ported so far.
+
+The reference registry (``repro.configs``) holds ten archs; the others
+wait for their mixers and are named here so that asking for one says why
+it is missing.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "phi3.5-moe-42b": "phi35_moe_42b",
+}
+
+NOT_PORTED = ("grok-1-314b", "jamba-v0.1-52b", "xlstm-1.3b", "internvl2-2b",
+              "internlm2-20b", "h2o-danube-1.8b", "deepseek-7b",
+              "qwen2.5-3b", "whisper-tiny")
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet; ROADMAP.md "
+            f"lists the slices still to come (ported: {ARCH_NAMES})")
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; have {ARCH_NAMES}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+__all__ = ["ARCH_NAMES", "NOT_PORTED", "get_config"]

@@ -1,0 +1,156 @@
+"""Parameter specs and common layers (port of ``repro.models.common``).
+
+Parameters are plain nested dicts of tensors, built from a ``ParamSpec``
+tree with an explicit ``torch.Generator`` and device.  Sharding (the
+``logical`` axes) is carried for the collective slice but unused here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing ``cuda`` on a machine without a
+    card: the port's entry points never fall back to the CPU quietly."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' (or --device cpu) to run on the CPU")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Param specs and trees
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
+    init: str = "normal"          # normal | zeros | ones | embed
+    scale: float | None = None    # None -> 1/sqrt(fan_in)
+    dtype: Any = None             # None -> model param_dtype
+
+    def initializer(self, generator: torch.Generator, device,
+                    param_dtype: torch.dtype) -> torch.Tensor:
+        dtype = self.dtype or param_dtype
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
+        if self.init in ("normal", "embed"):
+            # the reference's rule, kept as it is: fan-in is the leading
+            # dim, which for a stacked spec is the layer count
+            fan_in = self.shape[0] if len(self.shape) > 1 else self.shape[-1]
+            scale = self.scale if self.scale is not None \
+                else 1.0 / math.sqrt(max(1, fan_in))
+            x = torch.randn(self.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+            return (x * scale).to(dtype)
+        raise ValueError(self.init)
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def tree_map(fn: Callable, tree, is_leaf: Callable | None = None):
+    """Map over the leaves of a tree of nested dicts."""
+    if isinstance(tree, dict) and not (is_leaf and is_leaf(tree)):
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """``(path, leaf)`` pairs in sorted-key order (jax's dict order)."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out.extend(tree_leaves(tree[k], f"{prefix}/{k}" if prefix
+                                   else str(k)))
+        return out
+    return [(prefix, tree)]
+
+
+def init_params(specs, generator: torch.Generator, device,
+                param_dtype: torch.dtype = torch.bfloat16):
+    """Concrete parameter tree from a spec tree, drawn leaf by leaf in
+    sorted-key order from ``generator`` (which lives on ``device``)."""
+    return tree_map(lambda s: s.initializer(generator, device, param_dtype),
+                    specs)
+
+
+def stack_specs(specs, n: int, axis_name: str | None = None):
+    """Prepend a layer dimension to every spec (stacked layer params)."""
+    return tree_map(lambda s: ParamSpec((n,) + s.shape,
+                                        (axis_name,) + s.logical,
+                                        s.init, s.scale, s.dtype), specs)
+
+
+# ---------------------------------------------------------------------------
+# Numerics / layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, gamma, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(dtype)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(dtype)
+
+
+def dense(x, w, b=None, compute_dtype=torch.bfloat16):
+    """x @ w (+ b): inputs rounded to ``compute_dtype``, products summed
+    in f32, result in ``compute_dtype``."""
+    out = torch.matmul(x.to(compute_dtype).float(),
+                       w.to(compute_dtype).float())
+    if b is not None:
+        out = out + b.float()
+    return out.to(compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (interleaved pairs, as the reference)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dh: int, theta: float = 10000.0):
+    return 1.0 / (theta ** (np.arange(0, dh, 2) / dh))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, Dh); positions: (..., S) int absolute positions.
+    Rotates the pairs ``(x[..., 0::2], x[..., 1::2])``."""
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
+                            device=x.device)
+    angles = positions[..., None].float() * freqs     # (..., S, Dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x.float(), approximate="tanh").to(x.dtype)
+
+
+def silu(x):
+    return F.silu(x.float()).to(x.dtype)

@@ -1,0 +1,200 @@
+"""Transformer stack and the Model API (port of
+``repro.models.transformer``).
+
+Parameters of the repeating (mixer, ffn) superblock are stacked
+``(n_superblocks, ...)`` as in the reference; where the reference scans
+over them, the port loops in Python.  Only the ``attn`` mixer is ported;
+the others (mamba, mLSTM, sLSTM, spectral) wait for their slices.
+
+Modes:
+  * ``forward``     — full-sequence prefill, returns f32 logits.
+  * ``decode_step`` — one token per batch slot with per-layer KV caches,
+    which it updates in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
+                                       resolve_device, rms_norm, stack_specs,
+                                       tree_map)
+from .config import ModelConfig
+
+PORTED_MIXERS = ("attn",)
+
+
+def _norm_specs(cfg):
+    if cfg.norm == "layernorm":
+        return {"g": ParamSpec((cfg.d_model,), (None,), init="ones"),
+                "b": ParamSpec((cfg.d_model,), (None,), init="zeros")}
+    return {"g": ParamSpec((cfg.d_model,), (None,), init="ones")}
+
+
+def _apply_norm(p, x, cfg):
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["g"], p["b"])
+    return rms_norm(x, p["g"])
+
+
+def _ffn_specs(cfg, kind):
+    if kind == "dense":
+        return ffn_mod.ffn_specs(cfg)
+    if kind == "moe":
+        return moe_mod.moe_specs(cfg)
+    return {}
+
+
+def position_specs(cfg, mixer, ffn):
+    out = {"norm1": _norm_specs(cfg), "mixer": attn.attn_specs(cfg)}
+    if ffn != "none":
+        out["norm2"] = _norm_specs(cfg)
+        out["ffn"] = _ffn_specs(cfg, ffn)
+    return out
+
+
+def superblock_specs(cfg: ModelConfig):
+    return {f"pos{i}": position_specs(cfg, mixer, ffn)
+            for i, (mixer, ffn) in enumerate(cfg.superblock)}
+
+
+def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False):
+    """One (attn, ffn) position.  Returns (x, aux)."""
+    h = _apply_norm(pp["norm1"], x, cfg)
+    if decode:
+        y, _ = attn.decode_attention(pp["mixer"], h, state, positions, cfg)
+    else:
+        y = attn.attention_block(pp["mixer"], h, cfg, causal=True,
+                                 positions=positions)
+    x = x + y.to(x.dtype)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn != "none":
+        h = _apply_norm(pp["norm2"], x, cfg)
+        if ffn == "moe":
+            y, aux = moe_mod.moe_block(pp["ffn"], h, cfg)
+        else:
+            y = ffn_mod.ffn_block(pp["ffn"], h, cfg)
+        x = x + y.to(x.dtype)
+    return x, aux
+
+
+def _layer(tree, i: int):
+    """Superblock i's slice of a stacked tree (views, so in-place cache
+    writes land in the stacked tensors)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+@dataclass
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        cfg = self.cfg
+        missing = {m for m, _ in cfg.superblock} - set(PORTED_MIXERS)
+        if missing or cfg.frontend is not None or cfg.encoder_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: only the 'attn' mixer of decoder-only archs is "
+                f"ported to repro_torch so far (needs {sorted(missing)}, "
+                f"frontend={cfg.frontend}, encoder_layers="
+                f"{cfg.encoder_layers}); ROADMAP.md lists the slices to come")
+
+    # ---- parameter specs ----
+    def specs(self):
+        cfg = self.cfg
+        out = {
+            "embed": ParamSpec((cfg.vocab, cfg.d_model),
+                               ("vocab", "embed_fsdp"), init="embed",
+                               scale=1.0),
+            "blocks": stack_specs(superblock_specs(cfg), cfg.n_superblocks,
+                                  None),
+            "final_norm": _norm_specs(cfg),
+        }
+        if not cfg.tie_embeddings:
+            out["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model),
+                                       ("vocab", "embed_fsdp"))
+        return out
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """Random parameters drawn from ``generator`` (on ``device``)."""
+        return init_params(self.specs(), generator, resolve_device(device),
+                           self.cfg.pdtype)
+
+    # ---- embedding / head ----
+    def embed(self, params, tokens):
+        return params["embed"][tokens.long()].to(self.cfg.cdtype)
+
+    def logits(self, params, x):
+        """f32 logits: compute-dtype inputs, f32 sums."""
+        w = params.get("lm_head", params["embed"])
+        cd = self.cfg.cdtype
+        return torch.einsum("bsd,vd->bsv", x.to(cd).float(),
+                            w.to(cd).float())
+
+    # ---- full-sequence forward (prefill) ----
+    def forward(self, params, tokens):
+        """tokens: (B, S) -> (logits (B, S, V) f32, aux loss)."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        B, S, _ = x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.n_superblocks):
+            params_sb = _layer(params["blocks"], i)
+            for j, (_, ffn) in enumerate(cfg.superblock):
+                x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn,
+                                       positions)
+                aux = aux + a
+        x = _apply_norm(params["final_norm"], x, cfg)
+        return self.logits(params, x), aux
+
+    # ---- decode ----
+    def init_caches(self, batch: int, max_seq: int, device="cuda"):
+        """Stacked (n_superblocks, ...) KV caches plus per-slot positions."""
+        cfg = self.cfg
+        device = resolve_device(device)
+        # sliding-window attention needs only `window` slots (ring buffer)
+        slots = min(max_seq, cfg.window) if cfg.window else max_seq
+        spec = attn.CacheSpec(batch, cfg.n_kv_heads, slots, cfg.hd,
+                              cfg.cdtype)
+        n = cfg.n_superblocks
+        states = {}
+        for i in range(len(cfg.superblock)):
+            one = attn.init_cache(spec, device)
+            states[f"pos{i}"] = tree_map(
+                lambda a: a[None].repeat((n,) + (1,) * a.dim()), one)
+        return {"states": states,
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+
+    def prefill(self, params, tokens, caches):
+        """Sequential prefill through ``decode_step`` (correct though not
+        the fast path; full-sequence prefill uses ``forward``)."""
+        logits = None
+        for t in range(tokens.shape[1]):
+            logits, caches = self.decode_step(params, tokens[:, t:t + 1],
+                                              caches)
+        return logits, caches
+
+    def decode_step(self, params, tokens_t, caches):
+        """tokens_t: (B, 1).  Returns (logits (B, 1, V) f32, caches); the
+        KV caches are updated in place, ``pos`` is a new tensor."""
+        cfg = self.cfg
+        x = self.embed(params, tokens_t)
+        pos = caches["pos"]
+        for i in range(cfg.n_superblocks):
+            params_sb = _layer(params["blocks"], i)
+            states_sb = _layer(caches["states"], i)
+            for j, (_, ffn) in enumerate(cfg.superblock):
+                x, _ = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn,
+                                       pos, state=states_sb[f"pos{j}"],
+                                       decode=True)
+        x = _apply_norm(params["final_norm"], x, cfg)
+        return self.logits(params, x), {"states": caches["states"],
+                                        "pos": pos + 1}
