@@ -1,1 +1,2 @@
-"""Core services of the port (so far: the metrics registry)."""
+"""Core services of the port: the torus all-to-all (dims, simulator,
+tuning, cache, factorized, plan, comm) and the metrics registry."""

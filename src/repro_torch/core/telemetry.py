@@ -1,8 +1,9 @@
 """Metrics registry (the counter part of ``repro.core.telemetry``).
 
-Only what the serving path uses is ported: :class:`Counter`,
-:class:`MetricsRegistry` (counters only) and the process-wide
-:func:`metrics`.  The tracer, gauges, histograms, snapshots and the drift
+Ported so far: :class:`Counter`, :class:`MetricsRegistry` (counters
+only), the process-wide :func:`metrics`, and the stats providers that
+fold the factorization, plan and communicator registries into
+:func:`metrics_snapshot`.  The tracer, gauges, histograms and the drift
 detector wait for the slices that use them (ROADMAP).
 """
 
@@ -45,8 +46,34 @@ class MetricsRegistry:
         return m
 
 
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {name: m.value for name, m in sorted(self._metrics.items())}
+
+
 _METRICS = MetricsRegistry()
 
 
 def metrics() -> MetricsRegistry:
     return _METRICS
+
+
+_PROVIDERS: dict = {}
+
+
+def register_stats_provider(namespace: str, fn) -> None:
+    """Register ``fn() -> dict`` so its keys appear in
+    :func:`metrics_snapshot` as ``<namespace>.<key>``; a later
+    registration under the same namespace replaces the earlier one."""
+    _PROVIDERS[str(namespace)] = fn
+
+
+def metrics_snapshot() -> dict:
+    """Every registered provider's dict flattened under its namespace,
+    merged with the registry's counters."""
+    out = {}
+    for ns, fn in sorted(_PROVIDERS.items()):
+        for k, v in fn().items():
+            out[f"{ns}.{k}"] = v
+    out.update(metrics().snapshot())
+    return out

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import contextlib
 
+from .block_reorder import (datatype_pack, datatype_pack_plain,
+                            datatype_unpack, datatype_unpack_plain)
 from .flash_attention import flash_attention, flash_attention_plain
 from .moe_gmm import grouped_matmul, grouped_matmul_plain
 
@@ -48,3 +50,15 @@ def expert_matmul(lhs, rhs, *, impl=None):
     """(E, C, K) @ (E, K, N) grouped matmul."""
     fn = grouped_matmul_plain if _plain(impl) else grouped_matmul
     return fn(lhs, rhs)
+
+
+def pack_round(x, dims, k: int, *, variant: str = "paper", impl=None):
+    """Round ``k``'s datatype pack of a contiguous ``(p, B)`` buffer."""
+    fn = datatype_pack_plain if _plain(impl) else datatype_pack
+    return fn(x, dims=dims, k=k, variant=variant)
+
+
+def unpack_round(y, dims, k: int, *, variant: str = "paper", impl=None):
+    """Inverse of :func:`pack_round`."""
+    fn = datatype_unpack_plain if _plain(impl) else datatype_unpack
+    return fn(y, dims=dims, k=k, variant=variant)

@@ -44,6 +44,27 @@ def ref_attention(q, k, v, *, causal: bool = True,
     return out.reshape(B, Hq, Sq, Dh).to(q.dtype)
 
 
+def _peer_index(positions, extent: int, n_peers: int, device):
+    positions = torch.as_tensor(positions, dtype=torch.long, device=device)
+    peers = torch.arange(n_peers, device=device)[:, None] * extent
+    return (positions[None, :] + peers).reshape(-1)
+
+
+def ref_block_reorder(x, positions, extent: int, n_peers: int):
+    """The round-k datatype *pack*: ``out[j * len(positions) + t] =
+    x[positions[t] + j * extent]`` for peer j in [0, n_peers) — composite
+    messages laid out contiguously per peer.  x: (p, B)."""
+    return x[_peer_index(positions, extent, n_peers, x.device)]
+
+
+def ref_block_unreorder(y, positions, extent: int, n_peers: int):
+    """Inverse of :func:`ref_block_reorder` (the unpack side)."""
+    idx = _peer_index(positions, extent, n_peers, y.device)
+    out = torch.zeros_like(y)
+    out[idx] = y[: idx.numel()]
+    return out
+
+
 def ref_gmm(lhs, rhs):
     """Grouped (per-expert) matmul in f32: (E, C, K) x (E, K, N) ->
     (E, C, N) in lhs's dtype."""

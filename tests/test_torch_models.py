@@ -93,8 +93,8 @@ def test_unported_paths_raise():
             block_pattern=("mamba",)))
     cfg = get_config(ARCH, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_block({}, torch.zeros(1, 2, cfg.d_model), cfg,
-                      mesh=object())
+        moe.moe_block({}, torch.zeros(1, 2, cfg.d_model),
+                      cfg.replace(capacity_factor=None))
 
 
 @pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "dense", "rope",
