@@ -49,6 +49,43 @@ it fails:
              unpack kernels must have been launched (8 block-reorder
              launches per rank per call: 2 directions x 2 rounds x
              pack + unpack).
+8. train   — after the world has ended: ``launch/train.py``'s
+             ``build_training`` on phi3.5-moe-42b at full width cut to 2
+             layers (bf16 parameters, f32 AdamW moments: 2.73 B
+             parameters, 32.8 GB of state before activations), remat on,
+             the copy task at B=2, S=2048.  (a) One loss + backward with
+             the kernels and one under ``ops.plain_versions()`` from the
+             same parameters and batch: every leaf's gradient must exist,
+             be finite and non-zero, and lie within 2e-2 relative norm of
+             the plain one (bf16; a near-tie in routing may move one
+             token between experts, so no elementwise bound), the losses
+             within 1e-2 relative.  A third, witness run takes the plain
+             versions but attention's FA2 formulas (p from lse, delta
+             from the bf16 O) in place of autograd; each leaf's gap to
+             both paths is logged, which tells the formulas' share of the
+             gap from the kernels'.  (b) ``Trainer.run`` for 4 steps with
+             an async checkpoint at step 2, restored into a fresh
+             ``Trainer`` and compared bit for bit with the live state
+             (that one 27.3 GB checkpoint is the run's only large disk
+             write; it must stay within ``DISK_WRITE_BUDGET``).
+             (c) Per-step ms, peak memory and launches per step, which
+             must be the predicted 4 flash forward-with-lse, 2 flash
+             backward and 24 gmm per step (remat runs each forward kernel
+             twice); then one profiled step.  (d) (a) again on parameters
+             drawn at std 1/sqrt(fan-in) of each matmul: the reference's
+             init makes every softmax near one-hot at this width (loss
+             ≈ 270), where the FA2 backward's ds is near 0; there the
+             kernel path's gradients must lie no more than 1.25 times as
+             far from an f32 plain run (same weights and routing) as the
+             plain path's do, leaf by leaf.  The plain, witness and f32
+             runs replay the kernel run's top-2 routing (the remat
+             recompute must route as the forward did); the number of
+             choices they would have made otherwise is logged.
+
+Phase 2 also holds the training kernels against their plain versions at
+the training shape and at GQA / window / ragged shapes: the flash forward
+that keeps lse, the FA2 backward, and the grouped matmul's backward
+products (``GroupedMatmulFn``) against autograd of the plain gmm.
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack and
 unpack) against its plain version, bit for bit, at every buffer phases 6-7
@@ -63,6 +100,7 @@ the last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -89,6 +127,13 @@ EP_TOKENS = 512                    # tokens per rank in [moe_ep]
 COLL_TORI = (((2, 2), ("data", "pod")), ((4,), ("x",)))   # [collective]
 COLL_B = 1000                      # [collective]'s f32 block per rank pair
 COLL_TILED = (2, 2 * WORLD, 2)     # [collective]'s tiled input, split dim 1
+TRAIN_LAYERS = 2                   # [train]: AdamW state must fit one card
+TRAIN_B, TRAIN_S = 2, 2048         # [train]'s batch (the copy task)
+TRAIN_STEPS = 4                    # [train]'s Trainer.run, checkpoint at 2
+TRAIN_GRAD_TOL = 2e-2              # [train]: relative norm per gradient leaf
+F32_GAP_RATIO = 1.25               # [train]: kernels~f32 vs plain~f32
+DISK_WRITE_BUDGET = 40 * 2**30     # bytes the run may write to disk; the
+                                   # [train] checkpoint is all but the builds
 
 
 def fail(msg: str):
@@ -121,7 +166,10 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(what: str, got, want, tol: float) -> float:
+def compare(what: str, got, want, tol: float, of_max: bool = False) -> float:
+    """max |got - want|; fails beyond rtol = atol = ``tol`` per element,
+    or, with ``of_max``, beyond ``tol`` times the largest |want| (for sums
+    of separately rounded terms, whose error scales with the terms)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: kernel gave {tuple(got.shape)} {got.dtype}, plain "
              f"version {tuple(want.shape)} {want.dtype}")
@@ -130,9 +178,11 @@ def compare(what: str, got, want, tol: float) -> float:
         fail(f"{what}: non-finite kernel output")
     err = (g - w).abs()
     worst = float(err.max()) if err.numel() else 0.0
-    if bool((err > tol + tol * w.abs()).any()):
-        fail(f"{what}: max |kernel - plain| = {worst:.3g} exceeds rtol = "
-             f"atol = {tol}")
+    limit = tol * float(w.abs().max()) if of_max and w.numel() else None
+    if (worst > limit) if of_max else bool((err > tol + tol * w.abs()).any()):
+        fail(f"{what}: max |kernel - plain| = {worst:.3g} exceeds "
+             + (f"{tol} of max |plain| ({limit:.3g})" if of_max
+                else f"rtol = atol = {tol}"))
     return worst
 
 
@@ -208,6 +258,7 @@ def phase_kernels(gen):
                     grouped_matmul(a, b), grouped_matmul_plain(a, b),
                     TOL[dtype])
     log("[kernels] gmm sweep: 16 odd shapes in f32 and bf16 agree")
+    cases += _gmm_backward_cases(gen)
     main = cases[0]
     results["grouped_matmul"] = dict(
         name="grouped_matmul", route="cuda",
@@ -274,9 +325,154 @@ def phase_kernels(gen):
         **{k: fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")},
         shape=fa["shape"])
+    results.update(_flash_train_kernels(gen))
     results.update(_reorder_kernels(gen))
     torch.cuda.synchronize()
     return results
+
+
+def _gmm_backward_cases(gen):
+    """``GroupedMatmulFn``'s backward at the training shape (C = 640): its
+    gradients against autograd of the plain gmm, and each of its two
+    products (``dlhs = gmm(dout, rhs^T)``, ``drhs = gmm(lhs^T, dout)``)
+    timed alone on its contiguous operands."""
+    from repro_torch.kernels.moe_gmm import (GroupedMatmulFn, grouped_matmul,
+                                             grouped_matmul_plain)
+    rows = []
+    for K, N in ((4096, 6400), (6400, 4096)):
+        a = _randn(gen, 16, 640, K).requires_grad_()
+        b = _randn(gen, 16, K, N).requires_grad_()
+        d = _randn(gen, 16, 640, N)
+        got = torch.autograd.grad(GroupedMatmulFn.apply(a, b), (a, b), d)
+        want = torch.autograd.grad(grouped_matmul_plain(a, b), (a, b), d)
+        a, b = a.detach(), b.detach()
+        for name, g, w, lhs, rhs in (
+                ("dlhs", got[0], want[0], d, b.transpose(1, 2).contiguous()),
+                ("drhs", got[1], want[1], a.transpose(1, 2).contiguous(), d)):
+            E, C, Kk = lhs.shape
+            Nn = rhs.shape[2]
+            what = (f"gmm backward {name} ({E},{C},{Kk})x({E},{Kk},{Nn}) of "
+                    f"(16,640,{K})x(16,{K},{N}) bf16")
+            err = compare(what, g, w, TOL[torch.bfloat16])
+            b_ms, b_by = bound(2 * (lhs.numel() + rhs.numel() + E * C * Nn),
+                               2 * E * C * Kk * Nn)
+            row = {"shape": what, "max_abs_err": err,
+                   "ms": cuda_ms(lambda: grouped_matmul(lhs, rhs)),
+                   "plain_ms": cuda_ms(
+                       lambda: grouped_matmul_plain(lhs, rhs)),
+                   "library_ms": cuda_ms(lambda: torch.bmm(lhs, rhs)),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rows.append(row)
+            log(f"[kernels] {what}: max_abs_err {err:.3g} (against autograd "
+                f"of the plain gmm), kernel {row['ms']:.3f} ms, plain "
+                f"{row['plain_ms']:.3f} ms, torch.bmm "
+                f"{row['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+            del lhs, rhs
+        del a, b, d, got, want
+    return rows
+
+
+def _flash_train_kernels(gen):
+    """The flash forward that keeps lse and the FA2 backward against their
+    plain versions: at the training shape (timed, with SDPA's forward and
+    backward as the library yardstick) and at GQA / window / kv-offset /
+    ragged shapes in f32 and bf16.  lse is f32 (tolerance 1e-4); dk and dv
+    sum Hq / Hkv separately rounded per-query-head slices, the
+    reference's layout, so the backward is held within ``tol`` of the
+    largest |value| of each output."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_fwd_plain)
+    F = torch.nn.functional
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def check(label, q, k, v, do, **kw):
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        out_p, lse_p = flash_attention_fwd_plain(q, k, v, **kw)
+        fwd_err = max(compare(f"{label} out", out, out_p, TOL[q.dtype]),
+                      compare(f"{label} lse", lse, lse_p, TOL[f32]))
+        got = flash_attention_bwd(q, k, v, out_p, lse_p, do, **kw)
+        want = flash_attention_bwd_plain(q, k, v, out_p, lse_p, do, **kw)
+        bwd_err = max(compare(f"{label} d{n}", g, w, TOL[q.dtype],
+                              of_max=True)
+                      for n, g, w in zip("qkv", got, want))
+        rel = [float((g.float() - w.float()).norm() / w.float().norm())
+               for g, w in zip(got, want)]
+        return out, lse, fwd_err, bwd_err, rel
+
+    B, Hq, Hkv, S, Dh = 2, 32, 8, 2048, 128
+    q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
+    k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
+    shape = f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
+    out, lse, fwd_err, bwd_err, rel = check(f"flash train {shape}", q, k, v,
+                                            do)
+    pairs = S * (S + 1) // 2
+    fb_ms, fb_by = bound(2 * (2 * q.numel() + 2 * k.numel())
+                         + 4 * lse.numel(), 4 * B * Hq * Dh * pairs)
+    bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
+                         + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+    fwd = {"max_abs_err": fwd_err,
+           "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v)),
+           "plain_ms": cuda_ms(lambda: flash_attention_fwd_plain(q, k, v)),
+           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)),
+           "bound_ms": fb_ms, "bound_by": fb_by}
+    bwd = {"max_abs_err": bwd_err,
+           "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do)),
+           "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
+               q, k, v, out, lse, do)),
+           "library_ms": cuda_ms(lambda: torch.autograd.grad(
+               o_lib, (qs, ks, vs), do, retain_graph=True)),
+           "bound_ms": bb_ms, "bound_by": bb_by, "rel_norm_err": rel}
+    log(f"[kernels] flash fwd+lse {shape}: max_abs_err {fwd_err:.3g}, "
+        f"kernel {fwd['ms']:.3f} ms, plain {fwd['plain_ms']:.3f} ms, sdpa "
+        f"forward {fwd['library_ms']:.3f} ms, bound {fb_ms:.3f} ms "
+        f"({fb_by})")
+    log(f"[kernels] flash bwd {shape}: max_abs_err {bwd_err:.3g}, relative "
+        f"norm error dq/dk/dv {', '.join(f'{r:.2e}' for r in rel)}, kernel "
+        f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, sdpa "
+        f"backward {bwd['library_ms']:.3f} ms, bound {bb_ms:.3f} ms "
+        f"({bb_by})")
+    del q, k, v, do, out, lse, qs, ks, vs, o_lib
+    n = 0
+    for dtype in (f32, bf16):
+        for (Bb, Hq_, Hk_, Sq, Sk, D), kw in (
+                ((1, 2, 2, 64, 64, 32), dict(causal=True)),
+                ((2, 4, 2, 32, 32, 16), dict(causal=True)),
+                ((1, 4, 1, 64, 64, 32), dict(causal=False)),
+                ((2, 6, 3, 48, 48, 64), dict(causal=False)),
+                ((1, 4, 2, 100, 100, 128), dict(causal=True)),
+                ((1, 2, 2, 64, 64, 32), dict(causal=True, window=8)),
+                ((1, 2, 2, 8, 64, 32), dict(causal=True, kv_offset=56)),
+                ((1, 4, 2, 37, 77, 64), dict(causal=True, kv_offset=40)),
+                ((2, 4, 4, 150, 150, 16), dict(causal=False, window=20)),
+                ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4)),
+                ((1, 4, 2, 130, 200, 128),
+                 dict(causal=True, window=50, kv_offset=70))):
+            check(f"flash train q{(Bb, Hq_, Sq, D)} kv{(Bb, Hk_, Sk, D)} "
+                  f"{kw} {dtype}", _randn(gen, Bb, Hq_, Sq, D, dtype=dtype),
+                  _randn(gen, Bb, Hk_, Sk, D, dtype=dtype),
+                  _randn(gen, Bb, Hk_, Sk, D, dtype=dtype),
+                  _randn(gen, Bb, Hq_, Sq, D, dtype=dtype), **kw)
+            n += 1
+    log(f"[kernels] flash fwd+lse / bwd sweep: {n} cases (GQA, causal, "
+        f"windows, kv offsets, ragged S, Dh 16-128, fully masked rows) "
+        f"agree")
+    common = dict(route="cuda", shape=shape)
+    return {
+        "flash_attention_fwd": dict(
+            name="flash_attention_fwd",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention_bwd.py:83",
+            **common, **fwd),
+        "flash_attention_bwd": dict(
+            name="flash_attention_bwd",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention_bwd.py:205",
+            **common, **bwd)}
 
 
 def _abs_err(got, want) -> float:
@@ -433,8 +629,11 @@ def _counters():
     from repro_torch.kernels.block_reorder import (datatype_pack,
                                                    datatype_unpack)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
+                                                         flash_attention_fwd)
     from repro_torch.kernels.moe_gmm import grouped_matmul
-    return grouped_matmul, flash_attention, datatype_pack, datatype_unpack
+    return (grouped_matmul, flash_attention, flash_attention_fwd,
+            flash_attention_bwd, datatype_pack, datatype_unpack)
 
 
 def _reset_counts():
@@ -444,6 +643,11 @@ def _reset_counts():
 
 def _read_counts() -> dict:
     return {fn.__name__: fn.launches for fn in _counters()}
+
+
+def _expected(**counts) -> dict:
+    """Launch counts of every kernel: those given, 0 for the rest."""
+    return {fn.__name__: counts.get(fn.__name__, 0) for fn in _counters()}
 
 
 def _host_ms(fn):
@@ -467,9 +671,8 @@ def phase_prefill(model, params, cfg, tokens):
     _reset_counts()
     out, cold_ms = _host_ms(lambda: prefill(params, tokens))
     counts = _read_counts()
-    want = {"grouped_matmul": 3 * cfg.n_layers,
-            "flash_attention": cfg.n_layers, "datatype_pack": 0,
-            "datatype_unpack": 0}
+    want = _expected(grouped_matmul=3 * cfg.n_layers,
+                     flash_attention=cfg.n_layers)
     if counts != want:
         fail(f"prefill launched {counts}, expected {want}")
     _, warm_ms = _host_ms(lambda: prefill(params, tokens))
@@ -515,8 +718,7 @@ def phase_serve(model, params, cfg):
         serve_step=checked_step)
     counts = _read_counts()
     ticks = batcher.ticks
-    want = {"grouped_matmul": 3 * cfg.n_layers * ticks, "flash_attention": 0,
-            "datatype_pack": 0, "datatype_unpack": 0}
+    want = _expected(grouped_matmul=3 * cfg.n_layers * ticks)
     if counts != want:
         fail(f"serve launched {counts} in {ticks} ticks, expected {want}")
     if sorted(batcher.done) != list(range(len(reqs))):
@@ -534,7 +736,7 @@ def phase_serve(model, params, cfg):
     return counts
 
 
-def _profile(fn, label: str, per: int = 1):
+def _profile(fn, label: str, per: int = 1, top: int = 8):
     """Run ``fn`` under torch.profiler and print the device time by
     kernel: total kernel time against the host-clock wall time (the
     device's busy share; one stream, so kernels do not overlap) and the
@@ -555,7 +757,7 @@ def _profile(fn, label: str, per: int = 1):
         return
     log(f"[profile] {label}: wall {wall_ms / per:.2f} ms, device busy "
         f"{busy / per:.2f} ms ({100 * busy / wall_ms:.0f}%) per call; top:")
-    for ms, key, count in sorted(rows, reverse=True)[:8]:
+    for ms, key, count in sorted(rows, reverse=True)[:top]:
         log(f"[profile]   {ms / per:8.3f} ms {100 * ms / busy:5.1f}% "
             f"x{count // per} {key[:90]}")
 
@@ -742,8 +944,8 @@ def phase_moe_ep(results, seed: int) -> dict:
     on all tokens in this process; check the launch counts."""
     from repro_torch.models.moe import moe_block
     cfg = _ep_config()
-    per_rank = {"grouped_matmul": 3, "flash_attention": 0,
-                "datatype_pack": 4, "datatype_unpack": 4}
+    per_rank = _expected(grouped_matmul=3, datatype_pack=4,
+                         datatype_unpack=4)
     for rank, r in enumerate(results):
         if r["moe_ep"]["counts"] != per_rank:
             fail(f"[moe_ep] rank {rank} launched {r['moe_ep']['counts']}, "
@@ -783,6 +985,349 @@ def phase_moe_ep(results, seed: int) -> dict:
     del p
     return {k: sum(r["moe_ep"]["counts"][k] for r in results)
             for k in per_rank}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training at full width
+# ---------------------------------------------------------------------------
+
+
+def _train_launches_per_step(cfg) -> dict:
+    """Predicted launches of one training step: per layer the flash
+    forward and the 3 gmm run twice (forward and remat recompute), the
+    flash backward once and two gmm per forward gmm."""
+    L = cfg.n_layers
+    return _expected(flash_attention_fwd=2 * L, flash_attention_bwd=L,
+                     grouped_matmul=(3 + 3 + 6) * L)
+
+
+def _check_grads(leaves, got, want):
+    """Every leaf's kernel-path gradient exists, is finite and non-zero
+    and lies within TRAIN_GRAD_TOL relative norm of the plain path's."""
+    worst = (0.0, "")
+    for (path, _), g, w in zip(leaves, got, want):
+        if g is None or w is None:
+            fail(f"[train] no gradient for {path}")
+        g, w = g.float(), w.float()
+        norm = float(g.norm())
+        if not torch.isfinite(g).all() or norm == 0.0:
+            fail(f"[train] gradient of {path} is not finite or is zero "
+                 f"(norm {norm})")
+        rel = float((g - w).norm() / w.norm())
+        if not rel <= TRAIN_GRAD_TOL:
+            fail(f"[train] gradient of {path} differs from the plain path's "
+                 f"by {rel:.3g} relative norm (limit {TRAIN_GRAD_TOL})")
+        worst = max(worst, (rel, path))
+    return worst
+
+
+def _rel_gaps(got, want) -> list:
+    """``||got - want|| / ||want||`` per leaf."""
+    return [float((g.float() - w.float()).norm() / w.float().norm())
+            for g, w in zip(got, want)]
+
+
+@contextlib.contextmanager
+def _fa2_in_plain_torch():
+    """The witness run: every op takes its plain version, except that
+    ``ops.attention`` applies ``FlashAttentionFn`` over
+    ``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain`` (the
+    kernels' own FA2 formulas: p from lse, delta from the bf16-rounded O)
+    instead of autograd of the plain forward.  Its gap to the plain path
+    is the formulas'; its gap to the kernel path is the kernels'."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops
+    saved = ops.attention, fab.flash_attention_fwd, fab.flash_attention_bwd
+
+    def attention(q, k, v, *, causal=True, window=None, kv_offset=0,
+                  impl=None):
+        return fab.FlashAttentionFn.apply(q, k, v, causal, window, None,
+                                          kv_offset)
+    ops.attention = attention
+    fab.flash_attention_fwd = fab.flash_attention_fwd_plain
+    fab.flash_attention_bwd = fab.flash_attention_bwd_plain
+    try:
+        with ops.plain_versions():
+            yield
+    finally:
+        ops.attention, fab.flash_attention_fwd, fab.flash_attention_bwd = \
+            saved
+
+
+@contextlib.contextmanager
+def _routing(record: list | None = None, replay: list | None = None):
+    """``torch.topk`` (on the training path only the MoE router calls it)
+    appending its indices to ``record``, or, given ``replay``, returning
+    the recorded indices in call order with the gates gathered from this
+    run's own probabilities.  Yields the number of (token, top-k set)
+    choices this run would have made otherwise, and of all tokens."""
+    real = torch.topk
+    stats = {"switched": 0, "tokens": 0}
+    calls = iter(replay or ())
+
+    def topk(x, k, dim=-1, *args, **kwargs):
+        out = real(x, k, dim, *args, **kwargs)
+        if replay is None:
+            record.append(out.indices.detach().clone())
+            return out
+        idx = next(calls)
+        stats["switched"] += int((out.indices.sort(-1).values
+                                  != idx.sort(-1).values).any(-1).sum())
+        stats["tokens"] += idx.shape[0]
+        return x.gather(dim, idx), idx
+    torch.topk = topk
+    try:
+        yield stats
+    finally:
+        torch.topk = real
+
+
+def _grad_gate(model, params, batch, per_step, label: str,
+               f32: bool = False):
+    """One loss + backward with the kernels, one on the plain versions and
+    one FA2 witness (:func:`_fa2_in_plain_torch`) from the same params and
+    batch.  The plain and witness runs replay the kernel run's routing, so
+    a near-tie in the router (a token whose top-2 differs in the last bf16
+    bit) does not move tokens between experts; the number of such tokens
+    is logged.  Gates the kernel path against the plain one (every leaf,
+    and the loss at 1e-2 relative), checks that the remat recompute
+    routes as the forward did, and logs each leaf's three gaps.  With
+    ``f32`` it also runs the plain path in f32 (parameters and compute,
+    same routing) and fails unless every leaf of the kernel path lies
+    within F32_GAP_RATIO times the plain path's distance from it: bf16
+    rounding sets the floor both paths sit on."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    leaves = tree_leaves(params)
+
+    def loss_and_grads():
+        total, _ = model.loss(params, batch)
+        return float(total.detach()), torch.autograd.grad(
+            total, [t for _, t in leaves])
+    routes = []
+    _reset_counts()
+    with _routing(record=routes):
+        (loss, got), ms = _host_ms(loss_and_grads)
+    if _read_counts() != per_step:
+        fail(f"[train] loss + backward launched {_read_counts()}, expected "
+             f"{per_step}")
+    n = len(routes) // 2          # forward, then the recompute in reverse
+    if len(routes) != 2 * model.cfg.n_layers or not all(
+            torch.equal(routes[i], routes[-1 - i]) for i in range(n)):
+        fail(f"[train] the remat recompute routed otherwise than the "
+             f"forward ({len(routes)} router calls)")
+    with ops.plain_versions(), _routing(replay=routes) as switched:
+        (loss_p, want), ms_p = _host_ms(loss_and_grads)
+    if not math.isfinite(loss) or abs(loss - loss_p) > 1e-2 * abs(loss_p):
+        fail(f"[train] loss {loss} vs plain {loss_p} (limit 1e-2 relative)")
+    worst, worst_path = _check_grads(leaves, got, want)
+    with _fa2_in_plain_torch(), _routing(replay=routes):
+        loss_w, wit = loss_and_grads()
+    gaps = [_rel_gaps(got, want), _rel_gaps(wit, want), _rel_gaps(got, wit)]
+    del wit
+    cols = "kernels~plain, FA2 witness~plain, kernels~FA2 witness"
+    if f32:
+        model32 = build_model(model.cfg.replace(param_dtype="float32",
+                                                compute_dtype="float32"))
+        params32 = tree_map(lambda t: t.detach().float().requires_grad_(True),
+                            params)
+        with ops.plain_versions(), _routing(replay=routes):
+            total, _ = model32.loss(params32, batch)
+            ref = torch.autograd.grad(
+                total, [t for _, t in tree_leaves(params32)])
+        loss_32 = float(total.detach())
+        del params32, total
+        gaps += [_rel_gaps(got, ref), _rel_gaps(want, ref)]
+        del ref
+        for (path, _), kf, pf in zip(leaves, gaps[3], gaps[4]):
+            if not kf <= F32_GAP_RATIO * pf:
+                fail(f"[train] {label}: the kernel path's gradient of {path} "
+                     f"lies {kf:.3g} from the f32 one, the plain path's "
+                     f"{pf:.3g} (limit {F32_GAP_RATIO}x)")
+        cols += f", kernels~f32, plain~f32 (f32 loss {loss_32:.6g})"
+    del got, want
+    log(f"[train] {label}: loss + backward (B={TRAIN_B}, S={TRAIN_S}): "
+        f"loss {loss:.6g}, plain {loss_p:.6g}, FA2 witness {loss_w:.6g}; "
+        f"the plain path's own top-{model.cfg.top_k} differs from the "
+        f"kernel path's for {switched['switched']} of "
+        f"{switched['tokens']} (token, router call) pairs, recompute "
+        f"included (replayed); the "
+        f"recompute routed as the forward; all {len(leaves)} leaves' "
+        f"gradients finite, non-zero, within {worst:.3g} relative norm of "
+        f"the plain path's (worst {worst_path}; limit {TRAIN_GRAD_TOL}); "
+        f"host ms {ms:.1f}, plain {ms_p:.1f}; launches {per_step}.  "
+        f"Relative norm gaps per leaf: {cols}:")
+    for (path, _), row in zip(leaves, zip(*gaps)):
+        log(f"[train]   {path:32s} " + " ".join(f"{g:.3e}" for g in row))
+
+
+def _fan_in_init(model, cfg, seed: int):
+    """Parameters drawn anew with every matmul weight at std
+    1/sqrt(its contraction size) and the tied embedding at
+    1/sqrt(d_model), so attention is soft and the logits O(1).  The
+    reference's init takes a stacked weight's fan-in from its leading
+    (layer) dim and the embedding at std 1, which makes every softmax
+    near one-hot at this width and the FA2 backward's ds near 0."""
+    from repro_torch.models.common import tree_leaves
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE)
+    with torch.no_grad():
+        for path, t in tree_leaves(params):
+            name = path.rsplit("/", 1)[-1]
+            if name in ("wq", "wk", "wv", "router"):
+                fan_in = t.shape[1]
+            elif name == "wo":
+                fan_in = t.shape[1] * t.shape[2]
+            elif name in ("w1", "w2", "w3"):
+                fan_in = t.shape[-2]
+            elif name == "embed":
+                t.mul_(1.0 / math.sqrt(cfg.d_model))
+                continue
+            else:
+                continue
+            t.mul_(math.sqrt(t.shape[0] / fan_in))
+    return params
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_train() -> dict:
+    """[train]: build_training at full width (2 layers), the gradients
+    with the kernels against the plain path, Trainer.run with a
+    checkpoint restored bit for bit, and one profiled step.  Returns the
+    Trainer run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import (CopyTaskConfig, SyntheticLM,
+                                  make_copy_task_batch)
+    from repro_torch.launch.train import build_training
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.runtime import Trainer, TrainerConfig
+    cfg = get_config(ARCH).replace(n_layers=TRAIN_LAYERS)
+    if not cfg.remat:
+        fail(f"[train] {cfg.name} should train with remat")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, _, params, opt_state, step_fn = build_training(
+        cfg, lr=1e-4, warmup=2, total=TRAIN_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    state = tree_leaves({"params": params, "opt_state": opt_state})
+    state_bytes = sum(t.numel() * t.element_size() for _, t in state)
+    log(f"[train] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} F={cfg.d_ff} E={cfg.n_experts} top{cfg.top_k} "
+        f"vocab={cfg.vocab} layers={cfg.n_layers} remat={cfg.remat_policy}"
+        f": {sum(t.numel() for _, t in tree_leaves(params)) / 1e9:.3f} B "
+        f"params, {state_bytes / 1e9:.2f} GB of params and AdamW state, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    if state_bytes > DISK_WRITE_BUDGET:
+        fail(f"[train] one checkpoint ({state_bytes / 2**30:.1f} GiB) would "
+             f"exceed the run's disk budget "
+             f"({DISK_WRITE_BUDGET / 2**30:.0f} GiB)")
+    dcfg = CopyTaskConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                          global_batch=TRAIN_B)
+    batch = make_copy_task_batch(dcfg, 0, DEVICE)
+    per_step = _train_launches_per_step(cfg)
+
+    # (a) gradients with the kernels against the plain path
+    _grad_gate(model, params, batch, per_step, "reference init")
+
+    # (b) Trainer.run, checkpoint at step 2 restored bit for bit
+    torch.cuda.empty_cache()
+    deltas = []
+
+    def counted_step(p, o, b):
+        before = _read_counts()
+        out = step_fn(p, o, b)
+        deltas.append({k: v - before[k] for k, v in _read_counts().items()})
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
+        tcfg = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_dir=ckdir,
+                             checkpoint_every=2, keep_checkpoints=1,
+                             log_every=1)
+        tr = Trainer(tcfg, counted_step,
+                     SyntheticLM(dcfg, task="copy", device=DEVICE), params,
+                     opt_state)
+        _reset_counts()
+        t0 = time.perf_counter()
+        tr.run(max_steps=2)       # ends in ckpt.wait(): the save is durable
+        save_s = time.perf_counter() - t0 - sum(
+            r["seconds"] for r in tr.metrics_log)
+        written = _dir_bytes(ckdir)
+        if written > DISK_WRITE_BUDGET:
+            fail(f"[train] the checkpoint wrote {written / 2**30:.1f} GiB, "
+                 f"over the run's disk budget "
+                 f"({DISK_WRITE_BUDGET / 2**30:.0f} GiB)")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fresh = Trainer(tcfg, step_fn,
+                        SyntheticLM(dcfg, task="copy", device=DEVICE),
+                        params, opt_state)
+        if not fresh.try_restore():
+            fail("[train] no checkpoint to restore at step 2")
+        restore_s = time.perf_counter() - t0
+        live, back = tr._state_tree(), fresh._state_tree()
+        if (fresh.step, fresh.data.step) != (tr.step, tr.data.step) \
+                or tr.step != 2:
+            fail(f"[train] restored step {fresh.step} / cursor "
+                 f"{fresh.data.step}, live {tr.step} / {tr.data.step}")
+        for (path, a), (_, b) in zip(tree_leaves(live), tree_leaves(back)):
+            if a.dtype != b.dtype or a.device != b.device \
+                    or not torch.equal(a, b):
+                fail(f"[train] restored {path} differs from the live state")
+        n_leaves = len(tree_leaves(live))
+        del fresh, live, back
+        torch.cuda.empty_cache()
+        # no step-4 save: a second checkpoint would exceed DISK_WRITE_BUDGET
+        tr.config.checkpoint_every = TRAIN_STEPS + 1
+        t0 = time.perf_counter()
+        status = tr.run()
+        rest_s = time.perf_counter() - t0
+        counts = _read_counts()
+    want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
+    if status != "done" or tr.step != TRAIN_STEPS:
+        fail(f"[train] Trainer.run ended {status} at step {tr.step}")
+    if counts != want or any(d != per_step for d in deltas):
+        fail(f"[train] {TRAIN_STEPS} steps launched {counts} (per step "
+             f"{deltas}), expected {per_step} per step")
+    rows = tr.metrics_log
+    if len(rows) != TRAIN_STEPS or not all(
+            math.isfinite(r["total_loss"]) for r in rows):
+        fail(f"[train] metrics {rows}")
+    secs = [r["seconds"] * 1e3 for r in rows]
+    log(f"[train] Trainer.run, {TRAIN_STEPS} steps: total_loss "
+        f"{[round(r['total_loss'], 4) for r in rows]}, grad_norm "
+        f"{[round(r['grad_norm'], 4) for r in rows]}; step ms (host clock, "
+        f"each step ends in a host read of the loss) {[round(t, 1) for t in secs]}"
+        f": first {secs[0]:.1f}, warm median "
+        f"{float(np.median(secs[1:])):.1f}; launches per step {per_step}")
+    log(f"[train] checkpoint: the async save at step 2 took {save_s:.1f} "
+        f"s outside the steps (host snapshot, sha256, write), restored "
+        f"into a fresh Trainer in "
+        f"{restore_s:.1f} s, {n_leaves} leaves equal bit for bit (step, "
+        f"data cursor too), {written / 2**30:.2f} GiB written (budget "
+        f"{DISK_WRITE_BUDGET / 2**30:.0f}); steps 3-4 took {rest_s:.1f} s")
+    log(f"[train] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
+
+    # (c) where a step's time goes
+    _profile(lambda: step_fn(params, opt_state, batch),
+             f"train step ({TRAIN_LAYERS} layers, B={TRAIN_B}, S={TRAIN_S})",
+             top=20)
+    del params, opt_state, tr
+    torch.cuda.empty_cache()
+
+    # (d) the gradients again where attention is soft and the logits O(1)
+    params = _fan_in_init(model, cfg, seed=1)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    _grad_gate(model, params, batch, per_step, "fan-in init", f32=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -830,6 +1375,8 @@ def main() -> int:
     paths = {"prefill": prefill_counts, "serve": serve_counts,
              "collective": phase_collective(world),
              "moe_ep": phase_moe_ep(world, seed)}
+    del world
+    paths["train"] = phase_train()
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts.get(name, 0)
                                      for path, counts in paths.items()}

@@ -11,10 +11,13 @@ Ported so far (ROADMAP "Port slices"): the colocated serving path of the
 ring-buffer KV cache, the capacity-path MoE, the transformer stack,
 ``ContinuousBatcher`` and the serve launcher — and the torus all-to-all on
 ``torch.distributed`` (``core``: ``cart_create`` over a ``DeviceMesh``,
-``TorusComm``, ``A2APlan``) with the MoE's expert parallelism through it.
-Three hand-written CUDA kernels for Hopper (``csrc/``) carry them: the
-grouped matmul of the expert FFN, the flash-attention forward of the
-full-sequence prefill, and the round-k datatype pack/unpack of the
+``TorusComm``, ``A2APlan``) with the MoE's expert parallelism through it;
+and training on one device — the loss, remat, ``make_train_step``,
+AdamW, the synthetic data, the checkpoint store, the watchdog, the
+``Trainer`` and the train launcher.  Hand-written CUDA kernels for Hopper
+(``csrc/``) carry them: the grouped matmul of the expert FFN (also its
+gradient), the flash-attention forward (also with ``lse``) and its
+FlashAttention-2 backward, and the round-k datatype pack/unpack of the
 factorized all-to-all.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,15 +1,16 @@
 """Metrics registry (the counter part of ``repro.core.telemetry``).
 
 Ported so far: :class:`Counter`, :class:`MetricsRegistry` (counters
-only), the process-wide :func:`metrics`, and the stats providers that
-fold the factorization, plan and communicator registries into
-:func:`metrics_snapshot`.  The tracer, gauges, histograms and the drift
+only), the process-wide :func:`metrics`, :func:`warn_once`, and the stats
+providers that fold the factorization, plan and communicator registries
+into :func:`metrics_snapshot`.  The tracer, gauges, histograms and the drift
 detector wait for the slices that use them (ROADMAP).
 """
 
 from __future__ import annotations
 
 import threading
+import warnings
 
 
 class Counter:
@@ -45,7 +46,6 @@ class MetricsRegistry:
                 m = self._metrics[name] = Counter(self._lock)
         return m
 
-
     def snapshot(self) -> dict:
         with self._lock:
             return {name: m.value for name, m in sorted(self._metrics.items())}
@@ -77,3 +77,14 @@ def metrics_snapshot() -> dict:
             out[f"{ns}.{k}"] = v
     out.update(metrics().snapshot())
     return out
+
+
+def warn_once(flag_holder, flag: str, message: str) -> None:
+    """Emit ``message`` as a ``RuntimeWarning`` the first time
+    ``flag_holder``'s ``flag`` attribute is falsy, then latch it."""
+    if not getattr(flag_holder, flag, False):
+        try:
+            setattr(flag_holder, flag, True)
+        except AttributeError:      # frozen dataclass etc.: warn anyway
+            pass
+        warnings.warn(message, RuntimeWarning, stacklevel=3)

@@ -3,7 +3,15 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (Pallas `_attn_kernel`), which the full-sequence prefill
-// runs once per attention layer.
+// runs once per attention layer (entry point repro_flash_attention).
+//
+// Replaces the TPU kernel src/repro/kernels/flash_attention_bwd.py::
+// flash_attention_fwd (Pallas `_fwd_kernel`) too: the same forward pass
+// that also writes lse = m + log(l) per row, (B, Hq, Sq) f32, for the
+// backward kernels of csrc/flash_attention_bwd.cu (entry point
+// repro_flash_attention_fwd_lse).  Training runs it once per attention
+// layer and again in the remat recompute.  A row with l == 0 (fully
+// masked) counts l as 1, the reference's rule, so its lse is -1e30.
 //
 // What bounds it on an H100: at the prefill shape (q (2,32,2048,128),
 // k/v (2,8,2048,128), causal) it moves 84 MB (q, k, v read once, the output
@@ -34,8 +42,9 @@
 // output, head-dim columns tx + 16*j (j < Dh/16).  The 16 threads of one
 // row group are one half warp, which reduces row max and sum by shuffles.
 //
-// C interface: repro_flash_attention(...) launches on the given stream and
-// returns cudaGetLastError(); the caller allocates the output.
+// C interface: repro_flash_attention(...) and
+// repro_flash_attention_fwd_lse(...) launch on the given stream and return
+// cudaGetLastError(); the caller allocates the outputs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,9 +82,10 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
     flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int Hq,
-                      int Hkv, int Sq, int Skv, int causal, int has_window,
-                      int window, int kv_offset, float scale) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                      int Skv, int causal, int has_window, int window,
+                      int kv_offset, float scale) {
   constexpr int DP = D + 1;
   constexpr int PP = BKV + 1;
   constexpr int DC = D / 16;   // output columns per thread
@@ -206,14 +216,16 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
       ob[(size_t)r * D + tx + 16 * cc] = from_f32<T>(acc[i][cc] / l);
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)(b * Hq + h) * Sq + r] = m_i[i] + logf(l);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Sq, int Skv, int causal,
-                   int has_window, int window, int kv_offset, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
+                   int causal, int has_window, int window, int kv_offset,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -222,32 +234,51 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_attn_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, causal,
-      has_window, window, kv_offset, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Hq, Hkv, Sq, Skv,
+      causal, has_window, window, kv_offset, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
-                     void* o, int B, int Hq, int Hkv, int Sq, int Skv,
-                     int causal, int has_window, int window, int kv_offset,
-                     float scale, cudaStream_t s) {
+                     void* o, float* lse, int B, int Hq, int Hkv, int Sq,
+                     int Skv, int causal, int has_window, int window,
+                     int kv_offset, float scale, cudaStream_t s) {
   switch (Dh) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+      return launch<T, 16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                            has_window, window, kv_offset, scale, s);
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+      return launch<T, 32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                            has_window, window, kv_offset, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+      return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                            has_window, window, kv_offset, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
+      return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                             has_window, window, kv_offset, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+int run(const void* q, const void* k, const void* v, void* o, float* lse,
+        int B, int Hq, int Hkv, int Sq, int Skv, int Dh, int causal,
+        int has_window, int window, int kv_offset, float scale, int dtype,
+        void* stream) {
+  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;  // empty output
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = dispatch<float>(Dh, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
+                          has_window, window, kv_offset, scale, s);
+  else if (dtype == 1)
+    err = dispatch<__nv_bfloat16>(Dh, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv,
+                                  causal, has_window, window, kv_offset,
+                                  scale, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -260,17 +291,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int causal, int has_window, int window,
                                      int kv_offset, float scale, int dtype,
                                      void* stream) {
-  if (B <= 0 || Hq <= 0 || Sq <= 0) return 0;  // empty output
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(Dh, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal,
-                          has_window, window, kv_offset, scale, s);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(Dh, q, k, v, o, B, Hq, Hkv, Sq, Skv,
-                                  causal, has_window, window, kv_offset,
-                                  scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return run(q, k, v, o, nullptr, B, Hq, Hkv, Sq, Skv, Dh, causal,
+             has_window, window, kv_offset, scale, dtype, stream);
+}
+
+// As repro_flash_attention, and also writes lse: (B, Hq, Sq) float32.
+extern "C" int repro_flash_attention_fwd_lse(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Hq, int Hkv, int Sq, int Skv, int Dh, int causal, int has_window,
+    int window, int kv_offset, float scale, int dtype, void* stream) {
+  return run(q, k, v, o, static_cast<float*>(lse), B, Hq, Hkv, Sq, Skv, Dh,
+             causal, has_window, window, kv_offset, scale, dtype, stream);
 }

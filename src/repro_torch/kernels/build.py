@@ -22,7 +22,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("grouped_matmul", "flash_attention", "block_reorder")
+SOURCES = ("grouped_matmul", "flash_attention", "flash_attention_bwd",
+           "block_reorder")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

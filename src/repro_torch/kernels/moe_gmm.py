@@ -4,7 +4,8 @@ Port of ``repro.kernels.moe_gmm.grouped_matmul`` (Pallas) to a CUDA C++
 kernel for Hopper (``csrc/grouped_matmul.cu``, which says what bounds it
 and how it is built).  :func:`grouped_matmul` launches that kernel on a
 CUDA tensor and takes :func:`grouped_matmul_plain` on a CPU tensor; there
-is no other fallback.
+is no other fallback.  :class:`GroupedMatmulFn` makes it differentiable:
+its backward is two more grouped matmuls through the same wrapper.
 """
 
 from __future__ import annotations
@@ -76,3 +77,27 @@ def grouped_matmul(lhs, rhs):
 
 
 grouped_matmul.launches = 0
+
+
+class GroupedMatmulFn(torch.autograd.Function):
+    """:func:`grouped_matmul` with its gradient through the same kernel:
+    ``dlhs = gmm(dout, rhs^T)`` and ``drhs = gmm(lhs^T, dout)``, the
+    transposes made contiguous.  (The JAX model differentiates its
+    ``ref_gmm``, the reference has no backward kernel.)  Apply as
+    ``GroupedMatmulFn.apply(lhs, rhs)``."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs):
+        ctx.save_for_backward(lhs, rhs)
+        return grouped_matmul(lhs, rhs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs = ctx.saved_tensors
+        dout = dout.contiguous()
+        dlhs = drhs = None
+        if ctx.needs_input_grad[0]:
+            dlhs = grouped_matmul(dout, rhs.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            drhs = grouped_matmul(lhs.transpose(1, 2).contiguous(), dout)
+        return dlhs, drhs

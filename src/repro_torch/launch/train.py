@@ -1,0 +1,99 @@
+"""Training launcher of the port: config -> model -> AdamW -> Trainer.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b \
+      --smoke --steps 50                                    # on the card
+  PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b \
+      --smoke --steps 4 --device cpu                        # on the CPU
+
+``--device`` defaults to ``cuda`` and raises on a machine without a card.
+One device only: ``--mesh`` other than ``none`` (data / expert parallel
+training) raises until its slice is ported (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data import CopyTaskConfig, SyntheticLM
+from repro_torch.models import build_model, make_train_step
+from repro_torch.models.common import resolve_device, tree_map
+from repro_torch.optim import AdamW, AdamWConfig, cosine_with_warmup
+from repro_torch.runtime import Trainer, TrainerConfig
+
+
+def build_training(cfg, mesh=None, rules=None, *, lr=3e-4, warmup=100,
+                   total=10000, grad_accum=1, seed=0, device="cuda"):
+    """(model, optimizer, params, opt_state, step_fn) on one device:
+    parameters drawn from ``seed`` with ``requires_grad``, AdamW with a
+    cosine schedule, and ``make_train_step``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "training on a mesh (data / expert parallel) is not ported to "
+            "repro_torch yet; ROADMAP.md lists it")
+    device = resolve_device(device)
+    model = build_model(cfg)
+    opt = AdamW(AdamWConfig(lr=cosine_with_warmup(lr, warmup, total)))
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
+                        device)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt, grad_accum=grad_accum)
+    return model, opt, params, opt_state, step_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--task", choices=("lm", "copy"), default="copy")
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", choices=("none", "debug", "debug_multi"),
+                    default="none")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.mesh != "none":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: training on a mesh is not ported to "
+            f"repro_torch yet; ROADMAP.md lists it")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    model, opt, params, opt_state, step_fn = build_training(
+        cfg, lr=args.lr, total=args.steps,
+        warmup=min(20, args.steps // 5 or 1), grad_accum=args.grad_accum,
+        device=device)
+    data = SyntheticLM(CopyTaskConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                      global_batch=args.batch),
+                       task=args.task, device=device)
+    tr = Trainer(
+        TrainerConfig(total_steps=args.steps,
+                      checkpoint_dir=f"{args.ckpt_dir}/{cfg.name}",
+                      checkpoint_every=args.ckpt_every, log_every=10),
+        step_fn, data, params, opt_state)
+    tr.install_preemption_handler()
+    if args.resume and tr.try_restore():
+        print(f"[train] resumed from step {tr.step}")
+    status = tr.run()
+    for row in tr.metrics_log:
+        print(json.dumps(row))
+    print(f"[train] {status} at step {tr.step} on {device}; median step "
+          f"{tr.watchdog.median * 1e3:.1f} ms")
+    return tr
+
+
+if __name__ == "__main__":
+    main()

@@ -1,7 +1,8 @@
 """Model definitions of the port (decoder-only, attention mixer)."""
 
 from .config import ModelConfig
-from .model_api import build_model, make_prefill_fn, make_serve_step
+from .model_api import (build_model, make_loss_fn, make_prefill_fn,
+                        make_serve_step, make_train_step)
 
-__all__ = ["ModelConfig", "build_model", "make_prefill_fn",
-           "make_serve_step"]
+__all__ = ["ModelConfig", "build_model", "make_loss_fn", "make_prefill_fn",
+           "make_serve_step", "make_train_step"]

@@ -80,6 +80,15 @@ def tree_leaves(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def tree_with_leaves(like, values: dict, prefix: str = ""):
+    """The tree of ``like`` with the leaf at each path replaced by
+    ``values[path]`` (paths as :func:`tree_leaves` gives them)."""
+    if isinstance(like, dict):
+        return {k: tree_with_leaves(v, values, f"{prefix}/{k}" if prefix
+                                    else str(k)) for k, v in like.items()}
+    return values[prefix]
+
+
 def init_params(specs, generator: torch.Generator, device,
                 param_dtype: torch.dtype = torch.bfloat16):
     """Concrete parameter tree from a spec tree, drawn leaf by leaf in
@@ -154,3 +163,15 @@ def gelu(x):
 
 def silu(x):
     return F.silu(x.float()).to(x.dtype)
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Per-position loss, f32: ``logsumexp(logits) - logits[label]`` plus
+    ``z_loss * logsumexp**2``; logits (..., V), labels (...,) int."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss

@@ -1,4 +1,5 @@
-"""Carry a parameter tree of the JAX reference into the port.
+"""Carry a parameter tree, or an AdamW state, of the JAX reference into
+the port.
 
 ``params_from_jax`` takes the reference's parameter tree with every leaf
 already turned into a numpy array (``jax.tree.map(np.asarray, params)``
@@ -6,6 +7,9 @@ on the caller's side; this module imports no jax) and returns the port's
 tree of tensors.  The two packages share names and layouts leaf for leaf,
 so the conversion is a checked copy: every leaf's shape and dtype must
 match the port's spec, and a missing or extra leaf raises.
+``opt_state_from_jax`` does the same for the reference's AdamW state
+``{"mu", "nu", "step"}``: moments shaped like the parameters, in the
+moment dtype, and the int32 step.
 """
 
 from __future__ import annotations
@@ -29,26 +33,50 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_jax(tree, cfg: ModelConfig, device):
-    """The reference's parameter tree (numpy leaves) -> the port's."""
-    specs = build_model(cfg).specs()
+def _checked(tree, specs, dtype_of, what: str, device):
+    """Copy ``tree``'s numpy leaves to tensors after checking that its
+    paths are ``specs``' and each leaf has the spec's shape and the dtype
+    ``dtype_of(spec)``."""
     want = dict(tree_leaves(specs))
     got = dict(tree_leaves(tree))
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:
-        raise ValueError(f"parameter trees differ: missing {missing}, "
+        raise ValueError(f"{what} trees differ: missing {missing}, "
                          f"extra {extra}")
     for path, spec in want.items():
         a = got[path]
-        dtype = spec.dtype or cfg.pdtype
+        dtype = dtype_of(spec)
         have = _NP_DTYPES.get(np.asarray(a).dtype.name)
         if tuple(np.shape(a)) != tuple(spec.shape) or have != dtype:
             raise ValueError(
-                f"{path}: got {np.shape(a)} {np.asarray(a).dtype}, want "
-                f"{tuple(spec.shape)} {dtype}")
-
+                f"{what} {path}: got {np.shape(a)} {np.asarray(a).dtype}, "
+                f"want {tuple(spec.shape)} {dtype}")
     return tree_map(lambda path: _to_tensor(np.asarray(got[path]), device),
                     _paths(specs))
+
+
+def params_from_jax(tree, cfg: ModelConfig, device):
+    """The reference's parameter tree (numpy leaves) -> the port's."""
+    return _checked(tree, build_model(cfg).specs(),
+                    lambda spec: spec.dtype or cfg.pdtype, "parameter",
+                    device)
+
+
+def opt_state_from_jax(state, params_cfg: ModelConfig, device):
+    """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy leaves)
+    -> the port's: the f32 moments checked leaf for leaf against the
+    parameter specs of ``params_cfg``, the step a 0-d int32 tensor."""
+    if set(state) != {"mu", "nu", "step"}:
+        raise ValueError(f"AdamW state has keys {sorted(state)}, want "
+                         f"['mu', 'nu', 'step']")
+    specs = build_model(params_cfg).specs()
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: got {step.shape} {step.dtype}, want () "
+                         f"int32")
+    return {name: _checked(state[name], specs, lambda spec: torch.float32,
+                           name, device) for name in ("mu", "nu")} | {
+        "step": torch.tensor(int(step), dtype=torch.int32, device=device)}
 
 
 def _paths(specs, prefix: str = ""):

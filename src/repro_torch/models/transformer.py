@@ -7,7 +7,11 @@ over them, the port loops in Python.  Only the ``attn`` mixer is ported;
 the others (mamba, mLSTM, sLSTM, spectral) wait for their slices.
 
 Modes:
-  * ``forward``     — full-sequence prefill, returns f32 logits.
+  * ``forward``     — full-sequence (train / prefill), returns f32 logits.
+    Under autograd with ``cfg.remat`` each superblock runs inside
+    ``torch.utils.checkpoint`` (non-reentrant), so backward recomputes its
+    forward, kernels included, instead of keeping its activations.
+  * ``loss``        — masked mean cross-entropy plus the router aux loss.
   * ``decode_step`` — one token per batch slot with per-layer KV caches,
     which it updates in place.
 """
@@ -17,12 +21,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
-                                       resolve_device, rms_norm, stack_specs,
+                                       resolve_device, rms_norm,
+                                       softmax_cross_entropy, stack_specs,
                                        tree_map)
 from .config import ModelConfig
 
@@ -84,6 +90,27 @@ def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False):
     return x, aux
 
 
+def _apply_superblock(params_sb, x, cfg, positions):
+    """One superblock of positions over the full sequence: (x, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, (_, ffn) in enumerate(cfg.superblock):
+        x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn, positions)
+        aux = aux + a
+    return x, aux
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    """Whether this forward checkpoints each superblock: only under
+    autograd, and only with the policy that saves nothing."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported to repro_torch "
+            f"yet (only 'nothing'); ROADMAP.md lists it")
+    return True
+
+
 def _layer(tree, i: int):
     """Superblock i's slice of a stacked tree (views, so in-place cache
     writes land in the stacked tensors)."""
@@ -136,7 +163,7 @@ class Model:
         return torch.einsum("bsd,vd->bsv", x.to(cd).float(),
                             w.to(cd).float())
 
-    # ---- full-sequence forward (prefill) ----
+    # ---- full-sequence forward (train / prefill) ----
     def forward(self, params, tokens):
         """tokens: (B, S) -> (logits (B, S, V) f32, aux loss)."""
         cfg = self.cfg
@@ -145,14 +172,35 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = _remat(cfg)
         for i in range(cfg.n_superblocks):
             params_sb = _layer(params["blocks"], i)
-            for j, (_, ffn) in enumerate(cfg.superblock):
-                x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn,
-                                       positions)
-                aux = aux + a
+            if remat:
+                x, a = checkpoint(_apply_superblock, params_sb, x, cfg,
+                                  positions, use_reentrant=False)
+            else:
+                x, a = _apply_superblock(params_sb, x, cfg, positions)
+            aux = aux + a
         x = _apply_norm(params["final_norm"], x, cfg)
         return self.logits(params, x), aux
+
+    # ---- loss ----
+    def loss(self, params, batch):
+        """Masked mean cross-entropy (with ``cfg.z_loss``) plus
+        ``router_aux_weight`` times the MoE aux loss; batch: ``tokens``,
+        ``labels`` (B, S) and an optional ``mask``.  Returns (total,
+        metrics ``ce_loss`` / ``aux_loss`` / ``total_loss``)."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch["tokens"])
+        ce = softmax_cross_entropy(logits, batch["labels"], cfg.z_loss)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(ce)
+        mask = mask.float()
+        loss = torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total = loss + cfg.router_aux_weight * aux   # aux == 0 if no MoE
+        return total, {"ce_loss": loss, "aux_loss": aux,
+                       "total_loss": total}
 
     # ---- decode ----
     def init_caches(self, batch: int, max_seq: int, device="cuda"):

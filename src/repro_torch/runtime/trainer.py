@@ -1,0 +1,127 @@
+"""Fault-tolerant trainer: checkpoint / restart and preemption (port of
+``repro.runtime.trainer``, the non-elastic loop).
+
+All state (params, optimizer state, data cursor, step) round-trips through
+the checkpoint, so ``Trainer.run()`` after a crash resumes bit-exact.
+SIGTERM triggers a final synchronous checkpoint before ``run`` returns
+"preempted".  The straggler watchdog classifies each step; a presumed hang
+with ``abort_on_hang`` checkpoints synchronously and raises.  Each step
+ends in a host read of ``total_loss``, the counterpart of the reference's
+``block_until_ready``, so a step's time is the device's.
+
+Not ported yet (ROADMAP.md): the elastic loop (``elastic=True``: the
+escalation policy's retry / recover / abort with ``comm.rebuild`` and
+``core/faults.py``) and the ``train.step`` tracer span (the tracer).
+"""
+
+from __future__ import annotations
+
+import signal
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.models.common import tree_map
+from repro_torch.runtime.watchdog import StepTimer, StragglerWatchdog
+
+
+@dataclass
+class TrainerConfig:
+    total_steps: int
+    checkpoint_dir: str
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    async_checkpoint: bool = True
+    abort_on_hang: bool = True
+    elastic: bool = False
+
+
+@dataclass
+class Trainer:
+    config: TrainerConfig
+    train_step: Callable                 # (params, opt, batch) -> (...)
+    data: Any                            # SyntheticLM-like
+    params: Any
+    opt_state: Any
+    step: int = 0
+    metrics_log: list = field(default_factory=list)
+    watchdog: StragglerWatchdog = field(default_factory=StragglerWatchdog)
+    _preempted: bool = False
+
+    def __post_init__(self):
+        if self.config.elastic:
+            raise NotImplementedError(
+                "the elastic trainer (retry / recover / abort through "
+                "comm.rebuild and core/faults.py) is not ported to "
+                "repro_torch yet; ROADMAP.md lists it")
+        self.ckpt = CheckpointManager(self.config.checkpoint_dir,
+                                      self.config.keep_checkpoints)
+
+    # ---- checkpoint plumbing ----
+    def _state_tree(self):
+        return {"params": self.params, "opt_state": self.opt_state}
+
+    def save(self, sync=False):
+        extra = {"step": self.step, "data": self.data.state_dict(),
+                 "wall": time.time()}
+        if sync or not self.config.async_checkpoint:
+            self.ckpt.save_sync(self.step, self._state_tree(), extra)
+        else:
+            self.ckpt.save_async(self.step, self._state_tree(), extra)
+
+    def try_restore(self) -> bool:
+        """Restore the latest checkpoint onto the devices the params and
+        optimizer state live on; False if there is none."""
+        if self.ckpt.latest() is None:
+            return False
+        tree, extra, _ = self.ckpt.restore(self._state_tree())
+        self.params = tree["params"]
+        tree_map(lambda t: t.requires_grad_(True), self.params)
+        self.opt_state = tree["opt_state"]
+        self.step = int(extra["step"])
+        self.data.load_state_dict(extra["data"])
+        return True
+
+    # ---- preemption ----
+    def install_preemption_handler(self):
+        def handler(signum, frame):
+            self._preempted = True
+        signal.signal(signal.SIGTERM, handler)
+
+    # ---- main loop ----
+    def run(self, max_steps: int | None = None):
+        cfg = self.config
+        end = min(cfg.total_steps,
+                  self.step + (max_steps or cfg.total_steps))
+        while self.step < end:
+            batch = self.data.next()
+            with StepTimer() as t:
+                self.params, self.opt_state, metrics = \
+                    self.train_step(self.params, self.opt_state, batch)
+                total = float(metrics["total_loss"])   # waits for the card
+            self.step += 1
+            verdict = self.watchdog.observe(self.step, t.seconds)
+            if verdict == "hang" and cfg.abort_on_hang:
+                self.save(sync=True)
+                raise RuntimeError(
+                    f"watchdog: presumed hang at step {self.step} "
+                    f"({t.seconds:.3f}s vs median "
+                    f"{self.watchdog.median:.3f}s); checkpointed for "
+                    f"restart")
+
+            if self.step % cfg.log_every == 0 or self.step == end:
+                row = {k: float(v) for k, v in metrics.items()}
+                row.update(total_loss=total, step=self.step,
+                           seconds=t.seconds, verdict=verdict)
+                self.metrics_log.append(row)
+
+            if self.step % cfg.checkpoint_every == 0:
+                self.save()
+            if self._preempted:
+                self.save(sync=True)
+                return "preempted"
+        self.ckpt.wait()
+        return "done"
+

@@ -136,7 +136,7 @@ def test_package_imports_neither_jax_nor_repro():
         f"for n in {['repro_torch'] + names!r}:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard'))\n"
         "assert not bad, bad\n")])
     assert res.returncode == 0, res.stderr
 
