@@ -23,8 +23,11 @@ it fails:
 3. prefill — ``make_prefill_fn`` on phi3.5-moe-42b at full width cut to 4
              layers, bf16, B=2, S=2048, random weights from a seed.  The
              last-position logits must match the same model run on the
-             plain versions (``ops.plain_versions()``) within 2e-2 of the
-             largest logit, and both kernels must have been launched.
+             plain versions (``ops.plain_versions()``) with the expert
+             matmul on the tensor cores (``torch.bmm``; see
+             ``_tensor_core_gmm``) within 2e-2 of the largest logit, and
+             at a fan-in init the plain versions as they stand within the
+             same limit; both kernels must have been launched.
 4. serve   — the launcher's colocated body (``build_model`` ->
              ``make_serve_step`` -> ``ContinuousBatcher``) answers 4
              requests (prompts of 8-16 tokens, 16 new tokens each); the
@@ -54,7 +57,9 @@ it fails:
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
              parameters, 32.8 GB of state before activations), remat on,
              the copy task at B=2, S=2048.  (a) One loss + backward with
-             the kernels and one under ``ops.plain_versions()`` from the
+             the kernels and one under ``ops.plain_versions()`` (the
+             expert matmul on the tensor cores, as in phase 3; the plain
+             versions as they stand are logged beside) from the
              same parameters and batch: every leaf's gradient must exist,
              be finite and non-zero, and lie within 2e-2 relative norm of
              the plain one (bf16; a near-tie in routing may move one
@@ -71,7 +76,8 @@ it fails:
              (c) Per-step ms, peak memory and launches per step, which
              must be the predicted 4 flash forward-with-lse, 2 flash
              backward and 24 gmm per step (remat runs each forward kernel
-             twice); then one profiled step.  (d) (a) again on parameters
+             twice); then one profiled step.  (d) (a) again, against the
+             plain versions as they stand, on parameters
              drawn at std 1/sqrt(fan-in) of each matmul: the reference's
              init makes every softmax near one-hot at this width (loss
              ≈ 270), where the FA2 backward's ds is near 0; there the
@@ -82,10 +88,19 @@ it fails:
              recompute must route as the forward did); the number of
              choices they would have made otherwise is logged.
 
+The grouped matmul has three variants (``moe_gmm.variant``): wgmma (TMA
+and tensor cores) for bf16 at aligned shapes, decode (mma.sync, a
+bandwidth path) for C <= 16, SIMT for f32 and unaligned shapes.  Phase 2
+prints the variant each row takes, runs the odd-shape sweep in both dtypes
+and all four operand layouts through the variant it takes and through
+SIMT, and the JSON line lists each variant as a kernel.  Every phase's
+launch counts fix the variant: a main-path gmm that took SIMT fails.
+
 Phase 2 also holds the training kernels against their plain versions at
 the training shape and at GQA / window / ragged shapes: the flash forward
-that keeps lse, the FA2 backward, and the grouped matmul's backward
-products (``GroupedMatmulFn``) against autograd of the plain gmm.
+that keeps lse, the FA2 backward (run twice, equal bit for bit), and the
+grouped matmul's backward (``GroupedMatmulFn``, whose products read
+``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm.
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack and
 unpack) against its plain version, bit for bit, at every buffer phases 6-7
@@ -218,55 +233,32 @@ def _randn(gen, *shape, dtype=torch.bfloat16):
 def phase_kernels(gen):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.moe_gmm import (grouped_matmul,
-                                             grouped_matmul_plain)
+    from repro_torch.kernels.moe_gmm import VARIANTS
     F = torch.nn.functional
     results = {}
 
     # ---- grouped matmul: the main path's shapes (phi3.5-moe: E=16,
     # D=4096, F=6400; C=4 at decode on 4 slots, C=640 at prefill B*S=4096)
     cases = []
-    for phase, C in (("decode", 4), ("prefill", 640)):
+    for phase, C in (("prefill", 640), ("decode", 4)):
         for K, N in ((4096, 6400), (6400, 4096)):
             a, b = _randn(gen, 16, C, K), _randn(gen, 16, K, N)
-            what = f"gmm {phase} (16,{C},{K})x(16,{K},{N}) bf16"
-            err = compare(what, grouped_matmul(a, b),
-                          grouped_matmul_plain(a, b), TOL[torch.bfloat16])
-            n_bytes = 2 * (16 * C * K + 16 * K * N + 16 * C * N)
-            b_ms, b_by = bound(n_bytes, 2 * 16 * C * K * N)
-            case = {"shape": what, "max_abs_err": err,
-                    "ms": cuda_ms(lambda: grouped_matmul(a, b)),
-                    "plain_ms": cuda_ms(lambda: grouped_matmul_plain(a, b)),
-                    "library_ms": cuda_ms(lambda: torch.bmm(a, b)),
-                    "bound_ms": b_ms, "bound_by": b_by}
-            cases.append(case)
-            log(f"[kernels] {what}: max_abs_err {err:.3g}, kernel "
-                f"{case['ms']:.3f} ms, plain {case['plain_ms']:.3f} ms, "
-                f"torch.bmm {case['library_ms']:.3f} ms, bound "
-                f"{b_ms:.3f} ms ({b_by})")
+            cases.append(_gmm_case(f"gmm {phase}", a, b))
+            if K == 4096:    # the SIMT variant at the same shape, timed
+                cases.append(_gmm_case(f"gmm {phase}", a, b, force="simt"))
             del a, b
-    # the CPU sweep's shapes (incl. the non-divisible (16,4,12,20)) and
-    # ragged edges of both tile shapes, in both dtypes
-    for dtype in (torch.float32, torch.bfloat16):
-        for E, C, K, N in ((4, 16, 32, 24), (2, 128, 64, 128), (8, 8, 8, 8),
-                           (1, 256, 128, 64), (16, 4, 12, 20),
-                           (3, 9, 33, 130), (2, 130, 17, 129),
-                           (5, 7, 300, 3)):
-            a = _randn(gen, E, C, K, dtype=dtype)
-            b = _randn(gen, E, K, N, dtype=dtype)
-            compare(f"gmm ({E},{C},{K})x({E},{K},{N}) {dtype}",
-                    grouped_matmul(a, b), grouped_matmul_plain(a, b),
-                    TOL[dtype])
-    log("[kernels] gmm sweep: 16 odd shapes in f32 and bf16 agree")
+    _gmm_sweep(gen)
     cases += _gmm_backward_cases(gen)
-    main = cases[0]
-    results["grouped_matmul"] = dict(
-        name="grouped_matmul", route="cuda",
-        source="src/repro_torch/csrc/grouped_matmul.cu",
-        replaces="src/repro/kernels/moe_gmm.py:48",
-        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
-        shape=main["shape"], cases=cases)
+    for v in VARIANTS:       # each variant's first row: prefill, decode
+        main = next(c for c in cases if c["variant"] == v)
+        results[f"grouped_matmul_{v}"] = dict(
+            name=f"grouped_matmul_{v}", route="cuda",
+            source="src/repro_torch/csrc/grouped_matmul.cu",
+            replaces="src/repro/kernels/moe_gmm.py:48",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+            shape=main["shape"],
+            cases=[c for c in cases if c["variant"] == v])
 
     # ---- flash attention: the prefill's shape (B=2, S=2048, 32 q heads,
     # 8 kv heads, hd=128, causal)
@@ -331,12 +323,84 @@ def phase_kernels(gen):
     return results
 
 
+def _gmm_case(label, lhs, rhs, force=None, got=None, want=None,
+              against="the plain gmm"):
+    """One gmm row: the variant the call takes (or ``force``), the kernel
+    against its plain version (or ``got`` against ``want``), and the
+    kernel, the plain version, ``torch.bmm`` and the bound timed on these
+    operands."""
+    from repro_torch.kernels.moe_gmm import (_check, grouped_matmul,
+                                             grouped_matmul_plain, variant)
+    E, C, K = lhs.shape
+    N = rhs.shape[2]
+    layouts = _check(lhs, rhs)
+    which = force or variant(E, C, K, N, lhs.dtype, layouts)
+    what = (f"{label} ({E},{C},{K})x({E},{K},{N}) {layouts} bf16 "
+            f"[{which}]")
+    if got is None:
+        got, want = grouped_matmul(lhs, rhs, force=force), \
+            grouped_matmul_plain(lhs, rhs)
+    err = compare(what, got, want, TOL[torch.bfloat16])
+    differ = float((got != want).float().mean())
+    b_ms, b_by = bound(2 * (lhs.numel() + rhs.numel() + E * C * N),
+                       2 * E * C * K * N)
+    row = {"shape": what, "variant": which, "max_abs_err": err,
+           "share_differing": differ,
+           "ms": cuda_ms(lambda: grouped_matmul(lhs, rhs, force=force)),
+           "plain_ms": cuda_ms(lambda: grouped_matmul_plain(lhs, rhs)),
+           "library_ms": cuda_ms(lambda: torch.bmm(lhs, rhs)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[kernels] {what}: max_abs_err {err:.3g} (against {against}; "
+        f"{100 * differ:.3f}% of outputs differ), "
+        f"kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"torch.bmm {row['library_ms']:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by})")
+    return row
+
+
+def _gmm_sweep(gen):
+    """The CPU sweep's shapes (incl. the non-divisible (16,4,12,20)),
+    ragged edges of every tile shape and aligned shapes that reach each
+    variant's edges, in both dtypes and all four operand layouts: the
+    variant each takes, and for bf16 the SIMT variant as well, against
+    the plain version."""
+    from repro_torch.kernels.moe_gmm import (VARIANTS, _check,
+                                             grouped_matmul,
+                                             grouped_matmul_plain, variant)
+    taken = dict.fromkeys(VARIANTS, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for E, C, K, N in ((4, 16, 32, 24), (2, 128, 64, 128), (8, 8, 8, 8),
+                           (1, 256, 128, 64), (16, 4, 12, 20),
+                           (3, 9, 33, 130), (2, 130, 17, 129), (5, 7, 300, 3),
+                           (3, 200, 136, 264), (2, 640, 512, 520),
+                           (3, 4, 136, 264), (2, 1, 8, 8), (16, 13, 512, 640),
+                           (2, 24, 72, 8)):
+            for lm, rm in (("k", "mn"), ("k", "k"), ("mn", "mn"),
+                           ("mn", "k")):
+                a = _randn(gen, E, C, K, dtype=dtype) if lm == "k" else \
+                    _randn(gen, E, K, C, dtype=dtype).transpose(1, 2)
+                b = _randn(gen, E, K, N, dtype=dtype) if rm == "mn" else \
+                    _randn(gen, E, N, K, dtype=dtype).transpose(1, 2)
+                which = variant(E, C, K, N, dtype, _check(a, b))
+                want = grouped_matmul_plain(a, b)
+                what = f"gmm ({E},{C},{K})x({E},{K},{N}) {(lm, rm)} {dtype}"
+                compare(f"{what} [{which}]", grouped_matmul(a, b), want,
+                        TOL[dtype])
+                taken[which] += 1
+                if which != "simt":
+                    compare(f"{what} [simt]",
+                            grouped_matmul(a, b, force="simt"), want,
+                            TOL[dtype])
+    log(f"[kernels] gmm sweep: 14 shapes x 4 layouts in f32 and bf16 agree "
+        f"(variants taken {taken}; each bf16 call through SIMT too)")
+
+
 def _gmm_backward_cases(gen):
     """``GroupedMatmulFn``'s backward at the training shape (C = 640): its
     gradients against autograd of the plain gmm, and each of its two
     products (``dlhs = gmm(dout, rhs^T)``, ``drhs = gmm(lhs^T, dout)``)
-    timed alone on its contiguous operands."""
-    from repro_torch.kernels.moe_gmm import (GroupedMatmulFn, grouped_matmul,
+    timed alone as the Function calls it, on the transposed views."""
+    from repro_torch.kernels.moe_gmm import (GroupedMatmulFn,
                                              grouped_matmul_plain)
     rows = []
     for K, N in ((4096, 6400), (6400, 4096)):
@@ -347,27 +411,11 @@ def _gmm_backward_cases(gen):
         want = torch.autograd.grad(grouped_matmul_plain(a, b), (a, b), d)
         a, b = a.detach(), b.detach()
         for name, g, w, lhs, rhs in (
-                ("dlhs", got[0], want[0], d, b.transpose(1, 2).contiguous()),
-                ("drhs", got[1], want[1], a.transpose(1, 2).contiguous(), d)):
-            E, C, Kk = lhs.shape
-            Nn = rhs.shape[2]
-            what = (f"gmm backward {name} ({E},{C},{Kk})x({E},{Kk},{Nn}) of "
-                    f"(16,640,{K})x(16,{K},{N}) bf16")
-            err = compare(what, g, w, TOL[torch.bfloat16])
-            b_ms, b_by = bound(2 * (lhs.numel() + rhs.numel() + E * C * Nn),
-                               2 * E * C * Kk * Nn)
-            row = {"shape": what, "max_abs_err": err,
-                   "ms": cuda_ms(lambda: grouped_matmul(lhs, rhs)),
-                   "plain_ms": cuda_ms(
-                       lambda: grouped_matmul_plain(lhs, rhs)),
-                   "library_ms": cuda_ms(lambda: torch.bmm(lhs, rhs)),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            rows.append(row)
-            log(f"[kernels] {what}: max_abs_err {err:.3g} (against autograd "
-                f"of the plain gmm), kernel {row['ms']:.3f} ms, plain "
-                f"{row['plain_ms']:.3f} ms, torch.bmm "
-                f"{row['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-            del lhs, rhs
+                ("dlhs", got[0], want[0], d, b.transpose(1, 2)),
+                ("drhs", got[1], want[1], a.transpose(1, 2), d)):
+            rows.append(_gmm_case(
+                f"gmm backward {name} of (16,640,{K})x(16,{K},{N})", lhs,
+                rhs, got=g, want=w, against="autograd of the plain gmm"))
         del a, b, d, got, want
     return rows
 
@@ -375,11 +423,12 @@ def _gmm_backward_cases(gen):
 def _flash_train_kernels(gen):
     """The flash forward that keeps lse and the FA2 backward against their
     plain versions: at the training shape (timed, with SDPA's forward and
-    backward as the library yardstick) and at GQA / window / kv-offset /
-    ragged shapes in f32 and bf16.  lse is f32 (tolerance 1e-4); dk and dv
-    sum Hq / Hkv separately rounded per-query-head slices, the
-    reference's layout, so the backward is held within ``tol`` of the
-    largest |value| of each output."""
+    backward as the library yardstick; the backward run twice must agree
+    bit for bit) and at GQA / window / kv-offset / ragged shapes in f32
+    and bf16.  lse is f32 (tolerance 1e-4); the bf16 backward rounds p and
+    ds to bf16 as they enter the tensor cores and dk / dv sum the group's
+    query heads, so it is held within ``tol`` of the largest |value| of
+    each output."""
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
@@ -406,6 +455,10 @@ def _flash_train_kernels(gen):
     shape = f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
     out, lse, fwd_err, bwd_err, rel = check(f"flash train {shape}", q, k, v,
                                             do)
+    runs = [flash_attention_bwd(q, k, v, out, lse, do) for _ in range(2)]
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        fail(f"flash bwd {shape}: two runs on the same inputs differ")
+    del runs
     pairs = S * (S + 1) // 2
     fb_ms, fb_by = bound(2 * (2 * q.numel() + 2 * k.numel())
                          + 4 * lse.numel(), 4 * B * Hq * Dh * pairs)
@@ -432,7 +485,8 @@ def _flash_train_kernels(gen):
         f"forward {fwd['library_ms']:.3f} ms, bound {fb_ms:.3f} ms "
         f"({fb_by})")
     log(f"[kernels] flash bwd {shape}: max_abs_err {bwd_err:.3g}, relative "
-        f"norm error dq/dk/dv {', '.join(f'{r:.2e}' for r in rel)}, kernel "
+        f"norm error dq/dk/dv {', '.join(f'{r:.2e}' for r in rel)}, two runs "
+        f"equal bit for bit, kernel "
         f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, sdpa "
         f"backward {bwd['library_ms']:.3f} ms, bound {bb_ms:.3f} ms "
         f"({bb_by})")
@@ -637,17 +691,25 @@ def _counters():
 
 
 def _reset_counts():
+    from repro_torch.kernels.moe_gmm import grouped_matmul
     for fn in _counters():
         fn.launches = 0
+    grouped_matmul.variant_launches = dict.fromkeys(
+        grouped_matmul.variant_launches, 0)
 
 
 def _read_counts() -> dict:
-    return {fn.__name__: fn.launches for fn in _counters()}
+    """Launches of every kernel wrapper and of each gmm variant
+    (``grouped_matmul_<variant>``)."""
+    from repro_torch.kernels.moe_gmm import grouped_matmul
+    return {**{fn.__name__: fn.launches for fn in _counters()},
+            **{f"grouped_matmul_{v}": n
+               for v, n in grouped_matmul.variant_launches.items()}}
 
 
 def _expected(**counts) -> dict:
     """Launch counts of every kernel: those given, 0 for the rest."""
-    return {fn.__name__: counts.get(fn.__name__, 0) for fn in _counters()}
+    return {name: counts.get(name, 0) for name in _read_counts()}
 
 
 def _host_ms(fn):
@@ -663,7 +725,45 @@ def prefill_tokens(cfg, B: int = 2, S: int = 2048):
         0, cfg.vocab, (B, S))).to(DEVICE)
 
 
+@contextlib.contextmanager
+def _tensor_core_gmm():
+    """The reference run's expert matmul on the tensor cores: inside, the
+    plain version of ``ops.expert_matmul`` is ``torch.bmm`` (bf16 in, f32
+    sums, bf16 out; autograd through bmm), the library's counterpart of
+    the wgmma kernel.  The gmm's own plain version (``ref_gmm``) sums in
+    cuBLAS's f32 FMA order, which no tensor-core product reproduces; at
+    the reference init (activations O(100), every softmax near one-hot)
+    that rounding difference alone moves the logits by ≈ 5% of the
+    largest and every gradient leaf by 100-300%, torch.bmm's as much as
+    the kernel's, so the end-to-end gates there compare with this run.
+    The kernel itself is held against ``ref_gmm`` in [kernels]."""
+    from repro_torch.kernels import ops
+    saved = ops.grouped_matmul_plain
+    ops.grouped_matmul_plain = torch.bmm
+    try:
+        yield
+    finally:
+        ops.grouped_matmul_plain = saved
+
+
+def _logit_gate(what: str, out, ref, ref_name: str) -> float:
+    """max |out - ref|; fails beyond 2e-2 of the largest |ref| logit."""
+    scale = float(ref.abs().max())
+    err = float((out - ref).abs().max())
+    if err > 2e-2 * scale:
+        fail(f"{what}: prefill logits differ from the {ref_name} run by "
+             f"{err:.4g} (largest logit {scale:.4g}; limit 2e-2 of it)")
+    return err
+
+
 def phase_prefill(model, params, cfg, tokens):
+    """The kernel path's last-position logits against (a) the plain
+    versions with the expert matmul on the tensor cores
+    (:func:`_tensor_core_gmm`) at the reference init, and (b) the plain
+    versions as they stand at a fan-in init (:func:`_fan_in_init`: soft
+    attention and routing), each within 2e-2 of the largest logit; the
+    reference init's distance to the plain versions as they stand is
+    logged."""
     from repro_torch.kernels import ops
     from repro_torch.models import make_prefill_fn
     B, S = tokens.shape
@@ -672,25 +772,38 @@ def phase_prefill(model, params, cfg, tokens):
     out, cold_ms = _host_ms(lambda: prefill(params, tokens))
     counts = _read_counts()
     want = _expected(grouped_matmul=3 * cfg.n_layers,
+                     grouped_matmul_wgmma=3 * cfg.n_layers,
                      flash_attention=cfg.n_layers)
     if counts != want:
         fail(f"prefill launched {counts}, expected {want}")
     _, warm_ms = _host_ms(lambda: prefill(params, tokens))
-    with ops.plain_versions():
-        ref, plain_ms = _host_ms(lambda: prefill(params, tokens))
     if out.shape != (B, cfg.vocab) or not torch.isfinite(out).all():
         fail(f"prefill logits {tuple(out.shape)} not finite (B, V)")
-    scale = float(ref.abs().max())
-    err = float((out - ref).abs().max())
-    if err > 2e-2 * scale:
-        fail(f"prefill logits differ from the plain run by {err:.4g} "
-             f"(largest logit {scale:.4g}; limit 2e-2 of it)")
+    with ops.plain_versions(), _tensor_core_gmm():
+        ref = prefill(params, tokens)
+    with ops.plain_versions():
+        ref32, plain_ms = _host_ms(lambda: prefill(params, tokens))
+    err = _logit_gate("reference init", out, ref,
+                      "plain (tensor-core gmm)")
+    err32 = float((out - ref32).abs().max())
+    ref_gap = float((ref - ref32).abs().max())
     same_top = bool((out.argmax(-1) == ref.argmax(-1)).all())
+    soft = _fan_in_init(model, cfg, seed=1)
+    with torch.no_grad():
+        out_f = prefill(soft, tokens)
+        with ops.plain_versions():
+            ref_f = prefill(soft, tokens)
+    del soft
+    err_f = _logit_gate("fan-in init", out_f, ref_f, "plain")
     log(f"[prefill] {ARCH} x{cfg.n_layers} layers B={B} S={S}: first call "
         f"{cold_ms:.1f} ms, second {warm_ms:.1f} ms, plain versions "
-        f"{plain_ms:.1f} ms (host clock); launches {counts}; max |logit - "
-        f"plain| {err:.4g} of max |logit| {scale:.4g}; same argmax: "
-        f"{same_top}")
+        f"{plain_ms:.1f} ms (host clock); launches {counts}; reference "
+        f"init: max |logit - plain with tensor-core gmm| {err:.4g} of max "
+        f"|logit| {float(ref.abs().max()):.4g}, same argmax: {same_top}; "
+        f"to the plain versions as they stand {err32:.4g}, where torch.bmm "
+        f"in the gmm's place lies {ref_gap:.4g}; fan-in init: max |logit - "
+        f"plain| {err_f:.4g} of max |logit| "
+        f"{float(ref_f.abs().max()):.4g}")
     return counts
 
 
@@ -718,7 +831,8 @@ def phase_serve(model, params, cfg):
         serve_step=checked_step)
     counts = _read_counts()
     ticks = batcher.ticks
-    want = _expected(grouped_matmul=3 * cfg.n_layers * ticks)
+    want = _expected(grouped_matmul=3 * cfg.n_layers * ticks,
+                     grouped_matmul_decode=3 * cfg.n_layers * ticks)
     if counts != want:
         fail(f"serve launched {counts} in {ticks} ticks, expected {want}")
     if sorted(batcher.done) != list(range(len(reqs))):
@@ -944,8 +1058,8 @@ def phase_moe_ep(results, seed: int) -> dict:
     on all tokens in this process; check the launch counts."""
     from repro_torch.models.moe import moe_block
     cfg = _ep_config()
-    per_rank = _expected(grouped_matmul=3, datatype_pack=4,
-                         datatype_unpack=4)
+    per_rank = _expected(grouped_matmul=3, grouped_matmul_wgmma=3,
+                         datatype_pack=4, datatype_unpack=4)
     for rank, r in enumerate(results):
         if r["moe_ep"]["counts"] != per_rank:
             fail(f"[moe_ep] rank {rank} launched {r['moe_ep']['counts']}, "
@@ -998,7 +1112,8 @@ def _train_launches_per_step(cfg) -> dict:
     flash backward once and two gmm per forward gmm."""
     L = cfg.n_layers
     return _expected(flash_attention_fwd=2 * L, flash_attention_bwd=L,
-                     grouped_matmul=(3 + 3 + 6) * L)
+                     grouped_matmul=(3 + 3 + 6) * L,
+                     grouped_matmul_wgmma=(3 + 3 + 6) * L)
 
 
 def _check_grads(leaves, got, want):
@@ -1083,10 +1198,13 @@ def _routing(record: list | None = None, replay: list | None = None):
 
 
 def _grad_gate(model, params, batch, per_step, label: str,
-               f32: bool = False):
+               f32: bool = False, tensor_core_ref: bool = False):
     """One loss + backward with the kernels, one on the plain versions and
     one FA2 witness (:func:`_fa2_in_plain_torch`) from the same params and
-    batch.  The plain and witness runs replay the kernel run's routing, so
+    batch.  With ``tensor_core_ref`` the plain and witness runs take the
+    expert matmul on the tensor cores (:func:`_tensor_core_gmm`), and one
+    more run on the plain versions as they stand is logged against both
+    paths.  The plain and witness runs replay the kernel run's routing, so
     a near-tie in the router (a token whose top-2 differs in the last bf16
     bit) does not move tokens between experts; the number of such tokens
     is logged.  Gates the kernel path against the plain one (every leaf,
@@ -1117,16 +1235,26 @@ def _grad_gate(model, params, batch, per_step, label: str,
             torch.equal(routes[i], routes[-1 - i]) for i in range(n)):
         fail(f"[train] the remat recompute routed otherwise than the "
              f"forward ({len(routes)} router calls)")
-    with ops.plain_versions(), _routing(replay=routes) as switched:
+    ref_gmm = _tensor_core_gmm if tensor_core_ref else contextlib.nullcontext
+    with ops.plain_versions(), ref_gmm(), \
+            _routing(replay=routes) as switched:
         (loss_p, want), ms_p = _host_ms(loss_and_grads)
     if not math.isfinite(loss) or abs(loss - loss_p) > 1e-2 * abs(loss_p):
         fail(f"[train] loss {loss} vs plain {loss_p} (limit 1e-2 relative)")
     worst, worst_path = _check_grads(leaves, got, want)
-    with _fa2_in_plain_torch(), _routing(replay=routes):
+    with ref_gmm(), _fa2_in_plain_torch(), _routing(replay=routes):
         loss_w, wit = loss_and_grads()
     gaps = [_rel_gaps(got, want), _rel_gaps(wit, want), _rel_gaps(got, wit)]
     del wit
     cols = "kernels~plain, FA2 witness~plain, kernels~FA2 witness"
+    if tensor_core_ref:
+        with ops.plain_versions(), _routing(replay=routes):
+            loss_s, stand = loss_and_grads()
+        gaps += [_rel_gaps(got, stand), _rel_gaps(want, stand)]
+        del stand
+        cols = (f"{cols} (plain: with the gmm on the tensor cores), "
+                f"kernels~plain as it stands, plain~plain as it stands "
+                f"(loss {loss_s:.6g})")
     if f32:
         model32 = build_model(model.cfg.replace(param_dtype="float32",
                                                 compute_dtype="float32"))
@@ -1232,7 +1360,8 @@ def phase_train() -> dict:
     per_step = _train_launches_per_step(cfg)
 
     # (a) gradients with the kernels against the plain path
-    _grad_gate(model, params, batch, per_step, "reference init")
+    _grad_gate(model, params, batch, per_step, "reference init",
+               tensor_core_ref=True)
 
     # (b) Trainer.run, checkpoint at step 2 restored bit for bit
     torch.cuda.empty_cache()
@@ -1337,6 +1466,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # torch.bmm, the reference runs' tensor-core gmm, sums in f32 throughout
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves
@@ -1381,7 +1512,10 @@ def main() -> int:
         entry["launches_by_path"] = {path: counts.get(name, 0)
                                      for path, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        if entry["launches"] == 0:
+        # the SIMT gmm serves f32 and unaligned calls only: every main-path
+        # gmm takes wgmma or decode, which the phases' counts check
+        entry["on_main_path"] = name != "grouped_matmul_simt"
+        if entry["on_main_path"] and entry["launches"] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

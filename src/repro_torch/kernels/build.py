@@ -5,7 +5,8 @@ for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``.  The build happens at first use (or up front, all sources in
 parallel, through :func:`build_all`) into ``repro_torch/_build/``, which
 git ignores.  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library never loads.
+flags and of every local header it includes (``csrc/*.cuh``), so an
+edited source or header is rebuilt and a stale library never loads.
 Nothing here runs when the module is imported.
 """
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,6 +29,7 @@ SOURCES = ("grouped_matmul", "flash_attention", "flash_attention_bwd",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'\s*#\s*include\s+"([^"]+)"')
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -42,11 +45,25 @@ def nvcc_path() -> str:
     return str(path)
 
 
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every header of ``csrc`` it includes (``#include
+    "..."``), recursively, each once."""
+    if path not in seen:
+        seen.append(path)
+        for line in path.read_text().splitlines():
+            m = _INCLUDE.match(line)
+            if m:
+                _sources(path.parent / m.group(1), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's file: its name carries a hash of the source, every
+    header it includes and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC / f"{name}.cu", []):
+        h.update(path.name.encode() + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list[str]:

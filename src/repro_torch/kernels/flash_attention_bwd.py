@@ -10,9 +10,10 @@ Port of ``repro.kernels.flash_attention_bwd`` (Pallas ``_fwd_kernel``,
   ``csrc/flash_attention.cu``, the serving kernel that also writes
   ``lse = m + log(l)`` per row (``l == 0`` counts as 1);
 * :func:`flash_attention_bwd` launches the dq and the dkv kernel of
-  ``csrc/flash_attention_bwd.cu``.  ``delta = rowsum(dO * O)`` and the sum
-  of each group's per-query-head dk / dv to the kv heads stay plain torch
-  around them, as they stay outside the Pallas calls.
+  ``csrc/flash_attention_bwd.cu`` (tensor cores for bf16); the dkv kernel
+  sums each kv head's group of query heads itself and writes dk / dv as
+  ``(B, Hkv, Skv, Dh)``.  ``delta = rowsum(dO * O)`` stays a torch
+  reduction in front of them, as it stays outside the Pallas calls.
 
 Each takes its plain version on a CPU tensor and launches its kernel on a
 CUDA tensor; there is no other fallback.  :class:`FlashAttentionFn` calls
@@ -172,8 +173,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
                                          causal=causal, window=window,
                                          scale=scale, kv_offset=kv_offset)
     _check(q, k, v)
-    B, Hq, Sq, Dh = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
+    B, Hq, Sq, _ = q.shape
     for name, t in (("out", out), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \
                 or not t.is_contiguous():
@@ -186,21 +186,13 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
                          f"lse of shape {(B, Hq, Sq)}; got "
                          f"{tuple(lse.shape)} {lse.dtype}")
     delta = (do.float() * out.float()).sum(-1)          # (B, Hq, Sq) f32
-    dq = torch.empty_like(q)
-    dk_h = torch.empty((B, Hq, Skv, Dh), dtype=k.dtype, device=k.device)
-    dv_h = torch.empty_like(dk_h)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     _launch(build.load("flash_attention_bwd").repro_flash_attention_bwd,
             _ARGTYPES_BWD, q,
-            *[t.data_ptr() for t in (q, k, v, do, lse, delta, dq, dk_h,
-                                     dv_h)],
+            *[t.data_ptr() for t in (q, k, v, do, lse, delta, dq, dk, dv)],
             *_device_args(q, k, causal, window, scale, kv_offset))
     flash_attention_bwd.launches += 1
-    group = Hq // Hkv
-    if group == 1:
-        return dq, dk_h, dv_h
-    dk = dk_h.view(B, Hkv, group, Skv, Dh).sum(2, dtype=torch.float32)
-    dv = dv_h.view(B, Hkv, group, Skv, Dh).sum(2, dtype=torch.float32)
-    return dq, dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
 
 
 flash_attention_fwd.launches = 0

@@ -1,11 +1,26 @@
 """Grouped (per-expert) matmul: the MoE expert FFN's kernel.
 
-Port of ``repro.kernels.moe_gmm.grouped_matmul`` (Pallas) to a CUDA C++
-kernel for Hopper (``csrc/grouped_matmul.cu``, which says what bounds it
-and how it is built).  :func:`grouped_matmul` launches that kernel on a
-CUDA tensor and takes :func:`grouped_matmul_plain` on a CPU tensor; there
-is no other fallback.  :class:`GroupedMatmulFn` makes it differentiable:
-its backward is two more grouped matmuls through the same wrapper.
+Port of ``repro.kernels.moe_gmm.grouped_matmul`` (Pallas) to CUDA C++ for
+Hopper (``csrc/grouped_matmul.cu``, which says what bounds it and how it
+is built).  :func:`grouped_matmul` launches that kernel on a CUDA tensor
+and takes :func:`grouped_matmul_plain` on a CPU tensor; there is no other
+fallback.  :class:`GroupedMatmulFn` makes it differentiable: its backward
+is two more grouped matmuls through the same wrapper, on transposed views.
+
+The kernel has three variants, chosen by :func:`variant` from the shapes,
+dtype and operand layouts (an explicit dispatch between hand-written
+kernels, each counted in ``grouped_matmul.variant_launches``):
+
+* ``"wgmma"``: bf16 with K and N (and C, for a C-major lhs) multiples of
+  8 and 16-byte aligned bases: TMA loads and wgmma on the tensor cores;
+* ``"decode"``: the same, with C <= 16 and both operands in their natural
+  layout: a bandwidth path with mma.sync;
+* ``"simt"``: everything else (f32, unaligned shapes or bases): f32 FMA.
+
+Each operand is read in one of two layouts and nothing else: lhs
+``(E, C, K)`` row-major (``"k"``, K contiguous) or the view ``x^T`` of a
+row-major ``(E, K, C)`` (``"mn"``); rhs ``(E, K, N)`` row-major (``"mn"``,
+N contiguous) or the view ``w^T`` of a row-major ``(E, N, K)`` (``"k"``).
 """
 
 from __future__ import annotations
@@ -18,7 +33,9 @@ from . import build
 from .ref import ref_gmm
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+VARIANTS = ("simt", "wgmma", "decode")
+DECODE_ROWS = 16          # C at or below which the decode variant runs
 
 
 def grouped_matmul_plain(lhs, rhs):
@@ -27,7 +44,19 @@ def grouped_matmul_plain(lhs, rhs):
     return ref_gmm(lhs, rhs)
 
 
-def _check(lhs, rhs):
+def _major(t, name: str, natural: str, transposed: str) -> str:
+    if t.is_contiguous():
+        return natural
+    if t.transpose(1, 2).is_contiguous():
+        return transposed
+    raise ValueError(f"grouped_matmul reads {name} {tuple(t.shape)} row-major "
+                     f"or as the transpose of a row-major tensor; got strides "
+                     f"{t.stride()}")
+
+
+def _check(lhs, rhs) -> tuple[str, str]:
+    """Validate the operands; return their layouts ``(lhs, rhs)``, each
+    ``"k"`` (the contraction dim contiguous) or ``"mn"``."""
     if lhs.dim() != 3 or rhs.dim() != 3:
         raise ValueError(f"grouped_matmul takes (E, C, K) @ (E, K, N); got "
                          f"{tuple(lhs.shape)} @ {tuple(rhs.shape)}")
@@ -40,51 +69,72 @@ def _check(lhs, rhs):
                         f"of one dtype; got {lhs.dtype} and {rhs.dtype}")
     if rhs.device != lhs.device:
         raise ValueError(f"operands on {lhs.device} and {rhs.device}")
-    if not (lhs.is_contiguous() and rhs.is_contiguous()):
-        raise ValueError("grouped_matmul takes contiguous operands")
     if max(lhs.numel(), rhs.numel(), E * C * rhs.shape[2]) >= 2 ** 31:
         raise ValueError("grouped_matmul indexes each expert's slice "
                          "with 32-bit ints")
+    return (_major(lhs, "lhs", "k", "mn"), _major(rhs, "rhs", "mn", "k"))
 
 
-def grouped_matmul(lhs, rhs):
+def variant(E: int, C: int, K: int, N: int, dtype,
+            layouts: tuple[str, str] = ("k", "mn"),
+            aligned: bool = True) -> str:
+    """The kernel variant a call of these shapes, dtype and operand
+    layouts takes (``aligned``: both bases 16-byte aligned)."""
+    if dtype != torch.bfloat16 or not aligned or K == 0 or K % 8 or N % 8:
+        return "simt"
+    if C <= DECODE_ROWS and layouts == ("k", "mn"):
+        return "decode"
+    if layouts[0] == "mn" and C % 8:
+        return "simt"
+    return "wgmma"
+
+
+def grouped_matmul(lhs, rhs, *, force: str | None = None):
     """(E, C, K) @ (E, K, N) -> (E, C, N), one independent product per
     expert, f32 sums, output in the operands' dtype.
 
-    On a CUDA tensor this launches the Hopper kernel (and counts the
-    launch in ``grouped_matmul.launches``); on a CPU tensor it returns the
-    plain version."""
+    On a CUDA tensor this launches the Hopper kernel's :func:`variant`, or
+    the variant ``force`` names (a check on the card compares variants; the
+    kernel refuses one that cannot take the call), and counts the launch in
+    ``grouped_matmul.launches`` and ``grouped_matmul.variant_launches``; on
+    a CPU tensor it returns the plain version."""
     if lhs.device.type == "cpu":
         return grouped_matmul_plain(lhs, rhs)
     if lhs.device.type != "cuda":
         raise ValueError(f"grouped_matmul runs on cuda or cpu tensors, "
                          f"not {lhs.device}")
-    _check(lhs, rhs)
+    layouts = _check(lhs, rhs)
     E, C, K = lhs.shape
     N = rhs.shape[2]
+    which = force or variant(E, C, K, N, lhs.dtype, layouts, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (lhs, rhs)))
     out = torch.empty((E, C, N), dtype=lhs.dtype, device=lhs.device)
     fn = build.load("grouped_matmul").repro_grouped_matmul
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
         err = fn(lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), E, C, K, N,
-                 _DTYPES[lhs.dtype], stream)
+                 int(layouts[0] == "mn"), int(layouts[1] == "k"),
+                 _DTYPES[lhs.dtype], VARIANTS.index(which), stream)
     if err:
-        raise RuntimeError(f"grouped_matmul kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"grouped_matmul kernel ({which}) launch failed: "
+                           f"CUDA error {err}")
     grouped_matmul.launches += 1
+    grouped_matmul.variant_launches[which] += 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 class GroupedMatmulFn(torch.autograd.Function):
     """:func:`grouped_matmul` with its gradient through the same kernel:
     ``dlhs = gmm(dout, rhs^T)`` and ``drhs = gmm(lhs^T, dout)``, the
-    transposes made contiguous.  (The JAX model differentiates its
-    ``ref_gmm``, the reference has no backward kernel.)  Apply as
-    ``GroupedMatmulFn.apply(lhs, rhs)``."""
+    transposes passed as views (the kernel reads both layouts; nothing is
+    copied).  (The JAX model differentiates its ``ref_gmm``, the reference
+    has no backward kernel.)  Apply as ``GroupedMatmulFn.apply(lhs,
+    rhs)``."""
 
     @staticmethod
     def forward(ctx, lhs, rhs):
@@ -97,7 +147,7 @@ class GroupedMatmulFn(torch.autograd.Function):
         dout = dout.contiguous()
         dlhs = drhs = None
         if ctx.needs_input_grad[0]:
-            dlhs = grouped_matmul(dout, rhs.transpose(1, 2).contiguous())
+            dlhs = grouped_matmul(dout, rhs.transpose(1, 2))
         if ctx.needs_input_grad[1]:
-            drhs = grouped_matmul(lhs.transpose(1, 2).contiguous(), dout)
+            drhs = grouped_matmul(lhs.transpose(1, 2), dout)
         return dlhs, drhs

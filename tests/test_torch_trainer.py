@@ -161,6 +161,18 @@ def test_watchdog_check_drift_waits_for_the_detector():
 # trainer
 # ---------------------------------------------------------------------------
 
+@pytest.fixture
+def one_thread():
+    """Pin torch's intra-op pool to one thread for the test.  The trainer's
+    watchdog judges each step by its wall time against the median; with a
+    full pool per process, parallel test workers oversubscribe the cores
+    and one step can stall past the hang verdict.  Restores the count."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _tiny_cfg(n_layers=1, d_model=32, d_ff=64):
     return ModelConfig(name="tiny", family="dense", n_layers=n_layers,
                        d_model=d_model, n_heads=4, n_kv_heads=4, d_ff=d_ff,
@@ -187,7 +199,7 @@ def _tiny_setup(tmpdir, total=60, ckpt_every=20):
     return opt, step, tr
 
 
-def test_trainer_learns_copy_task(tmp_path):
+def test_trainer_learns_copy_task(tmp_path, one_thread):
     model = build_model(_tiny_cfg(n_layers=2, d_model=64, d_ff=128))
     opt = AdamW(AdamWConfig(lr=cosine_with_warmup(3e-3, 20, 300),
                             weight_decay=0.0))
@@ -203,7 +215,7 @@ def test_trainer_learns_copy_task(tmp_path):
     assert losses[-1] < 0.5 * losses[0], losses
 
 
-def test_trainer_bit_exact_restart(tmp_path):
+def test_trainer_bit_exact_restart(tmp_path, one_thread):
     opt, step, tr = _tiny_setup(tmp_path, total=40, ckpt_every=20)
     tr.run()
     # a fresh trainer restores the step-20 checkpoint and replays to 40
@@ -222,7 +234,7 @@ def test_trainer_bit_exact_restart(tmp_path):
         assert torch.equal(a, b), path
 
 
-def test_trainer_try_restore_resumes(tmp_path):
+def test_trainer_try_restore_resumes(tmp_path, one_thread):
     opt, step, tr = _tiny_setup(tmp_path, total=10, ckpt_every=5)
     tr.config.async_checkpoint = True
     tr.run()
@@ -235,7 +247,7 @@ def test_trainer_try_restore_resumes(tmp_path):
     assert all(t.requires_grad for _, t in tree_leaves(fresh.params))
 
 
-def test_trainer_hang_aborts_with_checkpoint(tmp_path):
+def test_trainer_hang_aborts_with_checkpoint(tmp_path, one_thread):
     opt, step, tr = _tiny_setup(tmp_path, total=60, ckpt_every=1000)
     calls = {"n": 0}
 
@@ -252,7 +264,7 @@ def test_trainer_hang_aborts_with_checkpoint(tmp_path):
     assert tr.ckpt.latest() == 30   # checkpointed at the abort
 
 
-def test_trainer_preemption_checkpoints_and_stops(tmp_path):
+def test_trainer_preemption_checkpoints_and_stops(tmp_path, one_thread):
     opt, step, tr = _tiny_setup(tmp_path, total=60, ckpt_every=1000)
 
     def preempted_step(p, o, b):
