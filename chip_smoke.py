@@ -16,8 +16,9 @@ it fails:
              windows and kv offsets, and hold the result against the
              kernel's plain PyTorch version on the same inputs (bf16:
              rtol = atol = 2e-2, the reference's bf16 tolerance, as both
-             sum in f32 and differ by the summation order and one bf16
-             rounding; f32: 1e-4).  Times the kernel, the plain version
+             sum in f32 and differ by the summation order and bf16
+             roundings: the output's, and in the wgmma flash P's; f32:
+             1e-4).  Times the kernel, the plain version
              and one PyTorch library call of the same function (a
              yardstick only; the port never calls it).
 3. prefill — ``make_prefill_fn`` on phi3.5-moe-42b at full width cut to 4
@@ -95,6 +96,19 @@ prints the variant each row takes, runs the odd-shape sweep in both dtypes
 and all four operand layouts through the variant it takes and through
 SIMT, and the JSON line lists each variant as a kernel.  Every phase's
 launch counts fix the variant: a main-path gmm that took SIMT fails.
+
+The flash forward (serving, and the forward-with-lse of training) has two
+variants (``flash_attention.variant``): wgmma (TMA and tensor cores) for
+bf16 at head dims 64 and 128, SIMT (f32 FMA) for the rest.  Phase 2 times
+both at the prefill / training shape, and the wgmma one again with q x 100
+(logits in the hundreds, where it re-sums the logits near each row's max
+in f32 FMA order), checks that two wgmma runs agree bit for bit, and runs
+both sweeps through the variant each case takes and, for wgmma, through
+SIMT, large logits included; the JSON line lists each variant.  The
+prefill and training launch counts must show every flash launch in wgmma.
+(``tools/flash_numerics.py``, run by hand, measures where the wgmma
+variant's re-summation fires and what the tensor cores' summation order
+alone does to the training gates.)
 
 Phase 2 also holds the training kernels against their plain versions at
 the training shape and at GQA / window / ragged shapes: the flash forward
@@ -261,62 +275,22 @@ def phase_kernels(gen):
             cases=[c for c in cases if c["variant"] == v])
 
     # ---- flash attention: the prefill's shape (B=2, S=2048, 32 q heads,
-    # 8 kv heads, hd=128, causal)
+    # 8 kv heads, hd=128, causal), each variant
     B, Hq, Hkv, S, Dh = 2, 32, 8, 2048, 128
     q = _randn(gen, B, Hq, S, Dh)
     k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
-    what = f"flash q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
-    err = compare(what, flash_attention(q, k, v, causal=True),
-                  flash_attention_plain(q, k, v, causal=True),
-                  TOL[torch.bfloat16])
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()),
-                       4 * B * Hq * Dh * pairs)
-    fa = {"shape": what, "max_abs_err": err,
-          "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
-          "plain_ms": cuda_ms(
-              lambda: flash_attention_plain(q, k, v, causal=True)),
-          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-              q, k, v, is_causal=True, enable_gqa=True)),
-          "bound_ms": b_ms, "bound_by": b_by}
-    log(f"[kernels] {what}: max_abs_err {err:.3g}, kernel {fa['ms']:.3f} "
-        f"ms, plain {fa['plain_ms']:.3f} ms, sdpa "
-        f"{fa['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    shape = f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
+    rows = _flash_rows(
+        "flash", shape, flash_attention, flash_attention_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), "sdpa", q, k, v)
     del q, k, v
-    n = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        sweep = [((Bb, Hq_, Hk_, Ss, Ss, D), dict(causal=c))
-                 for Bb, Hq_, Hk_, Ss, D in ((1, 2, 2, 64, 32),
-                                             (2, 4, 2, 32, 16),
-                                             (1, 4, 1, 64, 32),
-                                             (1, 8, 8, 128, 64),
-                                             (2, 6, 3, 48, 64),
-                                             (1, 4, 2, 100, 128))
-                 for c in (True, False)]
-        sweep += [((1, 2, 2, 64, 64, 32), dict(causal=True, window=w))
-                  for w in (1, 8, 16, 64)]
-        sweep += [((1, 2, 2, 8, 64, 32), dict(causal=True, kv_offset=56)),
-                  ((1, 4, 2, 37, 77, 64), dict(causal=False)),
-                  ((1, 4, 2, 37, 77, 64), dict(causal=True, kv_offset=40)),
-                  ((2, 4, 4, 150, 150, 16), dict(causal=False, window=20)),
-                  ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4))]
-        for (Bb, Hq_, Hk_, Sq, Sk, D), kw in sweep:
-            q = _randn(gen, Bb, Hq_, Sq, D, dtype=dtype)
-            k = _randn(gen, Bb, Hk_, Sk, D, dtype=dtype)
-            v = _randn(gen, Bb, Hk_, Sk, D, dtype=dtype)
-            compare(f"flash q{(Bb, Hq_, Sq, D)} kv{(Bb, Hk_, Sk, D)} {kw} "
-                    f"{dtype}", flash_attention(q, k, v, **kw),
-                    flash_attention_plain(q, k, v, **kw), TOL[dtype])
-            n += 1
-    log(f"[kernels] flash sweep: {n} cases (GQA, causal, windows, kv "
-        f"offsets, ragged S, Dh 16-128, fully masked rows) agree")
-    results["flash_attention"] = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:86",
-        **{k: fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")},
-        shape=fa["shape"])
+    _flash_sweep(gen)
+    for which, row in rows.items():
+        results[f"flash_attention_{which}"] = dict(
+            name=f"flash_attention_{which}", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:86", **row)
     results.update(_flash_train_kernels(gen))
     results.update(_reorder_kernels(gen))
     torch.cuda.synchronize()
@@ -420,26 +394,151 @@ def _gmm_backward_cases(gen):
     return rows
 
 
+def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v):
+    """The flash rows at one causal shape: the variant the call takes, then
+    SIMT (forced), each against the plain version (out at the bf16
+    tolerance, lse at f32's), timed beside the plain version, the library
+    call (a yardstick only) and the bound; the taken variant run twice on
+    the same inputs must agree bit for bit, and its row carries the SIMT
+    ms of the same run and, with q x 100 (logits in the hundreds, softmax
+    near one-hot: the regime where the wgmma variant re-sums the logits
+    near each row's max), its agreement and ms.  ``run(q, k, v,
+    force=...)`` and ``plain(q, k, v)`` return the output or ``(out,
+    lse)``.  The bound is the function's (4 operations per unmasked (row,
+    col) pair and head dim); the wgmma log line also gives the bound of
+    its own work, whose P V runs once per P term (``numerics()``)."""
+    from repro_torch.kernels.flash_attention import choose, numerics
+
+    def agree(what, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return max(compare(f"{what} {n}", g, w, TOL[w.dtype])
+                   for n, g, w in zip(("out", "lse"), got, want))
+
+    want = plain(q, k, v)
+    B, Hq, S, Dh = q.shape
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) \
+        + 4 * (B * Hq * S if isinstance(want, tuple) else 0)
+    flops = 4 * B * Hq * Dh * (S * (S + 1) // 2)
+    b_ms, b_by = bound(n_bytes, flops)
+    plain_ms = cuda_ms(lambda: plain(q, k, v))
+    lib_ms = cuda_ms(lambda: library(q, k, v))
+    taken = choose(q, k, v)
+    rows = {}
+    for which in dict.fromkeys((taken, "simt")):
+        what = f"{label} {shape} [{which}]"
+        got = run(q, k, v, force=which)
+        err = agree(what, got, want)
+        if which == taken:
+            again = run(q, k, v, force=which)
+            got, again = ((x if isinstance(x, tuple) else (x,))
+                          for x in (got, again))
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                fail(f"{what}: two runs on the same inputs differ")
+        del got
+        rows[which] = {"shape": what, "variant": which, "max_abs_err": err,
+                       "ms": cuda_ms(lambda: run(q, k, v, force=which)),
+                       "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": b_ms, "bound_by": b_by}
+    row = rows[taken]
+    row["simt_ms"] = rows["simt"]["ms"]
+    q100 = q * 100
+    row["q_x100_max_abs_err"] = agree(f"{label} {shape} q x100 [{taken}]",
+                                      run(q100, k, v), plain(q100, k, v))
+    row["q_x100_ms"] = cuda_ms(lambda: run(q100, k, v))
+    del q100
+    for which, r in rows.items():
+        own = ""
+        if which == "wgmma":
+            parts = numerics()["p_parts"]
+            own = (f"; its own work with P in {parts} bf16 terms "
+                   f"{bound(n_bytes, flops * (1 + parts) / 2)[0]:.4f} ms")
+        extra = (f"; two runs equal bit for bit; q x100 (near one-hot): "
+                 f"max_abs_err {r['q_x100_max_abs_err']:.3g}, kernel "
+                 f"{r['q_x100_ms']:.3f} ms" if which == taken else "")
+        log(f"[kernels] {r['shape']}: max_abs_err {r['max_abs_err']:.3g}, "
+            f"kernel {r['ms']:.3f} ms, plain {plain_ms:.3f} ms, {lib_name} "
+            f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}{own}){extra}")
+    return rows
+
+
+_FLASH_SWEEP = tuple(
+    [((Bb, Hq_, Hk_, Ss, Ss, D), dict(causal=c))
+     for Bb, Hq_, Hk_, Ss, D in ((1, 2, 2, 64, 32), (2, 4, 2, 32, 16),
+                                 (1, 4, 1, 64, 32), (1, 8, 8, 128, 64),
+                                 (2, 6, 3, 48, 64), (1, 4, 2, 100, 128))
+     for c in (True, False)]
+    + [((1, 2, 2, 64, 64, 32), dict(causal=True, window=w))
+       for w in (1, 8, 16, 64)]
+    + [((1, 2, 2, 8, 64, 32), dict(causal=True, kv_offset=56)),
+       ((1, 4, 2, 37, 77, 64), dict(causal=False)),
+       ((1, 4, 2, 37, 77, 64), dict(causal=True, kv_offset=40)),
+       ((2, 4, 4, 150, 150, 16), dict(causal=False, window=20)),
+       ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4)),
+       ((1, 2, 1, 40, 40, 64), dict(causal=True, kv_offset=-4)),
+       ((1, 4, 2, 300, 300, 128), dict(causal=True, window=100)),
+       # logits |x| of hundreds, softmax near one-hot: the wgmma variant
+       # re-sums the logits near each row's max in FMA order
+       ((1, 4, 2, 256, 256, 128), dict(causal=True, q_scale=100.0)),
+       ((1, 4, 2, 200, 200, 64), dict(causal=False, q_scale=100.0))])
+
+
+def _flash_sweep(gen):
+    """The CPU sweep's shapes (GQA, causal, windows, kv offsets, ragged S,
+    Dh 16-128, fully masked rows) in f32 and bf16: the serving forward
+    through the variant each takes and, where that is not SIMT, through
+    SIMT too, against the plain version."""
+    from repro_torch.kernels.flash_attention import (VARIANTS, choose,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    taken = dict.fromkeys(VARIANTS, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (Bb, Hq_, Hk_, Sq, Sk, D), kw in _FLASH_SWEEP:
+            kw = dict(kw)
+            q_scale = kw.pop("q_scale", 1.0)
+            q = _randn(gen, Bb, Hq_, Sq, D, dtype=dtype) * q_scale
+            k = _randn(gen, Bb, Hk_, Sk, D, dtype=dtype)
+            v = _randn(gen, Bb, Hk_, Sk, D, dtype=dtype)
+            which = choose(q, k, v)
+            taken[which] += 1
+            want = flash_attention_plain(q, k, v, **kw)
+            for force in dict.fromkeys((which, "simt")):
+                compare(f"flash q{(Bb, Hq_, Sq, D)} kv{(Bb, Hk_, Sk, D)} "
+                        f"{kw} q x{q_scale:g} {dtype} [{force}]",
+                        flash_attention(q, k, v, force=force, **kw), want,
+                        TOL[dtype])
+    log(f"[kernels] flash sweep: {len(_FLASH_SWEEP)} cases in f32 and bf16 "
+        f"(GQA, causal, windows, kv offsets, ragged S, Dh 16-128, fully "
+        f"masked rows, near one-hot softmaxes) agree (variants taken "
+        f"{taken}; each wgmma case through SIMT too)")
+
+
 def _flash_train_kernels(gen):
     """The flash forward that keeps lse and the FA2 backward against their
-    plain versions: at the training shape (timed, with SDPA's forward and
-    backward as the library yardstick; the backward run twice must agree
-    bit for bit) and at GQA / window / kv-offset / ragged shapes in f32
-    and bf16.  lse is f32 (tolerance 1e-4); the bf16 backward rounds p and
-    ds to bf16 as they enter the tensor cores and dk / dv sum the group's
-    query heads, so it is held within ``tol`` of the largest |value| of
-    each output."""
+    plain versions: at the training shape (each forward variant as
+    :func:`_flash_rows` times it, with SDPA's forward and backward as the
+    library yardstick; the backward run twice must agree bit for bit) and
+    at GQA / window / kv-offset / ragged shapes in f32 and bf16, the
+    forward through the variant it takes and, for wgmma, SIMT too.  lse is
+    f32 (tolerance 1e-4); the bf16 backward rounds p and ds to bf16 as
+    they enter the tensor cores and dk / dv sum the group's query heads,
+    so it is held within ``tol`` of the largest |value| of each output."""
+    from repro_torch.kernels.flash_attention import VARIANTS, choose
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
         flash_attention_fwd_plain)
     F = torch.nn.functional
     bf16, f32 = torch.bfloat16, torch.float32
+    taken = dict.fromkeys(VARIANTS, 0)
 
     def check(label, q, k, v, do, **kw):
-        out, lse = flash_attention_fwd(q, k, v, **kw)
         out_p, lse_p = flash_attention_fwd_plain(q, k, v, **kw)
-        fwd_err = max(compare(f"{label} out", out, out_p, TOL[q.dtype]),
-                      compare(f"{label} lse", lse, lse_p, TOL[f32]))
+        which = choose(q, k, v)
+        taken[which] += 1
+        for force in dict.fromkeys((which, "simt")):
+            out, lse = flash_attention_fwd(q, k, v, force=force, **kw)
+            compare(f"{label} [{force}] out", out, out_p, TOL[q.dtype])
+            compare(f"{label} [{force}] lse", lse, lse_p, TOL[f32])
         got = flash_attention_bwd(q, k, v, out_p, lse_p, do, **kw)
         want = flash_attention_bwd_plain(q, k, v, out_p, lse_p, do, **kw)
         bwd_err = max(compare(f"{label} d{n}", g, w, TOL[q.dtype],
@@ -447,32 +546,29 @@ def _flash_train_kernels(gen):
                       for n, g, w in zip("qkv", got, want))
         rel = [float((g.float() - w.float()).norm() / w.float().norm())
                for g, w in zip(got, want)]
-        return out, lse, fwd_err, bwd_err, rel
+        return bwd_err, rel
 
     B, Hq, Hkv, S, Dh = 2, 32, 8, 2048, 128
     q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
     k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
     shape = f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
-    out, lse, fwd_err, bwd_err, rel = check(f"flash train {shape}", q, k, v,
-                                            do)
+    fwd = _flash_rows(
+        "flash fwd+lse", shape, flash_attention_fwd, flash_attention_fwd_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), "sdpa forward",
+        q, k, v)
+    bwd_err, rel = check(f"flash train {shape}", q, k, v, do)
+    out, lse = flash_attention_fwd(q, k, v)
     runs = [flash_attention_bwd(q, k, v, out, lse, do) for _ in range(2)]
     if not all(torch.equal(x, y) for x, y in zip(*runs)):
         fail(f"flash bwd {shape}: two runs on the same inputs differ")
     del runs
     pairs = S * (S + 1) // 2
-    fb_ms, fb_by = bound(2 * (2 * q.numel() + 2 * k.numel())
-                         + 4 * lse.numel(), 4 * B * Hq * Dh * pairs)
     bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
                          + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
     qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
     o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                            enable_gqa=True)
-    fwd = {"max_abs_err": fwd_err,
-           "ms": cuda_ms(lambda: flash_attention_fwd(q, k, v)),
-           "plain_ms": cuda_ms(lambda: flash_attention_fwd_plain(q, k, v)),
-           "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True)),
-           "bound_ms": fb_ms, "bound_by": fb_by}
     bwd = {"max_abs_err": bwd_err,
            "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do)),
            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
@@ -480,10 +576,6 @@ def _flash_train_kernels(gen):
            "library_ms": cuda_ms(lambda: torch.autograd.grad(
                o_lib, (qs, ks, vs), do, retain_graph=True)),
            "bound_ms": bb_ms, "bound_by": bb_by, "rel_norm_err": rel}
-    log(f"[kernels] flash fwd+lse {shape}: max_abs_err {fwd_err:.3g}, "
-        f"kernel {fwd['ms']:.3f} ms, plain {fwd['plain_ms']:.3f} ms, sdpa "
-        f"forward {fwd['library_ms']:.3f} ms, bound {fb_ms:.3f} ms "
-        f"({fb_by})")
     log(f"[kernels] flash bwd {shape}: max_abs_err {bwd_err:.3g}, relative "
         f"norm error dq/dk/dv {', '.join(f'{r:.2e}' for r in rel)}, two runs "
         f"equal bit for bit, kernel "
@@ -504,29 +596,33 @@ def _flash_train_kernels(gen):
                 ((1, 4, 2, 37, 77, 64), dict(causal=True, kv_offset=40)),
                 ((2, 4, 4, 150, 150, 16), dict(causal=False, window=20)),
                 ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4)),
+                ((1, 2, 1, 40, 40, 128), dict(causal=True, kv_offset=-4)),
                 ((1, 4, 2, 130, 200, 128),
-                 dict(causal=True, window=50, kv_offset=70))):
+                 dict(causal=True, window=50, kv_offset=70)),
+                ((1, 4, 2, 256, 256, 128), dict(causal=True, q_scale=100.0))):
+            kw = dict(kw)
+            q_scale = kw.pop("q_scale", 1.0)
             check(f"flash train q{(Bb, Hq_, Sq, D)} kv{(Bb, Hk_, Sk, D)} "
-                  f"{kw} {dtype}", _randn(gen, Bb, Hq_, Sq, D, dtype=dtype),
+                  f"{kw} q x{q_scale:g} {dtype}",
+                  _randn(gen, Bb, Hq_, Sq, D, dtype=dtype) * q_scale,
                   _randn(gen, Bb, Hk_, Sk, D, dtype=dtype),
                   _randn(gen, Bb, Hk_, Sk, D, dtype=dtype),
                   _randn(gen, Bb, Hq_, Sq, D, dtype=dtype), **kw)
             n += 1
     log(f"[kernels] flash fwd+lse / bwd sweep: {n} cases (GQA, causal, "
-        f"windows, kv offsets, ragged S, Dh 16-128, fully masked rows) "
-        f"agree")
-    common = dict(route="cuda", shape=shape)
-    return {
-        "flash_attention_fwd": dict(
-            name="flash_attention_fwd",
-            source="src/repro_torch/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention_bwd.py:83",
-            **common, **fwd),
-        "flash_attention_bwd": dict(
-            name="flash_attention_bwd",
-            source="src/repro_torch/csrc/flash_attention_bwd.cu",
-            replaces="src/repro/kernels/flash_attention_bwd.py:205",
-            **common, **bwd)}
+        f"windows, kv offsets, ragged S, Dh 16-128, fully masked rows, a "
+        f"near one-hot softmax) agree (forward variants taken {taken}, the training shape "
+        f"included; each wgmma case through SIMT too)")
+    out = {f"flash_attention_fwd_{which}": dict(
+        name=f"flash_attention_fwd_{which}", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:83", **row)
+        for which, row in fwd.items()}
+    out["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda", shape=shape,
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention_bwd.py:205", **bwd)
+    return out
 
 
 def _abs_err(got, want) -> float:
@@ -690,21 +786,26 @@ def _counters():
             flash_attention_bwd, datatype_pack, datatype_unpack)
 
 
+def _variant_counters():
+    """The wrappers whose kernel has variants (each counted in
+    ``variant_launches``)."""
+    return tuple(fn for fn in _counters() if hasattr(fn, "variant_launches"))
+
+
 def _reset_counts():
-    from repro_torch.kernels.moe_gmm import grouped_matmul
     for fn in _counters():
         fn.launches = 0
-    grouped_matmul.variant_launches = dict.fromkeys(
-        grouped_matmul.variant_launches, 0)
+    for fn in _variant_counters():
+        fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
 
 def _read_counts() -> dict:
-    """Launches of every kernel wrapper and of each gmm variant
-    (``grouped_matmul_<variant>``)."""
-    from repro_torch.kernels.moe_gmm import grouped_matmul
+    """Launches of every kernel wrapper and of each variant
+    (``grouped_matmul_<variant>``, ``flash_attention_<variant>``,
+    ``flash_attention_fwd_<variant>``)."""
     return {**{fn.__name__: fn.launches for fn in _counters()},
-            **{f"grouped_matmul_{v}": n
-               for v, n in grouped_matmul.variant_launches.items()}}
+            **{f"{fn.__name__}_{v}": n for fn in _variant_counters()
+               for v, n in fn.variant_launches.items()}}
 
 
 def _expected(**counts) -> dict:
@@ -763,7 +864,7 @@ def phase_prefill(model, params, cfg, tokens):
     versions as they stand at a fan-in init (:func:`_fan_in_init`: soft
     attention and routing), each within 2e-2 of the largest logit; the
     reference init's distance to the plain versions as they stand is
-    logged."""
+    logged, all before the gates."""
     from repro_torch.kernels import ops
     from repro_torch.models import make_prefill_fn
     B, S = tokens.shape
@@ -773,7 +874,8 @@ def phase_prefill(model, params, cfg, tokens):
     counts = _read_counts()
     want = _expected(grouped_matmul=3 * cfg.n_layers,
                      grouped_matmul_wgmma=3 * cfg.n_layers,
-                     flash_attention=cfg.n_layers)
+                     flash_attention=cfg.n_layers,
+                     flash_attention_wgmma=cfg.n_layers)
     if counts != want:
         fail(f"prefill launched {counts}, expected {want}")
     _, warm_ms = _host_ms(lambda: prefill(params, tokens))
@@ -783,8 +885,7 @@ def phase_prefill(model, params, cfg, tokens):
         ref = prefill(params, tokens)
     with ops.plain_versions():
         ref32, plain_ms = _host_ms(lambda: prefill(params, tokens))
-    err = _logit_gate("reference init", out, ref,
-                      "plain (tensor-core gmm)")
+    err = float((out - ref).abs().max())
     err32 = float((out - ref32).abs().max())
     ref_gap = float((ref - ref32).abs().max())
     same_top = bool((out.argmax(-1) == ref.argmax(-1)).all())
@@ -794,7 +895,7 @@ def phase_prefill(model, params, cfg, tokens):
         with ops.plain_versions():
             ref_f = prefill(soft, tokens)
     del soft
-    err_f = _logit_gate("fan-in init", out_f, ref_f, "plain")
+    err_f = float((out_f - ref_f).abs().max())
     log(f"[prefill] {ARCH} x{cfg.n_layers} layers B={B} S={S}: first call "
         f"{cold_ms:.1f} ms, second {warm_ms:.1f} ms, plain versions "
         f"{plain_ms:.1f} ms (host clock); launches {counts}; reference "
@@ -804,6 +905,8 @@ def phase_prefill(model, params, cfg, tokens):
         f"in the gmm's place lies {ref_gap:.4g}; fan-in init: max |logit - "
         f"plain| {err_f:.4g} of max |logit| "
         f"{float(ref_f.abs().max()):.4g}")
+    _logit_gate("reference init", out, ref, "plain (tensor-core gmm)")
+    _logit_gate("fan-in init", out_f, ref_f, "plain")
     return counts
 
 
@@ -1111,7 +1214,8 @@ def _train_launches_per_step(cfg) -> dict:
     forward and the 3 gmm run twice (forward and remat recompute), the
     flash backward once and two gmm per forward gmm."""
     L = cfg.n_layers
-    return _expected(flash_attention_fwd=2 * L, flash_attention_bwd=L,
+    return _expected(flash_attention_fwd=2 * L,
+                     flash_attention_fwd_wgmma=2 * L, flash_attention_bwd=L,
                      grouped_matmul=(3 + 3 + 6) * L,
                      grouped_matmul_wgmma=(3 + 3 + 6) * L)
 
@@ -1512,9 +1616,10 @@ def main() -> int:
         entry["launches_by_path"] = {path: counts.get(name, 0)
                                      for path, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
-        # the SIMT gmm serves f32 and unaligned calls only: every main-path
-        # gmm takes wgmma or decode, which the phases' counts check
-        entry["on_main_path"] = name != "grouped_matmul_simt"
+        # the SIMT gmm and flash serve f32, unaligned calls and (flash)
+        # head dims 16 and 32 only: every main-path call takes wgmma or
+        # decode, which the phases' counts check
+        entry["on_main_path"] = not name.endswith("_simt")
         if entry["on_main_path"] and entry["launches"] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

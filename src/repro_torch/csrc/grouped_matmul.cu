@@ -39,8 +39,8 @@
 //     f32, f32 FMA, ragged edges masked.  f32 stays here because the
 //     tensor cores would round f32 operands to tf32.
 //
-// Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint(ByVersion), so no -lcuda link is needed.
+// Tensor maps are encoded on the host by csrc/tma_host.cuh
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda).
 //
 // C interface: repro_grouped_matmul(...) launches the variant asked for on
 // the given stream and returns cudaGetLastError() (cudaErrorInvalidValue
@@ -48,6 +48,7 @@
 // output, contiguous (E, C, N).
 
 #include "ptx.cuh"
+#include "tma_host.cuh"
 
 #include <cstddef>
 
@@ -296,62 +297,16 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
-}
-
-// A 3-D map of E matrices of `rows` rows of `inner` contiguous bf16, read
-// in boxes of box_rows x 64.
-bool encode(CUtensorMap* map, const void* base, int inner, int rows, int E,
-            int box_rows) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
-                              (cuuint64_t)E};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2,
-                                 (cuuint64_t)inner * rows * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool A_MN, bool B_MN>
 cudaError_t launch_wgmma(const void* lhs, const void* rhs, void* out, int E,
                          int C, int K, int N, cudaStream_t stream) {
-  // cuTensorMapEncodeTiled is a driver call and needs a current context; a
-  // thread that has made no runtime call that binds one (autograd's
-  // backward thread) has none, so make the device's primary context
-  // current first (cudaSetDevice does since CUDA 12).
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  cudaError_t err = tma::bind_device();
   if (err != cudaSuccess) return err;
   CUtensorMap ta, tb;
-  const bool ok =
-      (A_MN ? encode(&ta, lhs, C, K, E, 64) : encode(&ta, lhs, K, C, E, 128)) &&
-      (B_MN ? encode(&tb, rhs, N, K, E, 64) : encode(&tb, rhs, K, N, E, 256));
+  const bool ok = (A_MN ? tma::encode(&ta, lhs, C, K, E, 64)
+                        : tma::encode(&ta, lhs, K, C, E, 128)) &&
+                  (B_MN ? tma::encode(&tb, rhs, N, K, E, 64)
+                        : tma::encode(&tb, rhs, K, N, E, 256));
   if (!ok) return cudaErrorInvalidValue;
   auto kernel = gmm_wgmma_kernel<A_MN, B_MN>;
   err = cudaFuncSetAttribute(kernel,

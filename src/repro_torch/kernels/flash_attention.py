@@ -5,6 +5,16 @@ CUDA C++ kernel for Hopper (``csrc/flash_attention.cu``, which says what
 bounds it and how it is built).  :func:`flash_attention` launches that
 kernel on a CUDA tensor and takes :func:`flash_attention_plain` on a CPU
 tensor; there is no other fallback.
+
+The kernel has two variants, chosen by :func:`variant` from the head dim,
+dtype and alignment (an explicit dispatch between hand-written kernels,
+each counted in ``flash_attention.variant_launches``):
+
+* ``"wgmma"``: bf16 at head dims 64 and 128 with 16-byte aligned bases:
+  TMA loads and wgmma on the tensor cores (``csrc/flash_attention.cu``
+  says how it keeps the softmax to the plain version's f32 arithmetic);
+* ``"simt"``: everything else (f32, which the tensor cores would round to
+  tf32; head dims 16 and 32; unaligned bases): f32 FMA throughout.
 """
 
 from __future__ import annotations
@@ -19,8 +29,10 @@ from .ref import ref_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+VARIANTS = ("simt", "wgmma")
+WGMMA_HEAD_DIMS = (64, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
@@ -58,22 +70,70 @@ def _check(q, k, v):
         raise ValueError("flash_attention indexes with 32-bit ints")
 
 
+def variant(Dh: int, dtype, aligned: bool = True) -> str:
+    """The kernel variant a call with this head dim and dtype takes
+    (``aligned``: q, k and v 16-byte aligned)."""
+    if dtype == torch.bfloat16 and Dh in WGMMA_HEAD_DIMS and aligned:
+        return "wgmma"
+    return "simt"
+
+
+def choose(q, k, v, force: str | None = None) -> str:
+    """The variant a call on q, k, v runs: :func:`variant`'s, or ``force``
+    (checks on the card compare the variants).  A call with no kv row
+    (every output row 0) takes SIMT, since the wgmma variant's tensor maps
+    need one.  Raises ValueError for a ``force`` that names no variant or
+    a variant that cannot take the call; the kernel refuses an unaligned
+    wgmma call."""
+    Dh, Skv = q.shape[-1], k.shape[2]
+    if force is None:
+        return variant(Dh, q.dtype, aligned=all(
+            t.data_ptr() % 16 == 0 for t in (q, k, v))) if Skv else "simt"
+    if force not in VARIANTS:
+        raise ValueError(f"flash attention has variants {VARIANTS}, not "
+                         f"{force!r}")
+    if force == "wgmma" and (variant(Dh, q.dtype) != "wgmma" or not Skv):
+        raise ValueError(f"the wgmma variant takes bfloat16 at head dims "
+                         f"{WGMMA_HEAD_DIMS} and at least one kv row; got "
+                         f"{q.dtype}, Dh {Dh}, Skv {Skv}")
+    return force
+
+
+def numerics() -> dict:
+    """The wgmma variant's compile-time numerics, read from its library
+    (so it builds the kernel: card only): ``p_parts``, the bf16 terms P
+    enters P V in, and ``resum_min`` / ``resum_window``, the largest |x|
+    from which a row's logits within ``resum_window`` of its running max
+    are re-summed in order (``csrc/flash_attention.cu`` says why)."""
+    fn = build.load("flash_attention").repro_flash_numerics
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 3, None
+    parts, lo, window = ctypes.c_int(), ctypes.c_float(), ctypes.c_float()
+    fn(ctypes.byref(parts), ctypes.byref(lo), ctypes.byref(window))
+    return {"p_parts": parts.value, "resum_min": lo.value,
+            "resum_window": window.value}
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: int | None = None, scale: float | None = None,
-                    kv_offset: int = 0):
+                    kv_offset: int = 0, force: str | None = None):
     """q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh); Hq % Hkv == 0.
 
     Returns (B, Hq, Sq, Dh) attention output in q's dtype.  On a CUDA
-    tensor this launches the Hopper kernel (and counts the launch in
-    ``flash_attention.launches``); on a CPU tensor it returns the plain
-    version."""
+    tensor this launches the Hopper kernel's :func:`variant`, or the one
+    ``force`` names (:func:`choose`), and counts the launch in
+    ``flash_attention.launches`` and ``flash_attention.variant_launches``;
+    on a CPU tensor it returns the plain version (``force`` is still
+    checked)."""
     if q.device.type == "cpu":
+        if force is not None:
+            choose(q, k, v, force)
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, kv_offset=kv_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
                          f"not {q.device}")
     _check(q, k, v)
+    which = choose(q, k, v, force)
     B, Hq, Sq, Dh = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if scale is None:
@@ -86,12 +146,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Hq, Hkv, Sq, Skv, Dh, int(causal),
                  int(window is not None), int(window or 0), int(kv_offset),
-                 float(scale), _DTYPES[q.dtype], stream)
+                 float(scale), _DTYPES[q.dtype], VARIANTS.index(which),
+                 stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel ({which}) launch failed: "
+                           f"CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.variant_launches[which] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.variant_launches = dict.fromkeys(VARIANTS, 0)

@@ -8,7 +8,10 @@ Port of ``repro.kernels.flash_attention_bwd`` (Pallas ``_fwd_kernel``,
 
 * :func:`flash_attention_fwd` launches the second entry point of
   ``csrc/flash_attention.cu``, the serving kernel that also writes
-  ``lse = m + log(l)`` per row (``l == 0`` counts as 1);
+  ``lse = m + log(l)`` per row (``l == 0`` counts as 1), in the variant
+  ``flash_attention.variant`` picks (``wgmma`` for bf16 at head dims 64
+  and 128, ``simt`` otherwise), counted per variant in
+  ``flash_attention_fwd.variant_launches``;
 * :func:`flash_attention_bwd` launches the dq and the dkv kernel of
   ``csrc/flash_attention_bwd.cu`` (tensor cores for bf16); the dkv kernel
   sums each kv head's group of query heads itself and writes dk / dv as
@@ -28,11 +31,12 @@ import math
 import torch
 
 from . import build
-from .flash_attention import _DTYPES, _check, flash_attention_plain
+from .flash_attention import (_DTYPES, VARIANTS, _check, choose,
+                              flash_attention_plain)
 
 NEG_INF = -1e30
 _ARGTYPES_FWD = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
-                 + [ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _ARGTYPES_BWD = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 10
                  + [ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
 
@@ -136,25 +140,32 @@ def _on_cuda(name: str, q) -> bool:
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         window: int | None = None, scale: float | None = None,
-                        kv_offset: int = 0):
+                        kv_offset: int = 0, force: str | None = None):
     """q: (B, Hq, Sq, Dh); k, v: (B, Hkv, Skv, Dh).  Returns ``(out,
     lse)``: the attention output in q's dtype and ``lse`` (B, Hq, Sq) f32.
 
-    On a CUDA tensor this launches the Hopper kernel (and counts the
-    launch in ``flash_attention_fwd.launches``); on a CPU tensor it
-    returns the plain version."""
+    On a CUDA tensor this launches the Hopper kernel's variant (or the one
+    ``force`` names; ``flash_attention.choose``) and counts the launch in
+    ``flash_attention_fwd.launches`` and
+    ``flash_attention_fwd.variant_launches``; on a CPU tensor it returns
+    the plain version (``force`` is still checked)."""
     if not _on_cuda("flash_attention_fwd", q):
+        if force is not None:
+            choose(q, k, v, force)
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window, scale=scale,
                                          kv_offset=kv_offset)
     _check(q, k, v)
+    which = choose(q, k, v, force)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _launch(build.load("flash_attention").repro_flash_attention_fwd_lse,
             _ARGTYPES_FWD, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            *_device_args(q, k, causal, window, scale, kv_offset))
+            *_device_args(q, k, causal, window, scale, kv_offset),
+            VARIANTS.index(which))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.variant_launches[which] += 1
     return out, lse
 
 
@@ -196,6 +207,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.variant_launches = dict.fromkeys(VARIANTS, 0)
 flash_attention_bwd.launches = 0
 
 
