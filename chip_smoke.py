@@ -40,8 +40,11 @@ it fails:
              ``TorusComm`` on dims (2,2) and (4,): direct, factorized
              (natural and paper, every round order), reverse, tiled,
              all-gather and reduce-scatter must equal the definition of
-             each collective bit for bit on CUDA tensors, and each round
-             must launch the pack and the unpack kernel once.
+             each collective bit for bit on CUDA tensors, and each
+             factorized call must launch the block-reorder passes that
+             ``core.factorized.round_schedule`` lists for its round order
+             (pack, fused repack, unpack; identity passes skipped: 2 a
+             call on (2,2), none on (4,)).
 7. moe_ep  — in the same world, phi3.5-moe's MoE layer at full width with
              expert parallelism over (data=2, pod=2): each rank holds 4 of
              the 16 experts and 512 tokens (B=1, S=512).  Cuts: one layer,
@@ -49,10 +52,11 @@ it fails:
              (the config's "tuned" resolves to the overlap engine, not
              ported).  The gathered output must match the same layer with
              mesh=None on all 2048 tokens in one process within 2e-2 of
-             the largest |y|, the aux loss within 1e-3; the gmm, pack and
-             unpack kernels must have been launched (8 block-reorder
-             launches per rank per call: 2 directions x 2 rounds x
-             pack + unpack).
+             the largest |y|, the aux loss within 1e-3; the gmm and
+             block-reorder kernels must have been launched as predicted
+             (per rank per call 3 gmm and round_schedule's passes: the
+             forward's pack and repack, the reverse's repack and
+             unpack).
 8. train   — after the world has ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
@@ -116,10 +120,15 @@ that keeps lse, the FA2 backward (run twice, equal bit for bit), and the
 grouped matmul's backward (``GroupedMatmulFn``, whose products read
 ``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm.
 
-Phase 2 also holds the block-reorder kernel (the round-k datatype pack and
-unpack) against its plain version, bit for bit, at every buffer phases 6-7
-pack (their shapes derived from the same constants and config), at the EP
-buffers of phi3.5-moe serving, the paper's tori and odd sizes.
+Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
+unpack and the fused unpack-then-pack between rounds) against its plain
+versions, bit for bit, at every buffer phases 6-7 reorder (their shapes
+derived from the same constants and config), at the EP buffers of
+phi3.5-moe serving, the paper's tori and odd sizes, every round and every
+ordered pair of rounds; it times the passes of a (2,2) call at the
+[moe_ep], EP prefill and EP decode buffers against the bound, the plain
+version and ``index_select`` with the same row map, with each decode-size
+call's host µs beside its kernel µs.
 
 Then it prints one JSON line of per-kernel numbers (``bound_ms`` is the
 larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s, the H100 SXM's
@@ -130,6 +139,7 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -631,66 +641,135 @@ def _abs_err(got, want) -> float:
         if got.numel() else 0.0
 
 
-def _reorder_case(gen, dims, B, dtype, label="", timed=(0,)):
-    """Pack and unpack of a (p, B) buffer on the torus ``dims``: every
-    round and both variants must equal the plain versions bit for bit
-    (pure data movement: tolerance 0).  Rounds in ``timed`` are timed
-    (natural variant, the path's default) against the plain versions,
-    ``index_select`` / ``index_copy_`` and the bound."""
-    from repro_torch.kernels.block_reorder import (
-        VARIANTS, datatype_pack, datatype_pack_plain, datatype_unpack,
-        datatype_unpack_plain, round_positions)
+def _reorder_input(gen, dims, B, dtype):
     p = math.prod(dims)
     if dtype.is_floating_point:
-        x = _randn(gen, p, B, dtype=dtype)
-    else:
-        x = torch.randint(-2**31, 2**31 - 1, (p, B), generator=gen,
-                          device=DEVICE, dtype=torch.int64).to(dtype)
+        return _randn(gen, p, B, dtype=dtype)
+    return torch.randint(-2**31, 2**31 - 1, (p, B), generator=gen,
+                         device=DEVICE, dtype=torch.int64).to(dtype)
+
+
+def _reorder_case(gen, dims, B, dtype, label=""):
+    """Pack, unpack and the fused pass of a (p, B) buffer on the torus
+    ``dims``: every round, every ordered pair of rounds and both variants
+    must equal the plain versions bit for bit (pure data movement:
+    tolerance 0; the error is computed only to report a failure)."""
+    from repro_torch.kernels.block_reorder import (
+        VARIANTS, datatype_pack, datatype_pack_plain, datatype_repack,
+        datatype_repack_plain, datatype_unpack, datatype_unpack_plain)
+    x = _reorder_input(gen, dims, B, dtype)
     what = f"reorder dims {dims} B={B} {dtype}{label}"
-    rows = []
-    for k in range(len(dims)):
-        err = 0.0      # max |kernel - plain| over both variants, both ways
-        for v in VARIANTS:
+
+    def same(op, got, want):
+        if not torch.equal(got, want):
+            fail(f"{what}: {op} differs from its plain version by up to "
+                 f"{_abs_err(got, want):.3g}")
+
+    for v in VARIANTS:
+        for k in range(len(dims)):
             y = datatype_pack(x, dims=dims, k=k, variant=v)
-            want = datatype_pack_plain(x, dims=dims, k=k, variant=v)
-            err = max(err, _abs_err(y, want))
-            if not torch.equal(y, want):
-                fail(f"{what}: pack round {k} ({v}) differs from its "
-                     f"plain version by up to {err:.3g}")
+            same(f"pack round {k} ({v})", y,
+                 datatype_pack_plain(x, dims=dims, k=k, variant=v))
             u = datatype_unpack(y, dims=dims, k=k, variant=v)
-            want = datatype_unpack_plain(y, dims=dims, k=k, variant=v)
-            err = max(err, _abs_err(u, want))
-            if not (torch.equal(u, x) and torch.equal(u, want)):
-                fail(f"{what}: unpack round {k} ({v}) differs from its "
-                     f"plain version (by up to {err:.3g}) or from x")
-        if k not in timed:
-            continue
-        kw = dict(dims=dims, k=k, variant="natural")
-        pos, ext = round_positions(tuple(dims), k, "natural")
-        idx = (torch.tensor(pos, device=DEVICE)[None, :]
-               + torch.arange(dims[k], device=DEVICE)[:, None] * ext)
-        idx = idx.reshape(-1)
-        y = datatype_pack(x, **kw)
-        out = torch.empty_like(x)
-        b_ms, b_by = bound(2 * x.numel() * x.element_size(), 0)
-        row = {"shape": f"{what} round {k}", "max_abs_err": err,
-               "bound_ms": b_ms, "bound_by": b_by,
-               "pack_ms": cuda_ms(lambda: datatype_pack(x, **kw)),
-               "pack_plain_ms": cuda_ms(lambda: datatype_pack_plain(x, **kw)),
-               "pack_library_ms": cuda_ms(
-                   lambda: torch.index_select(x, 0, idx)),
-               "unpack_ms": cuda_ms(lambda: datatype_unpack(y, **kw)),
-               "unpack_plain_ms": cuda_ms(
-                   lambda: datatype_unpack_plain(y, **kw)),
-               "unpack_library_ms": cuda_ms(
-                   lambda: out.index_copy_(0, idx, y))}
-        rows.append(row)
-        log(f"[kernels] {row['shape']}: pack {row['pack_ms']:.4f} ms "
-            f"(plain {row['pack_plain_ms']:.4f}, index_select "
-            f"{row['pack_library_ms']:.4f}); unpack {row['unpack_ms']:.4f} "
-            f"ms (plain {row['unpack_plain_ms']:.4f}, index_copy_ "
-            f"{row['unpack_library_ms']:.4f}); bound {b_ms:.4f} ms")
-    return rows
+            same(f"unpack round {k} ({v})", u,
+                 datatype_unpack_plain(y, dims=dims, k=k, variant=v))
+            same(f"unpack(pack) round {k} ({v})", u, x)
+        for ku in range(len(dims)):
+            for kp in range(len(dims)):
+                kw = dict(dims=dims, k_unpack=ku, k_pack=kp, variant=v)
+                same(f"repack ({ku} -> {kp}, {v})", datatype_repack(x, **kw),
+                     datatype_repack_plain(x, **kw))
+
+
+def _host_us(fn, iters: int = 200) -> float:
+    """Host µs per call of ``fn`` enqueued back to back (no synchronise
+    inside: the wrapper's own work plus the launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters / 1e3
+
+
+def _kernel_us(fn, iters: int = 20) -> float:
+    """Device µs per call of the block-reorder kernel alone, from the
+    profiler's kernel time (no launch gaps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CUDA and "row_map" in ev.key)
+    return us / iters
+
+
+def _reorder_timed(gen, dims, B, dtype, label):
+    """Time every pass a (2,2) forward (rounds 0, 1) and reverse (1, 0)
+    call makes (``round_schedule``), natural variant, against the bound,
+    the plain version and ``index_select`` with the same row map; the
+    rows and the reorder device time of one call each way."""
+    from repro_torch.core.factorized import round_schedule
+    from repro_torch.kernels.block_reorder import row_map
+    from repro_torch.kernels import ops
+    x = _reorder_input(gen, dims, B, dtype)
+    what = f"reorder dims {dims} B={B} {dtype}{label}"
+    b_ms, b_by = bound(2 * x.numel() * x.element_size(), 0)
+    small = x.numel() * x.element_size() <= 2**20
+    rows, per_call = {}, {}
+    for order in ((0, 1), (1, 0)):
+        per_call[order] = 0.0
+        for ku, kp in round_schedule(dims, order, "natural"):
+            if (ku, kp) not in rows:
+                op = ("pack" if ku is None else "unpack" if kp is None
+                      else "repack")
+                idx = torch.tensor(row_map(dims, ku, kp, "natural"),
+                                   device=DEVICE)
+                if op == "pack":
+                    run = functools.partial(ops.pack_round, x, dims, kp,
+                                            variant="natural")
+                elif op == "unpack":
+                    run = functools.partial(ops.unpack_round, x, dims, ku,
+                                            variant="natural")
+                else:
+                    run = functools.partial(ops.repack_round, x, dims, ku,
+                                            kp, variant="natural")
+                with ops.plain_versions():
+                    want = run()
+                    plain_ms = cuda_ms(run)
+                got = run()
+                if not torch.equal(got, want):
+                    fail(f"{what}: {op} {(ku, kp)} differs from its plain "
+                         f"version")
+                row = {"shape": f"{what} {op} {(ku, kp)}", "op": op,
+                       "pass": [ku, kp], "max_abs_err": _abs_err(got, want),
+                       "ms": cuda_ms(run), "plain_ms": plain_ms,
+                       "library_ms": cuda_ms(
+                           lambda: torch.index_select(x, 0, idx)),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                if small:
+                    row["host_us"] = _host_us(run)
+                    row["kernel_us"] = _kernel_us(run)
+                rows[(ku, kp)] = row
+                log(f"[kernels] {row['shape']}: {row['ms']:.4f} ms (plain "
+                    f"{plain_ms:.4f}, index_select {row['library_ms']:.4f}"
+                    f"); bound {b_ms:.4f} ms ({100 * b_ms / row['ms']:.0f}%)"
+                    + (f"; host {row['host_us']:.1f} us a call, kernel "
+                       f"{row['kernel_us']:.2f} us (profiler), events "
+                       f"{1e3 * row['ms']:.1f} us" if small else ""))
+            per_call[order] += rows[(ku, kp)]["ms"]
+    log(f"[kernels] {what}: reorder device time of one all-to-all, "
+        f"forward (0,1) {per_call[(0, 1)]:.4f} ms, reverse (1,0) "
+        f"{per_call[(1, 0)]:.4f} ms ({len(round_schedule(dims))} passes "
+        f"each)")
+    return list(rows.values())
 
 
 def _path_reorder_cases():
@@ -711,62 +790,66 @@ def _path_reorder_cases():
 
 def _reorder_kernels(gen):
     """Phase 2's block-reorder part: the buffers of phases 6-7 (the
-    main row is [moe_ep]'s), the EP buffers of phi3.5-moe serving on a
+    main rows are [moe_ep]'s), the EP buffers of phi3.5-moe serving on a
     (2,2) torus (E_loc=4, D=4096, bf16; C=4 at decode on 4 slots, C=640
     at prefill B*S=4096), the paper's tori at the sweep of
     benchmarks/zero_copy_cost.py, (36,32), and the CPU sweep's odd
     sizes, dtypes and a misaligned base."""
+    t0 = time.perf_counter()
     (dims, B, dtype, label), *coll = _path_reorder_cases()
-    main = _reorder_case(gen, dims, B, dtype, label, timed=(0, 1))
+    _reorder_case(gen, dims, B, dtype, label)
+    main = _reorder_timed(gen, dims, B, dtype, label)
     cases = list(main)
-    for dims, B, dtype, label in coll:
-        cases += _reorder_case(gen, dims, B, dtype, label)
-    cases += _reorder_case(gen, (2, 2), 4 * 640 * 4096, torch.bfloat16,
-                           " (MoE EP prefill, C=640)", timed=(0, 1))
-    cases += _reorder_case(gen, (2, 2), 4 * 4 * 4096, torch.bfloat16,
-                           " (MoE EP decode, C=4)", timed=(0, 1))
-    for dims in ((5, 4), (2, 3, 4), (4, 3, 3, 4), (4, 4, 4)):
-        for B in (16, 256, 4096, 65536):
-            cases += _reorder_case(gen, dims, B, torch.float32)
-    cases += _reorder_case(gen, (36, 32), 256, torch.float32)
+    for dims_, B_, dtype_, label_ in coll:
+        _reorder_case(gen, dims_, B_, dtype_, label_)
+    for B_, label_ in ((4 * 640 * 4096, " (MoE EP prefill, C=640)"),
+                       (4 * 4 * 4096, " (MoE EP decode, C=4)")):
+        _reorder_case(gen, (2, 2), B_, torch.bfloat16, label_)
+        cases += _reorder_timed(gen, (2, 2), B_, torch.bfloat16, label_)
+    for dims_ in ((5, 4), (2, 3, 4), (4, 3, 3, 4), (4, 4, 4)):
+        for B_ in (16, 256, 4096, 65536):
+            _reorder_case(gen, dims_, B_, torch.float32)
+    _reorder_case(gen, (36, 32), 256, torch.float32)
     n = 0
-    for dims in ((5, 4), (2, 3, 4), (4, 3, 3, 4), (2, 2, 2, 2), (6,),
-                 (3, 2)):
-        for B in (1, 5, 7, 9, 33):
-            for dtype in (torch.bfloat16, torch.int32):
-                _reorder_case(gen, dims, B, dtype, timed=())
+    for dims_ in ((5, 4), (2, 3, 4), (4, 3, 3, 4), (2, 2, 2, 2), (6,),
+                  (3, 2)):
+        for B_ in (1, 5, 7, 9, 33):
+            for dtype_ in (torch.bfloat16, torch.int32):
+                _reorder_case(gen, dims_, B_, dtype_)
                 n += 1
     # a base that is 2-byte aligned only (rows of 13 bf16, offset one row)
-    from repro_torch.kernels.block_reorder import (datatype_pack,
-                                                   datatype_pack_plain)
+    from repro_torch.kernels.block_reorder import (
+        datatype_pack, datatype_pack_plain, datatype_repack,
+        datatype_repack_plain)
     buf = _randn(gen, 7, 13)
     if not torch.equal(datatype_pack(buf[1:], dims=(3, 2), k=0),
                        datatype_pack_plain(buf[1:], dims=(3, 2), k=0)):
         fail("reorder: pack of a misaligned view differs")
+    kw = dict(dims=(3, 2), k_unpack=0, k_pack=1)
+    if not torch.equal(datatype_repack(buf[1:], **kw),
+                       datatype_repack_plain(buf[1:], **kw)):
+        fail("reorder: repack of a misaligned view differs")
     log(f"[kernels] reorder sweep: {n} odd cases (bf16, int32) and a "
-        f"misaligned base agree bit for bit, both variants, every round")
-    # the kernel's own device time at a small buffer, against the wall
-    # time of a call (the wrapper's host work)
-    dec = _randn(gen, 4, 4 * 4 * 4096)
-    _profile(lambda: [datatype_pack(dec, dims=(2, 2), k=0, variant="natural")
-                      for _ in range(20)],
-             "pack of the 512 KiB decode buffer (20 calls)", per=20)
+        f"misaligned base agree bit for bit, both variants, every round "
+        f"and every ordered pair of rounds ({time.perf_counter() - t0:.1f} "
+        f"s with the timings)")
     out = {}
     for name, op, line in (("datatype_pack", "pack", 56),
-                           ("datatype_unpack", "unpack", 101)):
-        m = main[0]
+                           ("datatype_unpack", "unpack", 101),
+                           ("datatype_repack", "repack", 56)):
+        m = next(c for c in main if c["op"] == op)
         out[name] = dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/block_reorder.cu",
             replaces=f"src/repro/kernels/block_reorder.py:{line}",
-            max_abs_err=m["max_abs_err"], ms=m[f"{op}_ms"],
-            plain_ms=m[f"{op}_plain_ms"], bound_ms=m["bound_ms"],
-            bound_by=m["bound_by"], library_ms=m[f"{op}_library_ms"],
+            max_abs_err=m["max_abs_err"], ms=m["ms"],
+            plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=m["library_ms"],
             shape=m["shape"],
-            cases=[{"shape": c["shape"], "ms": c[f"{op}_ms"],
-                    "plain_ms": c[f"{op}_plain_ms"],
-                    "library_ms": c[f"{op}_library_ms"],
-                    "bound_ms": c["bound_ms"]} for c in cases])
+            cases=[{k: c[k] for k in ("shape", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "host_us",
+                                      "kernel_us") if k in c}
+                   for c in cases if c["op"] == op])
     return out
 
 
@@ -777,13 +860,15 @@ def _reorder_kernels(gen):
 
 def _counters():
     from repro_torch.kernels.block_reorder import (datatype_pack,
+                                                   datatype_repack,
                                                    datatype_unpack)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
                                                          flash_attention_fwd)
     from repro_torch.kernels.moe_gmm import grouped_matmul
     return (grouped_matmul, flash_attention, flash_attention_fwd,
-            flash_attention_bwd, datatype_pack, datatype_unpack)
+            flash_attention_bwd, datatype_pack, datatype_unpack,
+            datatype_repack)
 
 
 def _variant_counters():
@@ -1029,16 +1114,31 @@ def _ep_config():
                                     a2a_backend="factorized")
 
 
+REORDER_OPS = ("datatype_pack", "datatype_unpack", "datatype_repack")
+
+
+def _schedule_launches(dims, variant, orders) -> dict:
+    """Block-reorder launches that calls with the given round orders
+    make: the passes ``round_schedule`` lists, by entry point."""
+    from repro_torch.core.factorized import round_schedule
+    counts = dict.fromkeys(REORDER_OPS, 0)
+    for order in orders:
+        for ku, kp in round_schedule(dims, order, variant):
+            counts["datatype_pack" if ku is None else "datatype_unpack"
+                   if kp is None else "datatype_repack"] += 1
+    return counts
+
+
 def _rank_collective(rank: int, n: int) -> dict:
     """[collective] on one rank: every check against the definition,
-    and the block-reorder launches of each factorized call."""
+    and the block-reorder launches of each factorized call against
+    ``round_schedule``'s passes."""
     import itertools
     import torch.distributed as dist
     from repro_torch.core.cache import cart_create
     from repro_torch.core.comm import torus_comm
-    from repro_torch.kernels.block_reorder import (datatype_pack,
-                                                   datatype_unpack)
-    ok, launches = {}, {"datatype_pack": 0, "datatype_unpack": 0}
+    from repro_torch.kernels import block_reorder
+    ok, launches = {}, dict.fromkeys(REORDER_OPS, 0)
     B = COLL_B
     gen = torch.Generator(device="cpu").manual_seed(5)
     X = torch.randn((n, n, B), generator=gen).to(DEVICE)
@@ -1058,16 +1158,18 @@ def _rank_collective(rank: int, n: int) -> dict:
                 plan = vcomm.all_to_all((B,), torch.float32,
                                         backend="factorized",
                                         round_order=order)
-                for fn in (datatype_pack, datatype_unpack):
-                    fn.launches = 0
+                for op in REORDER_OPS:
+                    getattr(block_reorder, op).launches = 0
                 y, back = plan.forward(x), plan.reverse(x)
-                counts = (datatype_pack.launches, datatype_unpack.launches)
+                counts = {op: getattr(block_reorder, op).launches
+                          for op in REORDER_OPS}
+                expect = _schedule_launches(dims, variant,
+                                            (plan.order, plan.rev_order))
                 key = f"{tag} factorized {variant} {order}"
                 ok[key] = torch.equal(y, want) and torch.equal(back, want)
-                ok[f"{key} launches {counts}"] = \
-                    counts == (2 * len(dims),) * 2
-                launches["datatype_pack"] += counts[0]
-                launches["datatype_unpack"] += counts[1]
+                ok[f"{key} launches {counts} == {expect}"] = counts == expect
+                for op in REORDER_OPS:
+                    launches[op] += counts[op]
         w = math.prod(COLL_TILED) // n          # elements per rank pair
         t = X[rank, :, :w].reshape(COLL_TILED).contiguous()
         c = COLL_TILED[1] // n
@@ -1147,12 +1249,13 @@ def phase_collective(results) -> dict:
         fail(f"[collective] wrong on CUDA tensors: {bad}")
     n_checks = len(results[0]["collective"]["ok"])
     launches = {k: sum(r["collective"]["launches"][k] for r in results)
-                for k in ("datatype_pack", "datatype_unpack")}
+                for k in REORDER_OPS}
     log(f"[collective] gloo took CUDA tensors; {n_checks} checks per rank "
         f"x {WORLD} ranks agree bit for bit (direct, factorized natural/"
         f"paper in every round order, reverse, tiled, all_gather, "
-        f"reduce_scatter on (2,2) and (4,)); pack and unpack launched once "
-        f"per round; launches over all ranks {launches}")
+        f"reduce_scatter on (2,2) and (4,)); each call launched the passes "
+        f"round_schedule lists (2 on (2,2), 0 on (4,)); launches over all "
+        f"ranks {launches}")
     return launches
 
 
@@ -1161,8 +1264,10 @@ def phase_moe_ep(results, seed: int) -> dict:
     on all tokens in this process; check the launch counts."""
     from repro_torch.models.moe import moe_block
     cfg = _ep_config()
+    # the layer's plan runs rounds (0, 1) forward and (1, 0) in reverse
     per_rank = _expected(grouped_matmul=3, grouped_matmul_wgmma=3,
-                         datatype_pack=4, datatype_unpack=4)
+                         **_schedule_launches((2, 2), "natural",
+                                              ((0, 1), (1, 0))))
     for rank, r in enumerate(results):
         if r["moe_ep"]["counts"] != per_rank:
             fail(f"[moe_ep] rank {rank} launched {r['moe_ep']['counts']}, "

@@ -36,6 +36,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.kernels.block_reorder import to_group_order, to_torus_order
+
 from . import plan as _planmod
 from . import telemetry
 from .cache import (
@@ -66,13 +68,6 @@ GATHER_BACKENDS = ("tuned", "direct", "factorized")
 # ---------------------------------------------------------------------------
 
 
-def _torus_order(grp, out):
-    """Reorder dim 0 of a gather result from group-rank to torus order."""
-    if grp.order is None:
-        return out
-    return out[torch.tensor(grp.order, device=out.device)]
-
-
 def _allgather_impl(x, fact: TorusFactorization, *, round_order=None):
     """d-stage dimension-wise all-gather: ``x`` is this rank's
     ``(*block)`` contribution; returns ``(p, *block)`` with ``out[i]`` =
@@ -95,7 +90,8 @@ def _allgather_impl(x, fact: TorusFactorization, *, round_order=None):
                           device=x.device)
         dist.all_gather_into_tensor(out, src.reshape(1, -1),
                                     group=groups[k].pg)
-        out = _torus_order(groups[k], out).reshape((sizes[k],) + src.shape)
+        out = to_torus_order(out, groups[k].order).reshape(
+            (sizes[k],) + src.shape)
         view = out.squeeze(pos + 1).movedim(0, pos)
     return view.reshape((fact.p,) + tuple(x.shape))
 
@@ -107,7 +103,8 @@ def _direct_allgather_impl(x, fact: TorusFactorization):
     out = torch.empty((fact.p, x.numel()), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x.reshape(1, -1).contiguous(),
                                 group=fact.group.pg)
-    return _torus_order(fact.group, out).reshape((fact.p,) + tuple(x.shape))
+    return to_torus_order(out, fact.group.order).reshape(
+        (fact.p,) + tuple(x.shape))
 
 
 def _reduce_scatter_impl(x, fact: TorusFactorization, *, round_order=None):
@@ -132,9 +129,7 @@ def _reduce_scatter_impl(x, fact: TorusFactorization, *, round_order=None):
     for k in order:
         pos = d - 1 - k
         src = view.movedim(pos, 0)
-        if groups[k].order is not None:       # group-rank order
-            src = src[torch.argsort(torch.tensor(groups[k].order,
-                                                 device=x.device))]
+        src = to_group_order(src, groups[k].order)
         out = torch.empty((1, src[0].numel()), dtype=x.dtype,
                           device=x.device)
         dist.reduce_scatter_tensor(
@@ -148,10 +143,7 @@ def _direct_reduce_scatter_impl(x, fact: TorusFactorization):
     """Baseline: one reduce-scatter over the product communicator."""
     if fact.group is None:
         return x[0]
-    src = x
-    if fact.group.order is not None:
-        src = x[torch.argsort(torch.tensor(fact.group.order,
-                                           device=x.device))]
+    src = to_group_order(x, fact.group.order)
     out = torch.empty((1, x[0].numel()), dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, src.reshape(fact.p, -1).contiguous(),
                                group=fact.group.pg)

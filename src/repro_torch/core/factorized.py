@@ -15,9 +15,14 @@ whole torus.
 
 Where the reference lets ``lax.all_to_all`` split and concatenate any axis
 of a block view in place, ``all_to_all_single`` takes one contiguous
-buffer split along dim 0 (it refuses a strided view).  So round ``k`` is
-pack → exchange over dimension ``k``'s group → unpack, the pack and unpack
-being the derived-datatype kernel (``kernels.ops.pack_round`` /
+buffer split along dim 0 (it refuses a strided view).  So the buffer is
+reordered at the round boundaries: round ``k``'s exchange needs its
+messages packed, and what it receives is unpacked.  A d-round call makes
+the passes :func:`round_schedule` lists: the pack of the first round, one
+fused unpack-then-pack between two rounds, the unpack of the last, and
+none whose row map is the identity (the last torus dimension's pack and
+unpack always are), so d or d+1 passes instead of 2d.  They are the
+derived-datatype kernel (``kernels.ops.pack_round`` / ``repack_round`` /
 ``unpack_round``, CUDA on a card).  The two variants differ only in the
 order of the upper digits inside a message:
 
@@ -38,10 +43,15 @@ aggregation per round and dimension-local traffic.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.block_reorder import (is_identity, row_map,
+                                               to_group_order,
+                                               to_torus_order)
 
 from .cache import PeerGroup, TorusFactorization
 
@@ -76,19 +86,63 @@ def _require_groups(fact: TorusFactorization) -> None:
             "groups: build the plan or comm from a DeviceMesh to run it")
 
 
+def _all_to_all(x, grp: PeerGroup):
+    """``all_to_all_single`` over ``grp`` in its own rank order."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=grp.pg)
+    return out
+
+
 def exchange(x, grp: PeerGroup):
     """``all_to_all_single`` over ``grp``: chunk ``t`` of ``x``'s dim 0
     goes to torus member ``t``; chunk ``t`` of the result came from it.
     ``x`` must be contiguous; the result is a fresh buffer."""
-    n = grp.size
-    if grp.order is not None:          # group ranks != torus order
-        order = torch.tensor(grp.order, device=x.device)
-        x = x.reshape(n, -1)[torch.argsort(order)].reshape(x.shape)
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=grp.pg)
-    if grp.order is not None:
-        out = out.reshape(n, -1)[order].reshape(x.shape)
-    return out
+    return to_torus_order(_all_to_all(to_group_order(x, grp.order), grp),
+                          grp.order)
+
+
+@functools.lru_cache(maxsize=256)
+def round_schedule(dims: tuple[int, ...], order=None,
+                   variant: Variant = "natural") -> tuple:
+    """The reorder passes of one d-round call on the torus ``dims`` (its
+    active dimensions, all of size > 1) with rounds in ``order``, as
+    ``(k_unpack, k_pack)`` pairs in the order they run: the pack of
+    ``order[0]`` (``(None, order[0])``), the fused unpack of ``order[i]``
+    and pack of ``order[i + 1]``, the unpack of ``order[-1]``
+    (``(order[-1], None)``), without every pass whose row map is the
+    identity.  The last dimension's pack and unpack are, so a call makes
+    d or d+1 passes (none on a one-dimensional torus)."""
+    dims = tuple(dims)
+    if any(s < 2 for s in dims):
+        raise ValueError(f"round_schedule takes the active dims (size > 1), "
+                         f"got {dims}")
+    order = _check_order(order, len(dims))
+    bounds = list(zip((None,) + order, order + (None,)))
+    return tuple((ku, kp) for ku, kp in bounds
+                 if not is_identity(row_map(dims, ku, kp, variant)))
+
+
+def _reorder(buf, sizes, variant, ku, kp, groups, fused: bool):
+    """The round boundary between the exchanges of round ``ku`` and round
+    ``kp`` (``None``: the call's start or end).  A ``fused`` boundary is
+    one pass of the kernel, with the groups' rank orders folded into its
+    map; any other only puts the chunks into the next group's order."""
+    recv = groups[ku] if ku is not None else None
+    send = groups[kp] if kp is not None else None
+    if not fused:
+        if recv is not None:
+            buf = to_torus_order(buf, recv.order)
+        return buf if send is None else to_group_order(buf, send.order)
+    kw = dict(variant=variant)
+    if recv is not None:
+        kw["recv_order"] = recv.order
+    if send is not None:
+        kw["send_order"] = send.order
+    if ku is None:
+        return kops.pack_round(buf, sizes, kp, **kw)
+    if kp is None:
+        return kops.unpack_round(buf, sizes, ku, **kw)
+    return kops.repack_round(buf, sizes, ku, kp, **kw)
 
 
 def _direct_impl(x, fact: TorusFactorization):
@@ -99,31 +153,39 @@ def _direct_impl(x, fact: TorusFactorization):
     return exchange(x.contiguous(), fact.group)
 
 
+def _active(fact: TorusFactorization, x):
+    """The active dims' sizes and groups, after the argument checks."""
+    _require_groups(fact)
+    if x.shape[0] != fact.p:
+        raise ValueError(f"leading dim {x.shape[0]} != prod(dims)={fact.p} "
+                         f"({fact.dims})")
+    _, sizes = _skip_trivial(fact.axis_names, fact.dims)
+    return sizes, [g for g in fact.dim_groups if g is not None]
+
+
 def _factorized_round_impl(x, fact: TorusFactorization, k: int, *,
                            variant: Variant = "natural"):
     """Exactly one dimension-wise round (active round index ``k``): pack,
-    exchange over that dimension's group, unpack.  Every round returns
-    the buffer to the canonical ``(p, *block)`` layout, so composing
-    rounds in any order is bit-identical to the fused d-round call."""
-    _require_groups(fact)
-    p = fact.p
-    if x.shape[0] != p:
-        raise ValueError(f"leading dim {x.shape[0]} != prod(dims)={p} "
-                         f"({fact.dims})")
-    active = [i for i, s in enumerate(fact.dims) if s > 1]
-    if not 0 <= k < len(active):
-        raise ValueError(f"round index {k} outside 0..{len(active) - 1}")
-    sizes = tuple(fact.dims[i] for i in active)
-    flat = x.reshape(p, -1)
-    packed = kops.pack_round(flat.contiguous(), sizes, k, variant=variant)
-    recv = exchange(packed, fact.dim_groups[active[k]])
-    return kops.unpack_round(recv, sizes, k, variant=variant) \
-        .reshape(x.shape)
+    exchange over that dimension's group, unpack, each reorder skipped
+    where its map is the identity.  Every round returns the buffer to the
+    canonical ``(p, *block)`` layout, so composing rounds in any order is
+    bit-identical to the fused d-round call."""
+    sizes, groups = _active(fact, x)
+    if not 0 <= k < len(sizes):
+        raise ValueError(f"round index {k} outside 0..{len(sizes) - 1}")
+    buf = x.reshape(fact.p, -1).contiguous()
+    for ku, kp in ((None, k), (k, None)):
+        fused = not is_identity(row_map(sizes, ku, kp, variant))
+        buf = _reorder(buf, sizes, variant, ku, kp, groups, fused)
+        if kp is not None:
+            buf = _all_to_all(buf, groups[kp])
+    return buf.reshape(x.shape)
 
 
 def _factorized_impl(x, fact: TorusFactorization, *,
                      variant: Variant = "natural", round_order=None):
-    """d-round torus all-to-all of ``p`` blocks (Algorithm 1).
+    """d-round torus all-to-all of ``p`` blocks (Algorithm 1), with the
+    reorder passes of :func:`round_schedule`.
 
     Args:
       x: local ``(p, *block)`` tensor; ``p`` = product of the torus dims.
@@ -137,11 +199,16 @@ def _factorized_impl(x, fact: TorusFactorization, *,
     """
     if variant not in ("natural", "paper"):
         raise ValueError(f"unknown variant {variant!r}")
-    _, sizes = _skip_trivial(fact.axis_names, fact.dims)
+    sizes, groups = _active(fact, x)
     order = _check_order(round_order, len(sizes))
-    for k in order:
-        x = _factorized_round_impl(x, fact, k, variant=variant)
-    return x
+    passes = round_schedule(sizes, order, variant)
+    buf = x.reshape(fact.p, -1).contiguous()
+    for ku, kp in zip((None,) + order, order + (None,)):
+        buf = _reorder(buf, sizes, variant, ku, kp, groups,
+                       (ku, kp) in passes)
+        if kp is not None:
+            buf = _all_to_all(buf, groups[kp])
+    return buf.reshape(x.shape)
 
 
 def _tiled(x, fact, split_axis, concat_axis, run):

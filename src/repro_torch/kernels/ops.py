@@ -24,6 +24,7 @@ import contextlib
 import torch
 
 from .block_reorder import (datatype_pack, datatype_pack_plain,
+                            datatype_repack, datatype_repack_plain,
                             datatype_unpack, datatype_unpack_plain)
 from .flash_attention import flash_attention, flash_attention_plain
 from .flash_attention_bwd import FlashAttentionFn
@@ -77,13 +78,25 @@ def expert_matmul(lhs, rhs, *, impl=None):
     return grouped_matmul(lhs, rhs)
 
 
-def pack_round(x, dims, k: int, *, variant: str = "paper", impl=None):
+def pack_round(x, dims, k: int, *, variant: str = "paper", send_order=None,
+               impl=None):
     """Round ``k``'s datatype pack of a contiguous ``(p, B)`` buffer."""
     fn = datatype_pack_plain if _plain(impl) else datatype_pack
-    return fn(x, dims=dims, k=k, variant=variant)
+    return fn(x, dims=dims, k=k, variant=variant, send_order=send_order)
 
 
-def unpack_round(y, dims, k: int, *, variant: str = "paper", impl=None):
+def unpack_round(y, dims, k: int, *, variant: str = "paper",
+                 recv_order=None, impl=None):
     """Inverse of :func:`pack_round`."""
     fn = datatype_unpack_plain if _plain(impl) else datatype_unpack
-    return fn(y, dims=dims, k=k, variant=variant)
+    return fn(y, dims=dims, k=k, variant=variant, recv_order=recv_order)
+
+
+def repack_round(y, dims, k_unpack: int, k_pack: int, *,
+                 variant: str = "paper", recv_order=None, send_order=None,
+                 impl=None):
+    """The boundary between two rounds in one pass:
+    ``pack_round(unpack_round(y, dims, k_unpack), dims, k_pack)``."""
+    fn = datatype_repack_plain if _plain(impl) else datatype_repack
+    return fn(y, dims=dims, k_unpack=k_unpack, k_pack=k_pack,
+              variant=variant, recv_order=recv_order, send_order=send_order)

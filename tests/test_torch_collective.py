@@ -29,7 +29,7 @@ WORLDS = {4: ((2, 2), ("a", "b")), 6: ((3, 2), ("a", "b")),
           12: ((2, 3, 2), ("a", "b", "c"))}
 CHECKS = ("rank_order", "direct", "factorized_natural", "factorized_paper",
           "reverse", "tiled", "sub", "all_gather", "reduce_scatter",
-          "registry")
+          "registry", "passes", "group_order")
 B = 3
 
 
@@ -137,7 +137,90 @@ def _world_checks(rank, n, dims, names):
         again.all_to_all((B,), torch.int64, backend="factorized")
         .forward(x), want)
     ok["registry"] &= cache.cache_stats()["groups_created"] == made
+
+    ok["passes"] = _passes_follow_the_schedule(mesh, names, x, want)
+    ok["group_order"] = _group_order_checks(n, dims, names, X)
     return {k: bool(v) for k, v in ok.items()}, outs
+
+
+def _passes_follow_the_schedule(mesh, names, x, want):
+    """Every factorized call makes exactly the reorder passes
+    ``round_schedule`` lists, in its order (counted at ``kernels.ops``)."""
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.core.factorized import round_schedule
+    from repro_torch.kernels import ops as kops
+
+    names_of = {"pack_round": lambda ku, kp: ku is None,
+                "unpack_round": lambda ku, kp: kp is None,
+                "repack_round": lambda ku, kp: None not in (ku, kp)}
+    saved = {name: getattr(kops, name) for name in names_of}
+    calls = []
+
+    def counting(name):
+        def fn(*args, **kwargs):
+            calls.append(name)
+            return saved[name](*args, **kwargs)
+        return fn
+
+    def kinds(passes):
+        return [next(n for n, f in names_of.items() if f(ku, kp))
+                for ku, kp in passes]
+
+    ok = True
+    for name in names_of:
+        setattr(kops, name, counting(name))
+    try:
+        for variant in ("natural", "paper"):
+            comm = torus_comm(mesh, names, variant=variant)
+            dims = comm.fact.dims
+            for order in itertools.permutations(range(len(dims))):
+                plan = comm.all_to_all((B,), torch.int64,
+                                       backend="factorized",
+                                       round_order=order)
+                for run, o in ((plan.forward, plan.order),
+                               (plan.reverse, plan.rev_order)):
+                    calls.clear()
+                    ok &= torch.equal(run(x), want)
+                    ok &= calls == kinds(round_schedule(dims, o, variant))
+    finally:
+        for name, fn in saved.items():
+            setattr(kops, name, fn)
+    return ok
+
+
+def _group_order_checks(n, dims, names, X):
+    """The same collectives over a mesh of the ranks in reverse order:
+    the groups' rank orders differ from the torus order, and the
+    factorized passes fold them into their maps."""
+    import torch.distributed as dist
+    from repro_torch.core.cache import cart_create
+    from repro_torch.core.comm import torus_comm
+
+    mesh = cart_create(list(reversed(range(n))), dims, names,
+                       device_type="cpu")
+    comm = torus_comm(mesh, names)
+    t = comm.rank
+    x, want = X[t].clone(), X[:, t]
+    ok = t == n - 1 - dist.get_rank()        # its place in the rank list
+    ok &= any(g is not None and g.order is not None
+              for g in comm.fact.dim_groups)
+    ok &= torch.equal(comm.all_to_all((B,), torch.int64, backend="direct")
+                      .forward(x), want)
+    for variant in ("natural", "paper"):
+        vcomm = torus_comm(mesh, names, variant=variant)
+        for order in itertools.permutations(range(len(dims))):
+            plan = vcomm.all_to_all((B,), torch.int64, backend="factorized",
+                                    round_order=order)
+            ok &= torch.equal(plan.forward(x), want)
+            ok &= torch.equal(plan.reverse(x), want)
+    G = X[:, 0]
+    for backend in ("direct", "factorized"):
+        ok &= torch.equal(comm.all_gather((B,), torch.int64,
+                                          backend=backend).forward(G[t]), G)
+        ok &= torch.equal(comm.reduce_scatter((B,), torch.int64,
+                                              backend=backend).forward(
+                                                  X[t]), X[:, t].sum(0))
+    return ok
 
 
 _RESULTS: dict = {}
