@@ -44,20 +44,49 @@ it fails:
              factorized call must launch the block-reorder passes that
              ``core.factorized.round_schedule`` lists for its round order
              (pack, fused repack, unpack; identity passes skipped: 2 a
-             call on (2,2), none on (4,)).
+             call on (2,2), none on (4,)).  The overlap engine
+             (``backend="pipelined"`` and ``"overlap"``, both variants,
+             n_chunks 2 and 3, where 3 shrinks to 2 chunks of the
+             1000-element block) through forward, reverse, tiled and
+             ``overlap(compute_fn=2x+1)`` must equal the factorized plan
+             and the definition bit for bit, each call launching n_chunks
+             times round_schedule's passes.  The ragged and the sparse
+             Alltoallv (bucketed forward and reverse; ragged over the
+             factorized, overlap and direct data plans) on seeded send
+             counts with zeros and whole empty lanes: every counted row
+             must carry the simulator oracle's tag, ``recv_counts`` must
+             be the count matrix's column, and the launches must be the
+             counts phase's and the data rounds' passes.
 7. moe_ep  — in the same world, phi3.5-moe's MoE layer at full width with
              expert parallelism over (data=2, pod=2): each rank holds 4 of
              the 16 experts and 512 tokens (B=1, S=512).  Cuts: one layer,
-             capacity_factor 8 (no token drops), a2a_backend "factorized"
-             (the config's "tuned" resolves to the overlap engine, not
-             ported).  The gathered output must match the same layer with
-             mesh=None on all 2048 tokens in one process within 2e-2 of
-             the largest |y|, the aux loss within 1e-3; the gmm and
-             block-reorder kernels must have been launched as predicted
-             (per rank per call 3 gmm and round_schedule's passes: the
-             forward's pack and repack, the reverse's repack and
-             unpack).
-8. train   — after the world has ended: ``launch/train.py``'s
+             capacity_factor 8 (no token drops, so that the one-process
+             layer is a reference).  The configuration's own a2a_backend
+             "tuned" must resolve to the overlap engine (its describe()
+             is printed), which pipelines dispatch, expert FFN and
+             combine per capacity chunk.  The gathered output must match
+             the same layer with mesh=None on all 2048 tokens in one
+             process within 2e-2 of the largest |y|, the aux loss within
+             1e-3; the largest |y| difference to the same call with
+             a2a_backend "factorized" is printed; per rank per call the
+             gmm must launch 3 times per chunk (in the variant
+             ``moe_gmm.variant`` gives the chunk's rows) and the block
+             reorder n_chunks times round_schedule's passes each way;
+             the factorized call 3 times and one set of passes each way.
+             The overlap call, the factorized call and the dropless call
+             of phase 8 are profiled on rank 0 (device and wall time,
+             the port's profiler spans such as each Alltoallv counts
+             exchange, the overlap engine's chunk copies and joins).
+8. moe_dropless — in the same world, the same layer with
+             capacity_factor=None (dropless) and a2a_backend "tuned",
+             512 tokens per rank: ``moe_dropless_a2a_plan`` picks the
+             ragged or the sparse Alltoallv (printed, with the plan's
+             expected and the call's measured occupancy).  The gathered
+             output must match the mesh=None dropless layer on all 2048
+             tokens within 2e-2 of the largest |y|, the aux loss within
+             1e-3; the launches must be 3 gmm and the counts phase's and
+             data rounds' block-reorder passes each way.
+9. train   — after the world has ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
              parameters, 32.8 GB of state before activations), remat on,
@@ -122,11 +151,12 @@ grouped matmul's backward (``GroupedMatmulFn``, whose products read
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
 unpack and the fused unpack-then-pack between rounds) against its plain
-versions, bit for bit, at every buffer phases 6-7 reorder (their shapes
+versions, bit for bit, at every buffer phases 6-8 reorder (their shapes
 derived from the same constants and config), at the EP buffers of
 phi3.5-moe serving, the paper's tori and odd sizes, every round and every
 ordered pair of rounds; it times the passes of a (2,2) call at the
-[moe_ep], EP prefill and EP decode buffers against the bound, the plain
+[moe_ep] overlap chunk (also the dropless data chunk), the whole [moe_ep]
+buffer, EP prefill and EP decode buffers against the bound, the plain
 version and ``index_select`` with the same row map, with each decode-size
 call's host µs beside its kernel µs.
 
@@ -159,13 +189,19 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16, published
 DEVICE = "cuda"
 ARCH = "phi3.5-moe-42b"
+SPAN_PREFIX = "repro_torch."       # the port's torch.profiler spans
 N_LAYERS = 4
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 WORLD = 4                          # ranks of the collective phases
 EP_TOKENS = 512                    # tokens per rank in [moe_ep]
+EP_PAIRS = 6                       # [moe_ep]'s warm (overlap, factorized)
 COLL_TORI = (((2, 2), ("data", "pod")), ((4,), ("x",)))   # [collective]
 COLL_B = 1000                      # [collective]'s f32 block per rank pair
 COLL_TILED = (2, 2 * WORLD, 2)     # [collective]'s tiled input, split dim 1
+COLL_CHUNKS = (2, 3)               # [collective]'s n_chunks (3 shrinks)
+COLL_ROW = (16,)                   # [collective]'s Alltoallv row, f32
+COLL_MAX_COUNT = 5                 # [collective]'s Alltoallv bound: bucket 8
+COLL_COUNTS = (8, 0.25)            # seed, density of its send counts
 TRAIN_LAYERS = 2                   # [train]: AdamW state must fit one card
 TRAIN_B, TRAIN_S = 2, 2048         # [train]'s batch (the copy task)
 TRAIN_STEPS = 4                    # [train]'s Trainer.run, checkpoint at 2
@@ -271,6 +307,7 @@ def phase_kernels(gen):
             if K == 4096:    # the SIMT variant at the same shape, timed
                 cases.append(_gmm_case(f"gmm {phase}", a, b, force="simt"))
             del a, b
+    cases += _path_gmm_cases(gen)
     _gmm_sweep(gen)
     cases += _gmm_backward_cases(gen)
     for v in VARIANTS:       # each variant's first row: prefill, decode
@@ -772,34 +809,95 @@ def _reorder_timed(gen, dims, B, dtype, label):
     return list(rows.values())
 
 
-def _path_reorder_cases():
-    """(dims, B, dtype, label) of every (p, B) buffer that phases 6-7
-    pack and unpack, derived from the same constants and config."""
-    from repro_torch.models.moe import _capacity
-    cfg = _ep_config()
+def _ep_geometry() -> dict:
+    """What phases 7 and 8 run per rank, from the same constants and
+    config and from the plans they resolve (from the dims alone: the same
+    resolution): experts per rank, [moe_ep]'s capacity, tuned plan and
+    chunk count, and [moe_dropless]'s capacity and plan."""
+    from repro_torch.models.moe import (_capacity, moe_a2a_plan,
+                                        moe_dropless_a2a_plan)
+    cfg, axes = _ep_config(), ("data", "pod")
     E_loc = cfg.n_experts // WORLD
     C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, WORLD))
-    cases = [((2, 2), E_loc * C * cfg.d_model, cfg.cdtype,
-              f" (moe_ep, C={C})")]
-    for dims, _ in COLL_TORI:
-        cases += [(dims, COLL_B, torch.float32, " (collective)"),
-                  (dims, math.prod(COLL_TILED) // WORLD, torch.float32,
-                   " (collective, tiled)")]
+    plan = moe_a2a_plan(cfg, (2, 2), axes, E_loc, C)
+    dcfg = _ep_config(capacity_factor=None)
+    Cd = _capacity(dcfg, EP_TOKENS, max(dcfg.n_experts, WORLD))
+    return dict(cfg=cfg, E_loc=E_loc, C=C, plan=plan,
+                n=_n_chunks(C, plan.n_chunks), Cd=Cd,
+                dplan=moe_dropless_a2a_plan(dcfg, (2, 2), axes, E_loc, Cd,
+                                            EP_TOKENS))
+
+
+def _path_gmm_cases(gen) -> list:
+    """The expert FFN's gmm rows at the (E_loc, rows) shapes phases 7 and
+    8 run: [moe_ep]'s overlap chunk (WORLD*C/n rows), its factorized call
+    and the dropless window (WORLD*C rows each), w1/w3 and w2."""
+    g = _ep_geometry()
+    cfg, E_loc, C, n = g["cfg"], g["E_loc"], g["C"], g["n"]
+    D, F_ = cfg.d_model, cfg.d_ff
+    shapes = {}
+    for rows, label in ((WORLD * C // n, f"moe_ep {g['plan'].backend} "
+                         f"chunk"), (WORLD * C, "moe_ep factorized"),
+                        (WORLD * g["Cd"], "moe_dropless")):
+        shapes.setdefault(rows, []).append(label)
+    cases = []
+    for rows, labels in shapes.items():
+        for K, N in ((D, F_), (F_, D)):
+            a, b = _randn(gen, E_loc, rows, K), _randn(gen, E_loc, K, N)
+            cases.append(_gmm_case(f"gmm {', '.join(labels)}", a, b))
+            del a, b
     return cases
 
 
+def _path_reorder_cases():
+    """(dims, B, dtype, label) of every (p, B) buffer that phases 6-8
+    pack and unpack (``_ep_geometry`` for phases 7 and 8).  The first is
+    [moe_ep]'s overlap chunk, the main timed case."""
+    g = _ep_geometry()
+    cfg, E_loc, C, n, plan = g["cfg"], g["E_loc"], g["C"], g["n"], g["plan"]
+    D, cd = cfg.d_model, cfg.cdtype
+    cases = [((2, 2), E_loc * C // n * D, cd,
+              f" (moe_ep {plan.backend} chunk, C={C // n})"),
+             ((2, 2), E_loc * C * D, cd, f" (moe_ep factorized, C={C})")]
+    dplan = g["dplan"]
+    width = dplan.bucket * D
+    if dplan.backend in ("overlap", "pipelined"):
+        width //= _n_chunks(width, dplan.n_chunks)
+    cases += [((2, 2), width, cd, f" (moe_dropless {dplan.backend})"),
+              ((2, 2), WORLD, torch.int32, " (Alltoallv counts)")]
+    bucket_row = 8 * math.prod(COLL_ROW)      # bucket of COLL_MAX_COUNT
+    for dims, _ in COLL_TORI:
+        cases += [(dims, COLL_B, torch.float32, " (collective)"),
+                  (dims, math.prod(COLL_TILED) // WORLD, torch.float32,
+                   " (collective, tiled)"),
+                  (dims, bucket_row, torch.float32, " (collective ragged)")]
+        for nc in COLL_CHUNKS:
+            for B in (COLL_B, math.prod(COLL_TILED) // WORLD, bucket_row):
+                cases.append((dims, B // _n_chunks(B, nc), torch.float32,
+                              f" (collective overlap chunk, n={nc})"))
+    seen, out = set(), []
+    for case in cases:
+        if case[:3] not in seen:
+            seen.add(case[:3])
+            out.append(case)
+    return out
+
+
 def _reorder_kernels(gen):
-    """Phase 2's block-reorder part: the buffers of phases 6-7 (the
-    main rows are [moe_ep]'s), the EP buffers of phi3.5-moe serving on a
+    """Phase 2's block-reorder part: the buffers of phases 6-8 (the
+    main rows are [moe_ep]'s overlap chunk), the EP buffers of
+    phi3.5-moe serving on a
     (2,2) torus (E_loc=4, D=4096, bf16; C=4 at decode on 4 slots, C=640
     at prefill B*S=4096), the paper's tori at the sweep of
     benchmarks/zero_copy_cost.py, (36,32), and the CPU sweep's odd
     sizes, dtypes and a misaligned base."""
     t0 = time.perf_counter()
-    (dims, B, dtype, label), *coll = _path_reorder_cases()
+    (dims, B, dtype, label), full, *coll = _path_reorder_cases()
     _reorder_case(gen, dims, B, dtype, label)
     main = _reorder_timed(gen, dims, B, dtype, label)
     cases = list(main)
+    _reorder_case(gen, *full)
+    cases += _reorder_timed(gen, *full)
     for dims_, B_, dtype_, label_ in coll:
         _reorder_case(gen, dims_, B_, dtype_, label_)
     for B_, label_ in ((4 * 640 * 4096, " (MoE EP prefill, C=640)"),
@@ -1052,7 +1150,13 @@ def _profile(fn, label: str, per: int = 1, top: int = 8):
     rows = [(ev.self_device_time_total / 1e3, ev.key, ev.count)
             for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
+            and ev.self_device_time_total > 0
+            and not ev.key.startswith(SPAN_PREFIX)]
+    # the port's own spans (record_function), on the host's clock
+    spans = [(ev.key, ev.count, ev.cpu_time_total / 1e3)
+             for ev in prof.key_averages()
+             if ev.device_type == DeviceType.CPU
+             and ev.key.startswith(SPAN_PREFIX)]
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {label}: the profiler recorded no device time")
@@ -1062,6 +1166,9 @@ def _profile(fn, label: str, per: int = 1, top: int = 8):
     for ms, key, count in sorted(rows, reverse=True)[:top]:
         log(f"[profile]   {ms / per:8.3f} ms {100 * ms / busy:5.1f}% "
             f"x{count // per} {key[:90]}")
+    for key, count, ms in spans:
+        log(f"[profile]   span {key}: x{count // per}, {ms / per:.3f} ms "
+            f"of host time per call ({100 * ms / wall_ms:.1f}% of wall)")
 
 
 def phase_profile(model, params, cfg, tokens):
@@ -1084,7 +1191,7 @@ def phase_profile(model, params, cfg, tokens):
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the collective and expert-parallel MoE, 4 ranks on one card
+# phases 6-8: the collective and expert-parallel MoE, 4 ranks on one card
 # ---------------------------------------------------------------------------
 
 
@@ -1108,10 +1215,32 @@ def _ep_inputs(cfg, rank: int, seed: int):
     return router, x
 
 
-def _ep_config():
+def _ep_config(**changes):
+    """[moe_ep]'s configuration: phi3.5-moe's own (a2a_backend "tuned"),
+    capacity factor 8 so that no token drops; ``changes`` on top."""
     from repro_torch.configs import get_config
-    return get_config(ARCH).replace(capacity_factor=8.0,
-                                    a2a_backend="factorized")
+    return get_config(ARCH).replace(**{"capacity_factor": 8.0, **changes})
+
+
+def _ep_weights(cfg, v: int, E_loc: int, seed: int) -> dict:
+    """EP rank ``v``'s router and experts (all ranks draw the router)."""
+    router, _ = _ep_inputs(cfg, 0, seed)
+    w = [_expert_weights(cfg, e, seed) for e in
+         range(v * E_loc, (v + 1) * E_loc)]
+    return {"router": router,
+            **{name: torch.stack([we[i] for we in w])
+               for i, name in enumerate(("w1", "w3", "w2"))}}
+
+
+def _gmm_launches(cfg, E_loc: int, rows: int, n: int) -> dict:
+    """``n`` expert FFNs of ``rows`` rows per expert: 3 gmm each, in the
+    variants ``moe_gmm.variant`` gives them."""
+    from repro_torch.kernels.moe_gmm import variant
+    out = {"grouped_matmul": 3 * n}
+    for K, N in ((cfg.d_model, cfg.d_ff),) * 2 + ((cfg.d_ff, cfg.d_model),):
+        key = f"grouped_matmul_{variant(E_loc, rows, K, N, cfg.cdtype)}"
+        out[key] = out.get(key, 0) + n
+    return out
 
 
 REORDER_OPS = ("datatype_pack", "datatype_unpack", "datatype_repack")
@@ -1127,6 +1256,176 @@ def _schedule_launches(dims, variant, orders) -> dict:
             counts["datatype_pack" if ku is None else "datatype_unpack"
                    if kp is None else "datatype_repack"] += 1
     return counts
+
+
+def _n_chunks(size: int, n_chunks: int) -> int:
+    """Chunks the overlap engine cuts an extent of ``size`` into."""
+    from repro_torch.core.overlap import _split_chunks
+    return len(_split_chunks(torch.empty(1, size, device="meta"), 1,
+                             n_chunks))
+
+
+def _sum_launches(*counts) -> dict:
+    return {op: sum(c.get(op, 0) for c in counts) for op in REORDER_OPS}
+
+
+def _dense_launches(plan, reverse: bool, n_chunks: int = 1) -> dict:
+    """Block-reorder launches of one dense plan call: none for direct,
+    else ``n_chunks`` times round_schedule's passes."""
+    if plan.backend == "direct":
+        return dict.fromkeys(REORDER_OPS, 0)
+    active = tuple(s for s in plan.dims if s > 1)
+    order = plan.rev_order if reverse else plan.order
+    return _schedule_launches(active, plan.variant, (order,) * n_chunks)
+
+
+def _alltoallv_launches(plan, reverse: bool) -> dict:
+    """Block-reorder launches of one bucketed Alltoallv call: its counts
+    phase, then the data rounds — the data plan's (chunked under the
+    overlap engine) or the sparse plan's own, which reorder like one
+    factorized call."""
+    counts = _dense_launches(plan.counts_plan, False)   # forward both ways
+    if plan.backend == "sparse":
+        active = tuple(s for s in plan.dims if s > 1)
+        order = plan.rev_order if reverse else plan.order
+        return _sum_launches(counts, _schedule_launches(
+            active, plan.variant, (order,)))
+    n = 1
+    if plan.backend in ("overlap", "pipelined"):
+        n = _n_chunks(plan.bucket * math.prod(plan.row_shape), plan.n_chunks)
+    return _sum_launches(counts, _dense_launches(plan.data, reverse, n))
+
+
+def _reorder_launches() -> dict:
+    from repro_torch.kernels import block_reorder
+    return {op: getattr(block_reorder, op).launches for op in REORDER_OPS}
+
+
+def _zero_reorder_launches() -> None:
+    from repro_torch.kernels import block_reorder
+    for op in REORDER_OPS:
+        getattr(block_reorder, op).launches = 0
+
+
+def _coll_counts() -> np.ndarray:
+    """[collective]'s (4, 4) Alltoallv send counts: zeros, a rank that
+    sends nothing, and on both tori some lanes empty and some not."""
+    seed, density = COLL_COUNTS
+    rng = np.random.default_rng(seed)
+    c = rng.integers(1, COLL_MAX_COUNT + 1, (WORLD, WORLD)) \
+        * (rng.random((WORLD, WORLD)) < density)
+    c[1] = 0
+    return c.astype(np.int32)
+
+
+def _coll_payload(counts) -> torch.Tensor:
+    """Every rank's (p, max_count, *row) windows: the counted rows of
+    (s, t) carry the tag (s p + t) 64 + j + 1, the rest 0."""
+    p = counts.shape[0]
+    x = np.zeros((p, p, COLL_MAX_COUNT) + COLL_ROW, np.float32)
+    for s in range(p):
+        for t in range(p):
+            for j in range(int(counts[s, t])):
+                x[s, t, j] = (s * p + t) * 64 + j + 1
+    return torch.from_numpy(x)
+
+
+def _counted_rows_ok(recv, recv_counts, counts, rank: int) -> bool:
+    """Every counted row carries the simulator oracle's tag, and
+    ``recv_counts`` is the count matrix's column."""
+    from repro_torch.core.simulator import simulate_direct_alltoallv
+    p = counts.shape[0]
+    recv, recv_counts = recv.cpu(), recv_counts.cpu()
+    ok = torch.equal(recv_counts, torch.from_numpy(counts[:, rank].copy()))
+    for s, slot in enumerate(simulate_direct_alltoallv(counts.tolist())
+                             [rank]):
+        for j, (es, er, ej) in enumerate(slot):
+            ok &= bool((recv[s, j] == (es * p + er) * 64 + ej + 1).all())
+    return bool(ok)
+
+
+def _twice_plus_one(chunk, _c=0):
+    return 2 * chunk + 1
+
+
+def _overlap_checks(tag, mesh, names, x, want, t, want_t, ok, launches):
+    """[collective]'s overlap-engine part on one torus: every plan of
+    the engine against the factorized plan and the definition, and its
+    launches against n_chunks times round_schedule's passes."""
+    from repro_torch.core.comm import torus_comm
+    B = x.shape[1]
+    for variant in ("natural", "paper"):
+        comm = torus_comm(mesh, names, variant=variant)
+        fact = comm.all_to_all((B,), torch.float32, backend="factorized")
+        want_ov = fact.reverse(_twice_plus_one(fact.forward(x)))
+        for backend in ("pipelined", "overlap"):
+            for nc in COLL_CHUNKS:
+                plan = comm.all_to_all((B,), torch.float32, backend=backend,
+                                       n_chunks=nc)
+                n = _n_chunks(B, nc)
+                nt = _n_chunks(math.prod(t.shape) // WORLD, nc)
+                key = f"{tag} {backend} {variant} n_chunks={nc}"
+                calls = (
+                    ("forward", lambda: plan.forward(x), want,
+                     _dense_launches(plan, False, n)),
+                    ("reverse", lambda: plan.reverse(x), want,
+                     _dense_launches(plan, True, n)),
+                    ("tiled", lambda: plan.tiled(t, 1, 0), want_t,
+                     _dense_launches(plan, False, nt)),
+                    ("overlap", lambda: plan.overlap(x, _twice_plus_one),
+                     want_ov, _sum_launches(_dense_launches(plan, False, n),
+                                            _dense_launches(plan, True, n))))
+                for what, run, expect, predicted in calls:
+                    _zero_reorder_launches()
+                    got = run()
+                    counts = _reorder_launches()
+                    ok[f"{key} {what}"] = plan.backend == backend and \
+                        torch.equal(got, expect)
+                    ok[f"{key} {what} launches {counts} == {predicted}"] = \
+                        counts == predicted
+                    launches.update(_sum_launches(launches, counts))
+        ok[f"{tag} factorized {variant} overlap()"] = torch.equal(
+            fact.overlap(x, _twice_plus_one), want_ov)
+
+
+def _alltoallv_checks(tag, mesh, names, rank, ok, launches):
+    """[collective]'s Alltoallv part on one torus: ragged (three data
+    backends) and sparse, forward and reverse, on the seeded counts."""
+    from repro_torch.core.comm import torus_comm
+    counts = _coll_counts()
+    X = _coll_payload(counts).to(DEVICE)
+    x = X[rank].contiguous()
+    c = torch.from_numpy(counts[rank].copy()).to(DEVICE)
+    for variant in ("natural", "paper"):
+        comm = torus_comm(mesh, names, variant=variant)
+        plans = [comm.ragged_all_to_all(COLL_ROW, torch.float32,
+                                        max_count=COLL_MAX_COUNT,
+                                        backend=b, n_chunks=2)
+                 for b in ("factorized", "overlap", "direct")]
+        plans.append(comm.sparse_all_to_all(
+            COLL_ROW, torch.float32, max_count=COLL_MAX_COUNT,
+            density=COLL_COUNTS[1]))
+        sparse = plans[-1]
+        for reverse in (False, True):
+            masks = sparse.lane_masks(reverse, torch.device(DEVICE))
+            lanes = ((torch.from_numpy(counts).to(DEVICE) > 0) & masks) \
+                .flatten(1).any(1)
+            ok[f"{tag} {variant} counts leave some lanes empty"] = \
+                0 < int(lanes.sum()) < lanes.numel()
+        for plan in plans:
+            for reverse in (False, True):
+                key = (f"{tag} {plan.backend} {type(plan).__name__} "
+                       f"{variant} {'reverse' if reverse else 'forward'}")
+                _zero_reorder_launches()
+                run = plan.reverse if reverse else plan.forward
+                recv, rc = run(x, c)
+                got = _reorder_launches()
+                predicted = _alltoallv_launches(plan, reverse)
+                ok[key] = recv.device.type == DEVICE and _counted_rows_ok(
+                    recv, rc, counts, rank)
+                ok[f"{key} launches {got} == {predicted}"] = \
+                    got == predicted
+                launches.update(_sum_launches(launches, got))
 
 
 def _rank_collective(rank: int, n: int) -> dict:
@@ -1185,49 +1484,110 @@ def _rank_collective(rank: int, n: int) -> dict:
             ok[f"{tag} reduce_scatter {backend}"] = torch.equal(
                 comm.reduce_scatter((B,), torch.int32, backend=backend)
                 .forward(Xi[rank]), Xi[:, rank].sum(0, dtype=torch.int32))
+        _overlap_checks(tag, mesh, names, x, want, t, want_t, ok, launches)
+        _alltoallv_checks(tag, mesh, names, rank, ok, launches)
     return {"ok": {k: bool(v) for k, v in ok.items()},
             "launches": launches}
 
 
+def _timed_calls(call, rank: int, label: str, warm: int = 3) -> dict:
+    """One counted cold call of ``call``, ``warm`` warm ones, and a
+    profiled one on rank 0 (the other ranks run it unprofiled)."""
+    from repro_torch.core import telemetry
+    copies = {k: telemetry.metrics().counter(f"overlap.{k}")
+              for k in ("chunk_copies", "concat_copies")}
+    torch.cuda.synchronize()
+    _reset_counts()
+    before = {k: c.value for k, c in copies.items()}
+    (y, aux), cold_ms = _host_ms(call)
+    out = {"counts": _read_counts(), "cold_ms": cold_ms,
+           **{k: c.value - before[k] for k, c in copies.items()},
+           "y": y, "aux": float(aux)}
+    out["warm_ms"] = [_host_ms(call)[1] for _ in range(warm)]
+    if rank == 0:
+        _profile(call, f"{label}, rank 0 of 4 (overlap.chunk_copies "
+                 f"{out['chunk_copies']}, overlap.concat_copies "
+                 f"{out['concat_copies']} a call)")
+    else:
+        call()
+    return out
+
+
 def _rank_moe_ep(rank: int, n: int, seed: int) -> dict:
     """[moe_ep] on one rank: its 4 experts and 512 tokens through
-    ``moe_block`` with the (data=2, pod=2) mesh."""
+    ``moe_block`` with the (data=2, pod=2) mesh, under the config's
+    tuned plan and, for comparison, the factorized one."""
     from repro_torch.core.cache import cart_create
-    from repro_torch.models.moe import _group_geometry, moe_block, \
-        moe_ep_comm
+    from repro_torch.models.moe import _capacity, _group_geometry, \
+        moe_a2a_plan, moe_block, moe_ep_comm
     cfg = _ep_config()
     mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
     axes, G, E_loc, _ = _group_geometry(cfg, mesh)
-    v = moe_ep_comm(cfg, mesh, axes).rank
-    router, x = _ep_inputs(cfg, rank, seed)
-    w = [_expert_weights(cfg, e, seed) for e in
-         range(v * E_loc, (v + 1) * E_loc)]
-    p = {"router": router,
-         **{name: torch.stack([we[i] for we in w])
-            for i, name in enumerate(("w1", "w3", "w2"))}}
-    torch.cuda.synchronize()
-    _reset_counts()
-    (y, aux), cold_ms = _host_ms(lambda: moe_block(p, x, cfg, mesh=mesh))
-    counts = _read_counts()
-    warm = [_host_ms(lambda: moe_block(p, x, cfg, mesh=mesh))[1]
-            for _ in range(3)]
-    if rank == 0:     # the other ranks run the same call unprofiled
-        _profile(lambda: moe_block(p, x, cfg, mesh=mesh),
-                 "moe_ep layer call, rank 0 of 4")
-    else:
-        moe_block(p, x, cfg, mesh=mesh)
-    return {"y": y.float().cpu().numpy(), "aux": float(aux),
-            "counts": counts, "cold_ms": cold_ms, "warm_ms": warm,
-            "weight_gb": sum(t.numel() * t.element_size()
+    C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, G))
+    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    p = _ep_weights(cfg, moe_ep_comm(cfg, mesh, axes).rank, E_loc, seed)
+    _, x = _ep_inputs(cfg, rank, seed)
+    tuned = lambda: moe_block(p, x, cfg, mesh=mesh)
+    out = _timed_calls(tuned, rank, "moe_ep layer call (tuned: overlap)",
+                       warm=0)
+    fcfg = _ep_config(a2a_backend="factorized")
+    fplan = moe_a2a_plan(fcfg, mesh, axes, E_loc, C)
+    factorized = lambda: moe_block(p, x, fcfg, mesh=mesh)
+    fact = _timed_calls(factorized, rank, "moe_ep layer call (factorized)",
+                        warm=0)
+    # warm host ms of both plans in turns, each first in half the pairs
+    for i in range(EP_PAIRS):
+        for run, res in ((tuned, out), (factorized, fact))[::1 - 2 * (i % 2)]:
+            res["warm_ms"].append(_host_ms(run)[1])
+    n_chunks = _n_chunks(C, plan.n_chunks)
+    out.update(describe=plan.describe(), n_chunks=n_chunks, C=C,
+               predicted=_sum_launches(_dense_launches(plan, False, n_chunks),
+                                       _dense_launches(plan, True, n_chunks)),
+               dy_factorized=float((out["y"].float() - fact["y"]
+                                         .float()).abs().max()),
+               fact_warm_ms=fact["warm_ms"], fact_counts=fact["counts"],
+               fact_predicted=_sum_launches(_dense_launches(fplan, False),
+                                            _dense_launches(fplan, True)),
+               weight_gb=sum(t.numel() * t.element_size()
                              for t in p.values()) / 1e9,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["y"] = out["y"].float().cpu().numpy()
+    return out
+
+
+def _rank_moe_dropless(rank: int, n: int, seed: int) -> dict:
+    """[moe_dropless] on one rank: [moe_ep]'s experts and tokens through
+    the dropless layer (capacity_factor=None) under the tuned plan."""
+    from repro_torch.core.cache import cart_create
+    from repro_torch.models.moe import _capacity, _group_geometry, \
+        moe_block, moe_dropless_a2a_plan, moe_ep_comm
+    cfg = _ep_config(capacity_factor=None)
+    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, G))
+    plan = moe_dropless_a2a_plan(cfg, mesh, axes, E_loc, C, EP_TOKENS)
+    p = _ep_weights(cfg, moe_ep_comm(cfg, mesh, axes).rank, E_loc, seed)
+    _, x = _ep_inputs(cfg, rank, seed)
+    # this rank's send counts, as the layer's router makes them
+    top = torch.topk(torch.softmax(x[0].float() @ p["router"].float(), -1),
+                     cfg.top_k).indices
+    send = torch.bincount((top // E_loc).reshape(-1), minlength=G)
+    out = _timed_calls(lambda: moe_block(p, x, cfg, mesh=mesh), rank,
+                       f"moe_dropless layer call ({plan.backend})")
+    out.update(kind=type(plan).__name__, describe=plan.describe(), C=C,
+               occupancy=float(plan.occupancy(send.to(torch.int32))),
+               predicted=_sum_launches(_alltoallv_launches(plan, False),
+                                       _alltoallv_launches(plan, True)))
+    out["y"] = out["y"].float().cpu().numpy()
+    return out
 
 
 def _world_rank(rank: int, n: int, seed: int) -> dict:
-    """One rank of the 4-rank gloo world: phases 6 and 7."""
+    """One rank of the 4-rank gloo world: phases 6, 7 and 8."""
     torch.cuda.set_device(0)
     return {"collective": _rank_collective(rank, n),
-            "moe_ep": _rank_moe_ep(rank, n, seed)}
+            "moe_ep": _rank_moe_ep(rank, n, seed),
+            "moe_dropless": _rank_moe_dropless(rank, n, seed)}
 
 
 def run_world(seed: int, timeout: float = 600.0) -> list:
@@ -1253,25 +1613,20 @@ def phase_collective(results) -> dict:
     log(f"[collective] gloo took CUDA tensors; {n_checks} checks per rank "
         f"x {WORLD} ranks agree bit for bit (direct, factorized natural/"
         f"paper in every round order, reverse, tiled, all_gather, "
-        f"reduce_scatter on (2,2) and (4,)); each call launched the passes "
-        f"round_schedule lists (2 on (2,2), 0 on (4,)); launches over all "
-        f"ranks {launches}")
+        f"reduce_scatter; pipelined and overlap at n_chunks "
+        f"{COLL_CHUNKS} through forward, reverse, tiled and overlap(2x+1); "
+        f"ragged (factorized, overlap, direct data plans) and sparse "
+        f"Alltoallv forward and reverse, counted rows against the oracle; "
+        f"on (2,2) and (4,)); each call launched the passes round_schedule "
+        f"lists (2 a round set on (2,2), 0 on (4,)) once per chunk and "
+        f"per counts phase; launches over all ranks {launches}")
     return launches
 
 
-def phase_moe_ep(results, seed: int) -> dict:
+def _one_process_gate(phase: str, cfg, results, seed: int):
     """Hold the gathered EP output against the same layer with mesh=None
-    on all tokens in this process; check the launch counts."""
+    on all tokens in this process; returns (max |dy|, max |y|, aux)."""
     from repro_torch.models.moe import moe_block
-    cfg = _ep_config()
-    # the layer's plan runs rounds (0, 1) forward and (1, 0) in reverse
-    per_rank = _expected(grouped_matmul=3, grouped_matmul_wgmma=3,
-                         **_schedule_launches((2, 2), "natural",
-                                              ((0, 1), (1, 0))))
-    for rank, r in enumerate(results):
-        if r["moe_ep"]["counts"] != per_rank:
-            fail(f"[moe_ep] rank {rank} launched {r['moe_ep']['counts']}, "
-                 f"expected {per_rank}")
     router, _ = _ep_inputs(cfg, 0, seed)
     x = torch.cat([_ep_inputs(cfg, rank, seed)[1] for rank in range(WORLD)])
     w = [_expert_weights(cfg, e, seed) for e in range(cfg.n_experts)]
@@ -1280,37 +1635,113 @@ def phase_moe_ep(results, seed: int) -> dict:
             for i, name in enumerate(("w1", "w3", "w2"))}}
     del w
     y_ref, aux_ref = moe_block(p, x, cfg)
+    del p
     y_ref = y_ref.float().cpu().numpy()
-    y = np.concatenate([r["moe_ep"]["y"] for r in results])
+    y = np.concatenate([r[phase]["y"] for r in results])
     if y.shape != y_ref.shape or not np.isfinite(y).all():
-        fail(f"[moe_ep] output {y.shape} not finite {y_ref.shape}")
+        fail(f"[{phase}] output {y.shape} not finite {y_ref.shape}")
     scale = float(np.abs(y_ref).max())
     err = float(np.abs(y - y_ref).max())
     if err > 2e-2 * scale:
-        fail(f"[moe_ep] EP output differs from the one-process layer by "
+        fail(f"[{phase}] EP output differs from the one-process layer by "
              f"{err:.4g} (largest |y| {scale:.4g}; limit 2e-2 of it)")
-    aux = [r["moe_ep"]["aux"] for r in results]
+    aux = [r[phase]["aux"] for r in results]
     if any(abs(a - float(aux_ref)) > 1e-3 * abs(float(aux_ref))
            for a in aux):
-        fail(f"[moe_ep] aux {aux} vs {float(aux_ref):.6g}")
-    warm = [t for r in results for t in r["moe_ep"]["warm_ms"]]
+        fail(f"[{phase}] aux {aux} vs {float(aux_ref):.6g}")
+    return err, scale, aux[0], float(aux_ref)
+
+
+def _check_counts(phase: str, results, per_rank: dict,
+                  key: str = "counts") -> dict:
+    for rank, r in enumerate(results):
+        if r[phase][key] != per_rank:
+            fail(f"[{phase}] rank {rank} launched {r[phase][key]} "
+                 f"({key}), expected {per_rank}")
+    return {k: sum(r[phase][key][k] for r in results) for k in per_rank}
+
+
+def phase_moe_ep(results, seed: int) -> dict:
+    """The plan must be the overlap engine; the gathered output must match
+    the one-process layer; the launch counts must be the prediction."""
+    cfg = _ep_config()
     r0 = results[0]["moe_ep"]
+    desc, n = r0["describe"], r0["n_chunks"]
+    if desc["requested_backend"] != "tuned" or desc["backend"] != "overlap":
+        fail(f"[moe_ep] the config's a2a_backend "
+             f"{desc['requested_backend']!r} resolved to "
+             f"{desc['backend']!r}, expected the overlap engine")
+    log(f"[moe_ep] plan: {json.dumps(desc)}")
+    E_loc = cfg.n_experts // WORLD
+    per_rank = _expected(**_gmm_launches(cfg, E_loc, WORLD * r0["C"] // n,
+                                         n), **r0["predicted"])
+    total = _check_counts("moe_ep", results, per_rank)
+    # the factorized comparison call: one FFN on all rows, one set of passes
+    _check_counts("moe_ep", results, _expected(
+        **_gmm_launches(cfg, E_loc, WORLD * r0["C"], 1),
+        **r0["fact_predicted"]), key="fact_counts")
+    err, scale, aux, aux_ref = _one_process_gate("moe_ep", cfg, results,
+                                                 seed)
+    warm = [t for r in results for t in r["moe_ep"]["warm_ms"]]
+    fwarm = [t for r in results for t in r["moe_ep"]["fact_warm_ms"]]
+    won = sum(a < b for a, b in zip(warm, fwarm))
+    q = lambda v: "/".join(f"{t:.1f}" for t in np.percentile(v, (25, 50,
+                                                                 75)))
+    log(f"[moe_ep] warm host ms per call over {EP_PAIRS} pairs in turns x "
+        f"{WORLD} ranks, quartiles 25/50/75: overlap {q(warm)}, factorized "
+        f"{q(fwarm)}; overlap faster in {won} of {len(warm)} pairs "
+        f"(one card, gloo staging through the host: not an overlap "
+        f"measurement)")
     log(f"[moe_ep] {ARCH} MoE layer, EP over (data=2, pod=2), "
-        f"{EP_TOKENS} tokens x {WORLD} ranks, E_loc=4 ({r0['weight_gb']:.3f}"
-        f" GB of expert weights per rank): max |y - one-process y| "
-        f"{err:.4g} of max |y| {scale:.4g}; aux {aux[0]:.6f} vs "
-        f"{float(aux_ref):.6f}; host ms per call: first "
+        f"{EP_TOKENS} tokens x {WORLD} ranks, E_loc={E_loc} "
+        f"({r0['weight_gb']:.3f} GB of expert weights per rank), "
+        f"a2a_backend tuned -> overlap, {n} chunks of C={r0['C'] // n}: "
+        f"max |y - one-process y| {err:.4g} of max |y| {scale:.4g}; "
+        f"max |y - factorized y| "
+        f"{max(r['moe_ep']['dy_factorized'] for r in results):.4g}; aux "
+        f"{aux:.6f} vs {aux_ref:.6f}; host ms per call: first "
         f"{max(r['moe_ep']['cold_ms'] for r in results):.1f}, then median "
-        f"{float(np.median(warm)):.1f} (4 ranks share the card); launches "
-        f"per rank per call {r0['counts']}; peak memory per rank "
+        f"{float(np.median(warm)):.1f} (factorized "
+        f"{float(np.median(fwarm)):.1f}; 4 ranks share the card); "
+        f"launches per rank per call {r0['counts']} (factorized "
+        f"{r0['fact_counts']}); per call "
+        f"{r0['chunk_copies']} chunk copies and {r0['concat_copies']} "
+        f"concatenations; peak memory per rank "
         f"{r0['peak_gib']:.2f} GiB")
-    del p
-    return {k: sum(r["moe_ep"]["counts"][k] for r in results)
-            for k in per_rank}
+    return total
+
+
+def phase_moe_dropless(results, seed: int) -> dict:
+    """The dropless layer: the gate against the one-process dropless
+    layer and the launch counts."""
+    cfg = _ep_config(capacity_factor=None)
+    r0 = results[0]["moe_dropless"]
+    E_loc = cfg.n_experts // WORLD
+    per_rank = _expected(**_gmm_launches(cfg, E_loc, WORLD * r0["C"], 1),
+                         **r0["predicted"])
+    total = _check_counts("moe_dropless", results, per_rank)
+    err, scale, aux, aux_ref = _one_process_gate("moe_dropless", cfg,
+                                                 results, seed)
+    warm = [t for r in results for t in r["moe_dropless"]["warm_ms"]]
+    desc = r0["describe"]
+    log(f"[moe_dropless] plan: {json.dumps(desc)}")
+    log(f"[moe_dropless] {ARCH} MoE layer, capacity_factor=None, "
+        f"{EP_TOKENS} tokens x {WORLD} ranks: moe_dropless_a2a_plan chose "
+        f"{r0['kind']} (data backend {desc['backend']}, bucket "
+        f"{desc['bucket']}), expected occupancy "
+        f"{desc['expected_occupancy']:.4f}, measured "
+        f"{min(r['moe_dropless']['occupancy'] for r in results):.4f}-"
+        f"{max(r['moe_dropless']['occupancy'] for r in results):.4f}; "
+        f"max |y - one-process y| {err:.4g} of max |y| {scale:.4g}; aux "
+        f"{aux:.6f} vs {aux_ref:.6f}; host ms per call: first "
+        f"{max(r['moe_dropless']['cold_ms'] for r in results):.1f}, then "
+        f"median {float(np.median(warm)):.1f}; launches per rank per call "
+        f"{r0['counts']}")
+    return total
 
 
 # ---------------------------------------------------------------------------
-# phase 8: training at full width
+# phase 9: training at full width
 # ---------------------------------------------------------------------------
 
 
@@ -1714,7 +2145,8 @@ def main() -> int:
     world = run_world(seed)
     paths = {"prefill": prefill_counts, "serve": serve_counts,
              "collective": phase_collective(world),
-             "moe_ep": phase_moe_ep(world, seed)}
+             "moe_ep": phase_moe_ep(world, seed),
+             "moe_dropless": phase_moe_dropless(world, seed)}
     del world
     paths["train"] = phase_train()
     for name, entry in kernels.items():

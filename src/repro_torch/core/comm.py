@@ -14,18 +14,19 @@ exchanges.  :class:`TorusComm` makes it explicit over a ``DeviceMesh``:
   recursive; sub-comm all-to-all plans share the plan registry with
   their top-level equivalents.
 * ``comm.all_to_all`` builds the dense :class:`~repro_torch.core.plan
-  .A2APlan`; ``comm.all_gather`` / ``comm.reduce_scatter`` the
-  dimension-wise gather family: one all-gather / reduce-scatter per
-  torus dimension (``"factorized"``), or one over
-  the whole torus (``"direct"``).
+  .A2APlan`; ``comm.ragged_all_to_all`` / ``comm.sparse_all_to_all``
+  the Alltoallv plans (:class:`~repro_torch.core.plan.RaggedA2APlan`,
+  :class:`~repro_torch.core.plan.SparseA2APlan`); ``comm.all_gather`` /
+  ``comm.reduce_scatter`` the dimension-wise gather family: one
+  all-gather / reduce-scatter per torus dimension (``"factorized"``),
+  or one over the whole torus (``"direct"``).
 * ``comm.free()`` (or the context-manager form) is the delete callback;
   ``comm.stats()`` is the unified cache report.
 
 Like every collective here, construction is collective (it may create
 process groups) and execution is SPMD: every rank of the torus calls the
 same methods in the same order.  ``partition``, ``rebuild`` and the
-ragged, sparse, KV-migration and transpose factories wait for their
-slices (ROADMAP).
+KV-migration and transpose factories wait for their slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -209,8 +210,11 @@ class _DimwisePlan:
 
     def _executable(self) -> None:
         if self.n_chunks > 1:
-            raise _planmod.not_ported("overlap", f"{type(self).__name__} "
-                                      f"with n_chunks={self.n_chunks}")
+            # a gather's collectives are synchronous: in eager torch its
+            # chunks would overlap nothing, only multiply the calls
+            raise NotImplementedError(
+                f"{type(self).__name__} with n_chunks={self.n_chunks} is "
+                "not supported; use n_chunks=1")
         _require_groups(self.fact)
 
     def describe(self) -> dict:
@@ -462,6 +466,40 @@ class TorusComm:
             reverse_round_order=reverse_round_order, n_chunks=n_chunks,
             max_chunks=max_chunks, links=links,
             compute_seconds=compute_seconds))
+
+    def ragged_all_to_all(self, row_shape=(), dtype="float32", *,
+                          max_count: int, avg_count: float | None = None,
+                          backend: str = "tuned", round_order=None,
+                          reverse_round_order=None, n_chunks: int = 0,
+                          max_chunks: int = 8, links=None,
+                          compute_seconds: float = 0.0):
+        """Build (or fetch) the :class:`~repro_torch.core.plan
+        .RaggedA2APlan` (Alltoallv semantics) — see
+        :func:`~repro_torch.core.plan.plan_ragged_all_to_all` for the
+        knobs."""
+        return self._note(_planmod._build_ragged_plan(
+            self._source, self.axis_names, row_shape, dtype,
+            max_count=max_count, avg_count=avg_count, backend=backend,
+            variant=self.variant, round_order=round_order,
+            reverse_round_order=reverse_round_order, n_chunks=n_chunks,
+            max_chunks=max_chunks, links=links,
+            compute_seconds=compute_seconds))
+
+    def sparse_all_to_all(self, row_shape=(), dtype="float32", *,
+                          max_count: int, avg_count: float | None = None,
+                          density: float | None = None, round_order=None,
+                          reverse_round_order=None, links=None):
+        """Build (or fetch) the :class:`~repro_torch.core.plan
+        .SparseA2APlan` (the message-combining sparse-neighborhood
+        Alltoallv): the ragged counts phase plus skippable per-peer lanes
+        per round — see :func:`~repro_torch.core.plan
+        .plan_sparse_all_to_all` for the knobs (``density`` is the
+        expected non-zero fraction of the count matrix)."""
+        return self._note(_planmod._build_sparse_plan(
+            self._source, self.axis_names, row_shape, dtype,
+            max_count=max_count, avg_count=avg_count, density=density,
+            variant=self.variant, round_order=round_order,
+            reverse_round_order=reverse_round_order, links=links))
 
     def all_gather(self, block_shape=None, dtype=None, *,
                    backend: str = "tuned", round_order=None,

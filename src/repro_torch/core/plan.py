@@ -1,31 +1,41 @@
-"""A2APlan — the cached plan-object API for the dense all-to-all (the dense
-half of ``repro.core.plan``).
+"""The cached plan objects of every all-to-all the port runs (port of
+``repro.core.plan``): :class:`A2APlan` (dense), :class:`RaggedA2APlan`
+and :class:`SparseA2APlan` (``MPI_Alltoallv`` semantics).
 
 ``plan_all_to_all`` resolves, once per ``(ranks, axes, shape, dtype,
 knobs)`` key, the torus factorization (``core.cache``, with its process
 groups when a ``DeviceMesh`` is given), the backend — requested
 explicitly or chosen by the alpha-beta cost model (``backend="tuned"`` →
-``tuning.choose_algorithm``) — and the forward and reverse round orders,
-and returns an :class:`A2APlan` whose ``forward`` / ``reverse`` /
-``tiled`` methods are the execution surface (MoE dispatch and combine).
-Plans live in a bounded LRU registry; evicting the last plan over a
-factorization releases the descriptor (the paper's delete callback).
+``tuning.choose_algorithm``) — the forward and reverse round orders and
+the chunk count, and returns an :class:`A2APlan` whose ``forward`` /
+``reverse`` / ``tiled`` / ``overlap`` methods are the execution surface
+(MoE dispatch and combine).  ``direct``, ``factorized``, and the chunked
+overlap engine (``pipelined``, ``overlap``: ``core.overlap``) run; a plan
+requested as ``autotune`` resolves as the cost model would and raises
+``NotImplementedError`` when run, never running another backend in its
+place.
+
+``plan_ragged_all_to_all`` composes two dense plans over the same torus,
+the int32 counts plan and the bucket-padded data plan (``core.ragged``);
+``plan_sparse_all_to_all`` keeps the counts plan and replaces the data
+rounds with skippable per-peer lanes (``core.sparse``).  All plans live
+in one bounded LRU registry; evicting a composite plan drops its nested
+entries, and evicting the last plan over a factorization releases the
+descriptor (the paper's delete callback).
 
 Resolution is the reference's, line for line (same cost model, same
 keys), so ``describe()`` gives the reference's dict for every backend.
-Execution covers ``direct`` and ``factorized``: a plan that resolved to
-``pipelined`` or ``overlap`` — the chunked overlap engine — or that was
-requested as ``autotune`` raises ``NotImplementedError`` when run, and
-never runs another backend in its place.  The reference's ``host_fn``
-(a jitted call on a global ``(p, p, *block)`` array) has no SPMD
-counterpart here: each rank runs ``forward`` on its own ``(p, *block)``
-buffer.
+The reference's ``host_fn`` (a jitted call on a global ``(p, p, *block)``
+array) has no SPMD counterpart here: each rank runs ``forward`` on its
+own ``(p, *block)`` buffer.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable
 
+import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
@@ -35,6 +45,7 @@ from .cache import (
     TorusFactorization,
     device_fingerprint,
     get_factorization,
+    mesh_shape,
 )
 from .factorized import (
     _as_tuple,
@@ -45,6 +56,7 @@ from .factorized import (
     _factorized_tiled_impl,
     _skip_trivial,
 )
+from .overlap import _overlapped_impl, _overlapped_tiled_impl
 from .tuning import (
     LinkModel,
     Schedule,
@@ -52,6 +64,7 @@ from .tuning import (
     predict_direct,
     predict_factorized,
     predict_overlapped,
+    predict_sparse,
     resolve_links,
     slowest_active_link,
 )
@@ -59,8 +72,6 @@ from .tuning import (
 BACKENDS = ("tuned", "autotune", "direct", "factorized", "pipelined",
             "overlap")
 _NOT_PORTED = {
-    "overlap": "the overlap engine (ROADMAP queue 1 item 6)",
-    "pipelined": "the overlap engine (ROADMAP queue 1 item 6)",
     "autotune": "the tuning DB (ROADMAP queue 1 item 8)",
 }
 
@@ -86,7 +97,7 @@ def itemsize(dtype) -> int:
 def not_ported(backend: str, what: str):
     return NotImplementedError(
         f"{what} with backend {backend!r} needs {_NOT_PORTED[backend]}, "
-        "not ported yet; use backend='direct' or 'factorized'")
+        "not ported yet; use backend='tuned' or an explicit backend")
 
 
 class A2APlan:
@@ -161,8 +172,6 @@ class A2APlan:
     def _executable(self, what: str) -> None:
         if self.requested_backend == "autotune":
             raise not_ported("autotune", what)
-        if self.backend not in ("direct", "factorized"):
-            raise not_ported(self.backend, what)
 
     def _run(self, x, order):
         self._executable("A2APlan.forward/reverse")
@@ -171,8 +180,11 @@ class A2APlan:
                              f"({self.dims})")
         if self.backend == "direct":
             return _direct_impl(x, self.fact)
-        return _factorized_impl(x, self.fact, variant=self.variant,
-                                round_order=order)
+        if self.backend == "factorized":
+            return _factorized_impl(x, self.fact, variant=self.variant,
+                                    round_order=order)
+        return _overlapped_impl(x, self.fact, n_chunks=self.n_chunks,
+                                variant=self.variant, round_order=order)
 
     def tiled(self, x, split_axis: int, concat_axis: int, *,
               reverse: bool = False):
@@ -180,12 +192,31 @@ class A2APlan:
         chunks (chunk ``t`` -> torus rank ``t``) and concatenate what
         arrives source-major along ``concat_axis``."""
         self._executable("A2APlan.tiled")
+        order = self.rev_order if reverse else self.order
         if self.backend == "direct":
             return _direct_tiled_impl(x, self.fact, split_axis, concat_axis)
-        order = self.rev_order if reverse else self.order
-        return _factorized_tiled_impl(x, self.fact, split_axis, concat_axis,
+        if self.backend == "factorized":
+            return _factorized_tiled_impl(x, self.fact, split_axis,
+                                          concat_axis, variant=self.variant,
+                                          round_order=order)
+        return _overlapped_tiled_impl(x, self.fact, split_axis, concat_axis,
+                                      n_chunks=self.n_chunks,
                                       variant=self.variant,
                                       round_order=order)
+
+    def overlap(self, x, compute_fn: Callable | None = None, *,
+                reverse: bool = True, chunk_axis: int | None = None):
+        """Fused forward / per-chunk compute / reverse pipeline
+        (``core.overlap``): chunk ``c``'s forward rounds are issued next
+        to chunk ``c-1``'s compute and chunk ``c-2``'s reverse rounds.
+        Bit for bit ``reverse(compute_fn(forward(x)))``, since chunks
+        never interact."""
+        self._executable("A2APlan.overlap")
+        return _overlapped_impl(x, self.fact, n_chunks=self.n_chunks,
+                                variant=self.variant, round_order=self.order,
+                                compute_fn=compute_fn, reverse=reverse,
+                                reverse_round_order=self.rev_order,
+                                chunk_axis=chunk_axis)
 
     # -- introspection -----------------------------------------------------
 
@@ -231,19 +262,50 @@ class A2APlan:
 # ---------------------------------------------------------------------------
 
 
+def _sub_plans(plan) -> tuple:
+    """Nested plans a composite plan owns (ragged: data + counts; sparse:
+    counts only, its data rounds are its own)."""
+    if isinstance(plan, RaggedA2APlan):
+        return (plan.data, plan.counts_plan)
+    if isinstance(plan, SparseA2APlan):
+        return (plan.counts_plan,)
+    return ()
+
+
+def _plan_fact(plan):
+    """The factorization descriptor behind any plan kind."""
+    fact = getattr(plan, "fact", None)
+    return plan.data.fact if fact is None else fact
+
+
 def _release_fact(fact) -> None:
     """Drop the factorization registry entries for ``fact`` once no live
     plan uses it — the paper's delete callback (Listing 2's ``torusdel``),
     run from the plan layer so the two registries tear down together."""
     for q in _PLANS.values():
-        if q.fact == fact:
+        if _plan_fact(q) == fact:
             return
     from . import cache as _cache
     _cache.free(fact)
 
 
 def _on_plan_evict(plan) -> None:
-    _release_fact(plan.fact)
+    """Evicting (or dropping) a composite plan also drops its nested
+    plans' registry entries, unless another live composite still owns one
+    (two ragged plans over one torus share a counts plan); the last plan
+    over a factorization releases the descriptor."""
+    for subp in _sub_plans(plan):
+        key = getattr(subp, "_registry_key", None)
+        # only drop the entry if the registry still holds *this* object:
+        # after LRU churn a fresh equal-key plan may occupy the slot
+        if key is None or _PLANS._data.get(key) is not subp:
+            continue
+        if any(subp in _sub_plans(q) for q in _PLANS.values()):
+            continue
+        dropped = _PLANS.pop(key)
+        if dropped is not None:
+            _on_plan_evict(dropped)
+    _release_fact(_plan_fact(plan))
 
 
 _PLANS: LRUCache = LRUCache(capacity=256, on_evict=_on_plan_evict)
@@ -410,6 +472,568 @@ def _build_dense_plan(mesh_or_axis_dims, axis_names, block_shape=None,
                    n_chunks=n, block_shape=None if block_shape is None
                    else tuple(block_shape), dtype=dtype, links=link_models,
                    schedule=sched, tuned_from="model" if tuned else None)
+    return _registry_store(key, plan)
+
+
+# ---------------------------------------------------------------------------
+# Ragged (Alltoallv) plans
+# ---------------------------------------------------------------------------
+
+
+class RaggedA2APlan:
+    """A resolved, reusable ragged all-to-all (Alltoallv) plan.
+
+    Construct via :func:`plan_ragged_all_to_all` (or
+    ``TorusComm.ragged_all_to_all``); never directly.  It composes two
+    dense :class:`A2APlan` resolutions over the same torus — the tiny
+    int32 *counts* plan and the bucket-padded *data* plan — plus the
+    bucket, the power-of-two row bound that keeps every round
+    fixed-shape (``core.ragged``).  Cached in the same LRU registry.
+    """
+
+    def __init__(self, data: A2APlan, counts: A2APlan, *, max_count: int,
+                 avg_count: float, row_shape: tuple[int, ...], dtype,
+                 predicted_seconds: float | None):
+        self.data = data
+        self.counts_plan = counts
+        self.max_count = max_count
+        self.avg_count = avg_count
+        self.row_shape = row_shape
+        self.dtype = dtype
+        self.predicted_seconds = predicted_seconds
+        self._from_cache = False
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.data.axis_names
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return self.data.dims
+
+    @property
+    def p(self) -> int:
+        return self.data.p
+
+    @property
+    def d(self) -> int:
+        return self.data.d
+
+    @property
+    def bucket(self) -> int:
+        return self.data.block_shape[0]
+
+    @property
+    def backend(self) -> str:
+        return self.data.backend
+
+    @property
+    def variant(self) -> str:
+        return self.data.variant
+
+    @property
+    def n_chunks(self) -> int:
+        return self.data.n_chunks
+
+    @property
+    def tuned_from(self) -> str | None:
+        return self.data.tuned_from
+
+    @property
+    def row_bytes(self) -> int:
+        return math.prod(self.row_shape) * itemsize(self.dtype)
+
+    @property
+    def expected_occupancy(self) -> float:
+        return float(self.avg_count) / float(self.bucket)
+
+    # -- execution surface (collective: every rank of the torus) ----------
+
+    def counts_matrix(self, send_counts):
+        """The counts phase alone: ``(p,)`` int32 send counts -> the full
+        ``(p, p)`` matrix, identical on every rank."""
+        from .ragged import _counts_matrix_impl
+        return _counts_matrix_impl(send_counts, self.counts_plan)
+
+    def forward(self, x, send_counts):
+        """Bucketed ragged all-to-all: ``x`` is ``(p, m, *row)`` with
+        ``m <= bucket``, block ``i``'s rows destined for torus rank ``i``;
+        returns ``(recv, recv_counts)`` — ``recv[i]`` the ``(bucket,
+        *row)`` window received from rank ``i``."""
+        from .ragged import _bucketed_impl
+        return _bucketed_impl(x, send_counts, data_plan=self.data,
+                              counts_plan=self.counts_plan)
+
+    def reverse(self, x, send_counts):
+        """The combine-direction bucketed exchange (drain round order);
+        ``send_counts`` is typically the ``recv_counts`` of the matching
+        ``forward``."""
+        from .ragged import _bucketed_impl
+        return _bucketed_impl(x, send_counts, data_plan=self.data,
+                              counts_plan=self.counts_plan, reverse=True)
+
+    def occupancy(self, send_counts):
+        """Measured occupancy of one call (a tensor): useful rows over
+        ``p * bucket`` padded rows."""
+        from .ragged import bucket_occupancy
+        return bucket_occupancy(send_counts, self.bucket)
+
+    def exact(self, rows):
+        """The exact two-phase host path (``core.ragged
+        .exact_alltoallv``): global nested ``rows[s][d]`` arrays in, exact
+        per-pair arrays out — no bucket, no padding.  Runs the plan's
+        forward round order over the active dimensions."""
+        from .ragged import exact_alltoallv
+        active = [i for i, Dk in enumerate(self.dims) if Dk > 1]
+        trivial = [i for i, Dk in enumerate(self.dims) if Dk == 1]
+        full_order = [active[k] for k in self.data.order] + trivial
+        return exact_alltoallv(rows, self.dims, round_order=full_order)
+
+    # -- introspection -----------------------------------------------------
+
+    def describe(self) -> dict:
+        """Stable, JSON-serializable summary of the resolved ragged plan
+        (the reference's keys and values); ``expected_occupancy`` is the
+        plan-time ``avg_count / bucket``."""
+        return {
+            "kind": "ragged",
+            "axis_names": list(self.axis_names),
+            "dims": list(self.dims),
+            "p": self.p,
+            "d": self.d,
+            "backend": self.backend,
+            "requested_backend": self.data.requested_backend,
+            "variant": self.variant,
+            "round_order": list(self.data.order),
+            "reverse_round_order": list(self.data.rev_order),
+            "n_chunks": self.n_chunks,
+            "row_shape": list(self.row_shape),
+            "dtype": dtype_name(self.dtype),
+            "row_bytes": self.row_bytes,
+            "max_count": self.max_count,
+            "avg_count": self.avg_count,
+            "bucket": self.bucket,
+            "bucket_block_bytes": self.data.block_bytes,
+            "expected_occupancy": self.expected_occupancy,
+            "counts_backend": self.counts_plan.backend,
+            "counts_block_bytes": self.counts_plan.block_bytes,
+            "predicted_seconds": self.predicted_seconds,
+            "blocks_sent_per_device": self.data.fact
+            .blocks_sent_per_device(),
+            "links": [{"alpha": l.alpha, "bandwidth": l.bandwidth}
+                      for l in self.data.links],
+            "tuned_from": self.tuned_from,
+            "measured": None,        # no tuning DB yet
+            "drift_ratio": None,     # no drift detector yet
+            "cache": "hit" if self._from_cache else "miss",
+        }
+
+    def __repr__(self):
+        return (f"RaggedA2APlan(dims={self.dims}, axes={self.axis_names}, "
+                f"backend={self.backend!r}, bucket={self.bucket}, "
+                f"max_count={self.max_count})")
+
+
+def _bucket_and_avg(max_count, avg_count) -> tuple[int, int, float]:
+    from .ragged import next_pow2
+    max_count = int(max_count)
+    # Power-of-two bucket: any static bound keeps the rounds fixed-shape;
+    # snapping to pow2 bounds the set of distinct shapes (and plan-cache
+    # entries) across workloads whose max_count drifts.
+    bucket = next_pow2(max_count)
+    avg = float(max_count if avg_count is None else avg_count)
+    if not 0.0 < avg <= bucket:
+        raise ValueError(f"avg_count {avg} outside (0, bucket={bucket}]")
+    return max_count, bucket, avg
+
+
+def plan_ragged_all_to_all(mesh_or_axis_dims, axis_names, row_shape=(),
+                           dtype="float32", *, max_count: int,
+                           avg_count: float | None = None,
+                           backend: str = "tuned", variant: str = "natural",
+                           round_order=None, reverse_round_order=None,
+                           n_chunks: int = 0, max_chunks: int = 8,
+                           links=None,
+                           compute_seconds: float = 0.0) -> RaggedA2APlan:
+    """Build (or fetch from the LRU registry) a :class:`RaggedA2APlan`,
+    through the implicit communicator.  The knobs are
+    :func:`plan_all_to_all`'s, plus:
+
+      row_shape, dtype: shape / dtype of ONE ragged row (the unit the
+        per-pair counts count); ``()`` means scalar rows.
+      max_count: static upper bound on any ``send_counts`` entry.  The
+        bucket is its power-of-two round-up, so every round has a fixed
+        shape and no call reads the counts on the host.
+      avg_count: expected mean per-pair count, for
+        ``expected_occupancy`` and the ragged cost term (default
+        ``max_count``).
+      backend: resolves the *data* plan (padded ``(bucket, *row_shape)``
+        blocks) exactly like the dense API; the counts plan is always
+        resolved as "tuned" over its ``(p,)`` int32 block.
+    """
+    from .comm import torus_comm
+    return torus_comm(mesh_or_axis_dims, axis_names,
+                      variant=variant).ragged_all_to_all(
+        row_shape, dtype, max_count=max_count, avg_count=avg_count,
+        backend=backend, round_order=round_order,
+        reverse_round_order=reverse_round_order, n_chunks=n_chunks,
+        max_chunks=max_chunks, links=links,
+        compute_seconds=compute_seconds)
+
+
+def _build_ragged_plan(mesh_or_axis_dims, axis_names, row_shape=(),
+                       dtype="float32", *, max_count: int,
+                       avg_count: float | None = None,
+                       backend: str = "tuned", variant: str = "natural",
+                       round_order=None, reverse_round_order=None,
+                       n_chunks: int = 0, max_chunks: int = 8,
+                       links=None,
+                       compute_seconds: float = 0.0) -> RaggedA2APlan:
+    """The resolution behind ``TorusComm.ragged_all_to_all``: the bucket,
+    the nested dense data / counts plans, and the shared registry."""
+    axis_names = _as_tuple(axis_names)
+    if isinstance(mesh_or_axis_dims, DeviceMesh):
+        shape = mesh_shape(mesh_or_axis_dims)
+        dims = tuple(shape[n] for n in axis_names)
+        dev_key = device_fingerprint(mesh_or_axis_dims)
+    else:
+        dims = tuple(int(s) for s in mesh_or_axis_dims)
+        if len(dims) != len(axis_names):
+            raise ValueError(f"{len(dims)} dims for {len(axis_names)} axes")
+        dev_key = None
+    max_count, bucket, avg = _bucket_and_avg(max_count, avg_count)
+    row_shape = tuple(int(s) for s in row_shape)
+    p = math.prod(dims)
+
+    links_key = None if links is None else resolve_links(links, dims)
+    key = ("ragged", dev_key, dims, axis_names, row_shape,
+           dtype_name(dtype), max_count, avg, backend, variant,
+           None if round_order is None else tuple(round_order),
+           None if reverse_round_order is None
+           else tuple(reverse_round_order),
+           int(n_chunks), int(max_chunks), links_key,
+           float(compute_seconds))
+    cached = _registry_fetch(key)
+    if cached is not None:
+        return cached
+
+    data = _build_dense_plan(mesh_or_axis_dims, axis_names,
+                             (bucket,) + row_shape, dtype, backend=backend,
+                             variant=variant, round_order=round_order,
+                             reverse_round_order=reverse_round_order,
+                             n_chunks=n_chunks, max_chunks=max_chunks,
+                             links=links, compute_seconds=compute_seconds)
+    counts = _build_dense_plan(mesh_or_axis_dims, axis_names, (p,),
+                               torch.int32, backend="tuned", variant=variant,
+                               round_order=round_order,
+                               reverse_round_order=reverse_round_order,
+                               max_chunks=1, links=links)
+    predicted = None
+    if data.schedule is not None and counts.schedule is not None:
+        predicted = data.schedule.predicted_seconds \
+            + counts.schedule.predicted_seconds
+    plan = RaggedA2APlan(data, counts, max_count=max_count, avg_count=avg,
+                         row_shape=row_shape, dtype=dtype,
+                         predicted_seconds=predicted)
+    return _registry_store(key, plan)
+
+
+# ---------------------------------------------------------------------------
+# Sparse neighborhood (message-combining) Alltoallv plans
+# ---------------------------------------------------------------------------
+
+
+class SparseA2APlan:
+    """A resolved, reusable sparse-neighborhood Alltoallv plan.
+
+    Construct via :func:`plan_sparse_all_to_all` (or
+    ``TorusComm.sparse_all_to_all``); never directly.  It keeps the
+    ragged counts phase and bucket contract but splits each round into
+    its ``D[k] - 1`` per-peer lanes; a lane whose combined payload is
+    empty — read from the replicated counts matrix against the plan-time
+    ``round_message_masks`` — is skipped by every rank alike
+    (``core.sparse``).  ``forward`` / ``reverse`` take and return what
+    :class:`RaggedA2APlan`'s do, so the dropless MoE path runs either;
+    rows beyond ``recv_counts[i]`` are unspecified.
+    """
+
+    def __init__(self, fact: TorusFactorization, counts: A2APlan, *,
+                 max_count: int, avg_count: float, expected_density: float,
+                 row_shape: tuple[int, ...], dtype, order: tuple[int, ...],
+                 rev_order: tuple[int, ...], masks_fwd, masks_rev,
+                 links: tuple[LinkModel, ...],
+                 predicted_seconds: float | None):
+        self.fact = fact
+        self.counts_plan = counts
+        self.max_count = max_count
+        self.avg_count = avg_count
+        self.expected_density = expected_density
+        self.row_shape = row_shape
+        self.dtype = dtype
+        self.order = order
+        self.rev_order = rev_order
+        self._masks_fwd = masks_fwd
+        self._masks_rev = masks_rev
+        self.links = links
+        self.predicted_seconds = predicted_seconds
+        # Traffic stats of the last host-side analyze() / exact() call;
+        # None until the first analysis.
+        self.last_stats: dict | None = None
+        self._lane_masks: dict = {}     # (reverse, device) -> masks
+        self._from_cache = False
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.fact.axis_names
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return self.fact.dims
+
+    @property
+    def p(self) -> int:
+        return self.fact.p
+
+    @property
+    def d(self) -> int:
+        return self.fact.d
+
+    @property
+    def variant(self) -> str:
+        return self.fact.variant
+
+    @property
+    def backend(self) -> str:
+        return "sparse"
+
+    @property
+    def bucket(self) -> int:
+        from .ragged import next_pow2
+        return next_pow2(self.max_count)
+
+    @property
+    def round_order(self) -> tuple[int, ...]:
+        return self.order
+
+    @property
+    def reverse_round_order(self) -> tuple[int, ...]:
+        return self.rev_order
+
+    @property
+    def row_bytes(self) -> int:
+        return math.prod(self.row_shape) * itemsize(self.dtype)
+
+    @property
+    def expected_occupancy(self) -> float:
+        return float(self.avg_count) / float(self.bucket)
+
+    # -- execution surface (collective: every rank of the torus) ----------
+
+    def counts_matrix(self, send_counts):
+        """The counts phase alone: ``(p,)`` int32 send counts -> the full
+        ``(p, p)`` matrix, identical on every rank."""
+        from .ragged import _counts_matrix_impl
+        return _counts_matrix_impl(send_counts, self.counts_plan)
+
+    def forward(self, x, send_counts):
+        """Bucketed sparse all-to-all: :meth:`RaggedA2APlan.forward`'s
+        signature and result, with empty per-peer lanes skipped."""
+        from .sparse import _sparse_bucketed_impl
+        return _sparse_bucketed_impl(x, send_counts, plan=self)
+
+    def reverse(self, x, send_counts):
+        """The combine-direction sparse exchange (drain round order)."""
+        from .sparse import _sparse_bucketed_impl
+        return _sparse_bucketed_impl(x, send_counts, plan=self,
+                                     reverse=True)
+
+    def occupancy(self, send_counts):
+        """Measured occupancy of one call (a tensor): useful rows over
+        ``p * bucket`` padded rows."""
+        from .ragged import bucket_occupancy
+        return bucket_occupancy(send_counts, self.bucket)
+
+    def lane_masks(self, reverse: bool, device):
+        """The round message masks of one direction as one boolean
+        ``(lanes, p, p)`` tensor on ``device``, made once."""
+        key = (reverse, device)
+        if key not in self._lane_masks:
+            masks = self._masks_rev if reverse else self._masks_fwd
+            flat = [m for per_round in masks for m in per_round]
+            self._lane_masks[key] = torch.from_numpy(
+                np.stack(flat) if flat else np.zeros((0, self.p, self.p),
+                                                     bool)).to(device)
+        return self._lane_masks[key]
+
+    # -- host-level paths --------------------------------------------------
+
+    def _full_order(self, order) -> list[int]:
+        active = [i for i, Dk in enumerate(self.dims) if Dk > 1]
+        trivial = [i for i, Dk in enumerate(self.dims) if Dk == 1]
+        return [active[k] for k in order] + trivial
+
+    def analyze(self, counts) -> dict:
+        """Host-side traffic analysis of a concrete ``(p, p)`` count
+        matrix through the simulator's sparse oracle: density, skipped and
+        combined messages, whole skipped rounds.  Cached on the plan
+        (``describe()`` reports it)."""
+        from .sparse import sparse_traffic_stats
+        self.last_stats = sparse_traffic_stats(
+            self.dims, counts, round_order=self._full_order(self.order))
+        return self.last_stats
+
+    def exact(self, rows):
+        """The exact sparse host path (``core.sparse
+        .sparse_exact_alltoallv``): global nested ``rows[s][d]`` arrays
+        in, exact per-pair arrays out plus the per-round skip accounting
+        (also cached in :attr:`last_stats`)."""
+        from .sparse import sparse_exact_alltoallv
+        recv, counts, vol = sparse_exact_alltoallv(
+            rows, self.dims, round_order=self._full_order(self.order))
+        self.analyze(counts)
+        return recv, counts, vol
+
+    # -- introspection -----------------------------------------------------
+
+    def describe(self) -> dict:
+        """Stable, JSON-serializable summary of the resolved sparse plan
+        (the reference's keys and values); ``density`` and the skip
+        counts come from the last :meth:`analyze` / :meth:`exact`."""
+        stats = self.last_stats or {}
+        return {
+            "kind": "sparse",
+            "axis_names": list(self.axis_names),
+            "dims": list(self.dims),
+            "p": self.p,
+            "d": self.d,
+            "backend": "sparse",
+            "requested_backend": "sparse",
+            "variant": self.variant,
+            "round_order": list(self.order),
+            "reverse_round_order": list(self.rev_order),
+            "n_chunks": 1,
+            "row_shape": list(self.row_shape),
+            "dtype": dtype_name(self.dtype),
+            "row_bytes": self.row_bytes,
+            "max_count": self.max_count,
+            "avg_count": self.avg_count,
+            "bucket": self.bucket,
+            "expected_occupancy": self.expected_occupancy,
+            "expected_density": self.expected_density,
+            "density": stats.get("density"),
+            "skipped_rounds": stats.get("skipped_rounds"),
+            "combined_messages": stats.get("combined_messages"),
+            "skipped_exchanges": stats.get("skipped_exchanges"),
+            "total_exchanges": stats.get("total_exchanges"),
+            "counts_backend": self.counts_plan.backend,
+            "counts_block_bytes": self.counts_plan.block_bytes,
+            "predicted_seconds": self.predicted_seconds,
+            "blocks_sent_per_device": self.fact.blocks_sent_per_device(),
+            "links": [{"alpha": l.alpha, "bandwidth": l.bandwidth}
+                      for l in self.links],
+            "tuned_from": None,
+            "measured": None,
+            "drift_ratio": None,     # no drift detector yet
+            "cache": "hit" if self._from_cache else "miss",
+        }
+
+    def __repr__(self):
+        return (f"SparseA2APlan(dims={self.dims}, axes={self.axis_names}, "
+                f"bucket={self.bucket}, max_count={self.max_count}, "
+                f"expected_density={self.expected_density})")
+
+
+def plan_sparse_all_to_all(mesh_or_axis_dims, axis_names, row_shape=(),
+                           dtype="float32", *, max_count: int,
+                           avg_count: float | None = None,
+                           density: float | None = None,
+                           variant: str = "natural", round_order=None,
+                           reverse_round_order=None,
+                           links=None) -> SparseA2APlan:
+    """Build (or fetch from the LRU registry) a :class:`SparseA2APlan`,
+    through the implicit communicator.  The knobs are
+    :func:`plan_ragged_all_to_all`'s without the backend ones, plus
+    ``density``: the expected non-zero fraction of the ``p x p`` count
+    matrix (default 1.0), which ``tuning.predict_sparse`` prices; it must
+    be in (0, 1]."""
+    from .comm import torus_comm
+    return torus_comm(mesh_or_axis_dims, axis_names,
+                      variant=variant).sparse_all_to_all(
+        row_shape, dtype, max_count=max_count, avg_count=avg_count,
+        density=density, round_order=round_order,
+        reverse_round_order=reverse_round_order, links=links)
+
+
+def _build_sparse_plan(mesh_or_axis_dims, axis_names, row_shape=(),
+                       dtype="float32", *, max_count: int,
+                       avg_count: float | None = None,
+                       density: float | None = None,
+                       variant: str = "natural", round_order=None,
+                       reverse_round_order=None,
+                       links=None) -> SparseA2APlan:
+    """The resolution behind ``TorusComm.sparse_all_to_all``: bucket,
+    counts plan, plan-time message masks, and the shared registry."""
+    axis_names = _as_tuple(axis_names)
+    if isinstance(mesh_or_axis_dims, DeviceMesh):
+        fact = get_factorization(mesh_or_axis_dims, axis_names,
+                                 variant=variant)
+        dims = fact.dims
+        dev_key = device_fingerprint(mesh_or_axis_dims)
+    else:
+        dims = tuple(int(s) for s in mesh_or_axis_dims)
+        if len(dims) != len(axis_names):
+            raise ValueError(f"{len(dims)} dims for {len(axis_names)} axes")
+        fact = TorusFactorization(axis_names, dims, variant)
+        dev_key = None
+    if variant not in ("natural", "paper"):
+        raise ValueError(f"unknown variant {variant!r}")
+    max_count, bucket, avg = _bucket_and_avg(max_count, avg_count)
+    rho = float(1.0 if density is None else density)
+    if not 0.0 < rho <= 1.0:
+        raise ValueError(f"density {rho} outside (0, 1]")
+    row_shape = tuple(int(s) for s in row_shape)
+    p = math.prod(dims)
+
+    _, active = _skip_trivial(axis_names, dims)
+    order = _check_order(round_order, len(active))
+    rev_order = (tuple(reversed(order)) if reverse_round_order is None
+                 else _check_order(reverse_round_order, len(active)))
+
+    links_key = None if links is None else resolve_links(links, dims)
+    key = ("sparse", dev_key, dims, axis_names, row_shape,
+           dtype_name(dtype), max_count, avg, rho, variant, order,
+           rev_order, links_key)
+    cached = _registry_fetch(key)
+    if cached is not None:
+        return cached
+
+    # The ragged family's counts plan, so a ragged and a sparse plan over
+    # one torus share the registry entry.
+    counts = _build_dense_plan(mesh_or_axis_dims, axis_names, (p,),
+                               torch.int32, backend="tuned", variant=variant,
+                               round_order=round_order,
+                               reverse_round_order=reverse_round_order,
+                               max_chunks=1, links=links)
+
+    from .sparse import round_message_masks
+    masks_fwd = round_message_masks(active, order)
+    masks_rev = masks_fwd if rev_order == order \
+        else round_message_masks(active, rev_order)
+
+    link_models = resolve_links(links, dims, axis_names)
+    row_bytes = math.prod(row_shape) * itemsize(dtype)
+    predicted = predict_sparse(dims, link_models, float(row_bytes), bucket,
+                               p, density=rho)
+
+    plan = SparseA2APlan(fact, counts, max_count=max_count, avg_count=avg,
+                         expected_density=rho, row_shape=row_shape,
+                         dtype=dtype, order=order, rev_order=rev_order,
+                         masks_fwd=masks_fwd, masks_rev=masks_rev,
+                         links=link_models, predicted_seconds=predicted)
     return _registry_store(key, plan)
 
 

@@ -19,9 +19,10 @@ The simulator is the correctness oracle for the JAX implementation and for
 the paper's three worked examples (5x4, 2x3x4, 4x3x3x4) and Theorem 1's
 communication-volume formula.
 
-This is the dense part of ``repro.core.simulator`` (stdlib only), copied
-into the port: the ragged, sparse, KV-migration and pencil oracles come
-with the slices that port those collectives.
+This is ``repro.core.simulator`` (stdlib only) copied into the port: the
+dense oracle and the Alltoallv (ragged and sparse) oracles; the
+KV-migration and pencil oracles come with the slices that port those
+collectives.
 """
 
 from __future__ import annotations
@@ -169,6 +170,228 @@ def check_correct(dims: tuple[int, ...], round_order=None) -> bool:
     ok = all(final[r] == [(i, r) for i in range(p)] for r in range(p))
     ok = ok and vol.total_blocks_sent == vol.theorem1_formula
     return ok
+
+
+# ----------------------------------------------------------------------------
+# Alltoallv (ragged) oracles.  Algorithm 1 moves block slots without reading
+# them, so with per-pair counts each slot carries a variable-length payload
+# and each round's per-peer message is a concatenation of such payloads.
+# The oracles below run that slot movement with element-tagged payloads and
+# count-weighted volume accounting; they are the correctness reference for
+# ``core.ragged`` and ``core.sparse``.
+# ----------------------------------------------------------------------------
+
+
+@dataclass
+class RaggedVolumeCount:
+    """Per-round *element* volume bookkeeping for the ragged algorithm.
+
+    ``elements_sent_per_round[k]`` sums, over all ranks in round ``k``, the
+    payload elements that crossed a link (slots a rank keeps are free).
+    Under a bucket of ``b`` elements per slot the same movement ships
+    ``slots_sent_per_round[k] * b`` elements; ``occupancy(b)`` is the
+    useful fraction.
+    """
+
+    dims: tuple[int, ...]
+    elements_sent_per_round: list[int] = field(default_factory=list)
+    slots_sent_per_round: list[int] = field(default_factory=list)
+
+    @property
+    def total_elements_sent(self) -> int:
+        return sum(self.elements_sent_per_round)
+
+    @property
+    def total_slots_sent(self) -> int:
+        return sum(self.slots_sent_per_round)
+
+    def occupancy(self, bucket: int) -> float:
+        """Ragged elements over ``slots * bucket`` padded elements (1.0
+        when every slot carries exactly ``bucket`` elements)."""
+        padded = self.total_slots_sent * bucket
+        return self.total_elements_sent / padded if padded else 1.0
+
+
+def _counts_matrix(counts, p: int):
+    counts = [list(row) for row in counts]
+    if len(counts) != p or any(len(row) != p for row in counts):
+        raise ValueError(f"counts must be a {p}x{p} matrix")
+    if any(c < 0 for row in counts for c in row):
+        raise ValueError("counts must be non-negative")
+    return counts
+
+
+def _round_groups(coords, dims, k):
+    """The dimension-``k`` groups: ranks that differ only in coordinate
+    ``k``, each sorted by it."""
+    groups: dict[tuple, list[int]] = {}
+    for r, c in coords.items():
+        key = tuple(x for i, x in enumerate(c) if i != k)
+        groups.setdefault(key, []).append(r)
+    for members in groups.values():
+        members.sort(key=lambda r: coords[r][k])
+        assert len(members) == dims[k]
+    return groups.values()
+
+
+def simulate_factorized_alltoallv(
+    dims: tuple[int, ...],
+    counts,
+    round_order: tuple[int, ...] | None = None,
+) -> tuple[dict[int, list], RaggedVolumeCount]:
+    """Run Algorithm 1 with MPI_Alltoallv semantics for every rank.
+
+    ``counts[s][d]`` is the number of elements rank ``s`` sends to rank
+    ``d``; slot ``(s, d)``'s payload is ``[(s, d, 0), ..., (s, d,
+    counts[s][d]-1)]`` (element order within a pair is preserved, the MPI
+    contract).  Returns the final per-rank slot lists and the element
+    volume.  Correct iff ``recv[r][i] == [(i, r, j) for j in
+    range(counts[i][r])]`` for all ranks r and slots i.
+    """
+    d = len(dims)
+    p = math.prod(dims)
+    counts = _counts_matrix(counts, p)
+    order = tuple(round_order) if round_order is not None else tuple(range(d))
+    assert sorted(order) == list(range(d))
+
+    buf = {r: [[(r, b, j) for j in range(counts[r][b])] for b in range(p)]
+           for r in range(p)}
+    vol = RaggedVolumeCount(dims)
+    coords = {r: rank_to_coords(r, dims) for r in range(p)}
+    for k in order:
+        positions, extent = round_datatype(dims, k)
+        elems = slots = 0
+        staged = {}
+        for members in _round_groups(coords, dims, k):
+            for g_r, r in enumerate(members):
+                newbuf = [None] * p
+                for g_s, s in enumerate(members):
+                    for pos in positions:
+                        slot = buf[s][pos + g_r * extent]
+                        newbuf[pos + g_s * extent] = slot
+                        if g_s != g_r:       # self-slots never cross a link
+                            elems += len(slot)
+                            slots += 1
+                staged[r] = newbuf
+        buf.update(staged)
+        vol.elements_sent_per_round.append(elems)
+        vol.slots_sent_per_round.append(slots)
+    return buf, vol
+
+
+def simulate_direct_alltoallv(counts) -> dict[int, list]:
+    """Brute-force MPI_Alltoallv reference: a plain pairwise permutation."""
+    p = len(counts)
+    counts = _counts_matrix(counts, p)
+    return {r: [[(i, r, j) for j in range(counts[i][r])] for i in range(p)]
+            for r in range(p)}
+
+
+@dataclass
+class SparseVolumeCount:
+    """Per-round *message* bookkeeping for the sparse algorithm.
+
+    Round ``k`` has ``p * (D[k] - 1)`` potential peer exchanges (every rank
+    sends one composite message to each of its ``D[k] - 1`` group peers).
+    An exchange whose combined payload is empty is *skipped*; the rest are
+    the *combined messages* actually sent.
+    """
+
+    dims: tuple[int, ...]
+    exchanges_per_round: list[int] = field(default_factory=list)
+    skipped_per_round: list[int] = field(default_factory=list)
+    elements_sent_per_round: list[int] = field(default_factory=list)
+
+    @property
+    def total_exchanges(self) -> int:
+        return sum(self.exchanges_per_round)
+
+    @property
+    def skipped_exchanges(self) -> int:
+        return sum(self.skipped_per_round)
+
+    @property
+    def combined_messages(self) -> int:
+        return self.total_exchanges - self.skipped_exchanges
+
+    @property
+    def skipped_rounds(self) -> int:
+        """Rounds whose every peer exchange was empty."""
+        return sum(1 for e, s in zip(self.exchanges_per_round,
+                                     self.skipped_per_round)
+                   if e > 0 and s == e)
+
+    @property
+    def skip_fraction(self) -> float:
+        t = self.total_exchanges
+        return self.skipped_exchanges / t if t else 0.0
+
+    @property
+    def total_elements_sent(self) -> int:
+        return sum(self.elements_sent_per_round)
+
+
+def simulate_sparse_alltoallv(
+    dims: tuple[int, ...],
+    counts,
+    round_order: tuple[int, ...] | None = None,
+) -> tuple[dict[int, list], SparseVolumeCount]:
+    """Run Algorithm 1 with sparse-Alltoallv semantics for every rank: the
+    slot movement and payloads of :func:`simulate_factorized_alltoallv`,
+    but an empty composite message is skipped (the receiver's slots are
+    the zero-length payloads the count matrix implies) and the others are
+    counted as combined messages.  Correct iff the final buffers equal
+    :func:`simulate_direct_alltoallv`."""
+    d = len(dims)
+    p = math.prod(dims)
+    counts = _counts_matrix(counts, p)
+    order = tuple(round_order) if round_order is not None else tuple(range(d))
+    assert sorted(order) == list(range(d))
+
+    buf = {r: [[(r, b, j) for j in range(counts[r][b])] for b in range(p)]
+           for r in range(p)}
+    vol = SparseVolumeCount(dims)
+    coords = {r: rank_to_coords(r, dims) for r in range(p)}
+    for k in order:
+        positions, extent = round_datatype(dims, k)
+        exchanges = skipped = elems = 0
+        staged = {}
+        for members in _round_groups(coords, dims, k):
+            for g_r, r in enumerate(members):
+                newbuf = [None] * p
+                for g_s, s in enumerate(members):
+                    slots = [buf[s][pos + g_r * extent]
+                             for pos in positions]
+                    if g_s != g_r:
+                        exchanges += 1
+                        payload = sum(len(sl) for sl in slots)
+                        if payload == 0:
+                            skipped += 1
+                            slots = [[] for _ in positions]
+                        else:
+                            elems += payload
+                    for pos, sl in zip(positions, slots):
+                        newbuf[pos + g_s * extent] = sl
+                staged[r] = newbuf
+        buf.update(staged)
+        vol.exchanges_per_round.append(exchanges)
+        vol.skipped_per_round.append(skipped)
+        vol.elements_sent_per_round.append(elems)
+    return buf, vol
+
+
+def check_correct_sparse_alltoallv(dims, counts, round_order=None) -> bool:
+    final, _ = simulate_sparse_alltoallv(dims, counts, round_order)
+    want = simulate_direct_alltoallv(counts)
+    p = math.prod(dims)
+    return all(final[r] == want[r] for r in range(p))
+
+
+def check_correct_alltoallv(dims, counts, round_order=None) -> bool:
+    final, _ = simulate_factorized_alltoallv(dims, counts, round_order)
+    want = simulate_direct_alltoallv(counts)
+    p = math.prod(dims)
+    return all(final[r] == want[r] for r in range(p))
 
 
 # ----------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Algorithm selection / tuning — the paper's §5 conclusion, made a policy.
 
 A copy of ``repro.core.tuning`` (stdlib only), so that the port resolves
-every plan exactly as the reference does; ``next_pow2`` is copied in from
-``repro.core.ragged``.
+every plan exactly as the reference does; ``next_pow2`` comes from the
+port's ``core.ragged``, as the reference's does.
 
 The paper finds: the d=2,3 factorized algorithm beats native MPI_Alltoall
 by 2x+ for <= ~100 small elements per process (latency/startup regime),
@@ -32,16 +32,7 @@ import math
 from dataclasses import dataclass
 
 from .dims import dims_create, max_dims, prime_factorization
-
-
-def next_pow2(n: int) -> int:
-    """Smallest power of two >= n (n >= 1) — the shared bucket size (a
-    copy of ``repro.core.ragged.next_pow2``; the ragged module is not
-    ported yet)."""
-    n = int(n)
-    if n < 1:
-        raise ValueError(f"bucket bound must be >= 1, got {n}")
-    return 1 << (n - 1).bit_length()
+from .ragged import next_pow2
 
 
 @dataclass(frozen=True)

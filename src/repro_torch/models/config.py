@@ -39,7 +39,7 @@ class ModelConfig:
     # --- MoE ---
     n_experts: int = 0
     top_k: int = 2
-    capacity_factor: float | None = 1.25   # None = dropless (not ported)
+    capacity_factor: float | None = 1.25   # None = dropless
     router_aux_weight: float = 0.01
     moe_every: int = 1
 

@@ -11,9 +11,16 @@ With ``mesh=None`` the expert group is this one device (G = 1).  With a
 reference: each rank holds the ``E_loc`` experts of its virtual rank
 (``expert_shard``) and its own shard of the batch, and the dispatch
 blocks travel through one ``A2APlan`` per direction — the paper's
-factorized all-to-all, pack and unpack kernels included.  Tensor
-parallelism over ``model`` and dropless (``capacity_factor=None``)
-dispatch are not ported yet (ROADMAP).
+factorized all-to-all, pack and unpack kernels included.  A plan that
+resolved to the overlap engine (``backend="overlap"``, what phi3.5-moe's
+``"tuned"`` picks on its EP torus) pipelines dispatch, expert FFN and
+combine per capacity chunk instead.
+
+``capacity_factor=None`` is **dropless** dispatch: the capacity is the
+worst case (every routed token fits), and with a mesh the collective is
+the ragged or the sparse Alltoallv (``moe_dropless_a2a_plan``, chosen by
+the router's expected density), its bucket the per-rank window.
+Tensor parallelism over ``model`` is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -24,8 +31,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core import plan as _plan
 from repro_torch.core.cache import mesh_shape
 from repro_torch.core.comm import torus_comm
+from repro_torch.core.plan import itemsize
+from repro_torch.core.ragged import next_pow2
+from repro_torch.core.tuning import choose_ragged_algorithm, default_links
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, gelu, silu
 from repro_torch.parallel.sharding import ShardingRules, ep_axes
@@ -81,6 +92,58 @@ def moe_a2a_plan(cfg: ModelConfig, mesh, axes, E_loc: int, C: int):
         max_chunks=cfg.a2a_chunks or 4)
 
 
+def moe_ragged_a2a_plan(cfg: ModelConfig, mesh, axes, E_loc: int, C: int,
+                        n_loc: int):
+    """The RaggedA2APlan of dropless dispatch and combine.  One ragged row
+    is one token embedding; each destination rank's bucket window holds
+    its ``(E_loc, C)`` expert-strided slots, so ``max_count`` is the
+    window ``E_loc * C`` while the expected payload per rank is ``top_k *
+    n_loc / p`` rows (their ratio is the plan's occupancy estimate).
+    ``cfg.a2a_backend`` resolves the padded data plan as it resolves the
+    capacity path's plan."""
+    comm = moe_ep_comm(cfg, mesh, axes)
+    if comm is None:
+        return None
+    window = E_loc * C
+    avg = min(float(window), max(1.0, cfg.top_k * n_loc / comm.p))
+    return comm.ragged_all_to_all(
+        row_shape=(cfg.d_model,), dtype=cfg.cdtype,
+        max_count=window, avg_count=avg, backend=cfg.a2a_backend,
+        n_chunks=cfg.a2a_chunks, max_chunks=cfg.a2a_chunks or 4)
+
+
+def moe_dropless_a2a_plan(cfg: ModelConfig, mesh, axes, E_loc: int, C: int,
+                          n_loc: int):
+    """Dropless plan chooser: ragged (dense-bucketed) or sparse
+    (neighborhood) Alltoallv, by the router's expected density.  The
+    non-zero fraction of the ``p x p`` count matrix follows the Poisson
+    occupancy of ``top_k * n_loc / p`` tokens per (source, destination)
+    pair, ``rho = 1 - exp(-top_k * n_loc / p)``;
+    ``tuning.choose_ragged_algorithm`` prices both and the sparse plan is
+    used only where it wins.  Both plans' ``forward`` / ``reverse`` take
+    and return the same, so :func:`_moe_inner` runs either.
+    ``a2a_backend="autotune"`` (a measured choice) needs the tuning DB,
+    which is not ported: it raises."""
+    comm = moe_ep_comm(cfg, mesh, axes)
+    if comm is None:
+        return None
+    if cfg.a2a_backend == "autotune":
+        raise _plan.not_ported("autotune", "dropless MoE dispatch")
+    window = E_loc * C
+    lam = cfg.top_k * n_loc / comm.p
+    density = min(1.0, max(1e-6, 1.0 - math.exp(-lam)))
+    sched = choose_ragged_algorithm(
+        comm.dims, default_links(comm.axis_names),
+        cfg.d_model * itemsize(cfg.cdtype), next_pow2(window),
+        max_chunks=cfg.a2a_chunks or 4, density=density)
+    if sched.kind == "sparse":
+        avg = min(float(window), max(1.0, lam))
+        return comm.sparse_all_to_all(
+            row_shape=(cfg.d_model,), dtype=cfg.cdtype, max_count=window,
+            avg_count=avg, density=density)
+    return moe_ragged_a2a_plan(cfg, mesh, axes, E_loc, C, n_loc)
+
+
 def expert_shard(p: dict, cfg: ModelConfig, mesh) -> dict:
     """This rank's MoE parameters under ``mesh``: the router, and the
     ``(E_loc, ...)`` slice of the virtual-expert weights its EP rank owns
@@ -113,12 +176,13 @@ def _capacity(cfg: ModelConfig, n_tokens: int, n_slots: int) -> int:
 
 
 def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
-               C, plan=None, reduce_group=None):
+               C, plan=None, ragged_plan=None, reduce_group=None):
     """x: (B, S, D) this rank's tokens; w*: virtual-expert weights
     (., E_loc, ...) whose first slice is this rank's experts; ``plan`` the
-    resolved A2APlan (None when there is no EP group); ``reduce_group``
-    the communicator the aux-loss statistics are averaged over.
-    Returns (y (B, S, D), aux loss)."""
+    resolved A2APlan (None when there is no EP group); ``ragged_plan``
+    the RaggedA2APlan or SparseA2APlan dropless dispatch runs through
+    instead; ``reduce_group`` the communicator the aux-loss statistics are
+    averaged over.  Returns (y (B, S, D), aux loss)."""
     B, S, D = x.shape
     N = B * S
     E = cfg.n_experts
@@ -161,6 +225,21 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
     tok_idx = torch.arange(N, device=dev).repeat_interleave(cfg.top_k)
     disp = torch.zeros((n_rows + 1, D), dtype=cd, device=dev)
     disp[row] = xt[tok_idx].to(cd)
+    disp = disp[:n_rows].view(G, E_loc, C, D)
+
+    # ---- expert FFN: three grouped matmuls on any capacity slice
+    # (G, E_loc, Cc, D) — tokens are independent rows, so this is also
+    # the overlap engine's per-chunk compute stage ----
+    def expert_ffn(recv, _chunk=0):
+        Cc = recv.shape[2]
+        xe = recv.permute(1, 0, 2, 3).reshape(E_loc, G * Cc, D).contiguous()
+        if cfg.act == "swiglu":
+            h = silu(kops.expert_matmul(xe, w1.to(cd))) \
+                * kops.expert_matmul(xe, w3.to(cd))
+        else:
+            h = gelu(kops.expert_matmul(xe, w1.to(cd)))
+        ye = kops.expert_matmul(h, w2.to(cd))
+        return ye.reshape(E_loc, G, Cc, D).permute(1, 0, 2, 3)
 
     # ---- the paper's collective, through its resolved A2APlan, on the
     # flat (G, E_loc*C*D) buffer: block v goes to EP rank v ----
@@ -171,17 +250,29 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
         out = plan.reverse(flat) if reverse else plan.forward(flat)
         return out.reshape(blocks.shape)
 
-    recv = a2a(disp[:n_rows].view(G, E_loc, C, D))
-
-    # ---- expert FFN: three grouped matmuls ----
-    xe = recv.permute(1, 0, 2, 3).reshape(E_loc, G * C, D).contiguous()
-    if cfg.act == "swiglu":
-        h = silu(kops.expert_matmul(xe, w1.to(cd))) \
-            * kops.expert_matmul(xe, w3.to(cd))
+    if ragged_plan is not None:
+        # Dropless: the Alltoallv moves each destination rank's (E_loc, C)
+        # window as one bucket of token rows; the router's per-rank send
+        # counts drive the counts phase, and the combine reuses the
+        # dispatch's recv counts.  Combine reads slot validity from this
+        # rank's own routing, so no output depends on recv_counts; eager
+        # torch still runs both counts exchanges (XLA drops them).
+        window = E_loc * C
+        counts = torch.zeros(G, dtype=torch.int32, device=dev).index_add_(
+            0, v_idx, keep.to(torch.int32))
+        recv_rows, recv_counts = ragged_plan.forward(
+            disp.reshape(G, window, D), counts)
+        recv = recv_rows[:, :window].reshape(G, E_loc, C, D)
+        back_rows, _ = ragged_plan.reverse(
+            expert_ffn(recv).reshape(G, window, D), recv_counts)
+        back = back_rows[:, :window].reshape(G, E_loc, C, D)
+    elif plan is not None and plan.backend == "overlap":
+        # dispatch rounds / expert FFN / combine rounds pipelined per
+        # capacity chunk: chunk c+1's exchanges run behind chunk c's FFN
+        back = plan.overlap(disp, compute_fn=expert_ffn, reverse=True,
+                            chunk_axis=2)
     else:
-        h = gelu(kops.expert_matmul(xe, w1.to(cd)))
-    ye = kops.expert_matmul(h, w2.to(cd))
-    back = a2a(ye.reshape(E_loc, G, C, D).permute(1, 0, 2, 3), reverse=True)
+        back = a2a(expert_ffn(a2a(disp)), reverse=True)
 
     # ---- combine: dropped assignments read a zero pad row ----
     backp = torch.cat([back.reshape(n_rows, D),
@@ -209,10 +300,6 @@ def moe_block(p, x, cfg: ModelConfig, mesh=None,
     its own shard of the batch (split over the mesh dims of the "batch"
     rule) and its own expert slice (``expert_shard(p, cfg, mesh)``).
     """
-    if cfg.dropless:
-        raise NotImplementedError(
-            "dropless MoE (capacity_factor=None) comes with the ragged "
-            "all-to-all of ROADMAP.md's queue 1 item 7")
     axes, G, E_loc, R = _group_geometry(cfg, mesh)
     B, S, _ = x.shape
     C = _capacity(cfg, B * S, max(cfg.n_experts, G))
@@ -235,7 +322,14 @@ def moe_block(p, x, cfg: ModelConfig, mesh=None,
     batch_axes = tuple(a for a in rules.lookup("batch") if a in shape)
     reduce_group = torus_comm(mesh, batch_axes[::-1]).fact.group \
         if batch_axes else None
-    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    # dropless replaces the capacity path's dense plan with the ragged or
+    # sparse Alltoallv plan
+    if cfg.dropless:
+        plan, ragged = None, moe_dropless_a2a_plan(cfg, mesh, axes, E_loc,
+                                                   C, B * S)
+    else:
+        plan, ragged = moe_a2a_plan(cfg, mesh, axes, E_loc, C), None
     return _moe_inner(x, p["router"], p["w1"][None], p["w3"][None],
                       p["w2"][None], cfg=cfg, G=G, E_loc=E_loc, R=R, C=C,
-                      plan=plan, reduce_group=reduce_group)
+                      plan=plan, ragged_plan=ragged,
+                      reduce_group=reduce_group)

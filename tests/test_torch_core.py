@@ -234,15 +234,32 @@ def test_no_cost_inputs_and_validation():
                            backend="factorized").links == (ICI, DCN)
 
 
-def test_unported_backends_raise_and_never_substitute():
+def test_unported_backends_raise_and_never_substitute(monkeypatch):
     x = torch.zeros(8, 4)
+    calls = []
+
+    def engine(name):
+        def run(*args, **kwargs):
+            calls.append(name)
+            return args[0]
+        return run
+
+    for name in ("_factorized_impl", "_factorized_tiled_impl",
+                 "_overlapped_impl", "_overlapped_tiled_impl"):
+        monkeypatch.setattr(plan, name, engine(name))
     for backend in ("overlap", "pipelined"):
+        # every entry point dispatches to the overlap engine, never to
+        # factorized in its place
         p = plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
                             backend=backend)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            p.forward(x)
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            p.tiled(x, 0, 0)
+        assert p.backend == backend and p.n_chunks == 2
+        calls.clear()
+        for run in (p.forward, p.reverse, lambda x: p.tiled(x, 0, 0),
+                    p.overlap):
+            run(x)
+        assert calls == ["_overlapped_impl"] * 2 + \
+            ["_overlapped_tiled_impl", "_overlapped_impl"], calls
+    monkeypatch.undo()
     auto = plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
                            backend="autotune")
     tuned = jax_plan.plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
@@ -340,9 +357,11 @@ def test_comm_describe_sub_and_free_match_reference():
         c.sub(("z",))
 
 
-def test_gather_plans_refuse_chunks_and_dims_only_execution():
+@pytest.mark.parametrize("family", ["all_gather", "reduce_scatter"])
+def test_gather_plans_refuse_chunks_and_dims_only_execution(family):
     c = comm.torus_comm((2, 2), ("i", "j"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        c.all_gather((4,), "int32", n_chunks=2).forward(torch.zeros(4))
+    x = torch.zeros(4) if family == "all_gather" else torch.zeros(4, 4)
+    with pytest.raises(NotImplementedError, match="n_chunks=2"):
+        getattr(c, family)((4,), "int32", n_chunks=2).forward(x)
     with pytest.raises(ValueError, match="DeviceMesh"):
-        c.reduce_scatter((4,), "int32").forward(torch.zeros(4, 4))
+        getattr(c, family)((4,), "int32").forward(x)

@@ -91,10 +91,6 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(ARCH, smoke=True).replace(
             block_pattern=("mamba",)))
-    cfg = get_config(ARCH, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe.moe_block({}, torch.zeros(1, 2, cfg.d_model),
-                      cfg.replace(capacity_factor=None))
 
 
 @pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "dense", "rope",
@@ -199,6 +195,22 @@ def test_moe_block_matches_reference(smoke):
     want_y, want_aux = jax_moe.moe_block(jp, jnp.asarray(x), jcfg)
     y, aux = moe.moe_block(_layer0(params["blocks"])["pos0"]["ffn"],
                            torch.from_numpy(x), cfg)
+    _close(y.numpy(), np.asarray(want_y), 2e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+def test_dropless_moe_block_matches_reference(smoke):
+    # capacity_factor=None: C is the worst case (every token fits), the
+    # same layer with mesh=None in both packages
+    jcfg, jparams, cfg, params = smoke
+    jcfg = jcfg.replace(capacity_factor=None)
+    cfg = cfg.replace(capacity_factor=None)
+    x = _x(2, 1, 64, cfg.d_model)
+    jp = jax.tree.map(lambda a: a[0], jparams["blocks"]["pos0"]["ffn"])
+    want_y, want_aux = jax_moe.moe_block(jp, jnp.asarray(x), jcfg)
+    y, aux = moe.moe_block(_layer0(params["blocks"])["pos0"]["ffn"],
+                           torch.from_numpy(x), cfg)
+    assert moe._capacity(cfg, 64, cfg.n_experts) == 64
     _close(y.numpy(), np.asarray(want_y), 2e-5)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
 

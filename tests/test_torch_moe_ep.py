@@ -10,8 +10,13 @@ the whole batch with the same weights (``init_params`` of the JAX package,
 carried over as numpy): the outputs agree to 2e-4, the aux loss to 1e-3,
 as in that script.  ``capacity_factor=8`` keeps every token.  Also covered:
 experts replicated over the group (``n_experts=2`` < G = 4), the paper
-variant, the direct and tuned backends, and the refusals (overlap, a
-"model" axis).
+variant, the direct, tuned and overlap backends (the overlap engine
+pipelines dispatch, expert FFN and combine per capacity chunk), dropless
+dispatch (``capacity_factor=None``: the ragged Alltoallv, and the sparse
+one through ``_moe_inner``), and the refusals (``autotune``, a "model"
+axis).  The overlap, tuned and dropless cases are also held against the
+JAX ``moe_block`` on the same (data=2, pod=2) mesh, run on 4 forced host
+devices in a subprocess.
 """
 
 import numpy as np
@@ -19,24 +24,57 @@ import pytest
 
 from torch_dist import run_world
 
+# name: (n_experts, a2a_backend, variant, capacity_factor); None = dropless
 CASES = {
-    "E4-factorized-natural": (4, "factorized", "natural"),
-    "E8-factorized-natural": (8, "factorized", "natural"),
-    "E2-factorized-natural": (2, "factorized", "natural"),   # replicas
-    "E4-factorized-paper": (4, "factorized", "paper"),
-    "E4-direct": (4, "direct", "natural"),
-    "E2-direct": (2, "direct", "natural"),
-    "E4-tuned": (4, "tuned", "natural"),
+    "E4-factorized-natural": (4, "factorized", "natural", 8.0),
+    "E8-factorized-natural": (8, "factorized", "natural", 8.0),
+    "E2-factorized-natural": (2, "factorized", "natural", 8.0),  # replicas
+    "E4-factorized-paper": (4, "factorized", "paper", 8.0),
+    "E4-direct": (4, "direct", "natural", 8.0),
+    "E2-direct": (2, "direct", "natural", 8.0),
+    "E4-tuned": (4, "tuned", "natural", 8.0),
+    "E4-overlap": (4, "overlap", "natural", 8.0),
+    "E8-overlap-paper": (8, "overlap", "paper", 8.0),
+    "E2-overlap": (2, "overlap", "natural", 8.0),
+    "E4-dropless-tuned": (4, "tuned", "natural", None),
+    "E8-dropless-overlap": (8, "overlap", "natural", None),
+    "E2-dropless-factorized": (2, "factorized", "natural", None),
+    "E4-dropless-sparse": (4, "factorized", "natural", None),
 }
+SPARSE = "E4-dropless-sparse"      # dropless through the SparseA2APlan
+MESH_CASES = [c for c in CASES if "overlap" in c or "tuned" in c
+              or "dropless" in c and c != SPARSE]
 B, S, D = 8, 4, 32
 
 
-def _cfg(module, n_experts, backend="factorized", variant="natural"):
+def _cfg(module, n_experts, backend="factorized", variant="natural",
+         capacity_factor=8.0):
     return module.ModelConfig(
         name="t", family="moe", n_layers=2, d_model=D, n_heads=4,
         n_kv_heads=2, d_ff=64, vocab=100, n_experts=n_experts, top_k=2,
-        capacity_factor=8.0, param_dtype="float32",
+        capacity_factor=capacity_factor, param_dtype="float32",
         compute_dtype="float32", a2a_backend=backend, a2a_variant=variant)
+
+
+def _sparse_moe(p, xs, cfg, mesh):
+    """The dropless layer with its collective forced to the sparse plan
+    (the density choice picks the ragged one at this size)."""
+    from repro_torch.core.cache import mesh_shape
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.models import moe
+
+    axes, G, E_loc, R = moe._group_geometry(cfg, mesh)
+    B_, S_, _ = xs.shape
+    C = moe._capacity(cfg, B_ * S_, max(cfg.n_experts, G))
+    comm = moe.moe_ep_comm(cfg, mesh, axes)
+    sparse = comm.sparse_all_to_all((cfg.d_model,), cfg.cdtype,
+                                    max_count=E_loc * C, density=0.5)
+    batch = tuple(a for a in ("pod", "data") if a in mesh_shape(mesh))
+    return moe._moe_inner(xs, p["router"], p["w1"][None], p["w3"][None],
+                          p["w2"][None], cfg=cfg, G=G, E_loc=E_loc, R=R,
+                          C=C, ragged_plan=sparse,
+                          reduce_group=torus_comm(mesh, batch[::-1])
+                          .fact.group)
 
 
 def _ep_ranks(rank, n, params, x):
@@ -49,19 +87,24 @@ def _ep_ranks(rank, n, params, x):
     mesh = cart_create(n, (2, 2), ("data", "pod"), device_type="cpu")
     xs = torch.from_numpy(x[rank * 2:(rank + 1) * 2])   # batch over (pod,
     out = {}                                              # data)
-    for name, (E, backend, variant) in CASES.items():
-        cfg = _cfg(config, E, backend, variant)
+    for name, (E, backend, variant, cf) in CASES.items():
+        cfg = _cfg(config, E, backend, variant, cf)
         p = expert_shard({k: torch.from_numpy(v) for k, v in
                           params[E].items()}, cfg, mesh)
-        y, aux = moe_block(p, xs, cfg, mesh=mesh)
+        if name == SPARSE:
+            y, aux = _sparse_moe(p, xs, cfg, mesh)
+        else:
+            y, aux = moe_block(p, xs, cfg, mesh=mesh)
         out[name] = (y.numpy(), float(aux))
     refusals = []
     p = expert_shard({k: torch.from_numpy(v) for k, v in params[4].items()},
                      _cfg(config, 4), mesh)
-    try:
-        moe_block(p, xs, _cfg(config, 4, "overlap"), mesh=mesh)
-    except NotImplementedError as e:
-        refusals.append(str(e))
+    for cf in (None, 8.0):      # dropless refuses at plan time, dense at run
+        try:
+            moe_block(p, xs, _cfg(config, 4, "autotune", capacity_factor=cf),
+                      mesh=mesh)
+        except NotImplementedError as e:
+            refusals.append(str(e))
     tp = cart_create(n, (2, 2), ("data", "model"), device_type="cpu")
     try:
         moe_block(p, xs, _cfg(config, 4), mesh=tp)
@@ -81,13 +124,13 @@ def ep(tmp_path_factory):
     x = np.random.default_rng(1).standard_normal((B, S, D)) \
         .astype(np.float32)
     params, refs = {}, {}
-    for E in sorted({c[0] for c in CASES.values()}):
-        cfg = _cfg(jconfig, E)
+    for E, cf in sorted({(c[0], c[3] or 0) for c in CASES.values()}):
+        cfg = _cfg(jconfig, E, capacity_factor=cf or None)
         p = init_params(moe_specs(cfg), jax.random.PRNGKey(E),
                         jnp.float32)
         params[E] = jax.tree.map(np.asarray, p)
         y, aux = moe_block(p, jnp.asarray(x), cfg, mesh=None)
-        refs[E] = (np.asarray(y), float(aux))
+        refs[E, cf or None] = (np.asarray(y), float(aux))
     ranks = run_world(_ep_ranks, 4, tmp_path_factory.mktemp("ep"), params,
                       x)
     return ranks, refs
@@ -96,7 +139,8 @@ def ep(tmp_path_factory):
 @pytest.mark.parametrize("case", list(CASES))
 def test_ep_moe_matches_reference(ep, case):
     ranks, refs = ep
-    y_ref, aux_ref = refs[CASES[case][0]]
+    E, _, _, cf = CASES[case]
+    y_ref, aux_ref = refs[E, cf]
     y = np.concatenate([out[case][0] for out, _ in ranks])
     np.testing.assert_allclose(y, y_ref, rtol=2e-4, atol=2e-4)
     for out, _ in ranks:
@@ -106,6 +150,80 @@ def test_ep_moe_matches_reference(ep, case):
 def test_unported_ep_paths_raise(ep):
     ranks, _ = ep
     for _, refusals in ranks:
-        assert len(refusals) == 2
-        assert "queue 1 item 6" in refusals[0]
-        assert "model" in refusals[1] and "ROADMAP" in refusals[1]
+        assert len(refusals) == 3
+        assert all("queue 1 item 8" in r for r in refusals[:2])
+        assert "model" in refusals[2] and "ROADMAP" in refusals[2]
+
+
+_JAX_MESH_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.core.cache import cart_create
+from repro.models import config
+from repro.models.moe import moe_block
+
+data = np.load(sys.argv[1])
+cases, D = eval(sys.argv[2])
+mesh = cart_create(4, (2, 2), ("data", "pod"))
+x = jax.device_put(jnp.asarray(data["x"]),
+                   NamedSharding(mesh, P(("pod", "data"))))
+out = {}
+for name, (E, backend, variant, cf) in cases.items():
+    cfg = config.ModelConfig(
+        name="t", family="moe", n_layers=2, d_model=D, n_heads=4,
+        n_kv_heads=2, d_ff=64, vocab=100, n_experts=E, top_k=2,
+        capacity_factor=cf, param_dtype="float32", compute_dtype="float32",
+        a2a_backend=backend, a2a_variant=variant)
+    p = {k: jnp.asarray(data[f"{E}_{k}"]) for k in ("router", "w1", "w3",
+                                                   "w2")}
+    y, aux = jax.jit(lambda p, x: moe_block(p, x, cfg, mesh=mesh))(p, x)
+    out[f"{name}_y"] = np.asarray(y)
+    out[f"{name}_aux"] = np.asarray(aux)
+np.savez(sys.argv[3], **out)
+"""
+
+
+def test_ep_moe_matches_jax_on_the_mesh(ep, tmp_path):
+    """The overlap, tuned and dropless cases against the JAX moe_block
+    with the same (data=2, pod=2) mesh and weights."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import jax
+    from repro.models import config as jconfig
+    from repro.models.common import init_params
+    from repro.models.moe import moe_specs
+
+    ranks, _ = ep
+    arrays = {"x": np.random.default_rng(1).standard_normal((B, S, D))
+              .astype(np.float32)}
+    for E in sorted({CASES[c][0] for c in MESH_CASES}):
+        p = init_params(moe_specs(_cfg(jconfig, E)), jax.random.PRNGKey(E),
+                        np.float32)
+        arrays.update({f"{E}_{k}": np.asarray(v) for k, v in p.items()})
+    np.savez(tmp_path / "in.npz", **arrays)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
+        + os.pathsep + env.get("PYTHONPATH", "")
+    cases = {c: CASES[c] for c in MESH_CASES}
+    proc = subprocess.run(
+        [sys.executable, "-c", _JAX_MESH_SCRIPT, str(tmp_path / "in.npz"),
+         repr((cases, D)), str(tmp_path / "out.npz")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    jax_out = np.load(tmp_path / "out.npz")
+    for case in MESH_CASES:
+        y = np.concatenate([out[case][0] for out, _ in ranks])
+        np.testing.assert_allclose(y, jax_out[f"{case}_y"], rtol=2e-4,
+                                   atol=2e-4, err_msg=case)
+        for out, _ in ranks:
+            np.testing.assert_allclose(out[case][1],
+                                       float(jax_out[f"{case}_aux"]),
+                                       rtol=1e-3, err_msg=case)
