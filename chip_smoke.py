@@ -57,7 +57,23 @@ it fails:
              must carry the simulator oracle's tag, ``recv_counts`` must
              be the count matrix's column, and the launches must be the
              counts phase's and the data rounds' passes.
-7. moe_ep  — in the same world, phi3.5-moe's MoE layer at full width with
+7. autotune — in the same world, the tuning DB a file in a temporary
+             directory: ``core.autotune.autotune`` on phi3.5-moe's EP
+             block (4, 512, 4096) bf16 over (data, pod), 16 MiB a block,
+             with ``max_chunks=4`` and a 60 s budget, then on the
+             dropless layer's padded data block (2048, 4096), then
+             ``autotune_ragged`` at the dropless row (4096,), window
+             2048.  Every rank must return the same plans and winner,
+             ``tuned_from == "measured"``; the table must be the
+             reference's candidate list for dims (2,2) (direct,
+             factorized (0,1) and (1,0), overlap at the
+             ``_chunk_candidates`` counts) with nothing skipped; a second
+             ``backend="autotune"`` build must time nothing; the plan's
+             forward and reverse must equal the definition bit for bit
+             with n_chunks x round_schedule's reorder passes.  Prints the
+             per-candidate medians, the fitted per-axis links beside
+             ``default_links``, the winners and the search seconds.
+8. moe_ep  — in the same world, phi3.5-moe's MoE layer at full width with
              expert parallelism over (data=2, pod=2): each rank holds 4 of
              the 16 experts and 512 tokens (B=1, S=512).  Cuts: one layer,
              capacity_factor 8 (no token drops, so that the one-process
@@ -73,11 +89,18 @@ it fails:
              ``moe_gmm.variant`` gives the chunk's rows) and the block
              reorder n_chunks times round_schedule's passes each way;
              the factorized call 3 times and one set of passes each way.
-             The overlap call, the factorized call and the dropless call
-             of phase 8 are profiled on rank 0 (device and wall time,
-             the port's profiler spans such as each Alltoallv counts
-             exchange, the overlap engine's chunk copies and joins).
-8. moe_dropless — in the same world, the same layer with
+             A third call under a2a_backend "autotune" must replay
+             phase 7's winner on every rank (``tuned_from ==
+             "measured"``), equal the factorized call's output bit for
+             bit and launch the winner's gmm and reorder passes.
+             The overlap call, the factorized call, the autotune call and
+             the dropless calls of phase 9 are profiled on rank 0 (device
+             and wall time, the port's profiler spans such as each
+             Alltoallv counts exchange, the overlap engine's chunk copies
+             and joins); ``core.profile_inspect.interleave_report`` on the
+             overlap call's profile must find exchanges between its
+             expert-FFN stages, on the factorized call's none.
+9. moe_dropless — in the same world, the same layer with
              capacity_factor=None (dropless) and a2a_backend "tuned",
              512 tokens per rank: ``moe_dropless_a2a_plan`` picks the
              ragged or the sparse Alltoallv (printed, with the plan's
@@ -85,8 +108,26 @@ it fails:
              output must match the mesh=None dropless layer on all 2048
              tokens within 2e-2 of the largest |y|, the aux loss within
              1e-3; the launches must be 3 gmm and the counts phase's and
-             data rounds' block-reorder passes each way.
-9. train   — after the world has ended: ``launch/train.py``'s
+             data rounds' block-reorder passes each way.  A second call
+             under a2a_backend "autotune" must replay phase 7's
+             ragged-vs-sparse winner (a ragged plan's data plan the
+             padded block's measured winner), launch its passes and lie
+             within the same 2e-2 of the one-process layer.
+10. tracing — in the same world, with ``core.telemetry`` tracing on:
+             the factorized, overlap and dropless layer calls, 3 times
+             each, must equal the untraced calls bit for bit with the
+             same launches; the span tree must be the plans' (a
+             ``plan.execute`` with a ``plan.round`` per factorized
+             round, one fused round for the overlap engine, the counts
+             phase inside each ragged call); the drift keys the
+             reference's ``_drift_key()`` format; ``StragglerWatchdog
+             .check_drift`` one "retune" per drifted key, then none; the
+             exported Chrome trace reloads with the schema.  Prints the
+             drift ratios under ``default_links`` and under phase 7's
+             fitted links (the card's gloo world is no TPU: expect
+             ratios far above 1.5), and a 512 KiB decode-size call's
+             host µs with tracing off and on.
+11. train  — after the world has ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
              parameters, 32.8 GB of state before activations), remat on,
@@ -106,7 +147,9 @@ it fails:
              an async checkpoint at step 2, restored into a fresh
              ``Trainer`` and compared bit for bit with the live state
              (that one 27.3 GB checkpoint is the run's only large disk
-             write; it must stay within ``DISK_WRITE_BUDGET``).
+             write; it must stay within ``DISK_WRITE_BUDGET``), under the
+             tracer: 4 ``train.step`` spans, one ``checkpoint.save``,
+             one ``checkpoint.restore``.
              (c) Per-step ms, peak memory and launches per step, which
              must be the predicted 4 flash forward-with-lse, 2 flash
              backward and 24 gmm per step (remat runs each forward kernel
@@ -151,8 +194,8 @@ grouped matmul's backward (``GroupedMatmulFn``, whose products read
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
 unpack and the fused unpack-then-pack between rounds) against its plain
-versions, bit for bit, at every buffer phases 6-8 reorder (their shapes
-derived from the same constants and config), at the EP buffers of
+versions, bit for bit, at every buffer phases 6, 8 and 9 reorder (their
+shapes derived from the same constants and config), at the EP buffers of
 phi3.5-moe serving, the paper's tori and odd sizes, every round and every
 ordered pair of rounds; it times the passes of a (2,2) call at the
 [moe_ep] overlap chunk (also the dropless data chunk), the whole [moe_ep]
@@ -194,7 +237,7 @@ N_LAYERS = 4
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 WORLD = 4                          # ranks of the collective phases
 EP_TOKENS = 512                    # tokens per rank in [moe_ep]
-EP_PAIRS = 6                       # [moe_ep]'s warm (overlap, factorized)
+EP_PAIRS = 6                       # [moe_ep]'s warm rounds of its 3 plans
 COLL_TORI = (((2, 2), ("data", "pod")), ((4,), ("x",)))   # [collective]
 COLL_B = 1000                      # [collective]'s f32 block per rank pair
 COLL_TILED = (2, 2 * WORLD, 2)     # [collective]'s tiled input, split dim 1
@@ -202,6 +245,10 @@ COLL_CHUNKS = (2, 3)               # [collective]'s n_chunks (3 shrinks)
 COLL_ROW = (16,)                   # [collective]'s Alltoallv row, f32
 COLL_MAX_COUNT = 5                 # [collective]'s Alltoallv bound: bucket 8
 COLL_COUNTS = (8, 0.25)            # seed, density of its send counts
+TUNE_BUDGET_S = 60                 # [autotune]: each search's budget
+TUNE_MAX_CHUNKS = 4                # [autotune]: the overlap engine's bound
+TRACE_CALLS = 3                    # [tracing]: traced calls per layer kind
+DECODE_C = 4                       # [tracing]: the decode-size call's C
 TRAIN_LAYERS = 2                   # [train]: AdamW state must fit one card
 TRAIN_B, TRAIN_S = 2, 2048         # [train]'s batch (the copy task)
 TRAIN_STEPS = 4                    # [train]'s Trainer.run, checkpoint at 2
@@ -810,7 +857,7 @@ def _reorder_timed(gen, dims, B, dtype, label):
 
 
 def _ep_geometry() -> dict:
-    """What phases 7 and 8 run per rank, from the same constants and
+    """What phases 8 and 9 run per rank, from the same constants and
     config and from the plans they resolve (from the dims alone: the same
     resolution): experts per rank, [moe_ep]'s capacity, tuned plan and
     chunk count, and [moe_dropless]'s capacity and plan."""
@@ -829,8 +876,8 @@ def _ep_geometry() -> dict:
 
 
 def _path_gmm_cases(gen) -> list:
-    """The expert FFN's gmm rows at the (E_loc, rows) shapes phases 7 and
-    8 run: [moe_ep]'s overlap chunk (WORLD*C/n rows), its factorized call
+    """The expert FFN's gmm rows at the (E_loc, rows) shapes phases 8 and
+    9 run: [moe_ep]'s overlap chunk (WORLD*C/n rows), its factorized call
     and the dropless window (WORLD*C rows each), w1/w3 and w2."""
     g = _ep_geometry()
     cfg, E_loc, C, n = g["cfg"], g["E_loc"], g["C"], g["n"]
@@ -850,8 +897,8 @@ def _path_gmm_cases(gen) -> list:
 
 
 def _path_reorder_cases():
-    """(dims, B, dtype, label) of every (p, B) buffer that phases 6-8
-    pack and unpack (``_ep_geometry`` for phases 7 and 8).  The first is
+    """(dims, B, dtype, label) of every (p, B) buffer that phases 6, 8, 9
+    pack and unpack (``_ep_geometry`` for phases 8 and 9).  The first is
     [moe_ep]'s overlap chunk, the main timed case."""
     g = _ep_geometry()
     cfg, E_loc, C, n, plan = g["cfg"], g["E_loc"], g["C"], g["n"], g["plan"]
@@ -884,7 +931,7 @@ def _path_reorder_cases():
 
 
 def _reorder_kernels(gen):
-    """Phase 2's block-reorder part: the buffers of phases 6-8 (the
+    """Phase 2's block-reorder part: the buffers of phases 6, 8, 9 (the
     main rows are [moe_ep]'s overlap chunk), the EP buffers of
     phi3.5-moe serving on a
     (2,2) torus (E_loc=4, D=4096, bf16; C=4 at decode on 4 slots, C=640
@@ -1140,7 +1187,7 @@ def _profile(fn, label: str, per: int = 1, top: int = 8):
     """Run ``fn`` under torch.profiler and print the device time by
     kernel: total kernel time against the host-clock wall time (the
     device's busy share; one stream, so kernels do not overlap) and the
-    largest kernels."""
+    largest kernels.  Returns the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1160,7 +1207,7 @@ def _profile(fn, label: str, per: int = 1, top: int = 8):
     busy = sum(r[0] for r in rows)
     if not rows:
         log(f"[profile] {label}: the profiler recorded no device time")
-        return
+        return prof
     log(f"[profile] {label}: wall {wall_ms / per:.2f} ms, device busy "
         f"{busy / per:.2f} ms ({100 * busy / wall_ms:.0f}%) per call; top:")
     for ms, key, count in sorted(rows, reverse=True)[:top]:
@@ -1169,6 +1216,7 @@ def _profile(fn, label: str, per: int = 1, top: int = 8):
     for key, count, ms in spans:
         log(f"[profile]   span {key}: x{count // per}, {ms / per:.3f} ms "
             f"of host time per call ({100 * ms / wall_ms:.1f}% of wall)")
+    return prof
 
 
 def phase_profile(model, params, cfg, tokens):
@@ -1191,7 +1239,8 @@ def phase_profile(model, params, cfg, tokens):
 
 
 # ---------------------------------------------------------------------------
-# phases 6-8: the collective and expert-parallel MoE, 4 ranks on one card
+# phases 6-10: the collective, autotune, expert-parallel MoE and tracing,
+# 4 ranks on one card
 # ---------------------------------------------------------------------------
 
 
@@ -1490,6 +1539,118 @@ def _rank_collective(rank: int, n: int) -> dict:
             "launches": launches}
 
 
+def _definition(n: int, block, dtype, rank: int):
+    """What torus rank ``rank`` receives from every rank in an all-to-all
+    of the search's global operand: ``global[i, rank]`` for each ``i``
+    (``core.autotune._operand``'s ``arange % 251``)."""
+    B = math.prod(block)
+    return torch.stack([
+        (torch.arange((i * n + rank) * B, (i * n + rank + 1) * B,
+                      device=DEVICE) % 251).reshape(block).to(dtype)
+        for i in range(n)])
+
+
+def _search_checks(tag, mesh, axes, block, dtype, rank, ok) -> dict:
+    """One dense search (``autotune``) and its gates on one rank: the
+    record's table is the reference's candidate list for dims (2,2),
+    nothing skipped, the plan measured; a second ``backend="autotune"``
+    build is the same plan and times nothing; forward and reverse equal
+    the definition, with n_chunks x round_schedule's reorder passes."""
+    from repro_torch.core.autotune import (TuningDB, _chunk_candidates,
+                                           _operand, autotune,
+                                           autotune_stats, db_fingerprint,
+                                           measured_links, plan_db_key)
+    from repro_torch.core.plan import itemsize, plan_all_to_all
+    from repro_torch.core.tuning import default_links
+    t0 = time.perf_counter()
+    plan = autotune(mesh, axes, block, dtype, max_chunks=TUNE_MAX_CHUNKS,
+                    budget_seconds=TUNE_BUDGET_S)
+    search_s = time.perf_counter() - t0
+    dims = plan.dims
+    rec = TuningDB().get(plan_db_key(db_fingerprint(mesh), dims, axes,
+                                     block, dtype, "natural"))
+    links = measured_links(rec) or default_links(axes)
+    chunks = _chunk_candidates(dims, links,
+                               float(math.prod(block) * itemsize(dtype)),
+                               TUNE_MAX_CHUNKS)
+    want = [("direct", [0, 1], 1), ("factorized", [0, 1], 1),
+            ("factorized", [1, 0], 1)] \
+        + [("overlap", [0, 1], c) for c in chunks]
+    got = [(r["backend"], r["round_order"], r["n_chunks"])
+           for r in rec["table"]]
+    ok[f"{tag}: the table {got} is the candidate list {want}"] = \
+        got == want and all(r["eligible"] for r in rec["table"])
+    ok[f"{tag}: nothing skipped {rec['skipped']}"] = rec["skipped"] == []
+    ok[f"{tag}: tuned_from measured"] = plan.tuned_from == "measured"
+    timed = autotune_stats()["timing_executions"]
+    ok[f"{tag}: a second build is the plan and times nothing"] = \
+        plan_all_to_all(mesh, axes, block, dtype, backend="autotune") \
+        is plan and autotune_stats()["timing_executions"] == timed
+    x = _operand(WORLD, block, dtype, rank, torch.device(DEVICE))
+    n = _n_chunks(math.prod(block), plan.n_chunks) \
+        if plan.backend in ("overlap", "pipelined") else 1
+    before = _reorder_launches()
+    y, back = plan.forward(x), plan.reverse(x)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in _reorder_launches().items()}
+    predicted = _sum_launches(_dense_launches(plan, False, n),
+                              _dense_launches(plan, True, n))
+    want_y = _definition(WORLD, block, dtype, rank)
+    ok[f"{tag}: forward and reverse equal the definition"] = \
+        torch.equal(y, want_y) and torch.equal(back, want_y)
+    ok[f"{tag}: reorder launches {counts} == {predicted}"] = \
+        counts == predicted
+    return {"describe": plan.describe(), "table": rec["table"],
+            "links": rec["measured_links"],
+            "default_links": [{"alpha": l.alpha, "bandwidth": l.bandwidth}
+                              for l in default_links(axes)],
+            "search_s": search_s}
+
+
+def _rank_autotune(rank: int, n: int) -> dict:
+    """[autotune] on one rank: the measured search at [moe_ep]'s EP block
+    and at the dropless layer's padded data block, the ragged-vs-sparse
+    search at its row and window; the tuning DB is the world's
+    temporary file (``run_world``)."""
+    from repro_torch.core.autotune import (TuningDB, autotune_ragged,
+                                           autotune_stats, db_fingerprint,
+                                           ragged_db_key)
+    from repro_torch.core.cache import cart_create
+    from repro_torch.models.moe import _capacity, _group_geometry
+    cfg = _ep_config()
+    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, G))
+    dcfg = _ep_config(capacity_factor=None)
+    window = E_loc * _capacity(dcfg, EP_TOKENS, max(dcfg.n_experts, G))
+    density = min(1.0, max(1e-6, 1.0 - math.exp(
+        -dcfg.top_k * EP_TOKENS / G)))
+    ok = {}
+    _reset_counts()
+    out = {"ep": _search_checks("EP block", mesh, axes,
+                                (E_loc, C, cfg.d_model), cfg.cdtype, rank,
+                                ok),
+           "data": _search_checks("dropless data block", mesh, axes,
+                                  (window, dcfg.d_model), dcfg.cdtype,
+                                  rank, ok)}
+    t0 = time.perf_counter()
+    rplan = autotune_ragged(mesh, axes, (dcfg.d_model,), dcfg.cdtype,
+                            max_count=window, density=density)
+    ragged_s = time.perf_counter() - t0
+    rec = TuningDB().get(ragged_db_key(db_fingerprint(mesh), (2, 2), axes,
+                                       (dcfg.d_model,), dcfg.cdtype, window,
+                                       "natural", density))
+    ok["ragged: the winner is the plan returned"] = \
+        (rec["winner"]["backend"] == "sparse") \
+        == (type(rplan).__name__ == "SparseA2APlan")
+    out.update(ok=ok, counts=_read_counts(), stats=autotune_stats(),
+               ragged={"kind": type(rplan).__name__, "table": rec["table"],
+                       "winner": rec["winner"], "search_s": ragged_s,
+                       "row": f"({dcfg.d_model},) {rec['dtype']}",
+                       "window": window})
+    return out
+
+
 def _timed_calls(call, rank: int, label: str, warm: int = 3) -> dict:
     """One counted cold call of ``call``, ``warm`` warm ones, and a
     profiled one on rank 0 (the other ranks run it unprofiled)."""
@@ -1504,10 +1665,17 @@ def _timed_calls(call, rank: int, label: str, warm: int = 3) -> dict:
            **{k: c.value - before[k] for k, c in copies.items()},
            "y": y, "aux": float(aux)}
     out["warm_ms"] = [_host_ms(call)[1] for _ in range(warm)]
+    out["interleave"] = None
     if rank == 0:
-        _profile(call, f"{label}, rank 0 of 4 (overlap.chunk_copies "
-                 f"{out['chunk_copies']}, overlap.concat_copies "
-                 f"{out['concat_copies']} a call)")
+        from repro_torch.core.profile_inspect import interleave_report
+        rep = interleave_report(_profile(
+            call, f"{label}, rank 0 of 4 (overlap.chunk_copies "
+            f"{out['chunk_copies']}, overlap.concat_copies "
+            f"{out['concat_copies']} a call)"))
+        out["interleave"] = {
+            "interleaved": rep.interleaved_collectives,
+            "collective_runs": rep.collective_runs,
+            "events": [c[0] for c in rep.events]}
     else:
         call()
     return out
@@ -1535,9 +1703,19 @@ def _rank_moe_ep(rank: int, n: int, seed: int) -> dict:
     factorized = lambda: moe_block(p, x, fcfg, mesh=mesh)
     fact = _timed_calls(factorized, rank, "moe_ep layer call (factorized)",
                         warm=0)
-    # warm host ms of both plans in turns, each first in half the pairs
+    # the measured winner of [autotune] at this very block, replayed
+    acfg = _ep_config(a2a_backend="autotune")
+    aplan = moe_a2a_plan(acfg, mesh, axes, E_loc, C)
+    autotuned = lambda: moe_block(p, x, acfg, mesh=mesh)
+    auto = _timed_calls(autotuned, rank,
+                        f"moe_ep layer call (autotune: {aplan.backend})",
+                        warm=0)
+    an = _n_chunks(C, aplan.n_chunks) if aplan.backend == "overlap" else 1
+    # warm host ms of the three plans in turns, each first in a third of
+    # the rounds
+    runs = ((tuned, out), (factorized, fact), (autotuned, auto))
     for i in range(EP_PAIRS):
-        for run, res in ((tuned, out), (factorized, fact))[::1 - 2 * (i % 2)]:
+        for run, res in runs[i % 3:] + runs[:i % 3]:
             res["warm_ms"].append(_host_ms(run)[1])
     n_chunks = _n_chunks(C, plan.n_chunks)
     out.update(describe=plan.describe(), n_chunks=n_chunks, C=C,
@@ -1548,6 +1726,14 @@ def _rank_moe_ep(rank: int, n: int, seed: int) -> dict:
                fact_warm_ms=fact["warm_ms"], fact_counts=fact["counts"],
                fact_predicted=_sum_launches(_dense_launches(fplan, False),
                                             _dense_launches(fplan, True)),
+               fact_interleave=fact["interleave"],
+               auto_describe=aplan.describe(), auto_n=an,
+               auto_warm_ms=auto["warm_ms"],
+               auto_counts=auto["counts"],
+               auto_predicted=_sum_launches(
+                   _dense_launches(aplan, False, an),
+                   _dense_launches(aplan, True, an)),
+               auto_equal=torch.equal(auto["y"], fact["y"]),
                weight_gb=sum(t.numel() * t.element_size()
                              for t in p.values()) / 1e9,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -1574,27 +1760,231 @@ def _rank_moe_dropless(rank: int, n: int, seed: int) -> dict:
     send = torch.bincount((top // E_loc).reshape(-1), minlength=G)
     out = _timed_calls(lambda: moe_block(p, x, cfg, mesh=mesh), rank,
                        f"moe_dropless layer call ({plan.backend})")
+    # the measured ragged-vs-sparse winner of [autotune], replayed (a
+    # ragged plan's data plan replays the padded block's record)
+    acfg = _ep_config(capacity_factor=None, a2a_backend="autotune")
+    aplan = moe_dropless_a2a_plan(acfg, mesh, axes, E_loc, C, EP_TOKENS)
+    auto = _timed_calls(lambda: moe_block(p, x, acfg, mesh=mesh), rank,
+                        f"moe_dropless layer call (autotune: "
+                        f"{type(aplan).__name__} {aplan.backend})", warm=0)
     out.update(kind=type(plan).__name__, describe=plan.describe(), C=C,
                occupancy=float(plan.occupancy(send.to(torch.int32))),
                predicted=_sum_launches(_alltoallv_launches(plan, False),
-                                       _alltoallv_launches(plan, True)))
+                                       _alltoallv_launches(plan, True)),
+               auto_kind=type(aplan).__name__, auto_describe=aplan.describe(),
+               auto_counts=auto["counts"],
+               auto_predicted=_sum_launches(_alltoallv_launches(aplan, False),
+                                            _alltoallv_launches(aplan, True)),
+               auto_equal=torch.equal(auto["y"], out["y"]),
+               auto_y=auto["y"].float().cpu().numpy())
     out["y"] = out["y"].float().cpu().numpy()
     return out
 
 
+def _span_shape(spans) -> list:
+    """The span forest as nested ``(name, kind, backend, axis, children)``
+    tuples, each level in start order."""
+    kids: dict = {}
+    for sp in sorted(spans, key=lambda sp: sp.start):
+        kids.setdefault(sp.parent_id, []).append(sp)
+
+    def shape(sp):
+        return (sp.name, sp.attrs.get("kind"), sp.attrs.get("backend"),
+                sp.attrs.get("axis"),
+                tuple(shape(c) for c in kids.get(sp.span_id, ())))
+    return [shape(sp) for sp in kids.get(None, ())]
+
+
+def _dense_shape(plan, reverse: bool) -> tuple:
+    """The spans one traced ``forward`` / ``reverse`` of a dense plan
+    makes: a round span per active round (factorized), else one fused."""
+    if plan.backend == "factorized":
+        order = plan.rev_order if reverse else plan.order
+        names = [a for a, d in zip(plan.axis_names, plan.dims) if d > 1]
+        rounds = tuple(("plan.round", None, None, names[k], ())
+                       for k in order)
+    else:
+        rounds = (("plan.round", None, plan.backend, "*", ()),)
+    return ("plan.execute", "dense", plan.backend, None, rounds)
+
+
+def _rank_tracing(rank: int, n: int, seed: int) -> dict:
+    """[tracing] on one rank: the factorized, overlap and dropless layer
+    calls untraced, then ``TRACE_CALLS`` times each traced; the span
+    tree, the drift keys, ``check_drift``, a Chrome trace; the drift
+    ratios under the default and the measured links; a decode-size
+    call's host µs with tracing off and on."""
+    from repro_torch.core import telemetry
+    from repro_torch.core.autotune import (TuningDB, db_fingerprint,
+                                           measured_links, plan_db_key)
+    from repro_torch.core.cache import cart_create
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        moe_a2a_plan, moe_block,
+                                        moe_dropless_a2a_plan, moe_ep_comm)
+    from repro_torch.runtime.watchdog import StragglerWatchdog
+    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    cfgs = {"factorized": _ep_config(a2a_backend="factorized"),
+            "overlap": _ep_config(),
+            "dropless": _ep_config(capacity_factor=None)}
+    axes, G, E_loc, _ = _group_geometry(cfgs["overlap"], mesh)
+    E = cfgs["overlap"].n_experts
+    C = _capacity(cfgs["overlap"], EP_TOKENS, max(E, G))
+    Cd = _capacity(cfgs["dropless"], EP_TOKENS, max(E, G))
+    p = _ep_weights(cfgs["overlap"], moe_ep_comm(cfgs["overlap"], mesh,
+                                                 axes).rank, E_loc, seed)
+    _, x = _ep_inputs(cfgs["overlap"], rank, seed)
+    plans = {k: moe_a2a_plan(cfgs[k], mesh, axes, E_loc, C)
+             for k in ("factorized", "overlap")}
+    dplan = moe_dropless_a2a_plan(cfgs["dropless"], mesh, axes, E_loc, Cd,
+                                  EP_TOKENS)
+    ok = {"the overlap call runs the overlap engine":
+          plans["overlap"].backend == "overlap",
+          "the dropless call runs the ragged plan":
+          type(dplan).__name__ == "RaggedA2APlan"}
+
+    def calls():
+        for name, cfg in cfgs.items():
+            _reset_counts()
+            y, _ = moe_block(p, x, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            yield name, y, _read_counts()
+
+    untraced = {name: (y, c) for name, y, c in calls()}
+    telemetry.reset_telemetry()
+    tr = telemetry.enable_tracing()
+    try:
+        for i in range(TRACE_CALLS):
+            for name, y, c in calls():
+                uy, uc = untraced[name]
+                ok[f"traced {name} call {i}: output equal to untraced"] = \
+                    torch.equal(y, uy)
+                ok[f"traced {name} call {i}: launches {c} == {uc}"] = \
+                    c == uc
+    finally:
+        telemetry.disable_tracing()
+    spans = tr.spans()
+
+    # the span tree: the plans' own shapes, call after call
+    f, o = plans["factorized"], plans["overlap"]
+    rag = ("plan.execute", "ragged", dplan.backend, None,
+           (("ragged.counts", None, "", None, ()),))
+    want_call = {
+        "factorized": [_dense_shape(f, False), _dense_shape(f, True)],
+        "overlap": [("plan.execute", "dense", "overlap", None,
+                     (("plan.round", None, "overlap", "*", ()),))],
+        "dropless": [(*rag[:4], rag[4] + (_dense_shape(dplan.data, r),))
+                     for r in (False, True)]}
+    want = [s for _ in range(TRACE_CALLS) for k in cfgs
+            for s in want_call[k]]
+    got = _span_shape(spans)
+    # the counts span's backend is the counts plan's: normalise it
+    got = [(*g[:4], tuple((c[0], c[1], "" if c[0] == "ragged.counts"
+                                  else c[2], c[3], c[4]) for c in g[4]))
+           for g in got]
+    ok[f"span tree: {len(got)} top-level spans as the plans predict"] = \
+        got == want
+
+    # drift keys in the reference's format
+    summary = telemetry.drift_detector().summary()
+    names = [a for a, d in zip(f.axis_names, f.dims) if d > 1]
+    keys = {f._drift_key(), o._drift_key() + ":overlap",
+            dplan._drift_key(), dplan.data._drift_key()}
+    keys |= {f"{f._drift_key()}:axis={a}" for a in names}
+    if dplan.data.backend == "factorized":
+        keys |= {f"{dplan.data._drift_key()}:axis={a}" for a in names}
+    ok[f"drift keys {sorted(summary)} == {sorted(keys)}"] = \
+        set(summary) == keys
+    wd = StragglerWatchdog()
+    first, second = wd.check_drift(step=1), wd.check_drift(step=2)
+    drifted = sorted(k for k, v in summary.items() if v["drifted"])
+    ok["check_drift: one retune per drifted key"] = \
+        sorted(k for k, _ in first) == drifted \
+        and all(a.kind == "retune" for _, a in first)
+    ok["check_drift: nothing on a second call"] = second == []
+
+    # the Chrome trace, exported, reloaded and checked
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / f"trace{rank}.json"
+        tr.export_chrome_trace(path)
+        doc = json.loads(path.read_text())
+    events = doc["traceEvents"]
+    ids = {ev["args"]["span_id"] for ev in events}
+    ok["chrome trace: schema"] = len(events) == len(spans) and all(
+        set(ev) == {"name", "ph", "ts", "dur", "pid", "tid", "cat", "args"}
+        and ev["ph"] == "X" and ev["dur"] >= 0.0
+        and ev["args"].get("parent_id", next(iter(ids))) in ids
+        for ev in events) and doc["otherData"]["dropped_spans"] == 0
+
+    # drift ratios under the default links and under [autotune]'s fit:
+    # the EP block's, or where that fit gave up the dropless data
+    # block's (the fit times the same single-axis exchanges)
+    block = (E_loc, C, cfgs["overlap"].d_model)
+    links = next(filter(None, (measured_links(TuningDB().get(plan_db_key(
+        db_fingerprint(mesh), f.dims, axes, b, cfgs["overlap"].cdtype,
+        "natural"))) for b in (block, (E_loc * Cd,
+                                       cfgs["overlap"].d_model)))), None)
+    ratios = {}
+    if links is not None:
+        comm = torus_comm(mesh, axes)
+        remeasured = {
+            f._drift_key(): comm.all_to_all(block, f.dtype,
+                                            backend="factorized",
+                                            links=links),
+            o._drift_key() + ":overlap": comm.all_to_all(
+                block, o.dtype, backend="overlap", n_chunks=o.n_chunks,
+                links=links)}
+        for key, mp in remeasured.items():
+            info = summary[key]
+            scale = 2 if key.endswith(":overlap") else 1
+            ratios[key] = (info["ratio"], info["ratio"]
+                           * info["predicted_seconds"]
+                           / (scale * mp.schedule.predicted_seconds))
+        mp = remeasured[f._drift_key()]
+        for a, pred in mp._per_axis_predictions().items():
+            info = summary[f"{f._drift_key()}:axis={a}"]
+            ratios[f"{f._drift_key()}:axis={a}"] = (
+                info["ratio"], info["ratio"] * info["predicted_seconds"]
+                / pred)
+
+    # a decode-size call's host µs, tracing off and on
+    dblock = (E_loc, DECODE_C, cfgs["overlap"].d_model)
+    dec = torus_comm(mesh, axes).all_to_all(dblock, cfgs["overlap"].cdtype,
+                                           backend="factorized")
+    xd = torch.randn((G,) + dblock, device=DEVICE).to(
+        cfgs["overlap"].cdtype)
+    off = _host_us(lambda: dec.forward(xd), iters=50)
+    telemetry.enable_tracing()
+    try:
+        on = _host_us(lambda: dec.forward(xd), iters=50)
+    finally:
+        telemetry.disable_tracing()
+    telemetry.reset_telemetry()
+    return {"ok": {k: bool(v) for k, v in ok.items()}, "summary": summary,
+            "drifted": drifted, "retunes": [k for k, _ in first],
+            "ratios": ratios, "spans": len(spans),
+            "decode_us": (off, on), "decode_bytes": xd.numel() * 2}
+
+
 def _world_rank(rank: int, n: int, seed: int) -> dict:
-    """One rank of the 4-rank gloo world: phases 6, 7 and 8."""
+    """One rank of the 4-rank gloo world: phases 6 to 10."""
     torch.cuda.set_device(0)
     return {"collective": _rank_collective(rank, n),
+            "autotune": _rank_autotune(rank, n),
             "moe_ep": _rank_moe_ep(rank, n, seed),
-            "moe_dropless": _rank_moe_dropless(rank, n, seed)}
+            "moe_dropless": _rank_moe_dropless(rank, n, seed),
+            "tracing": _rank_tracing(rank, n, seed)}
 
 
 def run_world(seed: int, timeout: float = 600.0) -> list:
     """Spawn the 4-rank world with ``tests/torch_dist.py`` (FileStore
-    init, killed at ``timeout``) and return each rank's result."""
+    init, killed at ``timeout``) and return each rank's result.  The
+    ranks' tuning DB is a file in a temporary directory, so that no DB
+    left on the machine decides the run."""
+    import os
     import torch_dist
     with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_TUNING_DB"] = str(Path(tmp) / "tuning.json")
         try:
             return torch_dist.run_world(_world_rank, WORLD, tmp, seed,
                                         timeout=timeout)
@@ -1623,9 +2013,85 @@ def phase_collective(results) -> dict:
     return launches
 
 
-def _one_process_gate(phase: str, cfg, results, seed: int):
-    """Hold the gathered EP output against the same layer with mesh=None
-    on all tokens in this process; returns (max |dy|, max |y|, aux)."""
+def _bad(results, phase: str) -> list:
+    return sorted({k for r in results for k, v in r[phase]["ok"].items()
+                   if not v})
+
+
+def phase_autotune(results) -> dict:
+    """Every check passed on every rank, and the ranks agree: the same
+    measured plans (tables included) and the same ragged-vs-sparse
+    winner.  Prints the medians, the fitted links, the winners and the
+    search seconds."""
+    bad = _bad(results, "autotune")
+    if bad:
+        fail(f"[autotune] failed: {bad}")
+    for what in ("ep", "data"):
+        descs = [r["autotune"][what]["describe"] for r in results]
+        if any(d != descs[0] for d in descs):
+            fail(f"[autotune] the ranks' {what} plans differ: {descs}")
+    rag = [(r["autotune"]["ragged"]["kind"], r["autotune"]["ragged"]
+            ["winner"]) for r in results]
+    if any(x != rag[0] for x in rag):
+        fail(f"[autotune] the ranks' ragged winners differ: {rag}")
+    r0 = results[0]["autotune"]
+    for what, label in (("ep", "EP block"), ("data", "dropless data block")):
+        a = r0[what]
+        d = a["describe"]
+        label += (f" {tuple(d['block_shape'])} {d['dtype']}, "
+                  f"{d['block_bytes'] / 2**20:g} MiB")
+        rows = "; ".join(f"{t['backend']} {t['round_order']} n={t['n_chunks']}"
+                         f" {t['median_us']:.1f}" for t in a["table"])
+        log(f"[autotune] {label}: medians (µs, the slowest rank's): "
+            f"{rows}; winner {d['backend']} order {d['round_order']} "
+            f"n_chunks {d['n_chunks']}; fitted links (alpha s, bytes/s) "
+            f"per axis {a['links']} against default_links "
+            f"{a['default_links']}; search "
+            f"{max(r['autotune'][what]['search_s'] for r in results):.2f} s")
+    rk = r0["ragged"]
+    rows = "; ".join(f"{t['backend']} {t['median_us']:.1f}"
+                     for t in rk["table"])
+    log(f"[autotune] dropless row {rk['row']}, window {rk['window']}: "
+        f"{rows} µs; "
+        f"winner {rk['kind']}; search "
+        f"{max(r['autotune']['ragged']['search_s'] for r in results):.2f} s;"
+        f" autotune_stats rank 0 {r0['stats']}")
+    return {k: sum(r["autotune"]["counts"][k] for r in results)
+            for k in r0["counts"]}
+
+
+def phase_tracing(results) -> None:
+    """Every tracing check passed on every rank; prints the drift ratios
+    under both link sets and the decode-size host µs."""
+    bad = _bad(results, "tracing")
+    if bad:
+        fail(f"[tracing] failed: {bad}")
+    t0 = results[0]["tracing"]
+    if not t0["ratios"]:
+        log("[tracing] [autotune]'s link fit gave up (the two payload "
+            "sizes' times did not grow): drift under default_links only, "
+            f"{ {k: v['ratio'] for k, v in t0['summary'].items()} }")
+    for key, (default, measured) in sorted(t0["ratios"].items()):
+        log(f"[tracing] drift {key}: measured / model {default:.4g} under "
+            f"default_links, {measured:.4g} under [autotune]'s links")
+    log(f"[tracing] {TRACE_CALLS} traced calls each of the factorized, "
+        f"overlap and dropless layer: {t0['spans']} spans on rank 0, "
+        f"outputs and launches equal to the untraced calls on every rank; "
+        f"drifted keys {t0['drifted']}; check_drift retunes "
+        f"{t0['retunes']}, then none")
+    offs = [r["tracing"]["decode_us"][0] for r in results]
+    ons = [r["tracing"]["decode_us"][1] for r in results]
+    log(f"[tracing] decode-size factorized call "
+        f"({t0['decode_bytes'] // 1024} KiB a rank) host µs per call over "
+        f"50 calls, ranks 0-3: tracing off "
+        f"{[round(v, 1) for v in offs]}, on {[round(v, 1) for v in ons]}")
+
+
+def _one_process_gate(phase: str, cfg, results, seed: int,
+                      keys=("y",)):
+    """Hold the gathered EP outputs (``keys`` of each rank's result)
+    against the same layer with mesh=None on all tokens in this process;
+    returns ({key: max |dy|}, max |y|, aux, reference aux)."""
     from repro_torch.models.moe import moe_block
     router, _ = _ep_inputs(cfg, 0, seed)
     x = torch.cat([_ep_inputs(cfg, rank, seed)[1] for rank in range(WORLD)])
@@ -1637,19 +2103,23 @@ def _one_process_gate(phase: str, cfg, results, seed: int):
     y_ref, aux_ref = moe_block(p, x, cfg)
     del p
     y_ref = y_ref.float().cpu().numpy()
-    y = np.concatenate([r[phase]["y"] for r in results])
-    if y.shape != y_ref.shape or not np.isfinite(y).all():
-        fail(f"[{phase}] output {y.shape} not finite {y_ref.shape}")
     scale = float(np.abs(y_ref).max())
-    err = float(np.abs(y - y_ref).max())
-    if err > 2e-2 * scale:
-        fail(f"[{phase}] EP output differs from the one-process layer by "
-             f"{err:.4g} (largest |y| {scale:.4g}; limit 2e-2 of it)")
+    errs = {}
+    for key in keys:
+        y = np.concatenate([r[phase][key] for r in results])
+        if y.shape != y_ref.shape or not np.isfinite(y).all():
+            fail(f"[{phase}] output {key} {y.shape} not finite "
+                 f"{y_ref.shape}")
+        errs[key] = float(np.abs(y - y_ref).max())
+        if errs[key] > 2e-2 * scale:
+            fail(f"[{phase}] EP output {key} differs from the one-process "
+                 f"layer by {errs[key]:.4g} (largest |y| {scale:.4g}; "
+                 f"limit 2e-2 of it)")
     aux = [r[phase]["aux"] for r in results]
     if any(abs(a - float(aux_ref)) > 1e-3 * abs(float(aux_ref))
            for a in aux):
         fail(f"[{phase}] aux {aux} vs {float(aux_ref):.6g}")
-    return err, scale, aux[0], float(aux_ref)
+    return errs, scale, aux[0], float(aux_ref)
 
 
 def _check_counts(phase: str, results, per_rank: dict,
@@ -1680,18 +2150,53 @@ def phase_moe_ep(results, seed: int) -> dict:
     _check_counts("moe_ep", results, _expected(
         **_gmm_launches(cfg, E_loc, WORLD * r0["C"], 1),
         **r0["fact_predicted"]), key="fact_counts")
-    err, scale, aux, aux_ref = _one_process_gate("moe_ep", cfg, results,
-                                                 seed)
+    # the autotune call: every rank replays [autotune]'s winner, with its
+    # launches, bit for bit the factorized call's output
+    win = results[0]["autotune"]["ep"]["describe"]
+    for rank, r in enumerate(results):
+        d = r["moe_ep"]["auto_describe"]
+        if d["tuned_from"] != "measured" or (
+                d["backend"], d["round_order"], d["n_chunks"]) != (
+                win["backend"], win["round_order"], win["n_chunks"]):
+            fail(f"[moe_ep] rank {rank}'s autotune plan {d} is not "
+                 f"[autotune]'s measured winner {win}")
+        if not r["moe_ep"]["auto_equal"]:
+            fail(f"[moe_ep] rank {rank}: the autotune call's output is not "
+                 f"the factorized call's bit for bit")
+    an = r0["auto_n"]
+    _check_counts("moe_ep", results, _expected(
+        **_gmm_launches(cfg, E_loc, WORLD * r0["C"] // an, an),
+        **r0["auto_predicted"]), key="auto_counts")
+    # the overlap call interleaves exchanges with the expert FFN stages
+    # in host order; the factorized call does not
+    ov, fa = r0["interleave"], r0["fact_interleave"]
+    if not ov["interleaved"] > fa["interleaved"] == 0:
+        fail(f"[moe_ep] interleave_report: overlap {ov}, factorized {fa}")
+    log(f"[moe_ep] interleave_report on rank 0's profiles: overlap call "
+        f"{ov['interleaved']} exchanges between compute stages "
+        f"({ov['collective_runs']} collective runs: {ov['events']}); "
+        f"factorized call {fa['interleaved']} ({fa['collective_runs']} "
+        f"runs)")
+    log(f"[moe_ep] a2a_backend autotune replays {win['backend']} "
+        f"order {win['round_order']} n_chunks {win['n_chunks']} on every "
+        f"rank (tuned_from measured); output equal to the factorized "
+        f"call's bit for bit; launches per rank {r0['auto_counts']}")
+    errs, scale, aux, aux_ref = _one_process_gate("moe_ep", cfg, results,
+                                                  seed)
+    err = errs["y"]
     warm = [t for r in results for t in r["moe_ep"]["warm_ms"]]
     fwarm = [t for r in results for t in r["moe_ep"]["fact_warm_ms"]]
+    awarm = [t for r in results for t in r["moe_ep"]["auto_warm_ms"]]
     won = sum(a < b for a, b in zip(warm, fwarm))
+    awon = sum(a < b for a, b in zip(awarm, warm))
     q = lambda v: "/".join(f"{t:.1f}" for t in np.percentile(v, (25, 50,
                                                                  75)))
-    log(f"[moe_ep] warm host ms per call over {EP_PAIRS} pairs in turns x "
+    log(f"[moe_ep] warm host ms per call over {EP_PAIRS} rounds in turns x "
         f"{WORLD} ranks, quartiles 25/50/75: overlap {q(warm)}, factorized "
-        f"{q(fwarm)}; overlap faster in {won} of {len(warm)} pairs "
-        f"(one card, gloo staging through the host: not an overlap "
-        f"measurement)")
+        f"{q(fwarm)}, autotune ({win['backend']}) {q(awarm)}; overlap "
+        f"faster than factorized in {won} of {len(warm)} rounds, autotune "
+        f"faster than overlap in {awon} (one card, gloo staging through "
+        f"the host: not an overlap measurement)")
     log(f"[moe_ep] {ARCH} MoE layer, EP over (data=2, pod=2), "
         f"{EP_TOKENS} tokens x {WORLD} ranks, E_loc={E_loc} "
         f"({r0['weight_gb']:.3f} GB of expert weights per rank), "
@@ -1720,8 +2225,37 @@ def phase_moe_dropless(results, seed: int) -> dict:
     per_rank = _expected(**_gmm_launches(cfg, E_loc, WORLD * r0["C"], 1),
                          **r0["predicted"])
     total = _check_counts("moe_dropless", results, per_rank)
-    err, scale, aux, aux_ref = _one_process_gate("moe_dropless", cfg,
-                                                 results, seed)
+    # the autotune call: [autotune]'s ragged-vs-sparse winner, and for a
+    # ragged plan the padded data block's measured winner
+    rk = results[0]["autotune"]["ragged"]
+    kind = "SparseA2APlan" if rk["winner"]["backend"] == "sparse" \
+        else "RaggedA2APlan"
+    win = results[0]["autotune"]["data"]["describe"]
+    for rank, r in enumerate(results):
+        d = r["moe_dropless"]["auto_describe"]
+        if r["moe_dropless"]["auto_kind"] != kind or (
+                kind == "RaggedA2APlan" and (
+                    d["tuned_from"] != "measured"
+                    or (d["backend"], d["round_order"], d["n_chunks"])
+                    != (win["backend"], win["round_order"],
+                        win["n_chunks"]))):
+            fail(f"[moe_dropless] rank {rank}'s autotune plan "
+                 f"{r['moe_dropless']['auto_kind']} {d} is not the "
+                 f"measured {kind} / {win}")
+    _check_counts("moe_dropless", results, _expected(
+        **_gmm_launches(cfg, E_loc, WORLD * r0["C"], 1),
+        **r0["auto_predicted"]), key="auto_counts")
+    errs, scale, aux, aux_ref = _one_process_gate(
+        "moe_dropless", cfg, results, seed, keys=("y", "auto_y"))
+    err = errs["y"]
+    log(f"[moe_dropless] a2a_backend autotune replays {kind} (data "
+        f"backend {r0['auto_describe']['backend']}, n_chunks "
+        f"{r0['auto_describe']['n_chunks']}, tuned_from "
+        f"{r0['auto_describe']['tuned_from']}) on every rank: max |y - "
+        f"one-process y| {errs['auto_y']:.4g}; equal to the tuned call's "
+        f"output bit for bit: "
+        f"{all(r['moe_dropless']['auto_equal'] for r in results)}; "
+        f"launches per rank {r0['auto_counts']}")
     warm = [t for r in results for t in r["moe_dropless"]["warm_ms"]]
     desc = r0["describe"]
     log(f"[moe_dropless] plan: {json.dumps(desc)}")
@@ -1741,7 +2275,7 @@ def phase_moe_dropless(results, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: training at full width
+# phase 11: training at full width
 # ---------------------------------------------------------------------------
 
 
@@ -2013,6 +2547,11 @@ def phase_train() -> dict:
         deltas.append({k: v - before[k] for k, v in _read_counts().items()})
         return out
 
+    # the trainer and the checkpoint under the tracer: a train.step span
+    # per step, one checkpoint.save and one checkpoint.restore
+    from repro_torch.core import telemetry
+    telemetry.reset_telemetry()
+    tracer = telemetry.enable_tracing()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckdir:
         tcfg = TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_dir=ckdir,
                              checkpoint_every=2, keep_checkpoints=1,
@@ -2056,6 +2595,16 @@ def phase_train() -> dict:
         status = tr.run()
         rest_s = time.perf_counter() - t0
         counts = _read_counts()
+    telemetry.disable_tracing()
+    spans = [sp.name for sp in tracer.spans()]
+    want_spans = {"train.step": TRAIN_STEPS, "checkpoint.save": 1,
+                  "checkpoint.restore": 1}
+    got_spans = {k: spans.count(k) for k in want_spans}
+    if got_spans != want_spans or len(spans) != sum(want_spans.values()):
+        fail(f"[train] spans {spans}, expected {want_spans}")
+    steps_ms = [round(sp.duration * 1e3, 1) for sp in tracer.spans()
+                if sp.name == "train.step"]
+    telemetry.reset_telemetry()
     want = {k: TRAIN_STEPS * v for k, v in per_step.items()}
     if status != "done" or tr.step != TRAIN_STEPS:
         fail(f"[train] Trainer.run ended {status} at step {tr.step}")
@@ -2073,6 +2622,8 @@ def phase_train() -> dict:
         f"each step ends in a host read of the loss) {[round(t, 1) for t in secs]}"
         f": first {secs[0]:.1f}, warm median "
         f"{float(np.median(secs[1:])):.1f}; launches per step {per_step}")
+    log(f"[train] traced: {got_spans} spans; train.step span ms "
+        f"{steps_ms}")
     log(f"[train] checkpoint: the async save at step 2 took {save_s:.1f} "
         f"s outside the steps (host snapshot, sha256, write), restored "
         f"into a fresh Trainer in "
@@ -2145,8 +2696,10 @@ def main() -> int:
     world = run_world(seed)
     paths = {"prefill": prefill_counts, "serve": serve_counts,
              "collective": phase_collective(world),
+             "autotune": phase_autotune(world),
              "moe_ep": phase_moe_ep(world, seed),
              "moe_dropless": phase_moe_dropless(world, seed)}
+    phase_tracing(world)
     del world
     paths["train"] = phase_train()
     for name, entry in kernels.items():

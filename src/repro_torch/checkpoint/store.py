@@ -63,6 +63,16 @@ def _bytes(t: torch.Tensor) -> memoryview:
 def save_checkpoint(directory, step: int, tree, extra: dict | None = None,
                     keep: int = 3) -> Path:
     """Synchronous atomic save of a tree of tensors; returns its path."""
+    with telemetry.get_tracer().span("checkpoint.save", cat="checkpoint",
+                                     step=int(step)) as sp:
+        out = _save_checkpoint_impl(directory, step, tree, extra, keep)
+        sp.set(path=str(out))
+        telemetry.metrics().counter("checkpoint.saves").inc()
+        return out
+
+
+def _save_checkpoint_impl(directory, step: int, tree,
+                          extra: dict | None = None, keep: int = 3) -> Path:
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
@@ -90,7 +100,6 @@ def save_checkpoint(directory, step: int, tree, extra: dict | None = None,
         shutil.rmtree(final)
     os.rename(tmp, final)
     _retain(directory, keep)
-    telemetry.metrics().counter("checkpoint.saves").inc()
     return final
 
 
@@ -151,6 +160,14 @@ def restore_checkpoint(directory, step: int | None, target_tree):
 
 
 def _restore_step(directory: Path, step: int, target_tree):
+    with telemetry.get_tracer().span("checkpoint.restore", cat="checkpoint",
+                                     step=int(step), verify=True):
+        out = _restore_step_impl(directory, step, target_tree)
+        telemetry.metrics().counter("checkpoint.restores").inc()
+        return out
+
+
+def _restore_step_impl(directory: Path, step: int, target_tree):
     base = directory / f"step_{step:08d}"
     with open(base / "manifest.json") as f:
         manifest = json.load(f)
@@ -170,7 +187,6 @@ def _restore_step(directory: Path, step: int, target_tree):
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                              f"target {tuple(ref.shape)}")
         out[key] = t.to(ref.device)
-    telemetry.metrics().counter("checkpoint.restores").inc()
     return tree_with_leaves(target_tree, out), manifest["extra"], step
 
 

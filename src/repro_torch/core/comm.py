@@ -25,8 +25,10 @@ exchanges.  :class:`TorusComm` makes it explicit over a ``DeviceMesh``:
 
 Like every collective here, construction is collective (it may create
 process groups) and execution is SPMD: every rank of the torus calls the
-same methods in the same order.  ``partition``, ``rebuild`` and the
-KV-migration and transpose factories wait for their slices (ROADMAP).
+same methods in the same order.  A comm may be bound to a tuning DB
+(``db=``), which its ``backend="autotune"`` plans read.  ``partition``,
+``rebuild`` and the KV-migration and transpose factories wait for their
+slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -365,11 +367,12 @@ class TorusComm:
 
     def __init__(self, fact: TorusFactorization, *,
                  mesh: DeviceMesh | None, dev_key,
-                 parent: "TorusComm | None" = None):
+                 parent: "TorusComm | None" = None, db=None):
         self.fact = fact
         self.mesh = mesh
         self.dev_key = dev_key
         self.parent = parent
+        self._db = db
         self._source = mesh if mesh is not None else fact.dims
         self._plan_keys: set = set()
         self._subs: dict[tuple, TorusComm] = {}
@@ -435,7 +438,7 @@ class TorusComm:
             source = tuple(self.dims[self.axis_names.index(a)]
                            for a in axes)
         child = torus_comm(source, axes, variant=self.variant,
-                           _parent=self)
+                           db=self._db, _parent=self)
         self._subs[axes] = child
         return child
 
@@ -456,7 +459,7 @@ class TorusComm:
                    backend: str = "tuned", round_order=None,
                    reverse_round_order=None, n_chunks: int = 0,
                    max_chunks: int = 8, links=None,
-                   compute_seconds: float = 0.0):
+                   compute_seconds: float = 0.0, db=None):
         """Build (or fetch) the :class:`~repro_torch.core.plan.A2APlan`
         for one per-rank ``(block_shape, dtype)`` block — see
         :func:`~repro_torch.core.plan.plan_all_to_all` for the knobs."""
@@ -465,14 +468,15 @@ class TorusComm:
             backend=backend, variant=self.variant, round_order=round_order,
             reverse_round_order=reverse_round_order, n_chunks=n_chunks,
             max_chunks=max_chunks, links=links,
-            compute_seconds=compute_seconds))
+            compute_seconds=compute_seconds,
+            db=self._db if db is None else db))
 
     def ragged_all_to_all(self, row_shape=(), dtype="float32", *,
                           max_count: int, avg_count: float | None = None,
                           backend: str = "tuned", round_order=None,
                           reverse_round_order=None, n_chunks: int = 0,
                           max_chunks: int = 8, links=None,
-                          compute_seconds: float = 0.0):
+                          compute_seconds: float = 0.0, db=None):
         """Build (or fetch) the :class:`~repro_torch.core.plan
         .RaggedA2APlan` (Alltoallv semantics) — see
         :func:`~repro_torch.core.plan.plan_ragged_all_to_all` for the
@@ -483,7 +487,8 @@ class TorusComm:
             variant=self.variant, round_order=round_order,
             reverse_round_order=reverse_round_order, n_chunks=n_chunks,
             max_chunks=max_chunks, links=links,
-            compute_seconds=compute_seconds))
+            compute_seconds=compute_seconds,
+            db=self._db if db is None else db))
 
     def sparse_all_to_all(self, row_shape=(), dtype="float32", *,
                           max_count: int, avg_count: float | None = None,
@@ -580,27 +585,39 @@ class TorusComm:
         """One call for the whole cache picture: this comm's identity and
         plan slice, plus the unified registry state."""
         live = sum(1 for k in self._plan_keys if k in _planmod._PLANS)
-        out = unified_stats()
+        out = unified_stats(db=self._db)
         out["comm"] = {**self.describe(), "plans_live": live,
                        "freed": self._freed}
         return out
 
 
-def unified_stats() -> dict:
-    """Registry-wide cache state in one dict: factorization descriptors,
-    the plan LRU, the communicator registry, and the telemetry snapshot
-    (every registered stats provider plus the counters)."""
+def unified_stats(db=None) -> dict:
+    """Registry-wide cache state in one dict: factorization descriptors
+    (``cache_stats``), the plan LRU (``plan_cache_stats``), autotune
+    counters (``autotune_stats``), the tuning-DB identity/generation, the
+    communicator registry itself, and the merged telemetry view — the
+    flat ``MetricsRegistry`` snapshot (every registered stats provider
+    under its namespace plus ad-hoc counters), tracer state, and the
+    measured-vs-model drift summary."""
+    from .autotune import autotune_stats, get_default_db
+    db = db if db is not None else get_default_db()
     return {
         "factorization": cache_stats(),
         "plans": _planmod.plan_cache_stats(),
+        "autotune": autotune_stats(),
+        "tuning_db": {"path": db.path_key, "generation": db.generation()},
         "comms": comm_registry_stats(),
-        "telemetry": {"metrics": telemetry.metrics_snapshot()},
+        "telemetry": {
+            "metrics": telemetry.metrics_snapshot(),
+            "tracer": telemetry.get_tracer().stats(),
+            "drift": telemetry.drift_detector().summary(),
+        },
     }
 
 
 def torus_comm(mesh_or_dims, axis_names=None, *, d: int | None = None,
                variant: str = "natural", device_type: str = "cuda",
-               _parent: TorusComm | None = None) -> TorusComm:
+               db=None, _parent: TorusComm | None = None) -> TorusComm:
     """Build (or fetch from the LRU registry) a :class:`TorusComm`.
 
     Args:
@@ -615,6 +632,8 @@ def torus_comm(mesh_or_dims, axis_names=None, *, d: int | None = None,
         via ``dims_create`` over synthetic ``t0..t{d-1}`` axes.
       d: balanced-factorization degree when ``axis_names`` is omitted.
       variant: per-round formulation, "natural" or "paper".
+      db: tuning-DB handle the comm's ``backend="autotune"`` plans
+        consult (default: the process-wide default DB).
     """
     if isinstance(mesh_or_dims, DeviceMesh) and axis_names is None:
         if d is None:
@@ -643,13 +662,18 @@ def torus_comm(mesh_or_dims, axis_names=None, *, d: int | None = None,
         fact = TorusFactorization(axis_names, dims, variant)
         mesh, dev_key = None, None
     # A child is keyed by the parent's full identity chain: two parents
-    # over different tori may split into same-axes children.
+    # over different tori may split into same-axes children.  The DB
+    # handle is part of the identity too: a comm bound to a custom tuning
+    # DB must not be returned to (or shadowed by) callers using the
+    # process default.
     parent_key = None if _parent is None else _parent._identity
-    key = (dev_key, fact.dims, axis_names, variant, parent_key)
+    db_key = None if db is None else db.path_key
+    key = (dev_key, fact.dims, axis_names, variant, parent_key, db_key)
     cached = _COMMS.get(key)
     if cached is not None and not cached._freed:
         return cached
-    comm = TorusComm(fact, mesh=mesh, dev_key=dev_key, parent=_parent)
+    comm = TorusComm(fact, mesh=mesh, dev_key=dev_key, parent=_parent,
+                     db=db)
     comm._comm_key = comm._identity = key
     _COMMS.put(key, comm)
     return comm

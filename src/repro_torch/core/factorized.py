@@ -43,6 +43,7 @@ aggregation per round and dimension-local traffic.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -183,7 +184,8 @@ def _factorized_round_impl(x, fact: TorusFactorization, k: int, *,
 
 
 def _factorized_impl(x, fact: TorusFactorization, *,
-                     variant: Variant = "natural", round_order=None):
+                     variant: Variant = "natural", round_order=None,
+                     round_span=None):
     """d-round torus all-to-all of ``p`` blocks (Algorithm 1), with the
     reorder passes of :func:`round_schedule`.
 
@@ -194,6 +196,11 @@ def _factorized_impl(x, fact: TorusFactorization, *,
         each round's pack; both bit-identical).
       round_order: permutation of the active rounds; rounds commute, so
         any order is correct.
+      round_span: optional ``(i, k) -> context manager`` around round
+        ``i`` of the call (active round ``k``): its exchange, the reorder
+        pass after it and, for round 0, the first pack.  The traced plan
+        call (``core.plan``) times each round in it; the passes and
+        exchanges are the same either way.
     Returns:
       ``(p, *block)``: ``out[i]`` = block received from torus rank ``i``.
     """
@@ -202,13 +209,29 @@ def _factorized_impl(x, fact: TorusFactorization, *,
     sizes, groups = _active(fact, x)
     order = _check_order(round_order, len(sizes))
     passes = round_schedule(sizes, order, variant)
+    bounds = list(zip((None,) + order, order + (None,)))
+
+    def boundary(buf, j):
+        ku, kp = bounds[j]
+        return _reorder(buf, sizes, variant, ku, kp, groups,
+                        (ku, kp) in passes)
+
+    span = round_span or _no_span
     buf = x.reshape(fact.p, -1).contiguous()
-    for ku, kp in zip((None,) + order, order + (None,)):
-        buf = _reorder(buf, sizes, variant, ku, kp, groups,
-                       (ku, kp) in passes)
-        if kp is not None:
-            buf = _all_to_all(buf, groups[kp])
+    for i, k in enumerate(order):
+        with span(i, k):
+            if i == 0:
+                buf = boundary(buf, 0)
+            buf = _all_to_all(buf, groups[k])
+            buf = boundary(buf, i + 1)
     return buf.reshape(x.shape)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _no_span(i, k):
+    return _NO_SPAN
 
 
 def _tiled(x, fact, split_axis, concat_axis, run):

@@ -5,15 +5,15 @@ and :class:`SparseA2APlan` (``MPI_Alltoallv`` semantics).
 ``plan_all_to_all`` resolves, once per ``(ranks, axes, shape, dtype,
 knobs)`` key, the torus factorization (``core.cache``, with its process
 groups when a ``DeviceMesh`` is given), the backend — requested
-explicitly or chosen by the alpha-beta cost model (``backend="tuned"`` →
-``tuning.choose_algorithm``) — the forward and reverse round orders and
-the chunk count, and returns an :class:`A2APlan` whose ``forward`` /
-``reverse`` / ``tiled`` / ``overlap`` methods are the execution surface
-(MoE dispatch and combine).  ``direct``, ``factorized``, and the chunked
-overlap engine (``pipelined``, ``overlap``: ``core.overlap``) run; a plan
-requested as ``autotune`` resolves as the cost model would and raises
-``NotImplementedError`` when run, never running another backend in its
-place.
+explicitly, chosen by the alpha-beta cost model (``backend="tuned"`` →
+``tuning.choose_algorithm``) or replayed from the tuning DB
+(``backend="autotune"`` → ``core.autotune``: a hit builds the measured
+winner, a miss falls back to the cost model) — the forward and reverse
+round orders and the chunk count, and returns an :class:`A2APlan` whose
+``forward`` / ``reverse`` / ``tiled`` / ``overlap`` methods are the
+execution surface (MoE dispatch and combine): ``direct``, ``factorized``,
+and the chunked overlap engine (``pipelined``, ``overlap``:
+``core.overlap``).
 
 ``plan_ragged_all_to_all`` composes two dense plans over the same torus,
 the int32 counts plan and the bucket-padded data plan (``core.ragged``);
@@ -22,6 +22,13 @@ rounds with skippable per-peer lanes (``core.sparse``).  All plans live
 in one bounded LRU registry; evicting a composite plan drops its nested
 entries, and evicting the last plan over a factorization releases the
 descriptor (the paper's delete callback).
+
+With the tracer on (``core.telemetry.enable_tracing``), each call of an
+execution method runs under a ``plan.execute`` span with ``plan.round``
+children and feeds the drift detector; off, the check is one attribute
+load and a branch.  The traced call runs what the untraced one does, pass
+for pass, and only adds the spans and a device synchronise at each
+round's end.
 
 Resolution is the reference's, line for line (same cost model, same
 keys), so ``describe()`` gives the reference's dict for every backend.
@@ -32,7 +39,10 @@ own ``(p, *block)`` buffer.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -55,12 +65,14 @@ from .factorized import (
     _factorized_impl,
     _factorized_tiled_impl,
     _skip_trivial,
+    _tiled,
 )
 from .overlap import _overlapped_impl, _overlapped_tiled_impl
 from .tuning import (
     LinkModel,
     Schedule,
     choose_algorithm,
+    per_axis_round_seconds,
     predict_direct,
     predict_factorized,
     predict_overlapped,
@@ -71,9 +83,10 @@ from .tuning import (
 
 BACKENDS = ("tuned", "autotune", "direct", "factorized", "pipelined",
             "overlap")
-_NOT_PORTED = {
-    "autotune": "the tuning DB (ROADMAP queue 1 item 8)",
-}
+
+# The tracer singleton is never rebound (enable / disable mutate it in
+# place), so the execution methods read ``_TRACER.enabled`` directly.
+_TRACER = telemetry.get_tracer()
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -94,10 +107,10 @@ def itemsize(dtype) -> int:
     return torch.empty((), dtype=torch_dtype(dtype)).element_size()
 
 
-def not_ported(backend: str, what: str):
-    return NotImplementedError(
-        f"{what} with backend {backend!r} needs {_NOT_PORTED[backend]}, "
-        "not ported yet; use backend='tuned' or an explicit backend")
+def _sync(t) -> None:
+    """End a traced span with the device work it launched."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
 
 
 class A2APlan:
@@ -114,7 +127,8 @@ class A2APlan:
                  rev_order: tuple[int, ...], n_chunks: int,
                  block_shape: tuple[int, ...] | None, dtype,
                  links: tuple[LinkModel, ...], schedule: Schedule | None,
-                 tuned_from: str | None = None):
+                 tuned_from: str | None = None,
+                 measured: dict | None = None):
         self.fact = fact
         self.requested_backend = requested_backend
         self.backend = backend
@@ -127,8 +141,10 @@ class A2APlan:
         self.links = links
         self.schedule = schedule
         # Provenance of the backend choice: "model" (alpha-beta cost
-        # model) or None (caller requested an explicit backend).
+        # model), "measured" (tuning-DB hit, ``measured`` holds the
+        # record's table) or None (caller requested an explicit backend).
         self.tuned_from = tuned_from
+        self.measured = measured
         self._from_cache = False
 
     # -- identity ----------------------------------------------------------
@@ -161,20 +177,21 @@ class A2APlan:
         """Blockwise all-to-all: ``x`` is ``(p, *block)``, block ``i``
         destined for torus rank ``i``; returns ``out[i]`` = block received
         from rank ``i``."""
-        return self._run(x, self.order)
+        if _TRACER.enabled:
+            return self._traced_execute(x, self.order)
+        return self._execute(x, self.order)
 
     def reverse(self, x):
         """The combine-direction all-to-all: same semantics as ``forward``
         but rounds run in the drain order (``rev_order``).  Bit-identical
         to ``forward`` for any order — rounds commute."""
-        return self._run(x, self.rev_order)
+        if _TRACER.enabled:
+            return self._traced_execute(x, self.rev_order)
+        return self._execute(x, self.rev_order)
 
-    def _executable(self, what: str) -> None:
-        if self.requested_backend == "autotune":
-            raise not_ported("autotune", what)
-
-    def _run(self, x, order):
-        self._executable("A2APlan.forward/reverse")
+    def _execute(self, x, order, round_span=None):
+        """The untraced blockwise call; ``round_span(i, k)`` (a factorized
+        plan's stepped form) wraps round ``i`` of the call in a context."""
         if x.shape[0] != self.p:
             raise ValueError(f"leading dim {x.shape[0]} != p={self.p} "
                              f"({self.dims})")
@@ -182,7 +199,7 @@ class A2APlan:
             return _direct_impl(x, self.fact)
         if self.backend == "factorized":
             return _factorized_impl(x, self.fact, variant=self.variant,
-                                    round_order=order)
+                                    round_order=order, round_span=round_span)
         return _overlapped_impl(x, self.fact, n_chunks=self.n_chunks,
                                 variant=self.variant, round_order=order)
 
@@ -191,8 +208,10 @@ class A2APlan:
         """Tiled-semantics all-to-all: split ``split_axis`` into ``p``
         chunks (chunk ``t`` -> torus rank ``t``) and concatenate what
         arrives source-major along ``concat_axis``."""
-        self._executable("A2APlan.tiled")
         order = self.rev_order if reverse else self.order
+        if _TRACER.enabled:
+            return _tiled(x, self.fact, split_axis, concat_axis,
+                          lambda xb: self._traced_execute(xb, order))
         if self.backend == "direct":
             return _direct_tiled_impl(x, self.fact, split_axis, concat_axis)
         if self.backend == "factorized":
@@ -210,13 +229,103 @@ class A2APlan:
         (``core.overlap``): chunk ``c``'s forward rounds are issued next
         to chunk ``c-1``'s compute and chunk ``c-2``'s reverse rounds.
         Bit for bit ``reverse(compute_fn(forward(x)))``, since chunks
-        never interact."""
-        self._executable("A2APlan.overlap")
-        return _overlapped_impl(x, self.fact, n_chunks=self.n_chunks,
-                                variant=self.variant, round_order=self.order,
-                                compute_fn=compute_fn, reverse=reverse,
-                                reverse_round_order=self.rev_order,
-                                chunk_axis=chunk_axis)
+        never interact.  Traced, the pipeline is one fused round span
+        whose drift key gains ``:overlap`` (its time holds both
+        directions and the compute)."""
+        def run():
+            return _overlapped_impl(
+                x, self.fact, n_chunks=self.n_chunks, variant=self.variant,
+                round_order=self.order, compute_fn=compute_fn,
+                reverse=reverse, reverse_round_order=self.rev_order,
+                chunk_axis=chunk_axis)
+        if _TRACER.enabled:
+            return self._traced_execute(x, self.order, pipeline=run,
+                                        directions=1 + bool(reverse))
+        return run()
+
+    # -- telemetry-traced execution ----------------------------------------
+
+    def _drift_key(self) -> str:
+        """Stable drift-detector key: one time series per resolved plan
+        identity (axes x dims x backend x block)."""
+        dims = "x".join(str(s) for s in self.dims)
+        return (f"dense[{','.join(self.axis_names)}]{dims}:{self.backend}"
+                f":{self.block_bytes}")
+
+    def _per_axis_predictions(self) -> dict[str, float] | None:
+        """``{axis_name: model seconds}`` for the active rounds, or None
+        without a sized block (tiled plans carry no block shape)."""
+        if self.block_bytes is None:
+            return None
+        per_axis = per_axis_round_seconds(self.dims, self.links,
+                                          float(self.block_bytes))
+        return {name: t for name, Dk, t
+                in zip(self.axis_names, self.dims, per_axis) if Dk > 1}
+
+    def _traced_execute(self, x, order, *, pipeline=None, directions=1):
+        """One call under a ``plan.execute`` span: a factorized plan's
+        rounds one ``plan.round`` span each (round 0's holds the first
+        pack; each holds its exchange and the reorder after it, the last
+        the final unpack: the untraced call's passes), every other
+        backend one fused round span; each round span ends in a device
+        synchronise.  Feeds the drift detector per round and per call."""
+        tr = _TRACER
+        det = telemetry.drift_detector()
+        key = self._drift_key()
+        preds = self._per_axis_predictions()
+        predicted = self.schedule.predicted_seconds \
+            if self.schedule is not None \
+            else (sum(preds.values()) if preds else None)
+        if pipeline is not None:
+            key += ":overlap"
+            predicted = None if predicted is None else predicted * directions
+        telemetry.metrics().counter("plan.traced_executions").inc()
+        # An installed fault injector (core.faults) exposes a per-round
+        # guard, so injected slow rounds land inside the round spans.
+        check = getattr(self, "_round_fault_check", None)
+        with tr.span("plan.execute", cat="plan", kind="dense",
+                     backend=self.backend, axes=",".join(self.axis_names),
+                     dims="x".join(str(s) for s in self.dims),
+                     predicted_seconds=predicted, tuned_from=self.tuned_from,
+                     drift_key=key) as ex:
+            t0 = time.perf_counter()
+            if self.backend == "factorized" and pipeline is None:
+                names, sizes = _skip_trivial(self.axis_names, self.dims)
+
+                @contextlib.contextmanager
+                def round_span(i, k):
+                    pred_k = None if preds is None else preds.get(names[k])
+                    with tr.span("plan.round", cat="plan", axis=names[k],
+                                 round=k, dim=sizes[k],
+                                 predicted_seconds=pred_k):
+                        # the round's time holds an injected delay, so a
+                        # slow round reads as that axis's drift
+                        tr0 = time.perf_counter()
+                        if check is not None:
+                            check()
+                        yield
+                        _sync(x)
+                        if pred_k:
+                            det.observe(f"{key}:axis={names[k]}", pred_k,
+                                        time.perf_counter() - tr0)
+                y = self._execute(x, order, round_span)
+            else:
+                # direct = a single product-communicator round; overlap
+                # interleaves rounds across chunks — neither splits into
+                # host-steppable rounds, so one fused span covers them.
+                with tr.span("plan.round", cat="plan", axis="*",
+                             backend=self.backend, timing="fused",
+                             predicted_seconds=predicted):
+                    if check is not None:
+                        check()
+                    y = pipeline() if pipeline is not None \
+                        else self._execute(x, order)
+                    _sync(y)
+            measured = time.perf_counter() - t0
+            ratio = det.observe(key, predicted, measured) \
+                if predicted else None
+            ex.set(measured_seconds=measured, drift_ratio=ratio)
+        return y
 
     # -- introspection -----------------------------------------------------
 
@@ -246,8 +355,9 @@ class A2APlan:
             "links": [{"alpha": l.alpha, "bandwidth": l.bandwidth}
                       for l in self.links],
             "tuned_from": self.tuned_from,
-            "measured": None,        # no tuning DB yet
-            "drift_ratio": None,     # no drift detector yet
+            "measured": self.measured,
+            "drift_ratio": telemetry.drift_detector()
+            .drift_ratio(self._drift_key()),
             "cache": "hit" if self._from_cache else "miss",
         }
 
@@ -390,7 +500,7 @@ def plan_all_to_all(mesh_or_axis_dims, axis_names, block_shape=None,
                     variant: str = "natural", round_order=None,
                     reverse_round_order=None, n_chunks: int = 0,
                     max_chunks: int = 8, links=None,
-                    compute_seconds: float = 0.0) -> A2APlan:
+                    compute_seconds: float = 0.0, db=None) -> A2APlan:
     """Build (or fetch from the LRU registry) an :class:`A2APlan`, through
     the implicit communicator ``torus_comm(mesh_or_axis_dims,
     axis_names)``.
@@ -403,17 +513,23 @@ def plan_all_to_all(mesh_or_axis_dims, axis_names, block_shape=None,
       axis_names: torus dimensions, fastest digit first.
       block_shape, dtype: shape/dtype of one per-rank block — feeds the
         cost model.  Needed for ``backend="tuned"`` and ``"autotune"``.
-      backend: "tuned" (cost-model choice) or "direct" | "factorized" |
-        "pipelined" | "overlap"; "autotune" resolves as a tuning-DB miss
-        (the cost model) until the DB is ported.
+      backend: "tuned" (cost-model choice), "autotune" (measured choice
+        from the tuning DB — a hit rebuilds the recorded winner, a miss
+        falls back to the cost model without measuring; see
+        ``core.autotune``), or "direct" | "factorized" | "pipelined" |
+        "overlap".
       variant: "natural" or "paper".
       round_order / reverse_round_order: permutations of the active rounds
         (default: identity, and its reversal for the drain direction).
       n_chunks: payload chunks for the overlap engine; 0 = resolve.
       max_chunks: search bound for the tuned chunk count.
       links: per-axis :class:`LinkModel` overrides (default: DCN for
-        ``pod``-like axes, ICI otherwise).
+        ``pod``-like axes, ICI otherwise; the measured per-axis fits
+        under a tuning-DB hit).
       compute_seconds: per-call interleaved compute estimate for tuning.
+      db: tuning-DB handle for ``backend="autotune"`` (default: the
+        ``REPRO_TORCH_TUNING_DB`` / ``~/.cache/repro_torch/tuning.json``
+        database).
     """
     from .comm import torus_comm
     return torus_comm(mesh_or_axis_dims, axis_names,
@@ -421,7 +537,7 @@ def plan_all_to_all(mesh_or_axis_dims, axis_names, block_shape=None,
         block_shape, dtype, backend=backend, round_order=round_order,
         reverse_round_order=reverse_round_order, n_chunks=n_chunks,
         max_chunks=max_chunks, links=links,
-        compute_seconds=compute_seconds)
+        compute_seconds=compute_seconds, db=db)
 
 
 def _build_dense_plan(mesh_or_axis_dims, axis_names, block_shape=None,
@@ -429,15 +545,16 @@ def _build_dense_plan(mesh_or_axis_dims, axis_names, block_shape=None,
                       variant: str = "natural", round_order=None,
                       reverse_round_order=None, n_chunks: int = 0,
                       max_chunks: int = 8, links=None,
-                      compute_seconds: float = 0.0) -> A2APlan:
+                      compute_seconds: float = 0.0, db=None) -> A2APlan:
     """The resolution machinery behind ``TorusComm.all_to_all``: all
     once-per-plan decisions plus the LRU registry."""
     axis_names = _as_tuple(axis_names)
+    mesh = None
     if isinstance(mesh_or_axis_dims, DeviceMesh):
-        fact = get_factorization(mesh_or_axis_dims, axis_names,
-                                 variant=variant)
+        mesh = mesh_or_axis_dims
+        fact = get_factorization(mesh, axis_names, variant=variant)
         dims = fact.dims
-        dev_key = device_fingerprint(mesh_or_axis_dims)
+        dev_key = device_fingerprint(mesh)
     else:
         dims = tuple(int(s) for s in mesh_or_axis_dims)
         if len(dims) != len(axis_names):
@@ -445,6 +562,9 @@ def _build_dense_plan(mesh_or_axis_dims, axis_names, block_shape=None,
         fact = TorusFactorization(axis_names, dims, variant)
         dev_key = None
 
+    # None stays None in the key (under "autotune" it means measured
+    # links may substitute); anything else is normalized so a uniform
+    # LinkModel and its broadcast tuple key identically.
     links_key = None if links is None else resolve_links(links, dims)
     key = (dev_key, dims, axis_names, None if block_shape is None
            else tuple(block_shape),
@@ -455,23 +575,71 @@ def _build_dense_plan(mesh_or_axis_dims, axis_names, block_shape=None,
            else tuple(reverse_round_order),
            int(n_chunks), int(max_chunks), links_key,
            float(compute_seconds))
+    if backend == "autotune":
+        # Cached autotune plans must be re-resolved when the DB changes
+        # (a new measurement landed, or the file was deleted): key on the
+        # DB identity + its per-path write generation.
+        from .autotune import get_default_db
+        db = db if db is not None else get_default_db()
+        key = key + (db.path_key, db.generation())
     cached = _registry_fetch(key)
     if cached is not None:
         return cached
 
-    if backend == "autotune" and (block_shape is None or dtype is None):
-        raise ValueError('backend="autotune" needs block_shape and dtype '
-                         "(the tuning-DB key)")
-    tuned = backend in ("tuned", "autotune")
-    resolved, order, rev_order, n, link_models, sched = _resolve(
-        dims, axis_names, block_shape, dtype, "tuned" if tuned else backend,
-        variant, round_order, reverse_round_order, n_chunks, max_chunks,
-        links, compute_seconds)
+    def build(req_backend, order_, chunks_, links_):
+        return _resolve(dims, axis_names, block_shape, dtype, req_backend,
+                        variant, order_, reverse_round_order, chunks_,
+                        max_chunks, links_, compute_seconds)
+
+    tuned_from, measured = None, None
+    if backend == "tuned":
+        tuned_from = "model"
+        parts = build("tuned", round_order, n_chunks, links)
+    elif backend == "autotune":
+        if block_shape is None or dtype is None:
+            raise ValueError('backend="autotune" needs block_shape and '
+                             "dtype (the tuning-DB key)")
+        from .autotune import (db_fingerprint, lookup_measured,
+                               measured_links)
+        rec = lookup_measured(None if mesh is None else db_fingerprint(mesh),
+                              dims, axis_names, tuple(block_shape), dtype,
+                              variant, db=db)
+        parts = None
+        if rec is not None:
+            w = rec["winner"]
+            rec_order = round_order if round_order is not None else \
+                (tuple(w["round_order"]) if w.get("round_order") is not None
+                 else None)
+            rec_chunks = n_chunks or int(w.get("n_chunks", 0))
+            rec_links = links
+            if rec_links is None:
+                rec_links = measured_links(rec)
+            try:
+                parts = build(w["backend"], rec_order, rec_chunks,
+                              rec_links)
+                tuned_from = "measured"
+                measured = {"median_us": w.get("median_us"),
+                            "table": rec.get("table", []),
+                            "best_factorization":
+                                rec.get("best_factorization"),
+                            "db_path": str(db.path)}
+            except ValueError as e:
+                from .autotune import demote_hit_to_miss
+                demote_hit_to_miss()   # telemetry: this plan is model-built
+                warnings.warn(f"tuning-DB record unusable for this plan "
+                              f"({e}); falling back to the cost model")
+        if parts is None:   # DB miss (or unusable record): analytic choice,
+            tuned_from = "model"   # never a blocking measurement
+            parts = build("tuned", round_order, n_chunks, links)
+    else:
+        parts = build(backend, round_order, n_chunks, links)
+
+    resolved, order, rev_order, n, link_models, sched = parts
     plan = A2APlan(fact, requested_backend=backend, backend=resolved,
                    variant=variant, order=order, rev_order=rev_order,
                    n_chunks=n, block_shape=None if block_shape is None
                    else tuple(block_shape), dtype=dtype, links=link_models,
-                   schedule=sched, tuned_from="model" if tuned else None)
+                   schedule=sched, tuned_from=tuned_from, measured=measured)
     return _registry_store(key, plan)
 
 
@@ -562,6 +730,8 @@ class RaggedA2APlan:
         ``m <= bucket``, block ``i``'s rows destined for torus rank ``i``;
         returns ``(recv, recv_counts)`` — ``recv[i]`` the ``(bucket,
         *row)`` window received from rank ``i``."""
+        if _TRACER.enabled:
+            return self._traced_execute(x, send_counts, reverse=False)
         from .ragged import _bucketed_impl
         return _bucketed_impl(x, send_counts, data_plan=self.data,
                               counts_plan=self.counts_plan)
@@ -570,9 +740,51 @@ class RaggedA2APlan:
         """The combine-direction bucketed exchange (drain round order);
         ``send_counts`` is typically the ``recv_counts`` of the matching
         ``forward``."""
+        if _TRACER.enabled:
+            return self._traced_execute(x, send_counts, reverse=True)
         from .ragged import _bucketed_impl
         return _bucketed_impl(x, send_counts, data_plan=self.data,
                               counts_plan=self.counts_plan, reverse=True)
+
+    # -- telemetry-traced execution ----------------------------------------
+
+    def _drift_key(self) -> str:
+        dims = "x".join(str(s) for s in self.dims)
+        return (f"ragged[{','.join(self.axis_names)}]{dims}"
+                f":{self.backend}:b{self.bucket}")
+
+    def _traced_execute(self, x, send_counts, *, reverse: bool):
+        """One call under a ``plan.execute`` span: the counts phase in a
+        ``ragged.counts`` span, then the data plan's traced call (its own
+        ``plan.execute`` with its round spans)."""
+        from .ragged import _pad_to_bucket, _recv_counts_phase
+        det = telemetry.drift_detector()
+        key = self._drift_key()
+        with _TRACER.span("plan.execute", cat="plan", kind="ragged",
+                          backend=self.backend,
+                          axes=",".join(self.axis_names),
+                          dims="x".join(str(s) for s in self.dims),
+                          bucket=self.bucket,
+                          predicted_seconds=self.predicted_seconds,
+                          tuned_from=self.tuned_from, drift_key=key) as ex:
+            t0 = time.perf_counter()
+            counts_sched = self.counts_plan.schedule
+            with _TRACER.span("ragged.counts", cat="plan",
+                              backend=self.counts_plan.backend,
+                              block_bytes=self.counts_plan.block_bytes,
+                              predicted_seconds=None if counts_sched is None
+                              else counts_sched.predicted_seconds):
+                rc = _recv_counts_phase(x, send_counts, self.data.p,
+                                        self.counts_plan)
+                _sync(rc)
+            recv = self.data._traced_execute(
+                _pad_to_bucket(x, self.bucket),
+                self.data.rev_order if reverse else self.data.order)
+            measured = time.perf_counter() - t0
+            ratio = det.observe(key, self.predicted_seconds, measured) \
+                if self.predicted_seconds else None
+            ex.set(measured_seconds=measured, drift_ratio=ratio)
+        return recv, rc
 
     def occupancy(self, send_counts):
         """Measured occupancy of one call (a tensor): useful rows over
@@ -625,8 +837,9 @@ class RaggedA2APlan:
             "links": [{"alpha": l.alpha, "bandwidth": l.bandwidth}
                       for l in self.data.links],
             "tuned_from": self.tuned_from,
-            "measured": None,        # no tuning DB yet
-            "drift_ratio": None,     # no drift detector yet
+            "measured": self.data.measured,
+            "drift_ratio": telemetry.drift_detector()
+            .drift_ratio(self._drift_key()),
             "cache": "hit" if self._from_cache else "miss",
         }
 
@@ -655,8 +868,8 @@ def plan_ragged_all_to_all(mesh_or_axis_dims, axis_names, row_shape=(),
                            backend: str = "tuned", variant: str = "natural",
                            round_order=None, reverse_round_order=None,
                            n_chunks: int = 0, max_chunks: int = 8,
-                           links=None,
-                           compute_seconds: float = 0.0) -> RaggedA2APlan:
+                           links=None, compute_seconds: float = 0.0,
+                           db=None) -> RaggedA2APlan:
     """Build (or fetch from the LRU registry) a :class:`RaggedA2APlan`,
     through the implicit communicator.  The knobs are
     :func:`plan_all_to_all`'s, plus:
@@ -670,7 +883,8 @@ def plan_ragged_all_to_all(mesh_or_axis_dims, axis_names, row_shape=(),
         ``expected_occupancy`` and the ragged cost term (default
         ``max_count``).
       backend: resolves the *data* plan (padded ``(bucket, *row_shape)``
-        blocks) exactly like the dense API; the counts plan is always
+        blocks) exactly like the dense API ("autotune" replays the winner
+        measured for the padded block shape); the counts plan is always
         resolved as "tuned" over its ``(p,)`` int32 block.
     """
     from .comm import torus_comm
@@ -680,7 +894,7 @@ def plan_ragged_all_to_all(mesh_or_axis_dims, axis_names, row_shape=(),
         backend=backend, round_order=round_order,
         reverse_round_order=reverse_round_order, n_chunks=n_chunks,
         max_chunks=max_chunks, links=links,
-        compute_seconds=compute_seconds)
+        compute_seconds=compute_seconds, db=db)
 
 
 def _build_ragged_plan(mesh_or_axis_dims, axis_names, row_shape=(),
@@ -689,8 +903,8 @@ def _build_ragged_plan(mesh_or_axis_dims, axis_names, row_shape=(),
                        backend: str = "tuned", variant: str = "natural",
                        round_order=None, reverse_round_order=None,
                        n_chunks: int = 0, max_chunks: int = 8,
-                       links=None,
-                       compute_seconds: float = 0.0) -> RaggedA2APlan:
+                       links=None, compute_seconds: float = 0.0,
+                       db=None) -> RaggedA2APlan:
     """The resolution behind ``TorusComm.ragged_all_to_all``: the bucket,
     the nested dense data / counts plans, and the shared registry."""
     axis_names = _as_tuple(axis_names)
@@ -715,6 +929,10 @@ def _build_ragged_plan(mesh_or_axis_dims, axis_names, row_shape=(),
            else tuple(reverse_round_order),
            int(n_chunks), int(max_chunks), links_key,
            float(compute_seconds))
+    if backend == "autotune":
+        from .autotune import get_default_db
+        db = db if db is not None else get_default_db()
+        key = key + (db.path_key, db.generation())
     cached = _registry_fetch(key)
     if cached is not None:
         return cached
@@ -724,7 +942,8 @@ def _build_ragged_plan(mesh_or_axis_dims, axis_names, row_shape=(),
                              variant=variant, round_order=round_order,
                              reverse_round_order=reverse_round_order,
                              n_chunks=n_chunks, max_chunks=max_chunks,
-                             links=links, compute_seconds=compute_seconds)
+                             links=links, compute_seconds=compute_seconds,
+                             db=db)
     counts = _build_dense_plan(mesh_or_axis_dims, axis_names, (p,),
                                torch.int32, backend="tuned", variant=variant,
                                round_order=round_order,
@@ -843,13 +1062,49 @@ class SparseA2APlan:
         """Bucketed sparse all-to-all: :meth:`RaggedA2APlan.forward`'s
         signature and result, with empty per-peer lanes skipped."""
         from .sparse import _sparse_bucketed_impl
+        if _TRACER.enabled:
+            return self._traced_execute(
+                lambda: _sparse_bucketed_impl(x, send_counts, plan=self))
         return _sparse_bucketed_impl(x, send_counts, plan=self)
 
     def reverse(self, x, send_counts):
         """The combine-direction sparse exchange (drain round order)."""
         from .sparse import _sparse_bucketed_impl
+        if _TRACER.enabled:
+            return self._traced_execute(
+                lambda: _sparse_bucketed_impl(x, send_counts, plan=self,
+                                              reverse=True))
         return _sparse_bucketed_impl(x, send_counts, plan=self,
                                      reverse=True)
+
+    # -- telemetry-traced execution ----------------------------------------
+
+    def _drift_key(self) -> str:
+        dims = "x".join(str(s) for s in self.dims)
+        return (f"sparse[{','.join(self.axis_names)}]{dims}"
+                f":b{self.bucket}:rho{self.expected_density}")
+
+    def _traced_execute(self, run):
+        """One measured ``plan.execute`` span around the whole call: the
+        lanes a call skips are decided inside it, from the counts it
+        exchanges, so the rounds are not stepped one by one."""
+        det = telemetry.drift_detector()
+        key = self._drift_key()
+        with _TRACER.span("plan.execute", cat="plan", kind="sparse",
+                          backend="sparse", axes=",".join(self.axis_names),
+                          dims="x".join(str(s) for s in self.dims),
+                          bucket=self.bucket,
+                          expected_density=self.expected_density,
+                          predicted_seconds=self.predicted_seconds,
+                          drift_key=key, timing="fused") as ex:
+            t0 = time.perf_counter()
+            out = run()
+            _sync(out[0])
+            measured = time.perf_counter() - t0
+            ratio = det.observe(key, self.predicted_seconds, measured) \
+                if self.predicted_seconds else None
+            ex.set(measured_seconds=measured, drift_ratio=ratio)
+        return out
 
     def occupancy(self, send_counts):
         """Measured occupancy of one call (a tensor): useful rows over
@@ -937,7 +1192,8 @@ class SparseA2APlan:
                       for l in self.links],
             "tuned_from": None,
             "measured": None,
-            "drift_ratio": None,     # no drift detector yet
+            "drift_ratio": telemetry.drift_detector()
+            .drift_ratio(self._drift_key()),
             "cache": "hit" if self._from_cache else "miss",
         }
 

@@ -78,7 +78,9 @@ def _counts_matrix_impl(send_counts, counts_plan):
     if tuple(row.shape) != (p,):
         raise ValueError(f"send_counts shape {tuple(row.shape)} != ({p},)")
     with torch.profiler.record_function(COUNTS_SPAN):
-        return counts_plan.forward(row.expand(p, p).contiguous())
+        # untraced under the tracer too: the callers' spans cover it
+        return counts_plan._execute(row.expand(p, p).contiguous(),
+                                    counts_plan.order)
 
 
 def _recv_counts_from_matrix(matrix, rank: int):
@@ -120,18 +122,22 @@ def _bucketed_impl(x, send_counts, *, data_plan, counts_plan,
     window received from rank ``i`` (rows beyond ``recv_counts[i]`` are
     the sender's padding), ``recv_counts`` the matching ``(p,)`` int32.
     """
-    p = data_plan.p
+    recv_counts = _recv_counts_phase(x, send_counts, data_plan.p,
+                                     counts_plan)
+    padded = _pad_to_bucket(x, data_plan.block_shape[0])
+    run = data_plan.reverse if reverse else data_plan.forward
+    return run(padded), recv_counts
+
+
+def _recv_counts_phase(x, send_counts, p: int, counts_plan):
+    """The counts phase of a bucketed call on ``x`` (``(p, m, *row)``):
+    this rank's ``(p,)`` int32 receive counts."""
     if x.shape[0] != p:
         raise ValueError(f"leading dim {x.shape[0]} != p={p}")
-    bucket = data_plan.block_shape[0]
     counts = torch.as_tensor(send_counts, dtype=torch.int32,
                              device=x.device)
     matrix = _counts_matrix_impl(counts, counts_plan)
-    recv_counts = _recv_counts_from_matrix(matrix,
-                                           torus_rank(counts_plan.fact))
-    padded = _pad_to_bucket(x, bucket)
-    run = data_plan.reverse if reverse else data_plan.forward
-    return run(padded), recv_counts
+    return _recv_counts_from_matrix(matrix, torus_rank(counts_plan.fact))
 
 
 def bucket_occupancy(counts, bucket: int):

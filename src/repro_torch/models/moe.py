@@ -31,10 +31,11 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.core import plan as _plan
+from repro_torch.core.autotune import db_fingerprint, lookup_ragged_measured
 from repro_torch.core.cache import mesh_shape
 from repro_torch.core.comm import torus_comm
 from repro_torch.core.plan import itemsize
+from repro_torch.core.profile_inspect import EXPERT_SPAN
 from repro_torch.core.ragged import next_pow2
 from repro_torch.core.tuning import choose_ragged_algorithm, default_links
 from repro_torch.kernels import ops as kops
@@ -82,7 +83,11 @@ def moe_a2a_plan(cfg: ModelConfig, mesh, axes, E_loc: int, C: int):
     """The one A2APlan shared by dispatch and combine, resolved once per
     (mesh ranks, EP axes, block shape, dtype, config knobs) and fetched
     from the plan registry afterwards.  ``cfg.a2a_backend`` parameterizes
-    plan construction here and nowhere else."""
+    plan construction here and nowhere else; with ``"autotune"`` the
+    dispatch / combine collective replays the winner recorded in the
+    tuning DB for exactly this (ranks, EP axes, block, dtype) key, and
+    falls back to the cost model on a miss — an explicit
+    ``core.autotune.autotune(...)`` run warms the DB."""
     comm = moe_ep_comm(cfg, mesh, axes)
     if comm is None:
         return None
@@ -120,23 +125,32 @@ def moe_dropless_a2a_plan(cfg: ModelConfig, mesh, axes, E_loc: int, C: int,
     occupancy of ``top_k * n_loc / p`` tokens per (source, destination)
     pair, ``rho = 1 - exp(-top_k * n_loc / p)``;
     ``tuning.choose_ragged_algorithm`` prices both and the sparse plan is
-    used only where it wins.  Both plans' ``forward`` / ``reverse`` take
-    and return the same, so :func:`_moe_inner` runs either.
-    ``a2a_backend="autotune"`` (a measured choice) needs the tuning DB,
-    which is not ported: it raises."""
+    used only where it wins.  With ``cfg.a2a_backend == "autotune"`` the
+    measured ragged-vs-sparse winner that ``core.autotune
+    .autotune_ragged`` recorded for exactly this (ranks, EP axes, row,
+    dtype, window, density decade) key is replayed instead; a miss falls
+    back to the model.  Both plans' ``forward`` / ``reverse`` take and
+    return the same, so :func:`_moe_inner` runs either."""
     comm = moe_ep_comm(cfg, mesh, axes)
     if comm is None:
         return None
-    if cfg.a2a_backend == "autotune":
-        raise _plan.not_ported("autotune", "dropless MoE dispatch")
     window = E_loc * C
     lam = cfg.top_k * n_loc / comm.p
     density = min(1.0, max(1e-6, 1.0 - math.exp(-lam)))
-    sched = choose_ragged_algorithm(
-        comm.dims, default_links(comm.axis_names),
-        cfg.d_model * itemsize(cfg.cdtype), next_pow2(window),
-        max_chunks=cfg.a2a_chunks or 4, density=density)
-    if sched.kind == "sparse":
+    backend = None
+    if cfg.a2a_backend == "autotune":
+        rec = lookup_ragged_measured(
+            None if comm.mesh is None else db_fingerprint(comm.mesh),
+            comm.dims, comm.axis_names, (cfg.d_model,), cfg.cdtype, window,
+            cfg.a2a_variant, density)
+        if rec is not None:
+            backend = rec["winner"]["backend"]
+    if backend is None:
+        backend = choose_ragged_algorithm(
+            comm.dims, default_links(comm.axis_names),
+            cfg.d_model * itemsize(cfg.cdtype), next_pow2(window),
+            max_chunks=cfg.a2a_chunks or 4, density=density).kind
+    if backend == "sparse":
         avg = min(float(window), max(1.0, lam))
         return comm.sparse_all_to_all(
             row_shape=(cfg.d_model,), dtype=cfg.cdtype, max_count=window,
@@ -231,15 +245,18 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
     # (G, E_loc, Cc, D) — tokens are independent rows, so this is also
     # the overlap engine's per-chunk compute stage ----
     def expert_ffn(recv, _chunk=0):
-        Cc = recv.shape[2]
-        xe = recv.permute(1, 0, 2, 3).reshape(E_loc, G * Cc, D).contiguous()
-        if cfg.act == "swiglu":
-            h = silu(kops.expert_matmul(xe, w1.to(cd))) \
-                * kops.expert_matmul(xe, w3.to(cd))
-        else:
-            h = gelu(kops.expert_matmul(xe, w1.to(cd)))
-        ye = kops.expert_matmul(h, w2.to(cd))
-        return ye.reshape(E_loc, G, Cc, D).permute(1, 0, 2, 3)
+        # a profiler span, the compute mark of core.profile_inspect
+        with torch.profiler.record_function(EXPERT_SPAN):
+            Cc = recv.shape[2]
+            xe = recv.permute(1, 0, 2, 3).reshape(E_loc, G * Cc, D) \
+                .contiguous()
+            if cfg.act == "swiglu":
+                h = silu(kops.expert_matmul(xe, w1.to(cd))) \
+                    * kops.expert_matmul(xe, w3.to(cd))
+            else:
+                h = gelu(kops.expert_matmul(xe, w1.to(cd)))
+            ye = kops.expert_matmul(h, w2.to(cd))
+            return ye.reshape(E_loc, G, Cc, D).permute(1, 0, 2, 3)
 
     # ---- the paper's collective, through its resolved A2APlan, on the
     # flat (G, E_loc*C*D) buffer: block v goes to EP rank v ----

@@ -9,9 +9,15 @@ with ``abort_on_hang`` checkpoints synchronously and raises.  Each step
 ends in a host read of ``total_loss``, the counterpart of the reference's
 ``block_until_ready``, so a step's time is the device's.
 
+Each step runs under a ``train.step`` tracer span (``core.telemetry``;
+nothing is recorded while tracing is off).  ``retune_log`` is the
+reference's field for the drift detector's re-tune advisories, which the
+reference's elastic loop routes through ``StragglerWatchdog.check_drift``
+after each step.
+
 Not ported yet (ROADMAP.md): the elastic loop (``elastic=True``: the
-escalation policy's retry / recover / abort with ``comm.rebuild`` and
-``core/faults.py``) and the ``train.step`` tracer span (the tracer).
+escalation policy's retry / recover / abort with ``comm.rebuild``, and
+the ``check_drift`` call inside it), so ``retune_log`` stays empty.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import telemetry
 from repro_torch.models.common import tree_map
 from repro_torch.runtime.watchdog import StepTimer, StragglerWatchdog
 
@@ -48,6 +55,9 @@ class Trainer:
     step: int = 0
     metrics_log: list = field(default_factory=list)
     watchdog: StragglerWatchdog = field(default_factory=StragglerWatchdog)
+    # drift-retune advisories from the telemetry DriftDetector, routed
+    # through the watchdog: list of (step, drift_key, Action)
+    retune_log: list = field(default_factory=list)
     _preempted: bool = False
 
     def __post_init__(self):
@@ -97,7 +107,8 @@ class Trainer:
                   self.step + (max_steps or cfg.total_steps))
         while self.step < end:
             batch = self.data.next()
-            with StepTimer() as t:
+            with StepTimer() as t, telemetry.get_tracer().span(
+                    "train.step", cat="trainer", step=self.step + 1):
                 self.params, self.opt_state, metrics = \
                     self.train_step(self.params, self.opt_state, batch)
                 total = float(metrics["total_loss"])   # waits for the card

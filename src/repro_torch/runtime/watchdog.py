@@ -5,8 +5,9 @@
 time (median and MAD over a window) and classifies each step as "ok",
 "straggler" or "hang".  :class:`EscalationPolicy` turns verdicts into an
 :class:`Action` (bounded retry with backoff, recovery, abort).  The
-non-elastic trainer uses only the hang verdict; ``check_drift`` waits for
-the telemetry drift detector (ROADMAP.md) and raises until then.
+non-elastic trainer uses only the hang verdict; :meth:`StragglerWatchdog
+.check_drift` routes the telemetry drift detector's re-tune
+recommendations through the policy as advisory "retune" actions.
 """
 
 from __future__ import annotations
@@ -176,9 +177,24 @@ class StragglerWatchdog:
         return action
 
     def check_drift(self, detector=None, step: int | None = None):
-        raise NotImplementedError(
-            "check_drift polls the telemetry drift detector, which is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1 item 8)")
+        """Poll the telemetry :class:`~repro_torch.core.telemetry
+        .DriftDetector` for fresh re-tune recommendations and route each
+        through the escalation policy as a "drift" verdict (→ "retune"
+        action, advisory — no retry/recovery budget is consumed).
+
+        Returns a list of ``(drift_key, Action)`` pairs, one per newly
+        recommended key (empty when nothing drifted — the common case;
+        cheap enough to call every step).
+        """
+        detector = telemetry.drift_detector() if detector is None \
+            else detector
+        out = []
+        for rec in detector.recommendations():
+            self._record(("drift", step, rec["ratio"], rec["key"]))
+            action = self.escalation.decide("drift")
+            self.last_verdict = "drift"
+            out.append((rec["key"], action))
+        return out
 
     @property
     def median(self) -> float:

@@ -234,7 +234,7 @@ def test_no_cost_inputs_and_validation():
                            backend="factorized").links == (ICI, DCN)
 
 
-def test_unported_backends_raise_and_never_substitute(monkeypatch):
+def test_unported_backends_raise_and_never_substitute(monkeypatch, tmp_path):
     x = torch.zeros(8, 4)
     calls = []
 
@@ -260,13 +260,33 @@ def test_unported_backends_raise_and_never_substitute(monkeypatch):
         assert calls == ["_overlapped_impl"] * 2 + \
             ["_overlapped_tiled_impl", "_overlapped_impl"], calls
     monkeypatch.undo()
+    # "autotune" resolves as the reference does on the same tuning DB: a
+    # miss is the cost model's choice, a hit the recorded winner; it runs
+    # like every backend (here: a dims-only plan, no process groups)
+    from repro_torch.core.autotune import TuningDB, plan_db_key
+    db_path = tmp_path / "tuning.json"
+    monkeypatch.setenv("REPRO_TORCH_TUNING_DB", str(db_path))
+    monkeypatch.setenv("REPRO_TUNING_DB", str(db_path))
     auto = plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
                            backend="autotune")
     tuned = jax_plan.plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
                                      backend="tuned")
     assert auto.backend == tuned.backend and auto.tuned_from == "model"
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        auto.reverse(x)
+    TuningDB().put(plan_db_key(None, (4, 2), ("i", "j"), (4,),
+                               "float32", "natural"), {
+        "version": 1, "winner": {"backend": "overlap", "round_order": [1, 0],
+                                 "n_chunks": 4, "median_us": 3.0}})
+    auto = plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
+                           backend="autotune")
+    ref = jax_plan.plan_all_to_all((4, 2), ("i", "j"), (4,), "float32",
+                                   backend="autotune")
+    assert auto.describe() == ref.describe()
+    assert (auto.backend, auto.order, auto.n_chunks, auto.tuned_from) \
+        == ("overlap", (1, 0), 4, "measured")
+    for run in (auto.forward, auto.reverse, lambda x: auto.tiled(x, 0, 0),
+                auto.overlap):
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            run(x)
     # a plan built from dims alone has no process groups to run on
     with pytest.raises(ValueError, match="DeviceMesh"):
         plan_all_to_all((4, 2), ("i", "j"), backend="direct").forward(x)
@@ -349,8 +369,13 @@ def test_comm_describe_sub_and_free_match_reference():
     assert c.describe()["plans"] == 0 and s._freed
     assert comm.torus_comm((2, 3, 2), ("a", "b", "c")) is not c
     stats = comm.unified_stats()
-    assert set(stats) == {"factorization", "plans", "comms", "telemetry"}
+    want = jax_comm.unified_stats()
+    assert set(stats) == set(want) == {"factorization", "plans", "autotune",
+                                       "tuning_db", "comms", "telemetry"}
+    assert set(stats["telemetry"]) == set(want["telemetry"])
+    assert set(stats["autotune"]) == set(want["autotune"])
     assert "plan_cache.size" in stats["telemetry"]["metrics"]
+    assert "autotune.db_hits" in stats["telemetry"]["metrics"]
     with pytest.raises(ValueError, match="duplicate"):
         c.sub(("a", "a"))
     with pytest.raises(ValueError, match="not in"):

@@ -13,8 +13,9 @@ experts replicated over the group (``n_experts=2`` < G = 4), the paper
 variant, the direct, tuned and overlap backends (the overlap engine
 pipelines dispatch, expert FFN and combine per capacity chunk), dropless
 dispatch (``capacity_factor=None``: the ragged Alltoallv, and the sparse
-one through ``_moe_inner``), and the refusals (``autotune``, a "model"
-axis).  The overlap, tuned and dropless cases are also held against the
+one through ``_moe_inner``), ``a2a_backend="autotune"`` after a measured
+search in the world (the plan replays the winner on every rank and
+measures nothing), and the refusal of a "model" axis.  The overlap, tuned and dropless cases are also held against the
 JAX ``moe_block`` on the same (data=2, pod=2) mesh, run on 4 forced host
 devices in a subprocess.
 """
@@ -40,10 +41,12 @@ CASES = {
     "E8-dropless-overlap": (8, "overlap", "natural", None),
     "E2-dropless-factorized": (2, "factorized", "natural", None),
     "E4-dropless-sparse": (4, "factorized", "natural", None),
+    "E4-autotune": (4, "autotune", "natural", 8.0),
+    "E4-dropless-autotune": (4, "autotune", "natural", None),
 }
 SPARSE = "E4-dropless-sparse"      # dropless through the SparseA2APlan
-MESH_CASES = [c for c in CASES if "overlap" in c or "tuned" in c
-              or "dropless" in c and c != SPARSE]
+MESH_CASES = [c for c in CASES if ("overlap" in c or "tuned" in c
+              or "dropless" in c and c != SPARSE) and "autotune" not in c]
 B, S, D = 8, 4, 32
 
 
@@ -77,16 +80,50 @@ def _sparse_moe(p, xs, cfg, mesh):
                           .fact.group)
 
 
-def _ep_ranks(rank, n, params, x):
-    """Runs on every rank: each case's (y shard, aux), and the refusals."""
+def _autotune_searches(mesh, config, xs):
+    """The measured searches ``a2a_backend="autotune"`` replays, run in
+    the world before the cases: the dense one at the capacity path's
+    block, the ragged-vs-sparse one at the dropless window and density.
+    Returns the autotune counters afterwards."""
+    import math
+    from repro_torch.core.autotune import (autotune, autotune_ragged,
+                                           autotune_stats)
+    from repro_torch.models.moe import _capacity, _group_geometry
+    N = xs.shape[0] * xs.shape[1]
+    for cf in (8.0, None):
+        cfg = _cfg(config, 4, "autotune", capacity_factor=cf)
+        axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+        C = _capacity(cfg, N, max(cfg.n_experts, G))
+        if cf is None:
+            density = min(1.0, max(1e-6, 1.0 - math.exp(
+                -cfg.top_k * N / G)))
+            autotune_ragged(mesh, axes, (D,), cfg.cdtype,
+                            max_count=E_loc * C, density=density, warmup=0,
+                            repeats=1)
+        else:
+            autotune(mesh, axes, (E_loc, C, D), cfg.cdtype, warmup=0,
+                     repeats=1, budget_seconds=60)
+    return autotune_stats()
+
+
+def _ep_ranks(rank, n, params, x, db_path):
+    """Runs on every rank: each case's (y shard, aux), the refusals, and
+    the autotune cases' plans."""
+    import os
+
     import torch
+    from repro_torch.core.autotune import autotune_stats
     from repro_torch.core.cache import cart_create
     from repro_torch.models import config
-    from repro_torch.models.moe import expert_shard, moe_block
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        expert_shard, moe_a2a_plan,
+                                        moe_block, moe_dropless_a2a_plan)
 
+    os.environ["REPRO_TORCH_TUNING_DB"] = db_path
     mesh = cart_create(n, (2, 2), ("data", "pod"), device_type="cpu")
     xs = torch.from_numpy(x[rank * 2:(rank + 1) * 2])   # batch over (pod,
     out = {}                                              # data)
+    searched = _autotune_searches(mesh, config, xs)
     for name, (E, backend, variant, cf) in CASES.items():
         cfg = _cfg(config, E, backend, variant, cf)
         p = expert_shard({k: torch.from_numpy(v) for k, v in
@@ -96,21 +133,27 @@ def _ep_ranks(rank, n, params, x):
         else:
             y, aux = moe_block(p, xs, cfg, mesh=mesh)
         out[name] = (y.numpy(), float(aux))
+    # the autotune cases' plans: what the DB hit built, and that the
+    # replay measured nothing
+    tuned = {"timing_executions": autotune_stats()["timing_executions"]
+             - searched["timing_executions"]}
+    N = xs.shape[0] * xs.shape[1]
+    for cf in (8.0, None):
+        cfg = _cfg(config, 4, "autotune", capacity_factor=cf)
+        axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+        C = _capacity(cfg, N, max(cfg.n_experts, G))
+        plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C) if cf else \
+            moe_dropless_a2a_plan(cfg, mesh, axes, E_loc, C, N)
+        tuned[cf] = (type(plan).__name__, plan.describe())
     refusals = []
     p = expert_shard({k: torch.from_numpy(v) for k, v in params[4].items()},
                      _cfg(config, 4), mesh)
-    for cf in (None, 8.0):      # dropless refuses at plan time, dense at run
-        try:
-            moe_block(p, xs, _cfg(config, 4, "autotune", capacity_factor=cf),
-                      mesh=mesh)
-        except NotImplementedError as e:
-            refusals.append(str(e))
     tp = cart_create(n, (2, 2), ("data", "model"), device_type="cpu")
     try:
         moe_block(p, xs, _cfg(config, 4), mesh=tp)
     except NotImplementedError as e:
         refusals.append(str(e))
-    return out, refusals
+    return out, (refusals, tuned)
 
 
 @pytest.fixture(scope="module")
@@ -131,8 +174,8 @@ def ep(tmp_path_factory):
         params[E] = jax.tree.map(np.asarray, p)
         y, aux = moe_block(p, jnp.asarray(x), cfg, mesh=None)
         refs[E, cf or None] = (np.asarray(y), float(aux))
-    ranks = run_world(_ep_ranks, 4, tmp_path_factory.mktemp("ep"), params,
-                      x)
+    tmp = tmp_path_factory.mktemp("ep")
+    ranks = run_world(_ep_ranks, 4, tmp, params, x, str(tmp / "tuning.json"))
     return ranks, refs
 
 
@@ -148,11 +191,21 @@ def test_ep_moe_matches_reference(ep, case):
 
 
 def test_unported_ep_paths_raise(ep):
+    """A "model" axis still raises; ``a2a_backend="autotune"`` runs (its
+    outputs are checked in test_ep_moe_matches_reference): every rank
+    replays the same measured winners, and the replay times nothing."""
     ranks, _ = ep
-    for _, refusals in ranks:
-        assert len(refusals) == 3
-        assert all("queue 1 item 8" in r for r in refusals[:2])
-        assert "model" in refusals[2] and "ROADMAP" in refusals[2]
+    for _, (refusals, _tuned) in ranks:
+        assert len(refusals) == 1
+        assert "model" in refusals[0] and "ROADMAP" in refusals[0]
+    tuned = [t for _, (_, t) in ranks]
+    assert all(t == tuned[0] for t in tuned)
+    assert tuned[0]["timing_executions"] == 0
+    kind, dense = tuned[0][8.0]
+    assert kind == "A2APlan" and dense["tuned_from"] == "measured"
+    assert dense["backend"] in ("direct", "factorized", "overlap")
+    kind, dropless = tuned[0][None]
+    assert kind in ("RaggedA2APlan", "SparseA2APlan")
 
 
 _JAX_MESH_SCRIPT = r"""

@@ -243,20 +243,29 @@ def test_shared_counts_plan_survives_sibling_eviction():
     assert plan.plan_cache_stats()["size"] < live
 
 
-def test_refusals_and_validation():
+def test_refusals_and_validation(monkeypatch, tmp_path):
     import torch
+    from repro.core import plan as jax_plan
     with pytest.raises(ValueError, match="avg_count"):
         plan.plan_ragged_all_to_all((2, 2), ("i", "j"), max_count=4,
                                     avg_count=9)
     with pytest.raises(ValueError, match="density"):
         plan.plan_sparse_all_to_all((2, 2), ("i", "j"), max_count=4,
                                     density=1.5)
+    # "autotune" resolves the data plan as the reference does on the same
+    # (here empty) tuning DB, and runs like every backend
+    monkeypatch.setenv("REPRO_TORCH_TUNING_DB", str(tmp_path / "t.json"))
+    monkeypatch.setenv("REPRO_TUNING_DB", str(tmp_path / "t.json"))
     auto = plan.plan_ragged_all_to_all((2, 2), ("i", "j"), (4,),
                                        "float32", max_count=4,
                                        backend="autotune")
+    ref = jax_plan.plan_ragged_all_to_all((2, 2), ("i", "j"), (4,),
+                                          "float32", max_count=4,
+                                          backend="autotune")
     assert auto.data.tuned_from == "model"
+    assert auto.describe() == ref.describe()
     x = torch.zeros(4, 4, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         auto.data.forward(x.reshape(4, -1))
     with pytest.raises(ValueError, match="DeviceMesh"):
         plan.plan_ragged_all_to_all((2, 2), ("i", "j"), (4,), "float32",

@@ -153,8 +153,22 @@ def test_escalation_policy():
 
 
 def test_watchdog_check_drift_waits_for_the_detector():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StragglerWatchdog().check_drift()
+    # the drift detector is ported: a drifted key yields one advisory
+    # "retune" per episode, as the reference's watchdog does
+    from repro.core.telemetry import DriftDetector as JaxDrift
+    from repro.runtime.watchdog import StragglerWatchdog as JaxWatchdog
+    from repro_torch.core.telemetry import DriftDetector
+    got = []
+    for det, wd in ((DriftDetector(), StragglerWatchdog()),
+                    (JaxDrift(), JaxWatchdog())):
+        for ratio in (1.0, 3.0, 3.0, 3.0):
+            det.observe("dense[x]4:factorized:64", 0.001, 0.001 * ratio)
+        first = [(k, a.kind) for k, a in wd.check_drift(det, step=7)]
+        got.append((first, wd.check_drift(det, step=8), wd.last_verdict,
+                    [e for e in wd.events if e[0] == "drift"]))
+    assert got[0] == got[1]
+    assert got[0][:3] == ([("dense[x]4:factorized:64", "retune")], [],
+                          "drift")
 
 
 # ---------------------------------------------------------------------------
@@ -313,3 +327,29 @@ def test_train_default_device_refuses_cpu_fallback(tmp_path):
                            "--mesh", "debug"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_launch.build_training(None, mesh=object(), device="cpu")
+
+
+def test_trainer_traces_steps_and_checkpoints(tmp_path, one_thread):
+    """Traced, ``Trainer.run`` records one ``train.step`` span per step
+    and the checkpoint one ``checkpoint.save`` / ``checkpoint.restore``
+    span per save and restore (the reference's spans); untraced,
+    nothing."""
+    from repro_torch.core import telemetry
+    _, _, tr = _tiny_setup(tmp_path, total=4, ckpt_every=2)
+    telemetry.reset_telemetry()
+    tracer = telemetry.enable_tracing()
+    try:
+        assert tr.run() == "done"
+        assert tr.try_restore()
+    finally:
+        telemetry.disable_tracing()
+    spans = [(s.name, s.attrs["step"]) for s in tracer.spans()]
+    telemetry.reset_telemetry()
+    assert spans == [("train.step", 1), ("train.step", 2),
+                     ("checkpoint.save", 2), ("train.step", 3),
+                     ("train.step", 4), ("checkpoint.save", 4),
+                     ("checkpoint.restore", 4)]
+    assert tr.retune_log == []
+    _, _, tr = _tiny_setup(tmp_path / "off", total=2, ckpt_every=2)
+    tr.run()
+    assert tracer.spans() == []
