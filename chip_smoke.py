@@ -127,7 +127,39 @@ it fails:
              fitted links (the card's gloo world is no TPU: expect
              ratios far above 1.5), and a 512 KiB decode-size call's
              host µs with tracing off and on.
-11. train  — after the world has ended: ``launch/train.py``'s
+11. train_ep — in the same world, after [tracing]: expert- and
+             data-parallel training on the (data=2, pod=2) mesh through
+             ``build_training(cfg, mesh)``: phi3.5-moe at full width (its
+             own a2a_backend "tuned", which must resolve to the overlap
+             engine; its describe() is printed), 4 of 16 experts per
+             rank.  Cuts: depth 1 layer; capacity_factor 8 (no token
+             drops, so the one-process step is a reference); the copy
+             task at B=1, S=1024 per rank (4096 tokens, as many as
+             [train]), each row block's first 768 tokens set to one
+             token whose top-1 expert lies on that block's EP rank
+             (picked by routing one-token sequences), so that every
+             capacity chunk of the overlap engine carries routed rows
+             on every rank (random tokens fill about 128 of C = 1024
+             slots, all in the first chunk): the recorded routing must
+             show it and no drop.  (a) One loss + backward under "tuned" and one
+             under "factorized" from the same parameters and batch: every
+             reduced leaf (``model_api.reduce_grads``) finite and
+             non-zero, within 2e-2 relative norm of the other plan's and,
+             gathered over the EP group on rank 0, of the one-process
+             kernel step's on the global batch; the losses within 1e-2.
+             (c) 3 timed full-width steps (loss, backward, gradient
+             reduction, AdamW) with their launches per step predicted
+             from the plan (gmm all ``wgmma``: 15 per chunk under the
+             overlap engine, whose backward recomputes the expert FFN;
+             flash forward-with-lse 2, backward 1; the block reorder
+             round_schedule's passes x chunks x (forward, recompute,
+             backward) each way), peak memory per rank, one step
+             profiled on rank 0.  (b) ``Trainer.run`` for 4 steps at a
+             cut width (d 512, 4/2 heads, d_ff 1024: a checkpoint under
+             1 GiB, inside ``DISK_WRITE_BUDGET`` beside [train]'s) with
+             an async checkpoint of global arrays at step 2, restored
+             into a fresh ``Trainer`` bit for bit on every rank.
+12. train  — after the world has ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
              parameters, 32.8 GB of state before activations), remat on,
@@ -187,19 +219,21 @@ variant's re-summation fires and what the tensor cores' summation order
 alone does to the training gates.)
 
 Phase 2 also holds the training kernels against their plain versions at
-the training shape and at GQA / window / ragged shapes: the flash forward
-that keeps lse, the FA2 backward (run twice, equal bit for bit), and the
-grouped matmul's backward (``GroupedMatmulFn``, whose products read
-``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm.
+the training shapes of phases 11 and 12 (derived from the same constants,
+config and resolved plans) and at GQA / window / ragged shapes: the flash
+forward that keeps lse, the FA2 backward (run twice, equal bit for bit),
+and the grouped matmul's backward (``GroupedMatmulFn``, whose products
+read ``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm.
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
 unpack and the fused unpack-then-pack between rounds) against its plain
-versions, bit for bit, at every buffer phases 6, 8 and 9 reorder (their
+versions, bit for bit, at every buffer phases 6, 8, 9 and 11 reorder (their
 shapes derived from the same constants and config), at the EP buffers of
 phi3.5-moe serving, the paper's tori and odd sizes, every round and every
 ordered pair of rounds; it times the passes of a (2,2) call at the
 [moe_ep] overlap chunk (also the dropless data chunk), the whole [moe_ep]
-buffer, EP prefill and EP decode buffers against the bound, the plain
+buffer, [train_ep]'s chunks and whole buffer, EP prefill and EP decode
+buffers against the bound, the plain
 version and ``index_select`` with the same row map, with each decode-size
 call's host µs beside its kernel µs.
 
@@ -256,6 +290,15 @@ TRAIN_GRAD_TOL = 2e-2              # [train]: relative norm per gradient leaf
 F32_GAP_RATIO = 1.25               # [train]: kernels~f32 vs plain~f32
 DISK_WRITE_BUDGET = 40 * 2**30     # bytes the run may write to disk; the
                                    # [train] checkpoint is all but the builds
+WRITTEN: dict = {}                 # checkpoint bytes written, by phase
+TRAIN_EP_S = 1024                  # [train_ep]: tokens per rank (B=1)
+TRAIN_EP_TIMED = 3                 # [train_ep]: timed full-width steps
+TRAIN_EP_STEPS = 4                 # [train_ep]: Trainer.run, checkpoint at 2
+TRAIN_EP_CUT = {"d_model": 512, "n_heads": 4, "n_kv_heads": 2,
+                "d_ff": 1024}      # [train_ep]'s Trainer width (< 1 GiB)
+TRAIN_EP_FILL = 3 * TRAIN_EP_S // 4  # [train_ep]: leading tokens of a row
+                                   # set to one token (fills every chunk)
+TRAIN_EP_CANDIDATES = 256          # [train_ep]: tokens routed to pick them
 
 
 def fail(msg: str):
@@ -464,27 +507,38 @@ def _gmm_sweep(gen):
 
 
 def _gmm_backward_cases(gen):
-    """``GroupedMatmulFn``'s backward at the training shape (C = 640): its
-    gradients against autograd of the plain gmm, and each of its two
-    products (``dlhs = gmm(dout, rhs^T)``, ``drhs = gmm(lhs^T, dout)``)
-    timed alone as the Function calls it, on the transposed views."""
+    """``GroupedMatmulFn``'s backward at the shapes training runs it: [train]'s
+    (16, 640) and [train_ep]'s (E_loc, rows) from
+    :func:`_path_gmm_shapes` (the tuned chunk, the factorized call, the
+    Trainer's cut-width chunk).  Its gradients against autograd of the
+    plain gmm, and each of its two products (``dlhs = gmm(dout, rhs^T)``,
+    ``drhs = gmm(lhs^T, dout)``) timed alone as the Function calls it, on
+    the transposed views."""
     from repro_torch.kernels.moe_gmm import (GroupedMatmulFn,
                                              grouped_matmul_plain)
+    shapes = {(16, 640, 4096, 6400): ["train"]}
+    shapes.update({s: [lb for lb in labels if lb.startswith("train_ep")]
+                   for s, labels in _path_gmm_shapes().items()
+                   if any(lb.startswith("train_ep") for lb in labels)})
     rows = []
-    for K, N in ((4096, 6400), (6400, 4096)):
-        a = _randn(gen, 16, 640, K).requires_grad_()
-        b = _randn(gen, 16, K, N).requires_grad_()
-        d = _randn(gen, 16, 640, N)
-        got = torch.autograd.grad(GroupedMatmulFn.apply(a, b), (a, b), d)
-        want = torch.autograd.grad(grouped_matmul_plain(a, b), (a, b), d)
-        a, b = a.detach(), b.detach()
-        for name, g, w, lhs, rhs in (
-                ("dlhs", got[0], want[0], d, b.transpose(1, 2)),
-                ("drhs", got[1], want[1], a.transpose(1, 2), d)):
-            rows.append(_gmm_case(
-                f"gmm backward {name} of (16,640,{K})x(16,{K},{N})", lhs,
-                rhs, got=g, want=w, against="autograd of the plain gmm"))
-        del a, b, d, got, want
+    for (E, M, D, F_), labels in shapes.items():
+        for K, N in ((D, F_), (F_, D)):
+            a = _randn(gen, E, M, K).requires_grad_()
+            b = _randn(gen, E, K, N).requires_grad_()
+            d = _randn(gen, E, M, N)
+            got = torch.autograd.grad(GroupedMatmulFn.apply(a, b), (a, b),
+                                      d)
+            want = torch.autograd.grad(grouped_matmul_plain(a, b), (a, b),
+                                       d)
+            a, b = a.detach(), b.detach()
+            for name, g, w, lhs, rhs in (
+                    ("dlhs", got[0], want[0], d, b.transpose(1, 2)),
+                    ("drhs", got[1], want[1], a.transpose(1, 2), d)):
+                rows.append(_gmm_case(
+                    f"gmm backward {name} ({', '.join(labels)}) of "
+                    f"({E},{M},{K})x({E},{K},{N})", lhs, rhs, got=g,
+                    want=w, against="autograd of the plain gmm"))
+            del a, b, d, got, want
     return rows
 
 
@@ -609,7 +663,8 @@ def _flash_sweep(gen):
 
 def _flash_train_kernels(gen):
     """The flash forward that keeps lse and the FA2 backward against their
-    plain versions: at the training shape (each forward variant as
+    plain versions: at the training shapes, [train]'s and [train_ep]'s
+    per rank at full and at cut width (each forward variant as
     :func:`_flash_rows` times it, with SDPA's forward and backward as the
     library yardstick; the backward run twice must agree bit for bit) and
     at GQA / window / kv-offset / ragged shapes in f32 and bf16, the
@@ -642,41 +697,56 @@ def _flash_train_kernels(gen):
                for g, w in zip(got, want)]
         return bwd_err, rel
 
-    B, Hq, Hkv, S, Dh = 2, 32, 8, 2048, 128
-    q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
-    k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
-    shape = f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
-    fwd = _flash_rows(
-        "flash fwd+lse", shape, flash_attention_fwd, flash_attention_fwd_plain,
-        lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), "sdpa forward",
-        q, k, v)
-    bwd_err, rel = check(f"flash train {shape}", q, k, v, do)
-    out, lse = flash_attention_fwd(q, k, v)
-    runs = [flash_attention_bwd(q, k, v, out, lse, do) for _ in range(2)]
-    if not all(torch.equal(x, y) for x, y in zip(*runs)):
-        fail(f"flash bwd {shape}: two runs on the same inputs differ")
-    del runs
-    pairs = S * (S + 1) // 2
-    bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
-                         + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
-    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-    o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                           enable_gqa=True)
-    bwd = {"max_abs_err": bwd_err,
-           "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do)),
-           "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
-               q, k, v, out, lse, do)),
-           "library_ms": cuda_ms(lambda: torch.autograd.grad(
-               o_lib, (qs, ks, vs), do, retain_graph=True)),
-           "bound_ms": bb_ms, "bound_by": bb_by, "rel_norm_err": rel}
-    log(f"[kernels] flash bwd {shape}: max_abs_err {bwd_err:.3g}, relative "
-        f"norm error dq/dk/dv {', '.join(f'{r:.2e}' for r in rel)}, two runs "
-        f"equal bit for bit, kernel "
-        f"{bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} ms, sdpa "
-        f"backward {bwd['library_ms']:.3f} ms, bound {bb_ms:.3f} ms "
-        f"({bb_by})")
-    del q, k, v, do, out, lse, qs, ks, vs, o_lib
+    def shape_rows(B, Hq, Hkv, S, Dh, label):
+        """The forward's rows (:func:`_flash_rows`) and the backward's at
+        one causal training shape."""
+        q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
+        k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
+        shape = (f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
+                 f" ({label})")
+        fwd = _flash_rows(
+            "flash fwd+lse", shape, flash_attention_fwd,
+            flash_attention_fwd_plain,
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), "sdpa forward",
+            q, k, v)
+        bwd_err, rel = check(f"flash train {shape}", q, k, v, do)
+        out, lse = flash_attention_fwd(q, k, v)
+        runs = [flash_attention_bwd(q, k, v, out, lse, do) for _ in range(2)]
+        if not all(torch.equal(x, y) for x, y in zip(*runs)):
+            fail(f"flash bwd {shape}: two runs on the same inputs differ")
+        del runs
+        pairs = S * (S + 1) // 2
+        bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
+                             + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                               enable_gqa=True)
+        bwd = {"shape": f"flash bwd {shape}", "max_abs_err": bwd_err,
+               "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse,
+                                                         do)),
+               "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
+                   q, k, v, out, lse, do)),
+               "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                   o_lib, (qs, ks, vs), do, retain_graph=True)),
+               "bound_ms": bb_ms, "bound_by": bb_by, "rel_norm_err": rel}
+        log(f"[kernels] flash bwd {shape}: max_abs_err {bwd_err:.3g}, "
+            f"relative norm error dq/dk/dv "
+            f"{', '.join(f'{r:.2e}' for r in rel)}, two runs equal bit for "
+            f"bit, kernel {bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} "
+            f"ms, sdpa backward {bwd['library_ms']:.3f} ms, bound "
+            f"{bb_ms:.3f} ms ({bb_by})")
+        return fwd, bwd
+
+    # [train]'s shape first (the JSON line's main rows), then [train_ep]'s
+    # per rank at full width and at the Trainer's cut width
+    shapes = [(2, 32, 8, 2048, 128, "train")]
+    for t in _train_ep_geometry():
+        c = t["cfg"]
+        shapes.append((1, c.n_heads, c.n_kv_heads, TRAIN_EP_S,
+                       c.d_model // c.n_heads, t["label"]))
+    by_shape = [shape_rows(*sh) for sh in shapes]
+    fwd, bwd = by_shape[0]
     n = 0
     for dtype in (f32, bf16):
         for (Bb, Hq_, Hk_, Sq, Sk, D), kw in (
@@ -710,12 +780,14 @@ def _flash_train_kernels(gen):
     out = {f"flash_attention_fwd_{which}": dict(
         name=f"flash_attention_fwd_{which}", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention_bwd.py:83", **row)
+        replaces="src/repro/kernels/flash_attention_bwd.py:83", **row,
+        cases=[f[which] for f, _ in by_shape])
         for which, row in fwd.items()}
     out["flash_attention_bwd"] = dict(
-        name="flash_attention_bwd", route="cuda", shape=shape,
+        name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/kernels/flash_attention_bwd.py:205", **bwd)
+        replaces="src/repro/kernels/flash_attention_bwd.py:205", **bwd,
+        cases=[b for _, b in by_shape])
     return out
 
 
@@ -875,20 +947,52 @@ def _ep_geometry() -> dict:
                                             EP_TOKENS))
 
 
-def _path_gmm_cases(gen) -> list:
-    """The expert FFN's gmm rows at the (E_loc, rows) shapes phases 8 and
-    9 run: [moe_ep]'s overlap chunk (WORLD*C/n rows), its factorized call
-    and the dropless window (WORLD*C rows each), w1/w3 and w2."""
+def _train_ep_geometry() -> list:
+    """What [train_ep] runs per rank, from the same constants and config
+    and the plans they resolve (from the dims alone): for the full width
+    and for the Trainer's cut width, the config, experts per rank, the
+    capacity, the tuned plan and its chunk count."""
+    from repro_torch.models.moe import _capacity, moe_a2a_plan
+    out = []
+    for label, cfg in (("train_ep", _train_ep_config()),
+                       ("train_ep cut", _train_ep_config(**TRAIN_EP_CUT))):
+        E_loc = cfg.n_experts // WORLD
+        C = _capacity(cfg, TRAIN_EP_S, max(cfg.n_experts, WORLD))
+        plan = moe_a2a_plan(cfg, (2, 2), ("data", "pod"), E_loc, C)
+        n = _n_chunks(C, plan.n_chunks) if plan.backend == "overlap" else 1
+        out.append(dict(label=label, cfg=cfg, E_loc=E_loc, C=C, plan=plan,
+                        n=n))
+    return out
+
+
+def _path_gmm_shapes() -> dict:
+    """{(E_loc, rows, D, F): labels} of the expert FFN's products in phases
+    8, 9 and 11: [moe_ep]'s overlap chunk (WORLD*C/n rows), its factorized
+    call and the dropless window (WORLD*C rows each); [train_ep]'s tuned
+    chunk and factorized call at full width, and its Trainer's chunk at
+    the cut width."""
     g = _ep_geometry()
     cfg, E_loc, C, n = g["cfg"], g["E_loc"], g["C"], g["n"]
-    D, F_ = cfg.d_model, cfg.d_ff
+    rows = [(E_loc, WORLD * C // n, cfg, f"moe_ep {g['plan'].backend} "
+             f"chunk"), (E_loc, WORLD * C, cfg, "moe_ep factorized"),
+            (E_loc, WORLD * g["Cd"], cfg, "moe_dropless")]
+    for t in _train_ep_geometry():
+        rows.append((t["E_loc"], WORLD * t["C"] // t["n"], t["cfg"],
+                     f"{t['label']} {t['plan'].backend} chunk"))
+        if t["label"] == "train_ep":
+            rows.append((t["E_loc"], WORLD * t["C"], t["cfg"],
+                         "train_ep factorized"))
     shapes = {}
-    for rows, label in ((WORLD * C // n, f"moe_ep {g['plan'].backend} "
-                         f"chunk"), (WORLD * C, "moe_ep factorized"),
-                        (WORLD * g["Cd"], "moe_dropless")):
-        shapes.setdefault(rows, []).append(label)
+    for E_loc_, r, c, label in rows:
+        shapes.setdefault((E_loc_, r, c.d_model, c.d_ff), []).append(label)
+    return shapes
+
+
+def _path_gmm_cases(gen) -> list:
+    """The expert FFN's gmm rows at every :func:`_path_gmm_shapes` shape,
+    w1/w3 and w2."""
     cases = []
-    for rows, labels in shapes.items():
+    for (E_loc, rows, D, F_), labels in _path_gmm_shapes().items():
         for K, N in ((D, F_), (F_, D)):
             a, b = _randn(gen, E_loc, rows, K), _randn(gen, E_loc, K, N)
             cases.append(_gmm_case(f"gmm {', '.join(labels)}", a, b))
@@ -897,56 +1001,69 @@ def _path_gmm_cases(gen) -> list:
 
 
 def _path_reorder_cases():
-    """(dims, B, dtype, label) of every (p, B) buffer that phases 6, 8, 9
-    pack and unpack (``_ep_geometry`` for phases 8 and 9).  The first is
-    [moe_ep]'s overlap chunk, the main timed case."""
+    """(dims, B, dtype, label, timed) of every (p, B) buffer that phases
+    6, 8, 9 and 11 pack and unpack (``_ep_geometry`` and
+    ``_train_ep_geometry`` for phases 8, 9 and 11), each buffer once with
+    the labels of every phase that reorders it.  The first is [moe_ep]'s
+    overlap chunk, the main timed case; the EP buffers are timed."""
     g = _ep_geometry()
     cfg, E_loc, C, n, plan = g["cfg"], g["E_loc"], g["C"], g["n"], g["plan"]
     D, cd = cfg.d_model, cfg.cdtype
     cases = [((2, 2), E_loc * C // n * D, cd,
-              f" (moe_ep {plan.backend} chunk, C={C // n})"),
-             ((2, 2), E_loc * C * D, cd, f" (moe_ep factorized, C={C})")]
+              f"moe_ep {plan.backend} chunk, C={C // n}", True),
+             ((2, 2), E_loc * C * D, cd, f"moe_ep factorized, C={C}", True)]
+    for t in _train_ep_geometry():
+        tc = t["cfg"]
+        cases.append(((2, 2), t["E_loc"] * t["C"] // t["n"] * tc.d_model,
+                      tc.cdtype, f"{t['label']} {t['plan'].backend} chunk, "
+                      f"C={t['C'] // t['n']}", True))
+        if t["label"] == "train_ep":
+            cases.append(((2, 2), t["E_loc"] * t["C"] * tc.d_model,
+                          tc.cdtype, f"train_ep factorized, C={t['C']}",
+                          True))
     dplan = g["dplan"]
     width = dplan.bucket * D
     if dplan.backend in ("overlap", "pipelined"):
         width //= _n_chunks(width, dplan.n_chunks)
-    cases += [((2, 2), width, cd, f" (moe_dropless {dplan.backend})"),
-              ((2, 2), WORLD, torch.int32, " (Alltoallv counts)")]
+    cases += [((2, 2), width, cd, f"moe_dropless {dplan.backend}", False),
+              ((2, 2), WORLD, torch.int32, "Alltoallv counts", False)]
     bucket_row = 8 * math.prod(COLL_ROW)      # bucket of COLL_MAX_COUNT
     for dims, _ in COLL_TORI:
-        cases += [(dims, COLL_B, torch.float32, " (collective)"),
+        cases += [(dims, COLL_B, torch.float32, "collective", False),
                   (dims, math.prod(COLL_TILED) // WORLD, torch.float32,
-                   " (collective, tiled)"),
-                  (dims, bucket_row, torch.float32, " (collective ragged)")]
+                   "collective, tiled", False),
+                  (dims, bucket_row, torch.float32, "collective ragged",
+                   False)]
         for nc in COLL_CHUNKS:
             for B in (COLL_B, math.prod(COLL_TILED) // WORLD, bucket_row):
                 cases.append((dims, B // _n_chunks(B, nc), torch.float32,
-                              f" (collective overlap chunk, n={nc})"))
-    seen, out = set(), []
-    for case in cases:
-        if case[:3] not in seen:
-            seen.add(case[:3])
-            out.append(case)
-    return out
+                              f"collective overlap chunk, n={nc}", False))
+    merged = {}
+    for dims, B, dtype, label, timed in cases:
+        labels, was_timed = merged.get((dims, B, dtype), ([], False))
+        if label not in labels:
+            labels.append(label)
+        merged[(dims, B, dtype)] = (labels, was_timed or timed)
+    return [(dims, B, dtype, f" ({'; '.join(labels)})", timed)
+            for (dims, B, dtype), (labels, timed) in merged.items()]
 
 
 def _reorder_kernels(gen):
-    """Phase 2's block-reorder part: the buffers of phases 6, 8, 9 (the
-    main rows are [moe_ep]'s overlap chunk), the EP buffers of
+    """Phase 2's block-reorder part: the buffers of phases 6, 8, 9 and 11
+    (the main rows are [moe_ep]'s overlap chunk), the EP buffers of
     phi3.5-moe serving on a
     (2,2) torus (E_loc=4, D=4096, bf16; C=4 at decode on 4 slots, C=640
     at prefill B*S=4096), the paper's tori at the sweep of
     benchmarks/zero_copy_cost.py, (36,32), and the CPU sweep's odd
     sizes, dtypes and a misaligned base."""
     t0 = time.perf_counter()
-    (dims, B, dtype, label), full, *coll = _path_reorder_cases()
-    _reorder_case(gen, dims, B, dtype, label)
-    main = _reorder_timed(gen, dims, B, dtype, label)
-    cases = list(main)
-    _reorder_case(gen, *full)
-    cases += _reorder_timed(gen, *full)
-    for dims_, B_, dtype_, label_ in coll:
+    main, cases = None, []
+    for dims_, B_, dtype_, label_, timed in _path_reorder_cases():
         _reorder_case(gen, dims_, B_, dtype_, label_)
+        if timed:
+            rows = _reorder_timed(gen, dims_, B_, dtype_, label_)
+            main = main or rows
+            cases += rows
     for B_, label_ in ((4 * 640 * 4096, " (MoE EP prefill, C=640)"),
                        (4 * 4 * 4096, " (MoE EP decode, C=4)")):
         _reorder_case(gen, (2, 2), B_, torch.bfloat16, label_)
@@ -1966,17 +2083,277 @@ def _rank_tracing(rank: int, n: int, seed: int) -> dict:
             "decode_us": (off, on), "decode_bytes": xd.numel() * 2}
 
 
-def _world_rank(rank: int, n: int, seed: int) -> dict:
-    """One rank of the 4-rank gloo world: phases 6 to 10."""
+# ---------------------------------------------------------------------------
+# phase 11: expert- and data-parallel training on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _train_ep_config(**changes):
+    """[train_ep]'s configuration: phi3.5-moe at full width (its own
+    a2a_backend "tuned"), cut to 1 layer, capacity factor 8 so that no
+    token drops (the one-process step is then a reference).  The batch's
+    cut (TRAIN_EP_FILL) is :func:`_filling_tokens`'s."""
+    from repro_torch.configs import get_config
+    return get_config(ARCH).replace(**{"n_layers": 1, "capacity_factor": 8.0,
+                                       **changes})
+
+
+def _train_ep_launches(cfg, plan, C: int) -> dict:
+    """Predicted launches of one training step on one rank: per layer the
+    flash forward-with-lse twice (forward, remat recompute) and its
+    backward once; the MoE's exchange forward, in the recompute and in
+    the backward, each ``n_chunks`` x round_schedule's passes both ways;
+    the gmm 3 per chunk forward and in the recompute, and under the
+    overlap engine 3 + 6 per chunk in the backward (its vjp recomputes
+    the expert FFN), else 6."""
+    L = cfg.n_layers
+    n = _n_chunks(C, plan.n_chunks) if plan.backend == "overlap" else 1
+    gmm = L * (15 * n if plan.backend == "overlap" else 12)
+    passes = _sum_launches(_dense_launches(plan, False, n),
+                           _dense_launches(plan, True, n))
+    return _expected(flash_attention_fwd=2 * L,
+                     flash_attention_fwd_wgmma=2 * L,
+                     flash_attention_bwd=L, grouped_matmul=gmm,
+                     grouped_matmul_wgmma=gmm,
+                     **{op: 3 * L * v for op, v in passes.items()})
+
+
+def _ep_loss_grads(model, params, batch, mesh, sharding):
+    """One loss + backward on the mesh: (this rank's reduced gradients as
+    a tree, the total loss averaged over the ranks, its launches)."""
+    import torch.distributed as dist
+    from repro_torch.models import make_loss_fn, reduce_grads
+    from repro_torch.models.common import tree_leaves, tree_with_leaves
+    from repro_torch.parallel.sharding import batch_group
+    leaves = tree_leaves(params)
+    _reset_counts()
+    total, _ = make_loss_fn(model, mesh)(params, batch)
+    got = torch.autograd.grad(total, [t for _, t in leaves])
+    counts = _read_counts()
+    grads = reduce_grads(tree_with_leaves(
+        params, {p: g for (p, _), g in zip(leaves, got)}), sharding,
+        batch_group(mesh))
+    loss = total.detach().float().reshape(1).clone()
+    dist.all_reduce(loss)
+    return grads, float(loss[0]) / WORLD, counts
+
+
+def _filling_tokens(model, params, mesh, E_loc: int) -> list:
+    """For each EP rank v, the first token (of TRAIN_EP_CANDIDATES) whose
+    top-1 expert lies on v, routed as a one-token sequence through the
+    model on the mesh: the router's input is then what it is at every
+    position of a run of that token, since causal attention over equal
+    tokens returns their value.  A row block's leading TRAIN_EP_FILL
+    tokens set to its token send more than C / n_chunks tokens to one
+    expert of every EP rank, so every capacity chunk of the overlap
+    engine carries routed rows on every rank (``phase_train_ep`` checks
+    it from the gated call's routing).  Rank 0's choice, broadcast."""
+    import torch.distributed as dist
+    rec = []
+    cand = torch.arange(min(TRAIN_EP_CANDIDATES, model.cfg.vocab),
+                        dtype=torch.int32, device=DEVICE)[:, None]
+    with torch.no_grad(), _routing(record=rec):
+        model.forward(params, cand, mesh=mesh)
+    owner = (rec[0][:, 0] // E_loc).tolist()
+    picked = torch.tensor([owner.index(v) if v in owner else -1
+                           for v in range(WORLD)], device=DEVICE)
+    dist.broadcast(picked, src=0)
+    if bool((picked < 0).any()):
+        fail(f"[train_ep] no one of the first {len(owner)} tokens routes "
+             f"first to every EP rank: {picked.tolist()}")
+    return picked.tolist()
+
+
+def _sharded_gaps(got, want, sharding) -> dict:
+    """``||got - want|| / ||want||`` per leaf of two reduced trees on the
+    mesh (expert leaves summed over the EP group: collective)."""
+    from repro_torch.models.common import tree_leaves
+    out = {}
+    for (path, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
+        sq = torch.stack([torch.sum((g.float() - w.float()) ** 2),
+                          torch.sum(w.float() ** 2)])
+        if path in sharding.axes:
+            sq = sharding.expert_sq_sum(sq)
+        out[path] = float(torch.sqrt(sq[0] / sq[1]))
+    return out
+
+
+def _rank_train_ep(rank: int, n: int, seed: int, tmp: str) -> dict:
+    """[train_ep] on one rank: ``build_training`` on the (data=2, pod=2)
+    mesh at full width (1 layer), the gradients under the tuned plan and
+    the factorized one against the one-process kernel step on the global
+    batch (rank 0), timed and profiled steps, then ``Trainer.run`` at a
+    cut width with a checkpoint restored bit for bit."""
+    import torch.distributed as dist
+    from repro_torch.core.cache import cart_create
+    from repro_torch.data import (CopyTaskConfig, SyntheticLM,
+                                  make_copy_task_batch)
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import build_model
+    from repro_torch.models.common import (param_shardings, tree_leaves,
+                                           tree_map)
+    from repro_torch.models.moe import _capacity, _group_geometry, \
+        moe_a2a_plan
+    from repro_torch.parallel.sharding import batch_split
+    from repro_torch.runtime import Trainer, TrainerConfig
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    cfg = _train_ep_config()
+    t0 = time.perf_counter()
+    model, _, params, opt_state, step_fn = build_training(
+        cfg, mesh, lr=1e-4, warmup=2, total=TRAIN_EP_STEPS, seed=seed,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    sharding = param_shardings(model.specs(), mesh)
+    dcfg = CopyTaskConfig(vocab=cfg.vocab, seq_len=TRAIN_EP_S,
+                          global_batch=WORLD)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, TRAIN_EP_S, max(cfg.n_experts, G))
+    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    per_step = _train_ep_launches(cfg, plan, C)
+    fill = _filling_tokens(model, params, mesh, E_loc)
+    _, block = batch_split(mesh)
+    batch = SyntheticLM(dcfg, mesh=mesh, task="copy", device=DEVICE).next()
+    batch["tokens"][:, :TRAIN_EP_FILL] = fill[block]
+    out = {"describe": plan.describe(), "C": C, "per_step": per_step,
+           "n_chunks": _n_chunks(C, plan.n_chunks)
+           if plan.backend == "overlap" else 1,
+           "fill": fill, "build_s": build_s,
+           "n_params": sum(t.numel() for _, t in tree_leaves(params)),
+           "state_gb": sum(t.numel() * t.element_size() for _, t in
+                           tree_leaves({"p": params, "o": opt_state}))
+           / 1e9}
+
+    # (a) the tuned plan's gradients (with the routing it sent: the
+    # tokens per expert from this rank), the factorized plan's, and the
+    # one-process kernel step on the global batch
+    routed = []
+    with _routing(record=routed):
+        grads, loss, out["counts"] = _ep_loss_grads(model, params, batch,
+                                                    mesh, sharding)
+    out["routed"] = torch.bincount(routed[0].reshape(-1),
+                                   minlength=cfg.n_experts).tolist()
+    del routed
+    fcfg = cfg.replace(a2a_backend="factorized")
+    fplan = moe_a2a_plan(fcfg, mesh, axes, E_loc, C)
+    out["fact_per_step"] = _train_ep_launches(fcfg, fplan, C)
+    fgrads, floss, out["fact_counts"] = _ep_loss_grads(
+        build_model(fcfg), params, batch, mesh, sharding)
+    out["tuned_vs_fact"] = _sharded_gaps(grads, fgrads, sharding)
+    out["loss"], out["fact_loss"] = loss, floss
+    out["finite_nonzero"] = all(
+        bool(torch.isfinite(g).all()) and float(g.float().abs().sum()) > 0
+        for _, g in tree_leaves(grads))
+    del fgrads
+    full = sharding.gather_tree(grads)
+    del grads
+    if rank == 0:
+        gparams = model.init(torch.Generator(device=DEVICE)
+                             .manual_seed(seed), DEVICE)
+        tree_map(lambda t: t.requires_grad_(True), gparams)
+        gbatch = make_copy_task_batch(dcfg, 0, DEVICE)
+        for v, t in enumerate(fill):       # row block v, as on the mesh
+            gbatch["tokens"][v, :TRAIN_EP_FILL] = t
+        leaves = tree_leaves(gparams)
+        total, _ = model.loss(gparams, gbatch)
+        ref = torch.autograd.grad(total, [t for _, t in leaves])
+        out["one_loss"] = float(total.detach())
+        out["vs_one"] = {path: float((full_g.float() - r.float()).norm()
+                                     / r.float().norm())
+                         for (path, full_g), r in
+                         zip(tree_leaves(full), ref)}
+        del gparams, gbatch, ref, total, leaves
+    del full
+    torch.cuda.empty_cache()
+    dist.barrier()           # the other ranks waited for rank 0's reference
+
+    # (c) timed steps at full width, then one profiled on rank 0
+    _reset_counts()
+    out["step_ms"] = [_host_ms(lambda: step_fn(params, opt_state,
+                                               batch))[1]
+                      for _ in range(TRAIN_EP_TIMED)]
+    out["step_counts"] = _read_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        _profile(lambda: step_fn(params, opt_state, batch),
+                 f"train_ep step (1 layer, B=1, S={TRAIN_EP_S} per rank), "
+                 f"rank 0 of {WORLD}", top=20)
+    else:
+        step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    del model, params, opt_state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # (b) Trainer.run at a cut width, checkpoint at step 2 restored
+    scfg = cfg.replace(**TRAIN_EP_CUT)
+    smodel, _, sp, so, sstep = build_training(
+        scfg, mesh, lr=1e-4, warmup=2, total=TRAIN_EP_STEPS, seed=seed,
+        device=DEVICE)
+    splan = moe_a2a_plan(scfg, mesh, axes, E_loc, C)
+    out["cut_per_step"] = _train_ep_launches(scfg, splan, C)
+    out["cut_describe"] = splan.describe()
+    ssh = param_shardings(smodel.specs(), mesh)
+    sdcfg = CopyTaskConfig(vocab=scfg.vocab, seq_len=TRAIN_EP_S,
+                           global_batch=WORLD)
+    deltas = []
+
+    def counted_step(p, o, b):
+        before = _read_counts()
+        res = sstep(p, o, b)
+        deltas.append({k: v - before[k] for k, v in _read_counts().items()})
+        return res
+    ckdir = Path(tmp) / "train_ep_ckpt"
+    tcfg = TrainerConfig(total_steps=TRAIN_EP_STEPS,
+                         checkpoint_dir=str(ckdir), checkpoint_every=2,
+                         keep_checkpoints=1, log_every=1)
+    tr = Trainer(tcfg, counted_step,
+                 SyntheticLM(sdcfg, mesh=mesh, task="copy", device=DEVICE),
+                 sp, so, sharding=ssh)
+    _reset_counts()
+    tr.run(max_steps=2)        # ends in ckpt.wait(): durable on every rank
+    out["written"] = _dir_bytes(ckdir) if rank == 0 else 0
+    fresh = Trainer(tcfg, sstep,
+                    SyntheticLM(sdcfg, mesh=mesh, task="copy", device=DEVICE),
+                    sp, so, sharding=ssh)
+    restored = fresh.try_restore()
+    same = restored and (fresh.step, fresh.data.step) == (tr.step,
+                                                          tr.data.step) == (
+        2, 2) and all(a.dtype == b.dtype and a.device == b.device
+                      and torch.equal(a, b)
+                      for (_, a), (_, b) in zip(
+                          tree_leaves(tr._state_tree()),
+                          tree_leaves(fresh._state_tree())))
+    del fresh
+    tr.config.checkpoint_every = TRAIN_EP_STEPS + 1
+    status = tr.run()
+    out["trainer"] = {
+        "restored_equal": bool(same), "status": status, "step": tr.step,
+        "deltas": deltas, "losses": [r["total_loss"] for r in
+                                     tr.metrics_log],
+        "grad_norms": [r["grad_norm"] for r in tr.metrics_log],
+        "seconds": [r["seconds"] for r in tr.metrics_log],
+        "n_params": sum(t.numel() for _, t in tree_leaves(sp))}
+    del smodel, sp, so, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
+    """One rank of the 4-rank gloo world: phases 6 to 11 (``tmp`` is the
+    world's shared directory, [train_ep]'s checkpoint goes there)."""
     torch.cuda.set_device(0)
     return {"collective": _rank_collective(rank, n),
             "autotune": _rank_autotune(rank, n),
             "moe_ep": _rank_moe_ep(rank, n, seed),
             "moe_dropless": _rank_moe_dropless(rank, n, seed),
-            "tracing": _rank_tracing(rank, n, seed)}
+            "tracing": _rank_tracing(rank, n, seed),
+            "train_ep": _rank_train_ep(rank, n, seed, tmp)}
 
 
-def run_world(seed: int, timeout: float = 600.0) -> list:
+def run_world(seed: int, timeout: float = 900.0) -> list:
     """Spawn the 4-rank world with ``tests/torch_dist.py`` (FileStore
     init, killed at ``timeout``) and return each rank's result.  The
     ranks' tuning DB is a file in a temporary directory, so that no DB
@@ -1986,7 +2363,7 @@ def run_world(seed: int, timeout: float = 600.0) -> list:
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["REPRO_TORCH_TUNING_DB"] = str(Path(tmp) / "tuning.json")
         try:
-            return torch_dist.run_world(_world_rank, WORLD, tmp, seed,
+            return torch_dist.run_world(_world_rank, WORLD, tmp, seed, tmp,
                                         timeout=timeout)
         except (AssertionError, TimeoutError) as exc:
             fail(f"the {WORLD}-rank world: {exc}")
@@ -2275,8 +2652,127 @@ def phase_moe_dropless(results, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: training at full width
+# phase 12: training at full width
 # ---------------------------------------------------------------------------
+
+
+def phase_train_ep(results) -> dict:
+    """[train_ep]'s gates: the tuned plan is the overlap engine; no token
+    of the gated call dropped and every capacity chunk carried routed
+    rows on every EP rank (from the recorded routing); every
+    rank's reduced gradient is finite and non-zero, within
+    TRAIN_GRAD_TOL of the factorized plan's and (gathered, rank 0) of the
+    one-process kernel step's on the global batch; the launches of the
+    loss + backward and of each step are the prediction; the Trainer's
+    restore is bit for bit.  Returns the timed steps' launches over the
+    ranks (the main path of this phase)."""
+    r0 = results[0]["train_ep"]
+    desc = r0["describe"]
+    if desc["requested_backend"] != "tuned" or desc["backend"] != "overlap":
+        fail(f"[train_ep] the config's a2a_backend "
+             f"{desc['requested_backend']!r} resolved to "
+             f"{desc['backend']!r}, expected the overlap engine")
+    log(f"[train_ep] plan: {json.dumps(desc)}")
+    # what each EP rank received in each capacity chunk of the tuned
+    # call: expert e's slots 0 .. routed - 1 are filled, from every rank
+    C, n_chunks = r0["C"], r0["n_chunks"]
+    Cc = C // n_chunks
+    routed = np.array([r["train_ep"]["routed"] for r in results])
+    if routed.max() > C:
+        fail(f"[train_ep] a rank routed {routed.max()} tokens to one expert, "
+             f"over C={C}: tokens dropped, the one-process step is no "
+             f"reference")
+    per_rank = routed.reshape(WORLD, WORLD, -1)       # (source, dest, e)
+    recv = np.stack([np.clip(per_rank - c * Cc, 0, Cc).sum(axis=(0, 2))
+                     for c in range(n_chunks)], axis=1)   # (dest, chunk)
+    log(f"[train_ep] each row block's first {TRAIN_EP_FILL} tokens set to "
+        f"token {r0['fill']}; routed rows each EP rank received per "
+        f"capacity chunk of {Cc} slots: {recv.tolist()}")
+    if not (recv > 0).all():
+        fail(f"[train_ep] a capacity chunk carried no routed row on some "
+             f"EP rank: {recv.tolist()} (rank x chunk)")
+    for rank, r in enumerate(results):
+        t = r["train_ep"]
+        if not t["finite_nonzero"]:
+            fail(f"[train_ep] rank {rank}: a reduced gradient leaf is not "
+                 f"finite or is zero")
+        for key, want in (("counts", "per_step"),
+                          ("fact_counts", "fact_per_step")):
+            if t[key] != t[want]:
+                fail(f"[train_ep] rank {rank}'s loss + backward launched "
+                     f"{t[key]} ({key}), expected {t[want]}")
+        want = {k: TRAIN_EP_TIMED * v for k, v in t["per_step"].items()}
+        if t["step_counts"] != want:
+            fail(f"[train_ep] rank {rank}'s {TRAIN_EP_TIMED} steps launched "
+                 f"{t['step_counts']}, expected {want}")
+        tr = t["trainer"]
+        if not tr["restored_equal"] or tr["status"] != "done" \
+                or tr["step"] != TRAIN_EP_STEPS:
+            fail(f"[train_ep] rank {rank}: Trainer restore equal "
+                 f"{tr['restored_equal']}, ended {tr['status']} at step "
+                 f"{tr['step']}")
+        if any(d != t["cut_per_step"] for d in tr["deltas"]) or not all(
+                math.isfinite(v) for v in tr["losses"]):
+            fail(f"[train_ep] rank {rank}: Trainer steps launched "
+                 f"{tr['deltas']}, expected {t['cut_per_step']} each; "
+                 f"losses {tr['losses']}")
+        worst = max(t["tuned_vs_fact"].items(), key=lambda kv: kv[1])
+        if not worst[1] <= TRAIN_GRAD_TOL:
+            fail(f"[train_ep] rank {rank}: the tuned plan's gradient of "
+                 f"{worst[0]} lies {worst[1]:.3g} from the factorized "
+                 f"plan's (limit {TRAIN_GRAD_TOL})")
+    worst = max(r0["vs_one"].items(), key=lambda kv: kv[1])
+    if not worst[1] <= TRAIN_GRAD_TOL:
+        fail(f"[train_ep] the gathered EP gradient of {worst[0]} lies "
+             f"{worst[1]:.3g} from the one-process step's (limit "
+             f"{TRAIN_GRAD_TOL})")
+    for name, loss in (("tuned", r0["loss"]), ("factorized",
+                                               r0["fact_loss"])):
+        if not abs(loss - r0["one_loss"]) <= 1e-2 * abs(r0["one_loss"]):
+            fail(f"[train_ep] the {name} loss {loss} vs the one-process "
+                 f"{r0['one_loss']} (limit 1e-2 relative)")
+    WRITTEN["train_ep"] = r0["written"]
+    if r0["written"] > DISK_WRITE_BUDGET:
+        fail(f"[train_ep] the checkpoint wrote {r0['written'] / 2**30:.2f} "
+             f"GiB, over the run's disk budget")
+    cfg = _train_ep_config()
+    log(f"[train_ep] {cfg.name} d={cfg.d_model} F={cfg.d_ff} "
+        f"E={cfg.n_experts} vocab={cfg.vocab} layers={cfg.n_layers} "
+        f"remat={cfg.remat_policy}, EP over (data=2, pod=2), B=1 S="
+        f"{TRAIN_EP_S} per rank (C={r0['C']}): {r0['n_params'] / 1e9:.3f} B "
+        f"params per rank, {r0['state_gb']:.2f} GB of params and AdamW "
+        f"state, built in {r0['build_s']:.1f} s; loss tuned "
+        f"{r0['loss']:.6g}, factorized {r0['fact_loss']:.6g}, one process "
+        f"{r0['one_loss']:.6g}")
+    log(f"[train_ep] relative norm gaps per leaf (limit {TRAIN_GRAD_TOL}): "
+        f"gathered EP (tuned) ~ one-process step, tuned ~ factorized "
+        f"(largest over the ranks):")
+    for path, gap in r0["vs_one"].items():
+        tf = max(r["train_ep"]["tuned_vs_fact"][path] for r in results)
+        log(f"[train_ep]   {path:32s} {gap:.3e} {tf:.3e}")
+    q = lambda v: "/".join(f"{t:.1f}" for t in np.percentile(v, (25, 50,
+                                                                 75)))
+    ms = [t for r in results for t in r["train_ep"]["step_ms"][1:]]
+    log(f"[train_ep] full-width step (loss, backward, reduce_grads, AdamW) "
+        f"host ms per rank: "
+        f"{[[round(t, 1) for t in r['train_ep']['step_ms']] for r in results]}"
+        f"; warm quartiles 25/50/75 {q(ms)} (4 ranks share the card, gloo "
+        f"stages every exchange through the host); peak memory per rank "
+        f"{[round(r['train_ep']['peak_gib'], 2) for r in results]} GiB; "
+        f"launches per step per rank {r0['per_step']}")
+    tr = r0["trainer"]
+    log(f"[train_ep] Trainer.run at the cut width {TRAIN_EP_CUT} "
+        f"({tr['n_params'] / 1e6:.1f} M params per rank, plan "
+        f"{r0['cut_describe']['backend']} n_chunks "
+        f"{r0['cut_describe']['n_chunks']}): total_loss "
+        f"{[round(v, 4) for v in tr['losses']]}, grad_norm "
+        f"{[round(v, 4) for v in tr['grad_norms']]}, step ms (slowest "
+        f"rank) {[round(v * 1e3, 1) for v in tr['seconds']]}; the async "
+        f"checkpoint at step 2 ({r0['written'] / 2**30:.3f} GiB of global "
+        f"arrays, written by rank 0) restored into a fresh Trainer bit for "
+        f"bit on every rank; launches per step {r0['cut_per_step']}")
+    return {k: sum(r["train_ep"]["step_counts"][k] for r in results)
+            for k in r0["step_counts"]}
 
 
 def _train_launches_per_step(cfg) -> dict:
@@ -2565,9 +3061,10 @@ def phase_train() -> dict:
         save_s = time.perf_counter() - t0 - sum(
             r["seconds"] for r in tr.metrics_log)
         written = _dir_bytes(ckdir)
-        if written > DISK_WRITE_BUDGET:
+        if written + sum(WRITTEN.values()) > DISK_WRITE_BUDGET:
             fail(f"[train] the checkpoint wrote {written / 2**30:.1f} GiB, "
-                 f"over the run's disk budget "
+                 f"{sum(WRITTEN.values()) / 2**30:.2f} GiB before it, over "
+                 f"the run's disk budget "
                  f"({DISK_WRITE_BUDGET / 2**30:.0f} GiB)")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2700,6 +3197,7 @@ def main() -> int:
              "moe_ep": phase_moe_ep(world, seed),
              "moe_dropless": phase_moe_dropless(world, seed)}
     phase_tracing(world)
+    paths["train_ep"] = phase_train_ep(world)
     del world
     paths["train"] = phase_train()
     for name, entry in kernels.items():

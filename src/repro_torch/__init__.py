@@ -12,9 +12,11 @@ ring-buffer KV cache, the capacity-path MoE, the transformer stack,
 ``ContinuousBatcher`` and the serve launcher — and the torus all-to-all on
 ``torch.distributed`` (``core``: ``cart_create`` over a ``DeviceMesh``,
 ``TorusComm``, ``A2APlan``) with the MoE's expert parallelism through it;
-and training on one device — the loss, remat, ``make_train_step``,
-AdamW, the synthetic data, the checkpoint store, the watchdog, the
-``Trainer`` and the train launcher.  Hand-written CUDA kernels for Hopper
+and training — the loss, remat, ``make_train_step``, AdamW, the
+synthetic data, the checkpoint store, the watchdog, the ``Trainer`` and
+the train launcher — on one device and, with expert and data
+parallelism, on a ``DeviceMesh`` whose ``model`` dim is 1 (every
+collective differentiable).  Hand-written CUDA kernels for Hopper
 (``csrc/``) carry them: the grouped matmul of the expert FFN (also its
 gradient), the flash-attention forward (also with ``lse``) and its
 FlashAttention-2 backward, and the round-k datatype pack/unpack of the

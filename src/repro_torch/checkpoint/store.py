@@ -13,6 +13,17 @@ The reference's guarantees, kept:
   leaf to host memory first, then a background thread writes it while
   training goes on; ``wait()`` joins before the next save or exit.
 * **Retention** — the newest ``keep`` checkpoints are kept.
+* **Global arrays on a mesh** — given the state's ``ExpertSharding``
+  (``parallel.sharding``), a save gathers every expert leaf to the rank
+  at mesh coordinate 0, which writes the global tree: slice by slice
+  into its host memory (``ExpertSharding.gather_tree_to_writer``, a
+  collective: every rank, in the main thread, in path order, before any
+  writer thread starts), so no rank holds a global expert leaf on its
+  device and the others keep nothing; a restore reads the global leaves and keeps
+  this rank's slice.  So a checkpoint restores with or without a mesh,
+  onto any EP group the experts divide (the reference's resharding on
+  restore).  ``wait()`` ends in a check every rank makes together, so no
+  rank reads a directory the writer has not finished.
 
 Leaves are written raw, not compressed: the port needs no package beyond
 torch and numpy (the reference uses msgpack and zstandard), bf16 weights
@@ -36,9 +47,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import telemetry
 from repro_torch.models.common import tree_leaves, tree_with_leaves
+from repro_torch.parallel.sharding import collective_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16, "int32": torch.int32,
@@ -61,14 +74,40 @@ def _bytes(t: torch.Tensor) -> memoryview:
 
 
 def save_checkpoint(directory, step: int, tree, extra: dict | None = None,
-                    keep: int = 3) -> Path:
-    """Synchronous atomic save of a tree of tensors; returns its path."""
+                    keep: int = 3, sharding=None) -> Path:
+    """Synchronous atomic save of a tree of tensors; returns its path.
+    With ``sharding`` (collective) the global tree is written by the
+    writer rank alone, and every rank returns once it is durable."""
     with telemetry.get_tracer().span("checkpoint.save", cat="checkpoint",
                                      step=int(step)) as sp:
-        out = _save_checkpoint_impl(directory, step, tree, extra, keep)
+        if sharding is not None:
+            tree = sharding.gather_tree_to_writer(tree)
+        out = Path(directory) / f"step_{step:08d}"
+        error = None
+        if sharding is None or sharding.writer:
+            try:
+                out = _save_checkpoint_impl(directory, step, tree, extra,
+                                            keep)
+            except BaseException as e:          # every rank learns of it
+                error = e
+        _agree_done(sharding, error)
         sp.set(path=str(out))
         telemetry.metrics().counter("checkpoint.saves").inc()
         return out
+
+
+def _agree_done(sharding, error) -> None:
+    """On a mesh, every rank waits here for the writer and raises if it
+    failed; alone, ``error`` is raised."""
+    if sharding is not None and sharding.group is not None:
+        pg = sharding.group.pg
+        flag = torch.tensor([error is not None], dtype=torch.int32,
+                            device=collective_device(pg))
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=pg)
+        if flag.item() and error is None:
+            raise IOError("the checkpoint writer rank failed to save")
+    if error is not None:
+        raise error
 
 
 def _save_checkpoint_impl(directory, step: int, tree,
@@ -132,24 +171,26 @@ def latest_step(directory) -> int | None:
 _INTEGRITY_ERRORS = (OSError, KeyError, ValueError)
 
 
-def restore_checkpoint(directory, step: int | None, target_tree):
+def restore_checkpoint(directory, step: int | None, target_tree,
+                       sharding=None):
     """Restore into the structure of ``target_tree`` (tensors; each
     restored leaf goes to its target leaf's device).  Returns ``(tree,
-    extra, step)``.
+    extra, step)``.  With ``sharding`` the target is this rank's shard:
+    each leaf is checked against its global shape and sliced.
 
     With ``step=None`` (the latest), a checkpoint that fails its
     integrity checks is skipped with a warning and the next newest is
     tried; an explicit ``step`` raises on corruption."""
     directory = Path(directory)
     if step is not None:
-        return _restore_step(directory, step, target_tree)
+        return _restore_step(directory, step, target_tree, sharding)
     steps = all_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {directory}")
     last_err = None
     for s in reversed(steps):
         try:
-            return _restore_step(directory, s, target_tree)
+            return _restore_step(directory, s, target_tree, sharding)
         except _INTEGRITY_ERRORS as e:
             last_err = e
             warnings.warn(f"skipping checkpoint step {s}: "
@@ -159,15 +200,16 @@ def restore_checkpoint(directory, step: int | None, target_tree):
                   f"are unusable") from last_err
 
 
-def _restore_step(directory: Path, step: int, target_tree):
+def _restore_step(directory: Path, step: int, target_tree, sharding=None):
     with telemetry.get_tracer().span("checkpoint.restore", cat="checkpoint",
                                      step=int(step), verify=True):
-        out = _restore_step_impl(directory, step, target_tree)
+        out = _restore_step_impl(directory, step, target_tree, sharding)
         telemetry.metrics().counter("checkpoint.restores").inc()
         return out
 
 
-def _restore_step_impl(directory: Path, step: int, target_tree):
+def _restore_step_impl(directory: Path, step: int, target_tree,
+                       sharding=None):
     base = directory / f"step_{step:08d}"
     with open(base / "manifest.json") as f:
         manifest = json.load(f)
@@ -183,27 +225,41 @@ def _restore_step_impl(directory: Path, step: int, target_tree):
             raise IOError(f"corrupt leaf {key} in step {step}")
         t = t.view(dtype).reshape(info["shape"])
         ref = torch.as_tensor(ref)
-        if tuple(t.shape) != tuple(ref.shape):
+        want = tuple(ref.shape) if sharding is None \
+            else sharding.global_shape(key, ref.shape)
+        if tuple(t.shape) != want:
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
-                             f"target {tuple(ref.shape)}")
+                             f"target {want}")
+        if sharding is not None:
+            t = sharding.local(key, t)
         out[key] = t.to(ref.device)
     return tree_with_leaves(target_tree, out), manifest["extra"], step
 
 
 class CheckpointManager:
-    """Async checkpointing with retention and a preemption-safe wait."""
+    """Async checkpointing with retention and a preemption-safe wait.
+    With ``sharding`` (the state tree's ``ExpertSharding``) every call is
+    collective: every rank of the mesh makes it, in the same order."""
 
-    def __init__(self, directory, keep: int = 3):
+    def __init__(self, directory, keep: int = 3, sharding=None):
         self.directory = Path(directory)
         self.keep = keep
+        self.sharding = sharding
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
     def save_async(self, step: int, tree, extra=None):
-        """Snapshot ``tree`` to host memory now, write it in a thread."""
+        """Snapshot ``tree`` to host memory now, write it in a thread (on
+        a mesh: gather to the writer rank's host here, on every rank; the
+        writer rank's thread writes)."""
         self.wait()
-        host_tree = tree_with_leaves(
-            tree, {k: _host(v) for k, v in tree_leaves(tree)})
+        if self.sharding is None:
+            host_tree = tree_with_leaves(
+                tree, {k: _host(v) for k, v in tree_leaves(tree)})
+        else:
+            host_tree = self.sharding.gather_tree_to_writer(tree)
+            if host_tree is None:
+                return
 
         def work():
             try:
@@ -217,19 +273,21 @@ class CheckpointManager:
 
     def save_sync(self, step: int, tree, extra=None):
         self.wait()
-        return save_checkpoint(self.directory, step, tree, extra, self.keep)
+        return save_checkpoint(self.directory, step, tree, extra, self.keep,
+                               self.sharding)
 
     def wait(self):
-        """Join the pending async save; raise its error, if it failed."""
+        """Join the pending async save; raise its error, if it failed (on
+        a mesh: on every rank, after the writer has finished)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
         err, self._error = self._error, None
-        if err is not None:
-            raise err
+        _agree_done(self.sharding, err)
 
     def latest(self):
         return latest_step(self.directory)
 
     def restore(self, target_tree, step=None):
-        return restore_checkpoint(self.directory, step, target_tree)
+        return restore_checkpoint(self.directory, step, target_tree,
+                                  self.sharding)

@@ -30,6 +30,18 @@ contiguous ``(p, B / n)`` buffer: slicing a strided view (every chunk
 axis but the leading one) copies it, counted in ``overlap.chunk_copies``
 (``core.telemetry``); joining more than one chunk's output into the
 result is a second full-buffer copy, counted in ``overlap.concat_copies``.
+
+Under autograd a call is one :class:`OverlapFn` (``overlap_autograd``).
+Its forward is the pipeline above, keeping each chunk as it arrives for
+the compute stage (the reference's ``checkpoint_name(chunk,
+"moe_recv")``).  Its backward runs the same pipeline on the cotangent
+(a compute stage under autograd needs the reverse rounds after it):
+per chunk the forward-direction rounds (the adjoint of the reverse
+rounds: a blockwise all-to-all is its own transpose), then the vjp of
+``compute_fn`` on the kept chunk, recomputed under ``enable_grad`` with
+the parameters' gradients summed over the chunks, then the reverse
+rounds.  So the backward overlaps as the forward does and launches the
+same passes.
 """
 
 from __future__ import annotations
@@ -238,3 +250,65 @@ def _overlapped_tiled_impl(x, fact, split_axis, concat_axis, *,
                   lambda xb: _overlapped_impl(xb, fact, n_chunks=n_chunks,
                                               variant=variant,
                                               round_order=round_order))
+
+
+# ---------------------------------------------------------------------------
+# The overlapped all-to-all under autograd
+# ---------------------------------------------------------------------------
+
+
+class OverlapFn(torch.autograd.Function):
+    """The overlap engine as one autograd node.  ``run(t, fn)`` is the
+    plan's pipeline on ``t`` with compute stage ``fn`` (traced or not).
+    The kept chunks are saved with ``save_for_backward``, so under
+    non-reentrant checkpointing they are recomputed, not held."""
+
+    @staticmethod
+    def forward(ctx, x, run, compute_fn, *params):
+        kept = {}
+        keep = None
+        if compute_fn is not None:
+            def keep(chunk, c):
+                kept[c] = chunk
+                return compute_fn(chunk, c)
+        y = run(x, keep)
+        ctx.run, ctx.compute_fn, ctx.n_kept = run, compute_fn, len(kept)
+        ctx.save_for_backward(*(kept[c] for c in range(len(kept))),
+                              *params)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        kept, params = saved[:ctx.n_kept], saved[ctx.n_kept:]
+        fn = ctx.compute_fn
+        pgrads = [None] * len(params)
+
+        def vjp(gc, c):
+            with torch.enable_grad():
+                xc = kept[c].detach().requires_grad_(True)
+                out = fn(xc, c)
+            got = torch.autograd.grad(out, (xc,) + tuple(params), gc,
+                                      allow_unused=True)
+            for i, gp in enumerate(got[1:]):
+                if gp is not None:
+                    pgrads[i] = gp if pgrads[i] is None else pgrads[i] + gp
+            return torch.zeros_like(xc) if got[0] is None else got[0]
+
+        # the pipeline's own shape on the cotangent: rounds, vjp, rounds
+        gx = ctx.run(g.contiguous(), None if fn is None else vjp)
+        return (gx, None, None, *pgrads)
+
+
+def overlap_autograd(x, run, compute_fn, *, reverse: bool, params=()):
+    """``run(x, compute_fn)`` (an overlap plan's pipeline) as one
+    :class:`OverlapFn`, whose backward gives ``x`` and ``params`` (the
+    tensors ``compute_fn`` reads that need gradients) theirs.  A compute
+    stage needs the reverse rounds after it: the backward runs the
+    pipeline itself on the cotangent."""
+    if compute_fn is not None and not reverse:
+        raise NotImplementedError(
+            "overlap(compute_fn=..., reverse=False) under autograd: its "
+            "backward would run the compute stage before the rounds, "
+            "which the pipeline does not; pass reverse=True")
+    return OverlapFn.apply(x, run, compute_fn, *params)

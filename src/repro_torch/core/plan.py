@@ -30,6 +30,18 @@ load and a branch.  The traced call runs what the untraced one does, pass
 for pass, and only adds the spans and a device synchronise at each
 round's end.
 
+Under autograd (an operand that requires grad, grad mode on) every
+execution method is differentiable, as ``jax.grad`` through the
+reference's plans is: a blockwise all-to-all permutes the global buffer
+and is its own transpose, so ``forward``'s backward is ``reverse`` on the
+cotangent and ``reverse``'s is ``forward`` (``_BlockwiseFn``: the same
+passes, exchanges and kernels, traced or not); ``tiled`` differentiates
+through its split and join; ``overlap`` is one ``core.overlap.OverlapFn``
+whose backward is the same pipeline; a ragged call's data rounds are the
+dense plan's, and a sparse call's rounds run backward with the lanes of
+the transposed count matrix (``core.sparse``).  Calls outside autograd
+take the untraced path as before, launch for launch.
+
 Resolution is the reference's, line for line (same cost model, same
 keys), so ``describe()`` gives the reference's dict for every backend.
 The reference's ``host_fn`` (a jitted call on a global ``(p, p, *block)``
@@ -49,6 +61,8 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.kernels.ops import _trains
+
 from . import telemetry
 from .cache import (
     LRUCache,
@@ -67,7 +81,8 @@ from .factorized import (
     _skip_trivial,
     _tiled,
 )
-from .overlap import _overlapped_impl, _overlapped_tiled_impl
+from .overlap import (_overlapped_impl, _overlapped_tiled_impl,
+                      overlap_autograd)
 from .tuning import (
     LinkModel,
     Schedule,
@@ -111,6 +126,24 @@ def _sync(t) -> None:
     """End a traced span with the device work it launched."""
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+class _BlockwiseFn(torch.autograd.Function):
+    """One blockwise all-to-all under autograd.  The exchange permutes
+    the global buffer (rank ``s``'s block ``d`` goes to rank ``d``'s slot
+    ``s``) and is its own transpose, so the backward runs the plan in the
+    other direction on the cotangent: the same passes and exchanges, and
+    bit for bit the adjoint.  ``run`` and ``adjoint`` are the plan's
+    untraced or traced calls in the two round orders."""
+
+    @staticmethod
+    def forward(ctx, x, run, adjoint):
+        ctx.adjoint = adjoint
+        return run(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.adjoint(g.contiguous()), None, None
 
 
 class A2APlan:
@@ -176,18 +209,30 @@ class A2APlan:
     def forward(self, x):
         """Blockwise all-to-all: ``x`` is ``(p, *block)``, block ``i``
         destined for torus rank ``i``; returns ``out[i]`` = block received
-        from rank ``i``."""
-        if _TRACER.enabled:
-            return self._traced_execute(x, self.order)
-        return self._execute(x, self.order)
+        from rank ``i``.  Under autograd its backward is :meth:`reverse`
+        on the cotangent."""
+        return self._call(x, self.order, self.rev_order)
 
     def reverse(self, x):
         """The combine-direction all-to-all: same semantics as ``forward``
         but rounds run in the drain order (``rev_order``).  Bit-identical
-        to ``forward`` for any order — rounds commute."""
+        to ``forward`` for any order — rounds commute.  Under autograd its
+        backward is :meth:`forward` on the cotangent."""
+        return self._call(x, self.rev_order, self.order)
+
+    def _call(self, x, order, adjoint_order):
+        """One blockwise call in ``order``; under autograd through
+        :class:`_BlockwiseFn`, whose backward runs ``adjoint_order``."""
+        if _trains(x):
+            return _BlockwiseFn.apply(
+                x, lambda t: self._run(t, order),
+                lambda g: self._run(g, adjoint_order))
+        return self._run(x, order)
+
+    def _run(self, x, order):
         if _TRACER.enabled:
-            return self._traced_execute(x, self.rev_order)
-        return self._execute(x, self.rev_order)
+            return self._traced_execute(x, order)
+        return self._execute(x, order)
 
     def _execute(self, x, order, round_span=None):
         """The untraced blockwise call; ``round_span(i, k)`` (a factorized
@@ -207,11 +252,16 @@ class A2APlan:
               reverse: bool = False):
         """Tiled-semantics all-to-all: split ``split_axis`` into ``p``
         chunks (chunk ``t`` -> torus rank ``t``) and concatenate what
-        arrives source-major along ``concat_axis``."""
-        order = self.rev_order if reverse else self.order
-        if _TRACER.enabled:
+        arrives source-major along ``concat_axis``.  Under autograd the
+        blockwise exchange inside is :class:`_BlockwiseFn` (the split and
+        the join are views and reshapes autograd differentiates), so the
+        backward is ``tiled(g, concat_axis, split_axis)`` in the other
+        direction."""
+        order, adjoint = (self.rev_order, self.order) if reverse \
+            else (self.order, self.rev_order)
+        if _TRACER.enabled or _trains(x):
             return _tiled(x, self.fact, split_axis, concat_axis,
-                          lambda xb: self._traced_execute(xb, order))
+                          lambda xb: self._call(xb, order, adjoint))
         if self.backend == "direct":
             return _direct_tiled_impl(x, self.fact, split_axis, concat_axis)
         if self.backend == "factorized":
@@ -224,24 +274,45 @@ class A2APlan:
                                       round_order=order)
 
     def overlap(self, x, compute_fn: Callable | None = None, *,
-                reverse: bool = True, chunk_axis: int | None = None):
+                reverse: bool = True, chunk_axis: int | None = None,
+                params=None):
         """Fused forward / per-chunk compute / reverse pipeline
         (``core.overlap``): chunk ``c``'s forward rounds are issued next
         to chunk ``c-1``'s compute and chunk ``c-2``'s reverse rounds.
         Bit for bit ``reverse(compute_fn(forward(x)))``, since chunks
         never interact.  Traced, the pipeline is one fused round span
         whose drift key gains ``:overlap`` (its time holds both
-        directions and the compute)."""
-        def run():
-            return _overlapped_impl(
-                x, self.fact, n_chunks=self.n_chunks, variant=self.variant,
-                round_order=self.order, compute_fn=compute_fn,
-                reverse=reverse, reverse_round_order=self.rev_order,
-                chunk_axis=chunk_axis)
-        if _TRACER.enabled:
-            return self._traced_execute(x, self.order, pipeline=run,
-                                        directions=1 + bool(reverse))
-        return run()
+        directions and the compute).
+
+        Under autograd (``x`` or one of ``params`` requires grad) the call
+        is one ``core.overlap.OverlapFn``: ``params`` are the tensors
+        ``compute_fn`` reads that need gradients (``()`` if none; with a
+        ``compute_fn`` they must be given, so that no gradient is lost
+        silently), and the backward runs the same pipeline on the
+        cotangent."""
+        def run(t, fn):
+            def pipeline():
+                return _overlapped_impl(
+                    t, self.fact, n_chunks=self.n_chunks,
+                    variant=self.variant, round_order=self.order,
+                    compute_fn=fn, reverse=reverse,
+                    reverse_round_order=self.rev_order,
+                    chunk_axis=chunk_axis)
+            if _TRACER.enabled:
+                return self._traced_execute(t, self.order,
+                                            pipeline=pipeline,
+                                            directions=1 + bool(reverse))
+            return pipeline()
+        params = tuple(params) if params is not None else None
+        if _trains(x, *(params or ())):
+            if compute_fn is not None and params is None:
+                raise ValueError(
+                    "overlap(compute_fn=...) under autograd needs params=: "
+                    "the tensors compute_fn reads that need gradients "
+                    "(() if none)")
+            return overlap_autograd(x, run, compute_fn, reverse=reverse,
+                                    params=params or ())
+        return run(x, compute_fn)
 
     # -- telemetry-traced execution ----------------------------------------
 
@@ -777,9 +848,9 @@ class RaggedA2APlan:
                 rc = _recv_counts_phase(x, send_counts, self.data.p,
                                         self.counts_plan)
                 _sync(rc)
-            recv = self.data._traced_execute(
-                _pad_to_bucket(x, self.bucket),
-                self.data.rev_order if reverse else self.data.order)
+            padded = _pad_to_bucket(x, self.bucket)
+            recv = self.data.reverse(padded) if reverse \
+                else self.data.forward(padded)
             measured = time.perf_counter() - t0
             ratio = det.observe(key, self.predicted_seconds, measured) \
                 if self.predicted_seconds else None

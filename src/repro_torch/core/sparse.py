@@ -32,6 +32,12 @@ phase (Träff et al.'s message-combining sparse collectives):
   per-(sender, peer) message granularity; an all-empty message is elided
   and counted as skipped.
 
+Under autograd the bucketed rounds are one :class:`_SparseRoundsFn`:
+its backward runs the same sparse rounds on the cotangent in the other
+direction, with the lanes of the transposed count matrix (what a reverse
+call with this call's receive counts would read), so every counted
+row's gradient travels back; the counts are integers and have none.
+
 Contract: receivers may rely only on ``recv[i, :recv_counts[i]]``; rows
 beyond the count are unspecified (zeros where the carrying exchange was
 skipped, the sender's padding otherwise).  Under non-zero counts nothing
@@ -194,10 +200,36 @@ def _sparse_rounds_impl(x, lanes, *, fact, order, variant):
     return buf.reshape(x.shape)
 
 
+def _lanes(matrix, masks):
+    """The lane flags of one call: a lane runs iff a pair it carries has
+    a non-zero count (one host read of the replicated matrix)."""
+    return ((matrix > 0) & masks).flatten(1).any(1).tolist()
+
+
+class _SparseRoundsFn(torch.autograd.Function):
+    """The sparse rounds of one call under autograd: the backward is the
+    same rounds in the other direction on the cotangent, with the lanes
+    of the transposed count matrix."""
+
+    @staticmethod
+    def forward(ctx, x, lanes, adjoint_lanes, plan, order, adjoint_order):
+        ctx.args = (adjoint_lanes, plan, adjoint_order)
+        return _sparse_rounds_impl(x, lanes, fact=plan.fact, order=order,
+                                   variant=plan.variant)
+
+    @staticmethod
+    def backward(ctx, g):
+        lanes, plan, order = ctx.args
+        return (_sparse_rounds_impl(g.contiguous(), lanes, fact=plan.fact,
+                                    order=order, variant=plan.variant),
+                None, None, None, None, None)
+
+
 def _sparse_bucketed_impl(x, send_counts, *, plan, reverse: bool = False):
     """Fixed-shape sparse all-to-all: counts phase + skippable rounds.
     ``ragged._bucketed_impl``'s signature and result (``(recv,
     recv_counts)``), with rows beyond ``recv_counts[i]`` unspecified."""
+    from repro_torch.kernels.ops import _trains
     p = plan.p
     if x.shape[0] != p:
         raise ValueError(f"leading dim {x.shape[0]} != p={p}")
@@ -206,12 +238,18 @@ def _sparse_bucketed_impl(x, send_counts, *, plan, reverse: bool = False):
     matrix = _counts_matrix_impl(counts, plan.counts_plan)
     recv_counts = _recv_counts_from_matrix(matrix, torus_rank(plan.fact))
     padded = _pad_to_bucket(x, plan.bucket)
-    masks = plan.lane_masks(reverse, matrix.device)
     # one host read per call: every rank reads the same replicated matrix
-    lanes = ((matrix > 0) & masks).flatten(1).any(1).tolist()
+    lanes = _lanes(matrix, plan.lane_masks(reverse, matrix.device))
     order = plan.reverse_round_order if reverse else plan.round_order
-    out = _sparse_rounds_impl(padded, lanes, fact=plan.fact, order=order,
-                              variant=plan.variant)
+    if _trains(padded):
+        adjoint = plan.round_order if reverse else plan.reverse_round_order
+        adjoint_lanes = _lanes(matrix.t(),
+                               plan.lane_masks(not reverse, matrix.device))
+        out = _SparseRoundsFn.apply(padded, lanes, adjoint_lanes, plan,
+                                    order, adjoint)
+    else:
+        out = _sparse_rounds_impl(padded, lanes, fact=plan.fact,
+                                  order=order, variant=plan.variant)
     return out, recv_counts
 
 

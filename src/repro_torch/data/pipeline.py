@@ -12,6 +12,11 @@ The reference draws from ``jax.random``, which the port cannot reproduce,
 so the port draws the same distributions from a numpy ``Generator``
 seeded by ``(seed, step)``: the two packages' batches differ, and parity
 tests feed one numpy batch to both.
+
+On a ``DeviceMesh`` :class:`SyntheticLM` yields this rank's row block of
+the global batch, the block the reference's ``P(("pod", "data"))``
+placement gives the device at the same mesh coordinates
+(``parallel.sharding.batch_split``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import resolve_device
+from repro_torch.parallel.sharding import batch_split
 
 
 @dataclass(frozen=True)
@@ -80,22 +86,31 @@ def make_copy_task_batch(cfg: CopyTaskConfig, step: int, device="cpu"):
 
 class SyntheticLM:
     """Stateful iterator with a resumable cursor; batches land on
-    ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    ``device`` (``cuda`` unless the caller asks for the CPU).  With a
+    ``mesh`` each batch is this rank's row block of the global one (the
+    "batch" rule of ``rules`` over the mesh)."""
 
-    def __init__(self, cfg: DataConfig, task: str = "lm",
-                 start_step: int = 0, device="cuda"):
+    def __init__(self, cfg: DataConfig, mesh=None, task: str = "lm",
+                 start_step: int = 0, device="cuda", rules=None):
         if task not in ("lm", "copy"):
             raise ValueError(f"task must be 'lm' or 'copy', not {task!r}")
         self.cfg = cfg
         self.task = task
         self.step = start_step
         self.device = resolve_device(device)
+        n, self._block = batch_split(mesh, rules)
+        if cfg.global_batch % n:
+            raise ValueError(f"global batch {cfg.global_batch} does not "
+                             f"split into {n} row blocks")
+        self._rows = cfg.global_batch // n
 
     def next(self):
         fn = make_copy_task_batch if self.task == "copy" else make_lm_batch
-        batch = fn(self.cfg, self.step, self.device)
+        batch = fn(self.cfg, self.step, "cpu")
         self.step += 1
-        return batch
+        lo = self._block * self._rows
+        return {k: v[lo:lo + self._rows].to(self.device)
+                for k, v in batch.items()}
 
     # ---- checkpointable cursor ----
     def state_dict(self):

@@ -1,1 +1,1 @@
-"""Launchers of the port (so far: ``serve``)."""
+"""Launchers of the port: ``serve``, ``train`` and the ``mesh`` factories."""

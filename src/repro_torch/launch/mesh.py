@@ -1,0 +1,63 @@
+"""Mesh factories (port of ``repro.launch.mesh``): the reference's
+production and debug meshes as ``DeviceMesh`` es of the world's ranks.
+
+The shapes are the reference's, most significant dim first: production
+``(pod=2, data=16, model=16)`` (``(data=16, model=16)`` on one pod), debug
+``(pod=2, data=2, model=4)`` (``(data=2, model=4)``).  Building one is
+collective and needs a process group of exactly that many ranks;
+importing this module touches no device.  :func:`check_trainable` says
+whether the port can train on a shape: tensor parallelism over ``model``
+is not ported, so every one of these has ``model`` > 1 and is refused.
+"""
+
+from __future__ import annotations
+
+import math
+
+from repro_torch.core.cache import cart_create, mesh_shape
+
+
+def production_shape(*, multi_pod: bool = False) -> dict[str, int]:
+    return {"pod": 2, "data": 16, "model": 16} if multi_pod \
+        else {"data": 16, "model": 16}
+
+
+def debug_shape(*, multi_pod: bool = False) -> dict[str, int]:
+    return {"pod": 2, "data": 2, "model": 4} if multi_pod \
+        else {"data": 2, "model": 4}
+
+
+def make_mesh(shape: dict[str, int], *, device_type: str = "cuda"):
+    """A ``DeviceMesh`` over ranks ``0 .. prod(shape) - 1`` with the dims
+    of ``shape`` in its order, most significant first (``jax.make_mesh``'s
+    convention)."""
+    names = tuple(shape)
+    return cart_create(math.prod(shape.values()),
+                       tuple(shape[a] for a in reversed(names)),
+                       tuple(reversed(names)), device_type=device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    return make_mesh(production_shape(multi_pod=multi_pod),
+                     device_type=device_type)
+
+
+def make_debug_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """Reduced mesh of the same axis structure (8 or 16 ranks)."""
+    return make_mesh(debug_shape(multi_pod=multi_pod),
+                     device_type=device_type)
+
+
+def check_trainable(mesh_or_shape) -> None:
+    """Raise unless the port trains on this mesh (or ``{dim: size}``): its
+    ``model`` dim must be 1."""
+    shape = mesh_or_shape if isinstance(mesh_or_shape, dict) \
+        else mesh_shape(mesh_or_shape)
+    if shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"training on the mesh {shape} needs tensor parallelism over "
+            f"'model' (attention heads, the expert FFN's psum, the "
+            f"vocab-parallel embedding and loss), which is not ported to "
+            f"repro_torch yet (ROADMAP.md); use a mesh whose 'model' dim "
+            f"is 1")

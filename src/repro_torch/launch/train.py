@@ -6,8 +6,17 @@
       --smoke --steps 4 --device cpu                        # on the CPU
 
 ``--device`` defaults to ``cuda`` and raises on a machine without a card.
-One device only: ``--mesh`` other than ``none`` (data / expert parallel
-training) raises until its slice is ported (ROADMAP.md).
+
+On a mesh, ``build_training(cfg, mesh, rules)`` trains with expert
+parallelism over ``ep_axes(mesh)`` and data parallelism over the "batch"
+rule's axes: every rank of an initialised process group (gloo or NCCL)
+calls it with the same ``DeviceMesh`` (``core.cache.cart_create``, or
+``launch.mesh``) whose ``model`` dim is 1, draws the same global
+parameters from ``seed`` and keeps its shard, and ``Trainer`` (given
+``sharding=``) and ``SyntheticLM(mesh=...)`` run on it.  The CLI's
+``--mesh debug`` / ``debug_multi`` are the reference's debug meshes,
+whose ``model`` dim is 4: they raise, naming tensor parallelism over
+``model`` as what is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,29 +30,34 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data import CopyTaskConfig, SyntheticLM
+from repro_torch.launch.mesh import check_trainable, debug_shape
 from repro_torch.models import build_model, make_train_step
-from repro_torch.models.common import resolve_device, tree_map
+from repro_torch.models.common import (param_shardings, resolve_device,
+                                       tree_map)
 from repro_torch.optim import AdamW, AdamWConfig, cosine_with_warmup
 from repro_torch.runtime import Trainer, TrainerConfig
 
 
 def build_training(cfg, mesh=None, rules=None, *, lr=3e-4, warmup=100,
                    total=10000, grad_accum=1, seed=0, device="cuda"):
-    """(model, optimizer, params, opt_state, step_fn) on one device:
-    parameters drawn from ``seed`` with ``requires_grad``, AdamW with a
-    cosine schedule, and ``make_train_step``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh (data / expert parallel) is not ported to "
-            "repro_torch yet; ROADMAP.md lists it")
+    """(model, optimizer, params, opt_state, step_fn): parameters drawn
+    from ``seed`` with ``requires_grad``, AdamW with a cosine schedule,
+    and ``make_train_step``.  On a mesh (collective) every rank draws the
+    same global parameters and keeps its shard
+    (``common.param_shardings``), and the AdamW state is the shard's."""
     device = resolve_device(device)
+    if mesh is not None:
+        check_trainable(mesh)
     model = build_model(cfg)
     opt = AdamW(AdamWConfig(lr=cosine_with_warmup(lr, warmup, total)))
     params = model.init(torch.Generator(device=device).manual_seed(seed),
                         device)
+    if mesh is not None:
+        params = param_shardings(model.specs(), mesh, rules) \
+            .shard_tree(params)
     tree_map(lambda t: t.requires_grad_(True), params)
     opt_state = opt.init(params)
-    step_fn = make_train_step(model, opt, grad_accum=grad_accum)
+    step_fn = make_train_step(model, opt, mesh, rules, grad_accum=grad_accum)
     return model, opt, params, opt_state, step_fn
 
 
@@ -65,10 +79,8 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: training on a mesh is not ported to "
-            f"repro_torch yet; ROADMAP.md lists it")
+    if args.mesh != "none":     # the debug meshes have model = 4: refused
+        check_trainable(debug_shape(multi_pod=args.mesh == "debug_multi"))
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

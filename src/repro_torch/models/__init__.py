@@ -2,7 +2,7 @@
 
 from .config import ModelConfig
 from .model_api import (build_model, make_loss_fn, make_prefill_fn,
-                        make_serve_step, make_train_step)
+                        make_serve_step, make_train_step, reduce_grads)
 
 __all__ = ["ModelConfig", "build_model", "make_loss_fn", "make_prefill_fn",
-           "make_serve_step", "make_train_step"]
+           "make_serve_step", "make_train_step", "reduce_grads"]

@@ -1,8 +1,10 @@
 """Parameter specs and common layers (port of ``repro.models.common``).
 
 Parameters are plain nested dicts of tensors, built from a ``ParamSpec``
-tree with an explicit ``torch.Generator`` and device.  Sharding (the
-``logical`` axes) is carried for the collective slice but unused here.
+tree with an explicit ``torch.Generator`` and device.  Of the
+``logical`` axes the port reads one: on a mesh, :func:`param_shardings`
+splits each leaf with an ``"expert"`` dim over the expert-parallel group
+and keeps every other leaf whole on every rank.
 """
 
 from __future__ import annotations
@@ -87,6 +89,27 @@ def tree_with_leaves(like, values: dict, prefix: str = ""):
         return {k: tree_with_leaves(v, values, f"{prefix}/{k}" if prefix
                                     else str(k)) for k, v in like.items()}
     return values[prefix]
+
+
+def param_shardings(specs, mesh, rules=None):
+    """The counterpart of the reference's ``param_shardings`` for a tree
+    shaped like ``specs`` on ``mesh``: a
+    ``parallel.sharding.ExpertSharding`` that splits the expert dim of
+    every leaf whose logical axes name ``"expert"`` over the EP group
+    (``ep_axes(mesh)``) and keeps the others whole.  ``rules`` is taken
+    for the reference's signature; the expert split does not read it."""
+    from repro_torch.parallel.sharding import ExpertSharding, ep_axes
+    axes, n_experts = {}, None
+    if ep_axes(mesh):
+        for path, spec in tree_leaves(specs):
+            if "expert" in spec.logical:
+                axis = spec.logical.index("expert")
+                axes[path] = axis
+                if n_experts not in (None, spec.shape[axis]):
+                    raise ValueError(f"{path}: {spec.shape[axis]} experts, "
+                                     f"other leaves {n_experts}")
+                n_experts = spec.shape[axis]
+    return ExpertSharding(axes, n_experts or 1, mesh)
 
 
 def init_params(specs, generator: torch.Generator, device,

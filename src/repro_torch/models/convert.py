@@ -10,6 +10,10 @@ match the port's spec, and a missing or extra leaf raises.
 ``opt_state_from_jax`` does the same for the reference's AdamW state
 ``{"mu", "nu", "step"}``: moments shaped like the parameters, in the
 moment dtype, and the int32 step.
+
+Given a ``DeviceMesh``, both take the reference's *global* tree and
+return this rank's shard (``common.param_shardings``): the experts'
+slice of the EP group, every other leaf whole.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.common import is_spec, tree_leaves, tree_map
+from repro_torch.models.common import (is_spec, param_shardings,
+                                       tree_leaves, tree_map)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model_api import build_model
 
@@ -55,17 +60,27 @@ def _checked(tree, specs, dtype_of, what: str, device):
                     _paths(specs))
 
 
-def params_from_jax(tree, cfg: ModelConfig, device):
-    """The reference's parameter tree (numpy leaves) -> the port's."""
-    return _checked(tree, build_model(cfg).specs(),
-                    lambda spec: spec.dtype or cfg.pdtype, "parameter",
-                    device)
+def _shard(tree, specs, mesh, rules):
+    if mesh is None:
+        return tree
+    return param_shardings(specs, mesh, rules).shard_tree(tree)
 
 
-def opt_state_from_jax(state, params_cfg: ModelConfig, device):
+def params_from_jax(tree, cfg: ModelConfig, device, mesh=None, rules=None):
+    """The reference's parameter tree (numpy leaves) -> the port's (this
+    rank's shard of it on a mesh)."""
+    specs = build_model(cfg).specs()
+    return _shard(_checked(tree, specs,
+                           lambda spec: spec.dtype or cfg.pdtype,
+                           "parameter", device), specs, mesh, rules)
+
+
+def opt_state_from_jax(state, params_cfg: ModelConfig, device, mesh=None,
+                       rules=None):
     """The reference's AdamW state ``{"mu", "nu", "step"}`` (numpy leaves)
     -> the port's: the f32 moments checked leaf for leaf against the
-    parameter specs of ``params_cfg``, the step a 0-d int32 tensor."""
+    parameter specs of ``params_cfg`` (this rank's shard on a mesh), the
+    step a 0-d int32 tensor."""
     if set(state) != {"mu", "nu", "step"}:
         raise ValueError(f"AdamW state has keys {sorted(state)}, want "
                          f"['mu', 'nu', 'step']")
@@ -74,8 +89,9 @@ def opt_state_from_jax(state, params_cfg: ModelConfig, device):
     if step.shape != () or step.dtype != np.int32:
         raise ValueError(f"step: got {step.shape} {step.dtype}, want () "
                          f"int32")
-    return {name: _checked(state[name], specs, lambda spec: torch.float32,
-                           name, device) for name in ("mu", "nu")} | {
+    return {name: _shard(_checked(state[name], specs,
+                                  lambda spec: torch.float32, name, device),
+                         specs, mesh, rules) for name in ("mu", "nu")} | {
         "step": torch.tensor(int(step), dtype=torch.int32, device=device)}
 
 

@@ -1,14 +1,26 @@
 """Model construction and the step functions (port of
 ``repro.models.model_api``: ``build_model``, ``make_loss_fn``,
-``make_train_step``, ``make_serve_step``, ``make_prefill_fn``)."""
+``make_train_step``, ``make_serve_step``, ``make_prefill_fn``).
+
+Each step function takes the reference's ``mesh=None, rules=None``.  On a
+``DeviceMesh`` (its ``model`` dim 1) every rank calls it collectively
+with its row block of the batch and its parameter shard
+(``common.param_shardings``): the experts split over the EP group, every
+other leaf whole.  ``make_train_step`` then reduces the gradients with
+:func:`reduce_grads` so that every rank steps with the one-device
+gradient of the global batch.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.models.common import tree_leaves, tree_with_leaves
+from repro_torch.models.common import (param_shardings, tree_leaves,
+                                       tree_with_leaves)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model
+from repro_torch.parallel.sharding import batch_group, check_ep_within_batch
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -16,13 +28,59 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
-def make_loss_fn(model):
+def make_loss_fn(model, mesh=None, rules=None):
     def loss_fn(params, batch):
-        return model.loss(params, batch)
+        return model.loss(params, batch, mesh=mesh, rules=rules)
     return loss_fn
 
 
-def make_train_step(model, optimizer, grad_accum: int = 1):
+def reduce_grads(grads, sharding, group):
+    """This rank's gradients of its own loss (``Model.loss`` on a mesh) ->
+    its shard of the one-device gradient of the global batch, in f32 and
+    cast back (collective over the mesh).  ``sharding`` is the
+    parameters' ``ExpertSharding`` (``common.param_shardings``) and
+    ``group`` the batch group (``parallel.sharding.batch_group``), both
+    as ``make_train_step`` holds them; with ``sharding=None`` (no mesh)
+    the gradients are returned as they are.
+
+    Each rank's loss is its share of the global mean times the ``n``
+    ranks of the batch group (``Model.loss``), so:
+
+    * a whole leaf is averaged over the batch group (an all-reduce, then
+      ``1 / n``): every rank ends with the same bits;
+    * an expert leaf already holds the sum over the ranks whose tokens
+      its experts served (the dispatch's backward brought it), so it is
+      scaled by ``1 / n``; with replicas (``n_experts`` < G) the copies
+      of an expert are summed first (``ExpertSharding.sum_replicas``).
+    """
+    if sharding is None:
+        return grads
+    n = 1 if group is None else group.size
+    out = {}
+    for path, g in tree_leaves(grads):
+        g32 = g.float()
+        if path in sharding.axes:
+            g32 = sharding.sum_replicas(path, g32)
+        elif group is not None:
+            g32 = g32.clone()
+            dist.all_reduce(g32, group=group.pg)
+        out[path] = (g32 / n).to(g.dtype)
+    return tree_with_leaves(grads, out)
+
+
+def _mean_metrics(metrics: dict, group) -> dict:
+    """The metrics averaged over the batch group ``group`` (what the
+    global batch gives), in one all-reduce."""
+    if group is None:
+        return metrics
+    keys = sorted(metrics)
+    stacked = torch.stack([metrics[k].float() for k in keys])
+    dist.all_reduce(stacked, group=group.pg)
+    return dict(zip(keys, (stacked / group.size).unbind(0)))
+
+
+def make_train_step(model, optimizer, mesh=None, rules=None,
+                    grad_accum: int = 1):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``params`` is a dict tree of leaves with ``requires_grad``; gradients
@@ -32,8 +90,20 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
     dim 0 and averages their f32 gradients and metrics before one
     optimizer update, as the reference's ``lax.scan`` does.  The optimizer
     updates ``params`` and ``opt_state`` in place and returns them;
-    ``metrics`` adds ``grad_norm`` (the pre-clip global norm)."""
-    loss_fn = make_loss_fn(model)
+    ``metrics`` adds ``grad_norm`` (the pre-clip global norm).
+
+    On a mesh the gradients go through :func:`reduce_grads` after
+    ``torch.autograd.grad`` has returned (no collective runs from a hook
+    inside it), the metrics are averaged over the batch group, and the
+    norm is the global tree's (``optim.global_norm`` with the
+    parameters' sharding): every rank logs and clips as one device
+    would."""
+    loss_fn = make_loss_fn(model, mesh, rules)
+    sharding = group = None
+    if mesh is not None:
+        check_ep_within_batch(mesh, rules)
+        sharding = param_shardings(model.specs(), mesh, rules)
+        group = batch_group(mesh, rules)
 
     def grads_of(params, batch):
         leaves = tree_leaves(params)
@@ -59,32 +129,36 @@ def make_train_step(model, optimizer, grad_accum: int = 1):
                 del g
             grads = {path: g / grad_accum for path, g in grads.items()}
             metrics = {k: v / grad_accum for k, v in metrics.items()}
-        params, opt_state, gnorm = optimizer.update(
-            params, tree_with_leaves(params, grads), opt_state)
+        grads = tree_with_leaves(params, grads)
+        if mesh is not None:
+            grads = reduce_grads(grads, sharding, group)
+            metrics = _mean_metrics(metrics, group)
+        params, opt_state, gnorm = optimizer.update(params, grads, opt_state,
+                                                    sharding=sharding)
         metrics = dict(metrics, grad_norm=gnorm)
         return params, opt_state, metrics
 
     return train_step
 
 
-def make_serve_step(model):
+def make_serve_step(model, mesh=None, rules=None):
     """One greedy decode step: (params, caches, tokens_t) ->
     (next_tokens, logits, caches)."""
     @torch.no_grad()
     def serve_step(params, caches, tokens_t):
-        logits, caches = model.decode_step(params, tokens_t, caches)
+        logits, caches = model.decode_step(params, tokens_t, caches,
+                                           mesh=mesh, rules=rules)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt, logits, caches
 
     return serve_step
 
 
-def make_prefill_fn(model):
+def make_prefill_fn(model, mesh=None, rules=None):
     """Full-sequence prefill returning last-position logits (B, V) f32."""
     @torch.no_grad()
     def prefill(params, tokens):
-        logits, _ = model.forward(params, tokens)
+        logits, _ = model.forward(params, tokens, mesh=mesh, rules=rules)
         return logits[:, -1]
 
     return prefill
-

@@ -20,7 +20,18 @@ combine per capacity chunk instead.
 worst case (every routed token fits), and with a mesh the collective is
 the ragged or the sparse Alltoallv (``moe_dropless_a2a_plan``, chosen by
 the router's expected density), its bucket the per-rank window.
-Tensor parallelism over ``model`` is not ported yet (ROADMAP).
+
+Training on a mesh: every collective of the layer is differentiable.
+The dispatch and combine are the plans' autograd Functions (an
+all-to-all's backward is the plan's other direction on the cotangent;
+the overlap engine's backward is the same pipeline), and the aux loss's
+average over the batch axes is ``all_reduce_sum``, whose backward sums
+the cotangents of every rank's copy.  So each rank's gradient of its
+own loss reaches its experts summed over the ranks whose tokens they
+served; ``model_api.reduce_grads`` scales it to the global batch and,
+with replicas (``n_experts`` < G), sums the copies of an expert, the
+pullback of the reference's ``jnp.tile``.  Tensor parallelism over
+``model`` is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -28,7 +39,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.autotune import db_fingerprint, lookup_ragged_measured
@@ -40,7 +50,9 @@ from repro_torch.core.ragged import next_pow2
 from repro_torch.core.tuning import choose_ragged_algorithm, default_links
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, gelu, silu
-from repro_torch.parallel.sharding import ShardingRules, ep_axes
+from repro_torch.parallel.sharding import (ShardingRules, all_reduce_sum,
+                                           batch_group, ep_geometry,
+                                           expert_range)
 from .config import ModelConfig
 
 
@@ -56,19 +68,7 @@ def moe_specs(cfg: ModelConfig) -> dict:
 
 def _group_geometry(cfg: ModelConfig, mesh):
     """(axes, G, E_loc, R): EP axes, group size, experts/rank, replicas."""
-    if mesh is None:
-        return (), 1, cfg.n_experts, 1
-    axes = ep_axes(mesh)
-    shape = mesh_shape(mesh)
-    G = math.prod(shape[a] for a in axes)
-    E = cfg.n_experts
-    if E >= G:
-        if E % G:
-            raise ValueError(f"n_experts={E} not divisible by EP group {G}")
-        return axes, G, E // G, 1
-    if G % E:
-        raise ValueError(f"EP group {G} not divisible by n_experts={E}")
-    return axes, G, 1, G // E
+    return ep_geometry(cfg.n_experts, mesh)
 
 
 def moe_ep_comm(cfg: ModelConfig, mesh, axes):
@@ -162,11 +162,7 @@ def expert_shard(p: dict, cfg: ModelConfig, mesh) -> dict:
     """This rank's MoE parameters under ``mesh``: the router, and the
     ``(E_loc, ...)`` slice of the virtual-expert weights its EP rank owns
     (a replica's single expert when ``n_experts`` < G)."""
-    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
-    comm = moe_ep_comm(cfg, mesh, axes)
-    v = 0 if comm is None else comm.rank
-    E = cfg.n_experts
-    lo = v * E_loc if E >= G else v % E
+    lo, E_loc = expert_range(cfg.n_experts, mesh)
     return {**p, **{k: p[k][lo:lo + E_loc] for k in ("w1", "w3", "w2")}}
 
 
@@ -287,7 +283,7 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
         # dispatch rounds / expert FFN / combine rounds pipelined per
         # capacity chunk: chunk c+1's exchanges run behind chunk c's FFN
         back = plan.overlap(disp, compute_fn=expert_ffn, reverse=True,
-                            chunk_axis=2)
+                            chunk_axis=2, params=(w1, w3, w2))
     else:
         back = a2a(expert_ffn(a2a(disp)), reverse=True)
 
@@ -302,8 +298,7 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
     f_e = onehot.float().mean(0)
     p_e = probs.mean(0)
     if reduce_group is not None:        # the reference's pmean
-        stats = torch.stack([f_e, p_e])
-        dist.all_reduce(stats, group=reduce_group.pg)
+        stats = all_reduce_sum(torch.stack([f_e, p_e]), reduce_group)
         f_e, p_e = stats / reduce_group.size
     aux = E * torch.sum(f_e * p_e)
     return y.reshape(B, S, D).to(x.dtype), aux
@@ -335,10 +330,7 @@ def moe_block(p, x, cfg: ModelConfig, mesh=None,
         raise ValueError(
             f"under a mesh moe_block takes this rank's {E_loc} experts "
             f"(expert_shard), got w1 of shape {tuple(p['w1'].shape)}")
-    rules = rules or ShardingRules()
-    batch_axes = tuple(a for a in rules.lookup("batch") if a in shape)
-    reduce_group = torus_comm(mesh, batch_axes[::-1]).fact.group \
-        if batch_axes else None
+    reduce_group = batch_group(mesh, rules)
     # dropless replaces the capacity path's dense plan with the ragged or
     # sparse Alltoallv plan
     if cfg.dropless:

@@ -10,10 +10,17 @@ Modes:
   * ``forward``     — full-sequence (train / prefill), returns f32 logits.
     Under autograd with ``cfg.remat`` each superblock runs inside
     ``torch.utils.checkpoint`` (non-reentrant), so backward recomputes its
-    forward, kernels included, instead of keeping its activations.
+    forward, kernels and the MoE's exchanges included, instead of keeping
+    its activations.
   * ``loss``        — masked mean cross-entropy plus the router aux loss.
   * ``decode_step`` — one token per batch slot with per-layer KV caches,
     which it updates in place.
+
+Each takes ``mesh=None, rules=None`` as the reference does and hands them
+to the MoE layer.  On a ``DeviceMesh`` every rank calls them
+collectively with its row block of the batch and its parameter shard
+(``models.common.param_shardings``); the ranks issue the same
+collectives in the same order, the remat recompute's included.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
@@ -30,6 +38,7 @@ from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
                                        resolve_device, rms_norm,
                                        softmax_cross_entropy, stack_specs,
                                        tree_map)
+from repro_torch.parallel.sharding import batch_group
 from .config import ModelConfig
 
 PORTED_MIXERS = ("attn",)
@@ -69,7 +78,8 @@ def superblock_specs(cfg: ModelConfig):
             for i, (mixer, ffn) in enumerate(cfg.superblock)}
 
 
-def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False):
+def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False,
+                    mesh=None, rules=None):
     """One (attn, ffn) position.  Returns (x, aux)."""
     h = _apply_norm(pp["norm1"], x, cfg)
     if decode:
@@ -83,18 +93,20 @@ def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False):
     if ffn != "none":
         h = _apply_norm(pp["norm2"], x, cfg)
         if ffn == "moe":
-            y, aux = moe_mod.moe_block(pp["ffn"], h, cfg)
+            y, aux = moe_mod.moe_block(pp["ffn"], h, cfg, mesh=mesh,
+                                       rules=rules)
         else:
             y = ffn_mod.ffn_block(pp["ffn"], h, cfg)
         x = x + y.to(x.dtype)
     return x, aux
 
 
-def _apply_superblock(params_sb, x, cfg, positions):
+def _apply_superblock(params_sb, x, cfg, positions, mesh=None, rules=None):
     """One superblock of positions over the full sequence: (x, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (_, ffn) in enumerate(cfg.superblock):
-        x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn, positions)
+        x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn, positions,
+                               mesh=mesh, rules=rules)
         aux = aux + a
     return x, aux
 
@@ -164,7 +176,7 @@ class Model:
                             w.to(cd).float())
 
     # ---- full-sequence forward (train / prefill) ----
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, *, mesh=None, rules=None):
         """tokens: (B, S) -> (logits (B, S, V) f32, aux loss)."""
         cfg = self.cfg
         x = self.embed(params, tokens)
@@ -177,27 +189,45 @@ class Model:
             params_sb = _layer(params["blocks"], i)
             if remat:
                 x, a = checkpoint(_apply_superblock, params_sb, x, cfg,
-                                  positions, use_reentrant=False)
+                                  positions, mesh, rules,
+                                  use_reentrant=False)
             else:
-                x, a = _apply_superblock(params_sb, x, cfg, positions)
+                x, a = _apply_superblock(params_sb, x, cfg, positions, mesh,
+                                         rules)
             aux = aux + a
         x = _apply_norm(params["final_norm"], x, cfg)
         return self.logits(params, x), aux
 
     # ---- loss ----
-    def loss(self, params, batch):
+    def loss(self, params, batch, *, mesh=None, rules=None):
         """Masked mean cross-entropy (with ``cfg.z_loss``) plus
         ``router_aux_weight`` times the MoE aux loss; batch: ``tokens``,
         ``labels`` (B, S) and an optional ``mask``.  Returns (total,
-        metrics ``ce_loss`` / ``aux_loss`` / ``total_loss``)."""
+        metrics ``ce_loss`` / ``aux_loss`` / ``total_loss``).
+
+        On a mesh ``batch`` is this rank's row block and the mean's
+        denominator is the global mask count over the batch group, times
+        ``1 / n`` for its ``n`` ranks: each rank's loss is its share of
+        the global mean times ``n``, so the mean over the ranks of their
+        losses (and metrics) is the one-device loss of the global batch,
+        for any split of the mask."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch["tokens"])
+        logits, aux = self.forward(params, batch["tokens"], mesh=mesh,
+                                   rules=rules)
         ce = softmax_cross_entropy(logits, batch["labels"], cfg.z_loss)
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones_like(ce)
         mask = mask.float()
-        loss = torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        count = torch.sum(mask)
+        group = None if mesh is None else batch_group(mesh, rules)
+        if group is not None:
+            count = count.detach().clone()
+            dist.all_reduce(count, group=group.pg)
+            count = torch.clamp(count, min=1.0) / group.size
+        else:
+            count = torch.clamp(count, min=1.0)
+        loss = torch.sum(ce * mask) / count
         total = loss + cfg.router_aux_weight * aux   # aux == 0 if no MoE
         return total, {"ce_loss": loss, "aux_loss": aux,
                        "total_loss": total}
@@ -221,16 +251,17 @@ class Model:
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
-    def prefill(self, params, tokens, caches):
+    def prefill(self, params, tokens, caches, *, mesh=None, rules=None):
         """Sequential prefill through ``decode_step`` (correct though not
         the fast path; full-sequence prefill uses ``forward``)."""
         logits = None
         for t in range(tokens.shape[1]):
             logits, caches = self.decode_step(params, tokens[:, t:t + 1],
-                                              caches)
+                                              caches, mesh=mesh, rules=rules)
         return logits, caches
 
-    def decode_step(self, params, tokens_t, caches):
+    def decode_step(self, params, tokens_t, caches, *, mesh=None,
+                    rules=None):
         """tokens_t: (B, 1).  Returns (logits (B, 1, V) f32, caches); the
         KV caches are updated in place, ``pos`` is a new tensor."""
         cfg = self.cfg
@@ -242,7 +273,7 @@ class Model:
             for j, (_, ffn) in enumerate(cfg.superblock):
                 x, _ = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn,
                                        pos, state=states_sb[f"pos{j}"],
-                                       decode=True)
+                                       decode=True, mesh=mesh, rules=rules)
         x = _apply_norm(params["final_norm"], x, cfg)
         return self.logits(params, x), {"states": caches["states"],
                                         "pos": pos + 1}

@@ -51,14 +51,16 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, sharding=None):
         """One step: returns ``(params, state, gnorm)`` with ``gnorm`` the
         pre-clip global norm of ``grads``; ``params`` and ``state`` are
-        updated in place."""
+        updated in place.  On a mesh ``sharding`` (the parameters'
+        ``ExpertSharding``) makes ``gnorm`` the global tree's, the same
+        on every rank, so clipping scales every rank alike."""
         cfg = self.config
         state["step"] += 1
         step = int(state["step"])
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, sharding)
         scale = None
         if cfg.clip_norm is not None:
             scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)

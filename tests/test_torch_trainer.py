@@ -4,6 +4,7 @@
 
 import json
 import time
+import types
 
 import numpy as np
 import pytest
@@ -325,8 +326,12 @@ def test_train_default_device_refuses_cpu_fallback(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                            "--mesh", "debug"])
+    # a mesh with a "model" dim (the reference's debug mesh's shape; a
+    # stand-in object, since a DeviceMesh needs a process group of 8)
+    debug = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                  mesh=torch.empty(2, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_launch.build_training(None, mesh=object(), device="cpu")
+        train_launch.build_training(None, mesh=debug, device="cpu")
 
 
 def test_trainer_traces_steps_and_checkpoints(tmp_path, one_thread):
