@@ -159,7 +159,45 @@ it fails:
              1 GiB, inside ``DISK_WRITE_BUDGET`` beside [train]'s) with
              an async checkpoint of global arrays at step 2, restored
              into a fresh ``Trainer`` bit for bit on every rank.
-12. train  — after the world has ended: ``launch/train.py``'s
+12. train_tp — after that world has ended, a second gloo world of 8
+             ranks on the one card, the mesh (pod=2, data=2, model=2):
+             tensor parallelism over model (query / kv heads 16/4 a rank,
+             the experts' F cut to 3200, the vocab-parallel embedding,
+             head and cross-entropy) with EP over (data, pod), 4 of 16
+             experts a rank, every kernel on the path.  Cuts as
+             [train_ep]'s: depth 1, capacity factor 8, B=1 S=1024 per
+             row block, the filled batch, ``tuned`` (must resolve to the
+             overlap engine).  Rank 0 first computes the one-process
+             prefill and decode logits and the one-process kernel step
+             on the global batch at the reference init and at the
+             fan-in init of phase 13 (d), with its routing recorded,
+             keeps them on the host and frees the card before any mesh
+             state exists.  Then ``build_training(cfg, mesh)``: at each
+             init one loss + backward that replays the one-process
+             routing of its row block (TP sums partial products in
+             another order, and a near tie in the router may then
+             choose another expert: the count is logged), whose reduced
+             gradients, gathered to rank 0's host, must lie within 2e-2
+             relative norm of the one-process step's per leaf at the
+             fan-in init (logged at the reference init, whose near
+             one-hot softmaxes turn the bf16 partial sums TP rounds
+             apart into gaps of percents: ``tools/tp_numerics.py``
+             measures one such rounding alone), the losses within 1e-2
+             at both, the routed rows as for [train_ep];
+             the model ranks of each row block must agree bit for bit
+             (the router's probabilities and top-k in every call, the
+             whole leaves' reduced gradients, their parameters after
+             the timed steps, the serving logits); 3 timed steps with
+             the launches per step predicted as [train_ep]'s (the TP
+             cut changes shapes, not counts), peak memory per rank, one
+             step profiled on rank 0 (busy share, the host ms of the
+             TP all-reduces' span); ``make_prefill_fn`` (B=1, S=1024 a
+             row block) and 8 decode ticks of ``make_serve_step`` on
+             the mesh, full-vocab logits within 2e-2 of the largest
+             one-process logit; ``Trainer.run`` for 4 steps at
+             [train_ep]'s cut width with an async checkpoint at step 2
+             restored bit for bit.
+13. train  — after the worlds have ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
              parameters, 32.8 GB of state before activations), remat on,
@@ -219,11 +257,14 @@ variant's re-summation fires and what the tensor cores' summation order
 alone does to the training gates.)
 
 Phase 2 also holds the training kernels against their plain versions at
-the training shapes of phases 11 and 12 (derived from the same constants,
+the training shapes of phases 11, 12 and 13 (derived from the same
+constants,
 config and resolved plans) and at GQA / window / ragged shapes: the flash
 forward that keeps lse, the FA2 backward (run twice, equal bit for bit),
 and the grouped matmul's backward (``GroupedMatmulFn``, whose products
-read ``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm.
+read ``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm;
+and the gmm at the F that tensor parallelism cuts (3200 and 1600 at
+model 2 and 4: multiples of 8, not of 128) in all four operand layouts.
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
 unpack and the fused unpack-then-pack between rounds) against its plain
@@ -299,6 +340,13 @@ TRAIN_EP_CUT = {"d_model": 512, "n_heads": 4, "n_kv_heads": 2,
 TRAIN_EP_FILL = 3 * TRAIN_EP_S // 4  # [train_ep]: leading tokens of a row
                                    # set to one token (fills every chunk)
 TRAIN_EP_CANDIDATES = 256          # [train_ep]: tokens routed to pick them
+TP_WORLD = 8                       # [train_tp]: ranks of its gloo world
+TP_MESH = ((2, 2, 2), ("model", "data", "pod"))   # fastest digit first
+TP_BLOCKS = 4                      # [train_tp]: row blocks (pod x data)
+TP_TICKS = 8                       # [train_tp]: decode ticks on the mesh
+TP_SWEEP_F = (3200, 1600)          # [kernels]: F / |model| at model 2, 4
+TP_INITS = ("reference", "fan-in")  # [train_tp]: the gradient runs' inits
+TP_GATED = ("fan-in",)             # [train_tp]: inits gated at TRAIN_GRAD_TOL
 
 
 def fail(msg: str):
@@ -399,6 +447,7 @@ def phase_kernels(gen):
             del a, b
     cases += _path_gmm_cases(gen)
     _gmm_sweep(gen)
+    cases += _gmm_tp_cases(gen)
     cases += _gmm_backward_cases(gen)
     for v in VARIANTS:       # each variant's first row: prefill, decode
         main = next(c for c in cases if c["variant"] == v)
@@ -506,20 +555,42 @@ def _gmm_sweep(gen):
         f"(variants taken {taken}; each bf16 call through SIMT too)")
 
 
+def _gmm_tp_cases(gen) -> list:
+    """The expert FFN's products at the F that tensor parallelism cuts
+    (TP_SWEEP_F: F / |model| at model 2 and 4, multiples of 8 but not of
+    128), at [train_tp]'s chunk rows, w1 / w3 (N = F / |model|) and w2 (K
+    = F / |model|), in all four operand layouts: each through the
+    variant it takes, against the plain version, timed."""
+    t = _train_tp_geometry()[0]
+    E, rows, D = t["E_loc"], TP_BLOCKS * t["C"] // t["n"], t["cfg"].d_model
+    cases = []
+    for F_ in TP_SWEEP_F:
+        for K, N in ((D, F_), (F_, D)):
+            for lm, rm in (("k", "mn"), ("k", "k"), ("mn", "mn"),
+                           ("mn", "k")):
+                a = _randn(gen, E, rows, K) if lm == "k" else \
+                    _randn(gen, E, K, rows).transpose(1, 2)
+                b = _randn(gen, E, K, N) if rm == "mn" else \
+                    _randn(gen, E, N, K).transpose(1, 2)
+                cases.append(_gmm_case(f"gmm TP F/|model|={F_}", a, b))
+                del a, b
+    return cases
+
+
 def _gmm_backward_cases(gen):
     """``GroupedMatmulFn``'s backward at the shapes training runs it: [train]'s
-    (16, 640) and [train_ep]'s (E_loc, rows) from
+    (16, 640) and [train_ep]'s and [train_tp]'s (E_loc, rows, F) from
     :func:`_path_gmm_shapes` (the tuned chunk, the factorized call, the
-    Trainer's cut-width chunk).  Its gradients against autograd of the
+    Trainer's cut-width chunk; [train_tp]'s at F / |model|).  Its gradients against autograd of the
     plain gmm, and each of its two products (``dlhs = gmm(dout, rhs^T)``,
     ``drhs = gmm(lhs^T, dout)``) timed alone as the Function calls it, on
     the transposed views."""
     from repro_torch.kernels.moe_gmm import (GroupedMatmulFn,
                                              grouped_matmul_plain)
     shapes = {(16, 640, 4096, 6400): ["train"]}
-    shapes.update({s: [lb for lb in labels if lb.startswith("train_ep")]
+    shapes.update({s: [lb for lb in labels if lb.startswith("train_")]
                    for s, labels in _path_gmm_shapes().items()
-                   if any(lb.startswith("train_ep") for lb in labels)})
+                   if any(lb.startswith("train_") for lb in labels)})
     rows = []
     for (E, M, D, F_), labels in shapes.items():
         for K, N in ((D, F_), (F_, D)):
@@ -745,6 +816,9 @@ def _flash_train_kernels(gen):
         c = t["cfg"]
         shapes.append((1, c.n_heads, c.n_kv_heads, TRAIN_EP_S,
                        c.d_model // c.n_heads, t["label"]))
+    for t in _train_tp_geometry():     # this rank's heads under TP
+        shapes.append((1, t["Hq"], t["Hkv"], TRAIN_EP_S, t["cfg"].hd,
+                       t["label"]))
     by_shape = [shape_rows(*sh) for sh in shapes]
     fwd, bwd = by_shape[0]
     n = 0
@@ -965,26 +1039,52 @@ def _train_ep_geometry() -> list:
     return out
 
 
+def _train_tp_geometry() -> list:
+    """What [train_tp] runs per rank on TP_MESH (EP over (data=2, pod=2),
+    F and the heads over model=2), from the same constants and config and
+    the plans they resolve: for the full width and the Trainer's cut
+    width, the config, experts and F per rank, query / kv heads per rank,
+    the capacity, the tuned plan and its chunk count."""
+    from repro_torch.models.moe import _capacity, moe_a2a_plan
+    M = dict(zip(TP_MESH[1], TP_MESH[0]))["model"]
+    out = []
+    for label, cfg in (("train_tp", _train_ep_config()),
+                       ("train_tp cut", _train_ep_config(**TRAIN_EP_CUT))):
+        E_loc = cfg.n_experts // TP_BLOCKS
+        C = _capacity(cfg, TRAIN_EP_S, max(cfg.n_experts, TP_BLOCKS))
+        plan = moe_a2a_plan(cfg, (2, 2), ("data", "pod"), E_loc, C)
+        n = _n_chunks(C, plan.n_chunks) if plan.backend == "overlap" else 1
+        out.append(dict(label=label, cfg=cfg, E_loc=E_loc, C=C, plan=plan,
+                        n=n, F=cfg.d_ff // M, Hq=cfg.n_heads // M,
+                        Hkv=cfg.n_kv_heads // M))
+    return out
+
+
 def _path_gmm_shapes() -> dict:
     """{(E_loc, rows, D, F): labels} of the expert FFN's products in phases
-    8, 9 and 11: [moe_ep]'s overlap chunk (WORLD*C/n rows), its factorized
-    call and the dropless window (WORLD*C rows each); [train_ep]'s tuned
-    chunk and factorized call at full width, and its Trainer's chunk at
-    the cut width."""
+    8, 9, 11 and 12: [moe_ep]'s overlap chunk (WORLD*C/n rows), its
+    factorized call and the dropless window (WORLD*C rows each);
+    [train_ep]'s tuned chunk and factorized call at full width, and its
+    Trainer's chunk at the cut width; [train_tp]'s tuned chunk at its
+    F / |model|, at full and cut width."""
     g = _ep_geometry()
     cfg, E_loc, C, n = g["cfg"], g["E_loc"], g["C"], g["n"]
-    rows = [(E_loc, WORLD * C // n, cfg, f"moe_ep {g['plan'].backend} "
-             f"chunk"), (E_loc, WORLD * C, cfg, "moe_ep factorized"),
-            (E_loc, WORLD * g["Cd"], cfg, "moe_dropless")]
+    F_ = cfg.d_ff
+    rows = [(E_loc, WORLD * C // n, F_, cfg, f"moe_ep {g['plan'].backend} "
+             f"chunk"), (E_loc, WORLD * C, F_, cfg, "moe_ep factorized"),
+            (E_loc, WORLD * g["Cd"], F_, cfg, "moe_dropless")]
     for t in _train_ep_geometry():
-        rows.append((t["E_loc"], WORLD * t["C"] // t["n"], t["cfg"],
-                     f"{t['label']} {t['plan'].backend} chunk"))
+        rows.append((t["E_loc"], WORLD * t["C"] // t["n"], t["cfg"].d_ff,
+                     t["cfg"], f"{t['label']} {t['plan'].backend} chunk"))
         if t["label"] == "train_ep":
-            rows.append((t["E_loc"], WORLD * t["C"], t["cfg"],
-                         "train_ep factorized"))
+            rows.append((t["E_loc"], WORLD * t["C"], t["cfg"].d_ff,
+                         t["cfg"], "train_ep factorized"))
+    for t in _train_tp_geometry():
+        rows.append((t["E_loc"], TP_BLOCKS * t["C"] // t["n"], t["F"],
+                     t["cfg"], f"{t['label']} {t['plan'].backend} chunk"))
     shapes = {}
-    for E_loc_, r, c, label in rows:
-        shapes.setdefault((E_loc_, r, c.d_model, c.d_ff), []).append(label)
+    for E_loc_, r, f, c, label in rows:
+        shapes.setdefault((E_loc_, r, c.d_model, f), []).append(label)
     return shapes
 
 
@@ -1322,6 +1422,11 @@ def _profile(fn, label: str, per: int = 1, top: int = 8):
              if ev.device_type == DeviceType.CPU
              and ev.key.startswith(SPAN_PREFIX)]
     busy = sum(r[0] for r in rows)
+    # what a caller reads back: wall and device ms, each span's count and
+    # host ms, per call
+    prof.summary = {"wall_ms": wall_ms / per, "busy_ms": busy / per,
+                    "spans": {key: (count // per, ms / per)
+                              for key, count, ms in spans}}
     if not rows:
         log(f"[profile] {label}: the profiler recorded no device time")
         return prof
@@ -2135,7 +2240,7 @@ def _ep_loss_grads(model, params, batch, mesh, sharding):
         batch_group(mesh))
     loss = total.detach().float().reshape(1).clone()
     dist.all_reduce(loss)
-    return grads, float(loss[0]) / WORLD, counts
+    return grads, float(loss[0]) / dist.get_world_size(), counts
 
 
 def _filling_tokens(model, params, mesh, E_loc: int) -> list:
@@ -2149,31 +2254,39 @@ def _filling_tokens(model, params, mesh, E_loc: int) -> list:
     engine carries routed rows on every rank (``phase_train_ep`` checks
     it from the gated call's routing).  Rank 0's choice, broadcast."""
     import torch.distributed as dist
+    picked = torch.tensor(_pick_fill(model, params, E_loc, WORLD, mesh),
+                          device=DEVICE)
+    dist.broadcast(picked, src=0)
+    if bool((picked < 0).any()):
+        fail(f"[train_ep] no one of the first {TRAIN_EP_CANDIDATES} tokens "
+             f"routes first to every EP rank: {picked.tolist()}")
+    return picked.tolist()
+
+
+def _pick_fill(model, params, E_loc: int, G: int, mesh=None) -> list:
+    """For each of the G EP ranks, the first of TRAIN_EP_CANDIDATES tokens
+    whose top-1 expert (of ``E_loc`` a rank) lies on it, routed as
+    one-token sequences through ``model`` (on ``mesh``, or in one
+    process); -1 where none does."""
     rec = []
     cand = torch.arange(min(TRAIN_EP_CANDIDATES, model.cfg.vocab),
                         dtype=torch.int32, device=DEVICE)[:, None]
     with torch.no_grad(), _routing(record=rec):
         model.forward(params, cand, mesh=mesh)
     owner = (rec[0][:, 0] // E_loc).tolist()
-    picked = torch.tensor([owner.index(v) if v in owner else -1
-                           for v in range(WORLD)], device=DEVICE)
-    dist.broadcast(picked, src=0)
-    if bool((picked < 0).any()):
-        fail(f"[train_ep] no one of the first {len(owner)} tokens routes "
-             f"first to every EP rank: {picked.tolist()}")
-    return picked.tolist()
+    return [owner.index(v) if v in owner else -1 for v in range(G)]
 
 
 def _sharded_gaps(got, want, sharding) -> dict:
     """``||got - want|| / ||want||`` per leaf of two reduced trees on the
-    mesh (expert leaves summed over the EP group: collective)."""
+    mesh (split leaves summed over their groups: collective)."""
     from repro_torch.models.common import tree_leaves
     out = {}
     for (path, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
         sq = torch.stack([torch.sum((g.float() - w.float()) ** 2),
                           torch.sum(w.float() ** 2)])
-        if path in sharding.axes:
-            sq = sharding.expert_sq_sum(sq)
+        if sharding.split(path):
+            sq = sharding.leaf_sq_sum(path, sq)
         out[path] = float(torch.sqrt(sq[0] / sq[1]))
     return out
 
@@ -2339,6 +2452,295 @@ def _rank_train_ep(rank: int, n: int, seed: int, tmp: str) -> dict:
     del smodel, sp, so, tr
     torch.cuda.empty_cache()
     return out
+
+
+def _digest(t) -> str:
+    """sha256 of a tensor's bytes (bit-identity across ranks)."""
+    import hashlib
+    t = t.detach().contiguous().to("cpu")
+    return hashlib.sha256(t.reshape(-1).view(torch.uint8).numpy()
+                          ).hexdigest()
+
+
+@contextlib.contextmanager
+def _routing_digests(record: list):
+    """``torch.topk`` (the MoE router's) appending the digests of its
+    input probabilities and of its indices to ``record``."""
+    real = torch.topk
+
+    def topk(x, k, *args, **kwargs):
+        out = real(x, k, *args, **kwargs)
+        record.append((_digest(x), _digest(out[1])))
+        return out
+    torch.topk = topk
+    try:
+        yield
+    finally:
+        torch.topk = real
+
+
+def _tp_serve_tokens(vocab: int):
+    """[train_tp]'s serving prompts: (TP_BLOCKS, TRAIN_EP_S) prefill
+    tokens and (TP_BLOCKS, TP_TICKS) decode tokens, from a seed."""
+    rng = np.random.default_rng(7)
+    return (torch.from_numpy(rng.integers(0, vocab, (TP_BLOCKS, TRAIN_EP_S))
+                             ).to(DEVICE),
+            torch.from_numpy(rng.integers(0, vocab, (TP_BLOCKS, TP_TICKS))
+                             ).to(DEVICE))
+
+
+def _tp_serve(model, params, prefill_toks, decode_toks, mesh=None):
+    """Last-position prefill logits (``make_prefill_fn``) and each of
+    TP_TICKS greedy-step logits (``make_serve_step``, teacher-forced from
+    an empty cache), full-vocab, on the host."""
+    from repro_torch.models import make_prefill_fn, make_serve_step
+    pre = make_prefill_fn(model, mesh)(params, prefill_toks)
+    caches = model.init_caches(decode_toks.shape[0], TP_TICKS, DEVICE,
+                               mesh=mesh)
+    serve = make_serve_step(model, mesh)
+    ticks = []
+    for t in range(TP_TICKS):
+        _, logits, caches = serve(params, caches, decode_toks[:, t:t + 1])
+        ticks.append(logits[:, 0].float().cpu())
+    return pre.float().cpu(), torch.stack(ticks, 1)
+
+
+def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
+    """[train_tp] on one rank of the 8-rank world on TP_MESH: the
+    one-process reference on rank 0 first (freed before the mesh state
+    exists), then ``build_training`` at full width (1 layer), the gated
+    loss + backward against it, the bit-identity digests of the model
+    ranks, timed and profiled steps, prefill and decode on the mesh, and
+    ``Trainer.run`` at a cut width with a checkpoint restored bit for
+    bit."""
+    import torch.distributed as dist
+    from repro_torch.core.cache import cart_create
+    from repro_torch.data import (CopyTaskConfig, SyntheticLM,
+                                  make_copy_task_batch)
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import build_model
+    from repro_torch.models.common import (param_shardings, tree_leaves,
+                                           tree_map)
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        moe_a2a_plan)
+    from repro_torch.parallel.sharding import (TP_SPAN, batch_split,
+                                               tp_group, tp_rank)
+    from repro_torch.runtime import Trainer, TrainerConfig
+    torch.cuda.set_device(0)
+    mesh = cart_create(n, *TP_MESH, device_type=DEVICE)
+    cfg = _train_ep_config()
+    model = build_model(cfg)
+    dcfg = CopyTaskConfig(vocab=cfg.vocab, seq_len=TRAIN_EP_S,
+                          global_batch=TP_BLOCKS)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, TRAIN_EP_S, max(cfg.n_experts, G))
+    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    _, block = batch_split(mesh)
+    m = tp_rank(tp_group(mesh))
+    prefill_toks, decode_toks = _tp_serve_tokens(cfg.vocab)
+    out = {"block": block, "model": m, "describe": plan.describe(), "C": C,
+           "n_chunks": _n_chunks(C, plan.n_chunks)
+           if plan.backend == "overlap" else 1,
+           "per_step": _train_ep_launches(cfg, plan, C)}
+
+    # (0) the one-process reference on rank 0, before any mesh state: the
+    # fill tokens, the kernel step's loss and gradients, prefill and
+    # decode logits; only what the gates compare stays, on the host
+    fill = torch.zeros(G, dtype=torch.int64, device=DEVICE)
+    # the router's top-k in each of its calls (forward and remat
+    # recompute) of the one-process step, token-major over the global
+    # batch: the mesh step replays its row block's rows
+    n_router = 2 * cfg.n_layers
+    routes = {init: torch.zeros((n_router, TP_BLOCKS * TRAIN_EP_S,
+                                 cfg.top_k), dtype=torch.int64,
+                                device=DEVICE) for init in TP_INITS}
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 0:
+        gparams = model.init(torch.Generator(device=DEVICE)
+                             .manual_seed(seed), DEVICE)
+        fill = torch.tensor(_pick_fill(model, gparams, E_loc, G),
+                            device=DEVICE)
+        gbatch = make_copy_task_batch(dcfg, 0, DEVICE)
+        for v, t in enumerate(fill.tolist()):   # row block v's first tokens
+            gbatch["tokens"][v, :TRAIN_EP_FILL] = t
+        with torch.no_grad():
+            out["one_serve"] = _tp_serve(model, gparams, prefill_toks,
+                                         decode_toks)
+        one_grads, out["one_loss"] = {}, {}
+        for init in TP_INITS:
+            if init == "fan-in":
+                _fan_in_scale(gparams, model.specs(), cfg)
+            tree_map(lambda t: t.requires_grad_(True), gparams)
+            leaves = tree_leaves(gparams)
+            rec = []
+            with _routing(record=rec):
+                total, _ = model.loss(gparams, gbatch)
+                ref = torch.autograd.grad(total, [t for _, t in leaves])
+            if len(rec) != n_router:
+                fail(f"[train_tp] the one-process step called the router "
+                     f"{len(rec)} times, expected {n_router}")
+            routes[init] = torch.stack(rec)
+            out["one_loss"][init] = float(total.detach())
+            one_grads[init] = {path: g.to("cpu")
+                               for (path, _), g in zip(leaves, ref)}
+            del total, ref, leaves
+            tree_map(lambda t: t.requires_grad_(False), gparams)
+        out["one_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del gparams, gbatch
+        torch.cuda.empty_cache()
+    dist.broadcast(fill, src=0)
+    for init in TP_INITS:
+        dist.broadcast(routes[init], src=0)
+        routes[init] = list(routes[init][:, block * TRAIN_EP_S:
+                                         (block + 1) * TRAIN_EP_S].unbind(0))
+    out["fill"] = fill = fill.tolist()
+    if min(fill) < 0:
+        fail(f"[train_tp] no one of the first {TRAIN_EP_CANDIDATES} tokens "
+             f"routes first to every EP rank: {fill}")
+    dist.barrier()           # the reference is freed before the mesh state
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) build_training on the mesh; the gated loss + backward, its
+    # routing and the bit-identity digests
+    t0 = time.perf_counter()
+    model, _, params, opt_state, step_fn = build_training(
+        cfg, mesh, lr=1e-4, warmup=2, total=TRAIN_EP_STEPS, seed=seed,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["build_s"] = time.perf_counter() - t0
+    sharding = param_shardings(model.specs(), mesh)
+    batch = SyntheticLM(dcfg, mesh=mesh, task="copy", device=DEVICE).next()
+    batch["tokens"][:, :TRAIN_EP_FILL] = fill[block]
+    out["n_params"] = sum(t.numel() for _, t in tree_leaves(params))
+    out["state_gb"] = sum(t.numel() * t.element_size() for _, t in
+                          tree_leaves({"p": params, "o": opt_state})) / 1e9
+    whole = [p for p, _ in tree_leaves(params) if not sharding.split(p)]
+    out["digests"], out["loss"], out["vs_one"] = {"routing": []}, {}, {}
+    for init in TP_INITS:
+        if init == "fan-in":
+            # (d) serving on the same world at the reference init, before
+            # the parameters move: prefill and decode on the mesh, this
+            # rank's row block, full-vocab logits
+            _reset_counts()
+            with torch.no_grad():
+                out["serve"] = _tp_serve(model, params,
+                                         prefill_toks[block:block + 1],
+                                         decode_toks[block:block + 1], mesh)
+            out["serve_counts"] = _read_counts()
+            _fan_in_scale(params, model.specs(), cfg)
+        with _routing(replay=routes[init]) as switched, \
+                _routing_digests(out["digests"]["routing"]):
+            grads, out["loss"][init], counts = _ep_loss_grads(
+                model, params, batch, mesh, sharding)
+        out.setdefault("switched", {})[init] = dict(switched)
+        if init == TP_INITS[0]:
+            out["counts"] = counts
+            out["routed"] = torch.bincount(routes[init][0].reshape(-1),
+                                           minlength=cfg.n_experts).tolist()
+        out["finite_nonzero"] = out.get("finite_nonzero", True) and all(
+            bool(torch.isfinite(g).all()) and float(g.float().abs().sum()) > 0
+            for _, g in tree_leaves(grads))
+        out["digests"][f"grads {init}"] = {
+            p: _digest(g) for p, g in tree_leaves(grads) if p in whole}
+        full = sharding.gather_tree_to_writer(grads)
+        del grads
+        if rank == 0:
+            out["vs_one"][init] = {
+                path: (float((g.float() - one_grads[init][path].float())
+                             .norm() / one_grads[init][path].float().norm()),
+                       float(g.float().norm()),
+                       float(one_grads[init][path].float().norm()))
+                for path, g in tree_leaves(full)}
+        del full
+        torch.cuda.empty_cache()
+    if rank == 0:
+        del one_grads
+    dist.barrier()           # the others waited for rank 0's comparison
+
+    # (c) timed steps at full width, then one profiled on rank 0
+    _reset_counts()
+    out["step_ms"] = [_host_ms(lambda: step_fn(params, opt_state,
+                                               batch))[1]
+                      for _ in range(TRAIN_EP_TIMED)]
+    out["step_counts"] = _read_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if rank == 0:
+        prof = _profile(lambda: step_fn(params, opt_state, batch),
+                        f"train_tp step (1 layer, B=1, S={TRAIN_EP_S} per "
+                        f"row block), rank 0 of {TP_WORLD}", top=20)
+        out["profile"] = prof.summary
+        out["tp_span"] = prof.summary["spans"].get(TP_SPAN, (0, 0.0))
+    else:
+        step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    out["digests"]["params"] = {p: _digest(t) for p, t
+                                in tree_leaves(params) if p in whole}
+    del model, params, opt_state, step_fn, batch
+    torch.cuda.empty_cache()
+
+    # (b) Trainer.run at a cut width, checkpoint at step 2 restored
+    scfg = cfg.replace(**TRAIN_EP_CUT)
+    smodel, _, sp, so, sstep = build_training(
+        scfg, mesh, lr=1e-4, warmup=2, total=TRAIN_EP_STEPS, seed=seed,
+        device=DEVICE)
+    splan = moe_a2a_plan(scfg, mesh, axes, E_loc, C)
+    out["cut_per_step"] = _train_ep_launches(scfg, splan, C)
+    ssh = param_shardings(smodel.specs(), mesh)
+    deltas = []
+
+    def counted_step(p, o, b):
+        before = _read_counts()
+        res = sstep(p, o, b)
+        deltas.append({k: v - before[k] for k, v in _read_counts().items()})
+        return res
+    ckdir = Path(tmp) / "train_tp_ckpt"
+    tcfg = TrainerConfig(total_steps=TRAIN_EP_STEPS,
+                         checkpoint_dir=str(ckdir), checkpoint_every=2,
+                         keep_checkpoints=1, log_every=1)
+    tr = Trainer(tcfg, counted_step,
+                 SyntheticLM(dcfg, mesh=mesh, task="copy", device=DEVICE),
+                 sp, so, sharding=ssh)
+    _reset_counts()
+    tr.run(max_steps=2)        # ends in ckpt.wait(): durable on every rank
+    out["written"] = _dir_bytes(ckdir) if rank == 0 else 0
+    fresh = Trainer(tcfg, sstep,
+                    SyntheticLM(dcfg, mesh=mesh, task="copy", device=DEVICE),
+                    sp, so, sharding=ssh)
+    restored = fresh.try_restore()
+    same = restored and (fresh.step, fresh.data.step) == (tr.step,
+                                                          tr.data.step) == (
+        2, 2) and all(a.dtype == b.dtype and a.device == b.device
+                      and torch.equal(a, b)
+                      for (_, a), (_, b) in zip(
+                          tree_leaves(tr._state_tree()),
+                          tree_leaves(fresh._state_tree())))
+    del fresh
+    tr.config.checkpoint_every = TRAIN_EP_STEPS + 1
+    status = tr.run()
+    out["trainer"] = {
+        "restored_equal": bool(same), "status": status, "step": tr.step,
+        "deltas": deltas, "losses": [r["total_loss"] for r in
+                                     tr.metrics_log],
+        "seconds": [r["seconds"] for r in tr.metrics_log],
+        "n_params": sum(t.numel() for _, t in tree_leaves(sp))}
+    del smodel, sp, so, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tp_world(seed: int, timeout: float = 900.0) -> list:
+    """Spawn [train_tp]'s 8-rank world (as :func:`run_world`) and return
+    each rank's result."""
+    import os
+    import torch_dist
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["REPRO_TORCH_TUNING_DB"] = str(Path(tmp) / "tuning.json")
+        try:
+            return [{"train_tp": r} for r in torch_dist.run_world(
+                _rank_train_tp, TP_WORLD, tmp, seed, tmp, timeout=timeout)]
+        except (AssertionError, TimeoutError) as exc:
+            fail(f"the {TP_WORLD}-rank world: {exc}")
 
 
 def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
@@ -2775,6 +3177,173 @@ def phase_train_ep(results) -> dict:
             for k in r0["step_counts"]}
 
 
+def phase_train_tp(results) -> dict:
+    """[train_tp]'s gates: the tuned plan is the overlap engine; no token
+    of the gated call dropped and every capacity chunk carried routed
+    rows on every EP rank; every rank's reduced gradient finite and
+    non-zero and, gathered to rank 0, within TRAIN_GRAD_TOL of the
+    one-process kernel step's, whose routing the mesh replays, at the
+    fan-in init (at the reference init, where any change of rounding
+    moves the gradients by percents, the gaps are logged); the losses
+    at both inits within 1e-2; the ``model`` ranks
+    of each row block bit-identical (router probabilities and top-k in
+    every call, whole leaves' reduced gradients and parameters); the
+    launches of the loss + backward and of each step the prediction;
+    prefill and decode logits on the mesh within 2e-2 of the largest
+    one-process logit; the Trainer's restore bit for bit.  Returns the
+    launches of the timed steps and of serving over the ranks."""
+    r0 = results[0]["train_tp"]
+    desc = r0["describe"]
+    if desc["requested_backend"] != "tuned" or desc["backend"] != "overlap":
+        fail(f"[train_tp] the config's a2a_backend "
+             f"{desc['requested_backend']!r} resolved to "
+             f"{desc['backend']!r}, expected the overlap engine")
+    by_block = {}
+    for r in results:
+        by_block.setdefault(r["train_tp"]["block"], []).append(r["train_tp"])
+    if sorted(by_block) != list(range(TP_BLOCKS)) or any(
+            len(v) != TP_WORLD // TP_BLOCKS for v in by_block.values()):
+        fail(f"[train_tp] row blocks per rank "
+             f"{[r['train_tp']['block'] for r in results]}")
+    C, n_chunks = r0["C"], r0["n_chunks"]
+    Cc = C // n_chunks
+    routed = np.array([by_block[b][0]["routed"] for b in range(TP_BLOCKS)])
+    if routed.max() > C:
+        fail(f"[train_tp] a row block routed {routed.max()} tokens to one "
+             f"expert, over C={C}: tokens dropped, the one-process step is "
+             f"no reference")
+    per_rank = routed.reshape(TP_BLOCKS, TP_BLOCKS, -1)   # (source, dest, e)
+    recv = np.stack([np.clip(per_rank - c * Cc, 0, Cc).sum(axis=(0, 2))
+                     for c in range(n_chunks)], axis=1)
+    log(f"[train_tp] each row block's first {TRAIN_EP_FILL} tokens set to "
+        f"token {r0['fill']}; routed rows each EP rank received per "
+        f"capacity chunk of {Cc} slots: {recv.tolist()}")
+    if not (recv > 0).all():
+        fail(f"[train_tp] a capacity chunk carried no routed row on some "
+             f"EP rank: {recv.tolist()} (rank x chunk)")
+    for b, ranks in by_block.items():
+        for t in ranks[1:]:
+            for what in ranks[0]["digests"]:
+                if t["digests"][what] != ranks[0]["digests"][what]:
+                    fail(f"[train_tp] row block {b}: model rank "
+                         f"{t['model']}'s {what} differ from model rank "
+                         f"{ranks[0]['model']}'s bits")
+            for a, w in zip(t["serve"], ranks[0]["serve"]):
+                if not torch.equal(a, w):
+                    fail(f"[train_tp] row block {b}: the model ranks' "
+                         f"serving logits differ")
+    n_calls = len(r0["digests"]["routing"])
+    for rank, r in enumerate(results):
+        t = r["train_tp"]
+        if not t["finite_nonzero"]:
+            fail(f"[train_tp] rank {rank}: a reduced gradient leaf is not "
+                 f"finite or is zero")
+        if t["counts"] != t["per_step"]:
+            fail(f"[train_tp] rank {rank}'s loss + backward launched "
+                 f"{t['counts']}, expected {t['per_step']}")
+        want = {k: TRAIN_EP_TIMED * v for k, v in t["per_step"].items()}
+        if t["step_counts"] != want:
+            fail(f"[train_tp] rank {rank}'s {TRAIN_EP_TIMED} steps launched "
+                 f"{t['step_counts']}, expected {want}")
+        tr = t["trainer"]
+        if not tr["restored_equal"] or tr["status"] != "done" \
+                or tr["step"] != TRAIN_EP_STEPS:
+            fail(f"[train_tp] rank {rank}: Trainer restore equal "
+                 f"{tr['restored_equal']}, ended {tr['status']} at step "
+                 f"{tr['step']}")
+        if any(d != t["cut_per_step"] for d in tr["deltas"]) or not all(
+                math.isfinite(v) for v in tr["losses"]):
+            fail(f"[train_tp] rank {rank}: Trainer steps launched "
+                 f"{tr['deltas']}, expected {t['cut_per_step']} each; "
+                 f"losses {tr['losses']}")
+    log(f"[train_tp] relative norm gaps per leaf, gathered TP ~ one-process "
+        f"step (limit {TRAIN_GRAD_TOL} at {TP_GATED}), with ||TP|| / ||one "
+        f"process||, at the inits {TP_INITS}:")
+    for path in r0["vs_one"][TP_INITS[0]]:
+        log(f"[train_tp]   {path:32s} " + "  ".join(
+            f"{r0['vs_one'][i][path][0]:.3e} ({r0['vs_one'][i][path][1]:.4g}"
+            f" / {r0['vs_one'][i][path][2]:.4g})" for i in TP_INITS))
+    for init in TP_INITS:
+        loss, one = r0["loss"][init], r0["one_loss"][init]
+        sw = [r["train_tp"]["switched"][init] for r in results]
+        log(f"[train_tp] loss at the {init} init {loss:.6g}, one process "
+            f"{one:.6g}; the mesh replayed the one-process routing, and "
+            f"would have routed otherwise "
+            f"{sum(x['switched'] for x in sw) // (TP_WORLD // TP_BLOCKS)} of "
+            f"{sum(x['tokens'] for x in sw) // (TP_WORLD // TP_BLOCKS)} "
+            f"(token, router call) pairs")
+        worst = max(r0["vs_one"][init].items(), key=lambda kv: kv[1][0])
+        if init in TP_GATED and not worst[1][0] <= TRAIN_GRAD_TOL:
+            fail(f"[train_tp] at the {init} init the gathered TP gradient "
+                 f"of {worst[0]} lies {worst[1][0]:.3g} from the "
+                 f"one-process step's (limit {TRAIN_GRAD_TOL})")
+        if not abs(loss - one) <= 1e-2 * abs(one):
+            fail(f"[train_tp] at the {init} init the loss {loss} vs the "
+                 f"one-process {one} (limit 1e-2 relative)")
+    pre = torch.cat([by_block[b][0]["serve"][0] for b in range(TP_BLOCKS)])
+    ticks = torch.cat([by_block[b][0]["serve"][1] for b in range(TP_BLOCKS)])
+    one_pre, one_ticks = r0["one_serve"]
+    err_pre = _logit_gate("[train_tp] mesh prefill", pre, one_pre,
+                          "one-process")
+    err_ticks = _logit_gate(f"[train_tp] mesh decode ({TP_TICKS} ticks)",
+                            ticks, one_ticks, "one-process")
+    WRITTEN["train_tp"] = r0["written"]
+    if sum(WRITTEN.values()) > DISK_WRITE_BUDGET:
+        fail(f"[train_tp] the checkpoints wrote "
+             f"{sum(WRITTEN.values()) / 2**30:.2f} GiB, over the run's "
+             f"disk budget")
+    cfg = _train_ep_config()
+    log(f"[train_tp] {cfg.name} d={cfg.d_model} F={cfg.d_ff} heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} E={cfg.n_experts} vocab="
+        f"{cfg.vocab} layers={cfg.n_layers}, mesh (pod=2, data=2, model=2) "
+        f"on {TP_WORLD} gloo ranks of one card: EP over (data, pod), heads, "
+        f"F and the vocab over model; B=1 S={TRAIN_EP_S} per row block "
+        f"(C={C}, plan {desc['backend']} n_chunks {desc['n_chunks']}): "
+        f"{r0['n_params'] / 1e9:.3f} B params per rank, "
+        f"{r0['state_gb']:.2f} GB of params and AdamW state, built in "
+        f"{r0['build_s']:.1f} s; the one-process reference's peak "
+        f"{r0['one_peak_gib']:.2f} GiB, freed before the mesh; router calls "
+        f"bit-identical across the model ranks of every row block: "
+        f"{n_calls} per rank")
+    q = lambda v: "/".join(f"{t:.1f}" for t in np.percentile(v, (25, 50,
+                                                                 75)))
+    log(f"[train_tp] full-width step (loss, backward, reduce_grads, AdamW) "
+        f"host ms per rank: "
+        f"{[[round(t, 1) for t in r['train_tp']['step_ms']] for r in results]}"
+        f"; quartiles 25/50/75 per rank (warm steps) "
+        f"{[q(r['train_tp']['step_ms'][1:]) for r in results]} ({TP_WORLD} "
+        f"ranks share the card and its host; gloo stages every exchange "
+        f"and all-reduce through host memory); peak memory per rank "
+        f"{[round(r['train_tp']['peak_gib'], 2) for r in results]} GiB; "
+        f"launches per step per rank {r0['per_step']}")
+    prof = r0["profile"]
+    calls, span_ms = r0["tp_span"]
+    log(f"[train_tp] rank 0's profiled step: wall {prof['wall_ms']:.1f} ms, "
+        f"device busy {prof['busy_ms']:.1f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.0f}%); the TP "
+        f"all-reduces (span repro_torch.tp.all_reduce) x{calls}, "
+        f"{span_ms:.1f} ms of host time "
+        f"({100 * span_ms / prof['wall_ms']:.1f}% of the wall)")
+    log(f"[train_tp] mesh prefill (B=1 S={TRAIN_EP_S} per row block) and "
+        f"{TP_TICKS} decode ticks, full-vocab logits against one process: "
+        f"max |diff| {err_pre:.4g} / {err_ticks:.4g} (largest logit "
+        f"{float(one_pre.abs().max()):.4g} / "
+        f"{float(one_ticks.abs().max()):.4g}; limit 2e-2 of it); launches "
+        f"per rank {r0['serve_counts']}")
+    tr = r0["trainer"]
+    log(f"[train_tp] Trainer.run at the cut width {TRAIN_EP_CUT} "
+        f"({tr['n_params'] / 1e6:.1f} M params per rank): total_loss "
+        f"{[round(v, 4) for v in tr['losses']]}, step ms (slowest rank) "
+        f"{[round(v * 1e3, 1) for v in tr['seconds']]}; the async "
+        f"checkpoint at step 2 ({r0['written'] / 2**30:.3f} GiB of global "
+        f"arrays, written by rank 0) restored into a fresh Trainer bit for "
+        f"bit on every rank")
+    keys = r0["step_counts"]
+    return {k: sum(r["train_tp"]["step_counts"][k]
+                   + r["train_tp"]["serve_counts"][k] for r in results)
+            for k in keys}
+
+
 def _train_launches_per_step(cfg) -> dict:
     """Predicted launches of one training step: per layer the flash
     forward and the 3 gmm run twice (forward and remat recompute), the
@@ -2967,25 +3536,33 @@ def _fan_in_init(model, cfg, seed: int):
     reference's init takes a stacked weight's fan-in from its leading
     (layer) dim and the embedding at std 1, which makes every softmax
     near one-hot at this width and the FA2 backward's ds near 0."""
-    from repro_torch.models.common import tree_leaves
     params = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
                         DEVICE)
+    _fan_in_scale(params, model.specs(), cfg)
+    return params
+
+
+def _fan_in_scale(params, specs, cfg) -> None:
+    """Rescale a tree drawn at the reference's init in place to the
+    fan-in init of :func:`_fan_in_init`; each factor comes from the
+    leaf's global spec, so a rank's shard scales as its global leaf."""
+    from repro_torch.models.common import tree_leaves
+    shapes = {path: spec.shape for path, spec in tree_leaves(specs)}
     with torch.no_grad():
         for path, t in tree_leaves(params):
-            name = path.rsplit("/", 1)[-1]
+            name, shape = path.rsplit("/", 1)[-1], shapes[path]
             if name in ("wq", "wk", "wv", "router"):
-                fan_in = t.shape[1]
+                fan_in = shape[1]
             elif name == "wo":
-                fan_in = t.shape[1] * t.shape[2]
+                fan_in = shape[1] * shape[2]
             elif name in ("w1", "w2", "w3"):
-                fan_in = t.shape[-2]
+                fan_in = shape[-2]
             elif name == "embed":
                 t.mul_(1.0 / math.sqrt(cfg.d_model))
                 continue
             else:
                 continue
-            t.mul_(math.sqrt(t.shape[0] / fan_in))
-    return params
+            t.mul_(math.sqrt(shape[0] / fan_in))
 
 
 def _dir_bytes(path) -> int:
@@ -3199,6 +3776,7 @@ def main() -> int:
     phase_tracing(world)
     paths["train_ep"] = phase_train_ep(world)
     del world
+    paths["train_tp"] = phase_train_tp(run_tp_world(seed))
     paths["train"] = phase_train()
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts.get(name, 0)

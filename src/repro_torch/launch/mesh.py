@@ -5,9 +5,10 @@ The shapes are the reference's, most significant dim first: production
 ``(pod=2, data=16, model=16)`` (``(data=16, model=16)`` on one pod), debug
 ``(pod=2, data=2, model=4)`` (``(data=2, model=4)``).  Building one is
 collective and needs a process group of exactly that many ranks;
-importing this module touches no device.  :func:`check_trainable` says
-whether the port can train on a shape: tensor parallelism over ``model``
-is not ported, so every one of these has ``model`` > 1 and is refused.
+importing this module touches no device.  The port trains and serves on
+each of them: experts and the batch over ``pod`` / ``data``, tensor
+parallelism over ``model``.  :func:`check_trainable` refuses only what
+is not ported yet on a shape (Ulysses over ``model``).
 """
 
 from __future__ import annotations
@@ -49,15 +50,14 @@ def make_debug_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
                      device_type=device_type)
 
 
-def check_trainable(mesh_or_shape) -> None:
-    """Raise unless the port trains on this mesh (or ``{dim: size}``): its
-    ``model`` dim must be 1."""
+def check_trainable(mesh_or_shape, cfg=None) -> None:
+    """Raise unless the port trains ``cfg`` on this mesh (or ``{dim:
+    size}``): Ulysses sequence parallelism (``cfg.use_ulysses``) over a
+    ``model`` dim over 1 is not ported."""
     shape = mesh_or_shape if isinstance(mesh_or_shape, dict) \
         else mesh_shape(mesh_or_shape)
-    if shape.get("model", 1) > 1:
+    if cfg is not None and cfg.use_ulysses and shape.get("model", 1) > 1:
         raise NotImplementedError(
-            f"training on the mesh {shape} needs tensor parallelism over "
-            f"'model' (attention heads, the expert FFN's psum, the "
-            f"vocab-parallel embedding and loss), which is not ported to "
-            f"repro_torch yet (ROADMAP.md); use a mesh whose 'model' dim "
-            f"is 1")
+            f"{cfg.name}: Ulysses sequence parallelism over 'model' "
+            f"(use_ulysses) on the mesh {shape} is not ported to "
+            f"repro_torch yet (ROADMAP.md)")

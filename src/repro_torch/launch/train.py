@@ -8,29 +8,38 @@
 ``--device`` defaults to ``cuda`` and raises on a machine without a card.
 
 On a mesh, ``build_training(cfg, mesh, rules)`` trains with expert
-parallelism over ``ep_axes(mesh)`` and data parallelism over the "batch"
-rule's axes: every rank of an initialised process group (gloo or NCCL)
-calls it with the same ``DeviceMesh`` (``core.cache.cart_create``, or
-``launch.mesh``) whose ``model`` dim is 1, draws the same global
-parameters from ``seed`` and keeps its shard, and ``Trainer`` (given
-``sharding=``) and ``SyntheticLM(mesh=...)`` run on it.  The CLI's
-``--mesh debug`` / ``debug_multi`` are the reference's debug meshes,
-whose ``model`` dim is 4: they raise, naming tensor parallelism over
-``model`` as what is not ported (ROADMAP.md).
+parallelism over ``ep_axes(mesh)``, data parallelism over the "batch"
+rule's axes and tensor parallelism over ``model``: every rank of an
+initialised process group (gloo or NCCL) calls it with the same
+``DeviceMesh`` (``core.cache.cart_create``, or ``launch.mesh``), draws
+the same global parameters from ``seed`` and keeps its shard, and
+``Trainer`` (given ``sharding=``) and ``SyntheticLM(mesh=...)`` run on
+it.  The CLI's ``--mesh debug`` / ``debug_multi`` are the reference's
+debug meshes, ``(data=2, model=4)`` and ``(pod=2, data=2, model=4)``: run
+under a launcher that starts 8 or 16 ranks (environment init), e.g.
+
+  PYTHONPATH=src torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+      --arch phi3.5-moe-42b --smoke --mesh debug --device cpu --steps 3
+
+or in a process group the caller initialised; a world of another size
+is refused.  The launcher's group is NCCL where every local rank has a
+card of its own, else gloo (NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.data import CopyTaskConfig, SyntheticLM
-from repro_torch.launch.mesh import check_trainable, debug_shape
+from repro_torch.launch.mesh import check_trainable, debug_shape, make_mesh
 from repro_torch.models import build_model, make_train_step
 from repro_torch.models.common import (param_shardings, resolve_device,
                                        tree_map)
@@ -47,7 +56,7 @@ def build_training(cfg, mesh=None, rules=None, *, lr=3e-4, warmup=100,
     (``common.param_shardings``), and the AdamW state is the shard's."""
     device = resolve_device(device)
     if mesh is not None:
-        check_trainable(mesh)
+        check_trainable(mesh, cfg)
     model = build_model(cfg)
     opt = AdamW(AdamWConfig(lr=cosine_with_warmup(lr, warmup, total)))
     params = model.init(torch.Generator(device=device).manual_seed(seed),
@@ -59,6 +68,31 @@ def build_training(cfg, mesh=None, rules=None, *, lr=3e-4, warmup=100,
     opt_state = opt.init(params)
     step_fn = make_train_step(model, opt, mesh, rules, grad_accum=grad_accum)
     return model, opt, params, opt_state, step_fn
+
+
+def _join_world(shape: dict, device) -> bool:
+    """Make sure a process group of ``prod(shape)`` ranks is up: the
+    caller's, or one from the environment a launcher such as torchrun
+    sets.  Returns whether this call initialised it."""
+    n = math.prod(shape.values())
+    started = False
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"the mesh {shape} needs {n} ranks: start this module under "
+                f"a launcher, e.g. torchrun --nproc-per-node {n} -m "
+                f"repro_torch.launch.train ...")
+        nccl = device.type == "cuda" and torch.cuda.device_count() >= int(
+            os.environ.get("LOCAL_WORLD_SIZE", 1))
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+        dist.init_process_group("nccl" if nccl else "gloo")
+        started = True
+    if dist.get_world_size() != n:
+        raise SystemExit(f"the mesh {shape} needs {n} ranks, the world has "
+                         f"{dist.get_world_size()}")
+    return started
 
 
 def main(argv=None):
@@ -79,31 +113,43 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":     # the debug meshes have model = 4: refused
-        check_trainable(debug_shape(multi_pod=args.mesh == "debug_multi"))
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    mesh, started = None, False
+    if args.mesh != "none":
+        shape = debug_shape(multi_pod=args.mesh == "debug_multi")
+        check_trainable(shape, cfg)
+        started = _join_world(shape, device)
+        mesh = make_mesh(shape, device_type=device.type)
     model, opt, params, opt_state, step_fn = build_training(
-        cfg, lr=args.lr, total=args.steps,
+        cfg, mesh, lr=args.lr, total=args.steps,
         warmup=min(20, args.steps // 5 or 1), grad_accum=args.grad_accum,
         device=device)
     data = SyntheticLM(CopyTaskConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                      global_batch=args.batch),
+                                      global_batch=args.batch), mesh=mesh,
                        task=args.task, device=device)
     tr = Trainer(
         TrainerConfig(total_steps=args.steps,
                       checkpoint_dir=f"{args.ckpt_dir}/{cfg.name}",
                       checkpoint_every=args.ckpt_every, log_every=10),
-        step_fn, data, params, opt_state)
+        step_fn, data, params, opt_state,
+        sharding=None if mesh is None
+        else param_shardings(model.specs(), mesh))
     tr.install_preemption_handler()
-    if args.resume and tr.try_restore():
+    say = mesh is None or tr.ckpt.sharding.writer
+    if args.resume and tr.try_restore() and say:
         print(f"[train] resumed from step {tr.step}")
     status = tr.run()
-    for row in tr.metrics_log:
-        print(json.dumps(row))
-    print(f"[train] {status} at step {tr.step} on {device}; median step "
-          f"{tr.watchdog.median * 1e3:.1f} ms")
+    if say:
+        for row in tr.metrics_log:
+            print(json.dumps(row))
+        where = device if mesh is None else \
+            f"{device} x {dist.get_world_size()} ranks, mesh {shape}"
+        print(f"[train] {status} at step {tr.step} on {where}; median step "
+              f"{tr.watchdog.median * 1e3:.1f} ms")
+    if started:
+        dist.destroy_process_group()
     return tr
 
 

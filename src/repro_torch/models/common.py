@@ -1,10 +1,11 @@
 """Parameter specs and common layers (port of ``repro.models.common``).
 
 Parameters are plain nested dicts of tensors, built from a ``ParamSpec``
-tree with an explicit ``torch.Generator`` and device.  Of the
-``logical`` axes the port reads one: on a mesh, :func:`param_shardings`
-splits each leaf with an ``"expert"`` dim over the expert-parallel group
-and keeps every other leaf whole on every rank.
+tree with an explicit ``torch.Generator`` and device.  On a mesh,
+:func:`param_shardings` reads the ``logical`` axes: each leaf with an
+``"expert"`` dim is split over the expert-parallel group, and the dim
+the rules resolve to ``model`` over the tensor-parallel group; leaves
+stay whole over ``pod`` and ``data`` otherwise (no FSDP yet).
 """
 
 from __future__ import annotations
@@ -96,20 +97,33 @@ def param_shardings(specs, mesh, rules=None):
     shaped like ``specs`` on ``mesh``: a
     ``parallel.sharding.ExpertSharding`` that splits the expert dim of
     every leaf whose logical axes name ``"expert"`` over the EP group
-    (``ep_axes(mesh)``) and keeps the others whole.  ``rules`` is taken
-    for the reference's signature; the expert split does not read it."""
-    from repro_torch.parallel.sharding import ExpertSharding, ep_axes
-    axes, n_experts = {}, None
-    if ep_axes(mesh):
-        for path, spec in tree_leaves(specs):
-            if "expert" in spec.logical:
-                axis = spec.logical.index("expert")
-                axes[path] = axis
-                if n_experts not in (None, spec.shape[axis]):
-                    raise ValueError(f"{path}: {spec.shape[axis]} experts, "
-                                     f"other leaves {n_experts}")
-                n_experts = spec.shape[axis]
-    return ExpertSharding(axes, n_experts or 1, mesh)
+    (``ep_axes(mesh)``), and the dim the resolver gives ``model`` under
+    ``rules`` (``parallel.sharding.model_dim``: heads, kv heads, the
+    FFN's hidden dim, the vocab) over ``model``.  A ``"kv_heads"`` leaf
+    kept whole beside a sibling ``"heads"`` leaf that is split is
+    ``partial``: each ``model`` rank projects only the kv heads its query
+    heads read.  The FSDP rules are not applied."""
+    from repro_torch.parallel.sharding import (ExpertSharding, ep_axes,
+                                               model_dim)
+    axes, model_axes, n_experts = {}, {}, None
+    leaves = tree_leaves(specs)
+    for path, spec in leaves:
+        if ep_axes(mesh) and "expert" in spec.logical:
+            axis = spec.logical.index("expert")
+            axes[path] = axis
+            if n_experts not in (None, spec.shape[axis]):
+                raise ValueError(f"{path}: {spec.shape[axis]} experts, "
+                                 f"other leaves {n_experts}")
+            n_experts = spec.shape[axis]
+        dim = model_dim(spec.shape, spec.logical, mesh, rules)
+        if dim is not None:
+            model_axes[path] = dim
+    parent = lambda path: path.rpartition("/")[0]
+    split_heads = {parent(p) for p, spec in leaves
+                   if "heads" in spec.logical and p in model_axes}
+    partial = {p for p, spec in leaves if "kv_heads" in spec.logical
+               and p not in model_axes and parent(p) in split_heads}
+    return ExpertSharding(axes, n_experts or 1, mesh, model_axes, partial)
 
 
 def init_params(specs, generator: torch.Generator, device,
@@ -198,3 +212,56 @@ def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
     if z_loss:
         loss = loss + z_loss * lse ** 2
     return loss
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """``softmax_cross_entropy`` over logits split along the vocab: each
+    rank holds the columns ``lo .. lo + V_loc - 1``.  Forward: one
+    all-reduce of the rows' max, one of the sum of exp and the target
+    logit.  Backward, with no collective: ``(softmax - onehot + 2 z lse
+    softmax) * dce`` on this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, z_loss, pg, lo):
+        import torch.distributed as dist
+        from repro_torch.parallel.sharding import TP_SPAN
+        logits = logits.float()
+        V = logits.shape[-1]
+        gmax = torch.amax(logits, dim=-1)
+        with torch.profiler.record_function(TP_SPAN):
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=pg)
+        e = torch.exp(logits - gmax[..., None])
+        local = labels.long() - lo
+        inside = (local >= 0) & (local < V)
+        idx = local.clamp(0, V - 1)
+        target = torch.gather(logits, -1, idx[..., None])[..., 0]
+        sums = torch.stack([e.sum(-1), torch.where(
+            inside, target, torch.zeros_like(target))])
+        with torch.profiler.record_function(TP_SPAN):
+            dist.all_reduce(sums, group=pg)
+        lse = torch.log(sums[0]) + gmax
+        loss = lse - sums[1]
+        if z_loss:
+            loss = loss + z_loss * lse ** 2
+        ctx.save_for_backward(e / sums[0][..., None], idx, inside, lse)
+        ctx.z_loss = z_loss
+        return loss
+
+    @staticmethod
+    def backward(ctx, dce):
+        soft, idx, inside, lse = ctx.saved_tensors
+        g = soft
+        if ctx.z_loss:
+            g = g * (1.0 + 2.0 * ctx.z_loss * lse[..., None])
+        onehot = torch.zeros_like(soft).scatter_(
+            -1, idx[..., None], inside[..., None].to(soft.dtype))
+        return (g - onehot) * dce[..., None], None, None, None, None
+
+
+def vocab_parallel_cross_entropy(logits, labels, z_loss: float, group,
+                                 lo: int):
+    """Per-position loss, f32, as :func:`softmax_cross_entropy` of the
+    logits gathered over the ``PeerGroup`` ``group``, from this rank's
+    vocab columns ``logits`` (..., V_loc) starting at ``lo``; the same
+    value on every rank of the group (collective)."""
+    return _VocabParallelCE.apply(logits, labels, z_loss, group.pg, lo)

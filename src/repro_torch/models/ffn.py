@@ -1,8 +1,17 @@
-"""Dense FFN blocks, SwiGLU / GELU-MLP (port of ``repro.models.ffn``)."""
+"""Dense FFN blocks, SwiGLU / GELU-MLP (port of ``repro.models.ffn``).
+
+On a mesh whose ``model`` dim splits the hidden dim (the ``mlp`` rule),
+``w1`` / ``w3`` / ``b1`` are column-parallel and ``w2`` row-parallel
+(Megatron): the input goes through ``tp_copy``, the ``w2`` product's
+partial sums through ``tp_reduce`` (in f32), and ``b2`` is added once,
+after it.
+"""
 
 from __future__ import annotations
 
 from repro_torch.models.common import ParamSpec, gelu, silu
+from repro_torch.parallel.sharding import (model_dim, tp_copy, tp_group,
+                                           tp_reduce)
 from .config import ModelConfig
 
 
@@ -22,11 +31,25 @@ def ffn_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def ffn_block(p, x, cfg: ModelConfig):
+def ffn_block(p, x, cfg: ModelConfig, mesh=None, rules=None):
+    """x: (B, S, D) -> (B, S, D); on a mesh that splits the hidden dim,
+    over this rank's slice of it, summed over ``model``."""
     cd = cfg.cdtype
-    x = x.to(cd)
+    spec = ffn_specs(cfg)["w1"]
+    group = None if model_dim(spec.shape, spec.logical, mesh, rules) is None \
+        else tp_group(mesh)
+    x = tp_copy(x.to(cd), group)
     if cfg.act == "swiglu":
         h = silu(x @ p["w1"].to(cd)) * (x @ p["w3"].to(cd))
-        return h @ p["w2"].to(cd)
+        return _down(h, p["w2"], cd, group)
     h = gelu(x @ p["w1"].to(cd) + p["b1"].to(cd))
-    return h @ p["w2"].to(cd) + p["b2"].to(cd)
+    return _down(h, p["w2"], cd, group) + p["b2"].to(cd)
+
+
+def _down(h, w2, cd, group):
+    """``h @ w2``; under tensor parallelism the partial sums stay f32
+    until they are summed over ``model`` (one rounding, as on one
+    device)."""
+    if group is None:
+        return h @ w2.to(cd)
+    return tp_reduce(h.float() @ w2.to(cd).float(), group).to(cd)

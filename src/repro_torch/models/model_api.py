@@ -3,12 +3,13 @@
 ``make_train_step``, ``make_serve_step``, ``make_prefill_fn``).
 
 Each step function takes the reference's ``mesh=None, rules=None``.  On a
-``DeviceMesh`` (its ``model`` dim 1) every rank calls it collectively
-with its row block of the batch and its parameter shard
-(``common.param_shardings``): the experts split over the EP group, every
-other leaf whole.  ``make_train_step`` then reduces the gradients with
-:func:`reduce_grads` so that every rank steps with the one-device
-gradient of the global batch.
+``DeviceMesh`` every rank calls it collectively with its row block of
+the batch and its parameter shard (``common.param_shardings``): the
+experts split over the EP group, heads, the FFN's hidden dim and the
+vocab over ``model``, every other leaf whole.  ``make_train_step`` then
+reduces the gradients with :func:`reduce_grads` so that every rank
+steps with its shard of the one-device gradient of the global batch;
+``make_prefill_fn`` and ``make_serve_step`` return full-vocab logits.
 """
 
 from __future__ import annotations
@@ -51,14 +52,20 @@ def reduce_grads(grads, sharding, group):
     * an expert leaf already holds the sum over the ranks whose tokens
       its experts served (the dispatch's backward brought it), so it is
       scaled by ``1 / n``; with replicas (``n_experts`` < G) the copies
-      of an expert are summed first (``ExpertSharding.sum_replicas``).
+      of an expert are summed first (``ExpertSharding.sum_replicas``);
+    * a leaf split over ``model`` is this rank's slice of the gradient
+      (the tensor-parallel Functions brought the full cotangent to it),
+      averaged over the batch group like a whole leaf;
+    * a ``partial`` whole leaf (a kv projection whose heads the ``model``
+      ranks share out) is first summed over ``model``
+      (``ExpertSharding.sum_partial``).
     """
     if sharding is None:
         return grads
     n = 1 if group is None else group.size
     out = {}
     for path, g in tree_leaves(grads):
-        g32 = g.float()
+        g32 = sharding.sum_partial(path, g.float())
         if path in sharding.axes:
             g32 = sharding.sum_replicas(path, g32)
         elif group is not None:
@@ -155,10 +162,12 @@ def make_serve_step(model, mesh=None, rules=None):
 
 
 def make_prefill_fn(model, mesh=None, rules=None):
-    """Full-sequence prefill returning last-position logits (B, V) f32."""
+    """Full-sequence prefill returning last-position logits (B, V) f32
+    (gathered over ``model`` on a mesh that splits the vocab)."""
     @torch.no_grad()
     def prefill(params, tokens):
         logits, _ = model.forward(params, tokens, mesh=mesh, rules=rules)
-        return logits[:, -1]
+        return model.full_logits(logits[:, -1].contiguous(), mesh=mesh,
+                                 rules=rules)
 
     return prefill

@@ -30,8 +30,19 @@ the cotangents of every rank's copy.  So each rank's gradient of its
 own loss reaches its experts summed over the ranks whose tokens they
 served; ``model_api.reduce_grads`` scales it to the global batch and,
 with replicas (``n_experts`` < G), sums the copies of an expert, the
-pullback of the reference's ``jnp.tile``.  Tensor parallelism over
-``model`` is not ported yet (ROADMAP).
+pullback of the reference's ``jnp.tile``.
+
+Tensor parallelism: on a mesh whose ``model`` dim splits the experts'
+hidden dim F (the ``mlp`` rule), each rank holds its F slice of its
+experts' ``w1`` / ``w3`` / ``w2``, and the expert FFN's partial output is
+summed over ``model`` before the reverse exchange (the reference's
+``psum``, here ``parallel.sharding.tp_reduce``); its input goes through
+``tp_copy``, whose backward sums the input's gradient.  Both sit inside
+the expert FFN, so the overlap engine's per-chunk recompute and the
+dropless path differentiate them.  Every ``model`` rank of one ``(pod,
+data)`` coordinate holds the same tokens and routes them alike (the
+router's input is the same bits on each), and exchanges over the EP
+group of its own ``model`` column.
 """
 
 from __future__ import annotations
@@ -42,17 +53,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.autotune import db_fingerprint, lookup_ragged_measured
-from repro_torch.core.cache import mesh_shape
 from repro_torch.core.comm import torus_comm
 from repro_torch.core.plan import itemsize
 from repro_torch.core.profile_inspect import EXPERT_SPAN
 from repro_torch.core.ragged import next_pow2
 from repro_torch.core.tuning import choose_ragged_algorithm, default_links
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ParamSpec, gelu, silu
+from repro_torch.models.common import (ParamSpec, gelu, param_shardings,
+                                       silu)
 from repro_torch.parallel.sharding import (ShardingRules, all_reduce_sum,
                                            batch_group, ep_geometry,
-                                           expert_range)
+                                           model_dim, tp_copy, tp_group,
+                                           tp_reduce)
 from .config import ModelConfig
 
 
@@ -158,12 +170,21 @@ def moe_dropless_a2a_plan(cfg: ModelConfig, mesh, axes, E_loc: int, C: int,
     return moe_ragged_a2a_plan(cfg, mesh, axes, E_loc, C, n_loc)
 
 
-def expert_shard(p: dict, cfg: ModelConfig, mesh) -> dict:
+def expert_shard(p: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
     """This rank's MoE parameters under ``mesh``: the router, and the
     ``(E_loc, ...)`` slice of the virtual-expert weights its EP rank owns
-    (a replica's single expert when ``n_experts`` < G)."""
-    lo, E_loc = expert_range(cfg.n_experts, mesh)
-    return {**p, **{k: p[k][lo:lo + E_loc] for k in ("w1", "w3", "w2")}}
+    (a replica's single expert when ``n_experts`` < G), cut to its slice
+    of F where ``model`` splits it (:func:`moe_tp_group`)."""
+    return param_shardings(moe_specs(cfg), mesh, rules).shard_tree(p)
+
+
+def moe_tp_group(cfg: ModelConfig, mesh, rules=None):
+    """The ``model`` group the expert FFN's partial output is summed over,
+    or None where the ``mlp`` rule does not split F on ``mesh``."""
+    spec = moe_specs(cfg)["w1"]
+    if model_dim(spec.shape, spec.logical, mesh, rules) is None:
+        return None
+    return tp_group(mesh)
 
 
 def _virtual_weights(w, G: int):
@@ -186,13 +207,15 @@ def _capacity(cfg: ModelConfig, n_tokens: int, n_slots: int) -> int:
 
 
 def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
-               C, plan=None, ragged_plan=None, reduce_group=None):
+               C, plan=None, ragged_plan=None, reduce_group=None, tp=None):
     """x: (B, S, D) this rank's tokens; w*: virtual-expert weights
-    (., E_loc, ...) whose first slice is this rank's experts; ``plan`` the
-    resolved A2APlan (None when there is no EP group); ``ragged_plan``
-    the RaggedA2APlan or SparseA2APlan dropless dispatch runs through
-    instead; ``reduce_group`` the communicator the aux-loss statistics are
-    averaged over.  Returns (y (B, S, D), aux loss)."""
+    (., E_loc, ...) whose first slice is this rank's experts (their F
+    slice under ``tp``); ``plan`` the resolved A2APlan (None when there
+    is no EP group); ``ragged_plan`` the RaggedA2APlan or SparseA2APlan
+    dropless dispatch runs through instead; ``reduce_group`` the
+    communicator the aux-loss statistics are averaged over; ``tp`` the
+    ``model`` group the expert FFN's output is summed over.  Returns (y
+    (B, S, D), aux loss)."""
     B, S, D = x.shape
     N = B * S
     E = cfg.n_experts
@@ -244,14 +267,14 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
         # a profiler span, the compute mark of core.profile_inspect
         with torch.profiler.record_function(EXPERT_SPAN):
             Cc = recv.shape[2]
-            xe = recv.permute(1, 0, 2, 3).reshape(E_loc, G * Cc, D) \
-                .contiguous()
+            xe = tp_copy(recv.permute(1, 0, 2, 3).reshape(E_loc, G * Cc, D)
+                         .contiguous(), tp)
             if cfg.act == "swiglu":
                 h = silu(kops.expert_matmul(xe, w1.to(cd))) \
                     * kops.expert_matmul(xe, w3.to(cd))
             else:
                 h = gelu(kops.expert_matmul(xe, w1.to(cd)))
-            ye = kops.expert_matmul(h, w2.to(cd))
+            ye = tp_reduce(kops.expert_matmul(h, w2.to(cd)), tp)
             return ye.reshape(E_loc, G, Cc, D).permute(1, 0, 2, 3)
 
     # ---- the paper's collective, through its resolved A2APlan, on the
@@ -310,7 +333,8 @@ def moe_block(p, x, cfg: ModelConfig, mesh=None,
 
     With a ``DeviceMesh``, every rank of it calls this collectively with
     its own shard of the batch (split over the mesh dims of the "batch"
-    rule) and its own expert slice (``expert_shard(p, cfg, mesh)``).
+    rule; the ``model`` ranks of one row block hold the same rows) and
+    its own expert slice (``expert_shard(p, cfg, mesh)``).
     """
     axes, G, E_loc, R = _group_geometry(cfg, mesh)
     B, S, _ = x.shape
@@ -320,16 +344,13 @@ def moe_block(p, x, cfg: ModelConfig, mesh=None,
                           _virtual_weights(p["w3"], G),
                           _virtual_weights(p["w2"], G), cfg=cfg, G=G,
                           E_loc=E_loc, R=R, C=C)
-    shape = mesh_shape(mesh)
-    if shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "tensor parallelism over the 'model' mesh dim (the expert "
-            "FFN's psum) is not ported yet (ROADMAP.md); use a mesh "
-            "without it")
-    if p["w1"].shape[0] != E_loc:
+    tp = moe_tp_group(cfg, mesh, rules)
+    F_loc = cfg.d_ff // (1 if tp is None else tp.size)
+    if tuple(p["w1"].shape) != (E_loc, cfg.d_model, F_loc):
         raise ValueError(
-            f"under a mesh moe_block takes this rank's {E_loc} experts "
-            f"(expert_shard), got w1 of shape {tuple(p['w1'].shape)}")
+            f"under a mesh moe_block takes this rank's {E_loc} experts and "
+            f"its {F_loc} of F (expert_shard), got w1 of shape "
+            f"{tuple(p['w1'].shape)}")
     reduce_group = batch_group(mesh, rules)
     # dropless replaces the capacity path's dense plan with the ragged or
     # sparse Alltoallv plan
@@ -341,4 +362,4 @@ def moe_block(p, x, cfg: ModelConfig, mesh=None,
     return _moe_inner(x, p["router"], p["w1"][None], p["w3"][None],
                       p["w2"][None], cfg=cfg, G=G, E_loc=E_loc, R=R, C=C,
                       plan=plan, ragged_plan=ragged,
-                      reduce_group=reduce_group)
+                      reduce_group=reduce_group, tp=tp)

@@ -17,10 +17,20 @@ Modes:
     which it updates in place.
 
 Each takes ``mesh=None, rules=None`` as the reference does and hands them
-to the MoE layer.  On a ``DeviceMesh`` every rank calls them
-collectively with its row block of the batch and its parameter shard
-(``models.common.param_shardings``); the ranks issue the same
-collectives in the same order, the remat recompute's included.
+to the attention, FFN and MoE layers.  On a ``DeviceMesh`` every rank
+calls them collectively with its row block of the batch and its
+parameter shard (``models.common.param_shardings``); the ranks issue the
+same collectives in the same order, the remat recompute's included.
+
+Tensor parallelism over ``model`` (where the ``vocab`` rule splits the
+vocab, :func:`vocab_layout`): the embedding is vocab-parallel (each rank
+looks up the tokens of its rows, zeros elsewhere, summed over ``model``
+by ``tp_reduce``); ``forward`` returns this rank's ``(B, S, V/|model|)``
+f32 slice of the logits (the head's input through ``tp_copy``); the
+loss is ``common.vocab_parallel_cross_entropy``; ``decode_step`` and
+``prefill`` return full-vocab logits, gathered over ``model``.  The
+``model`` ranks of a row block hold the same rows and compute the same
+loss, so the loss's denominator is the batch group's alone.
 """
 
 from __future__ import annotations
@@ -37,8 +47,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
                                        resolve_device, rms_norm,
                                        softmax_cross_entropy, stack_specs,
-                                       tree_map)
-from repro_torch.parallel.sharding import batch_group
+                                       tree_map,
+                                       vocab_parallel_cross_entropy)
+from repro_torch.parallel.sharding import (batch_group, model_dim, tp_copy,
+                                           tp_gather, tp_group, tp_rank,
+                                           tp_reduce)
 from .config import ModelConfig
 
 PORTED_MIXERS = ("attn",)
@@ -83,10 +96,11 @@ def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False,
     """One (attn, ffn) position.  Returns (x, aux)."""
     h = _apply_norm(pp["norm1"], x, cfg)
     if decode:
-        y, _ = attn.decode_attention(pp["mixer"], h, state, positions, cfg)
+        y, _ = attn.decode_attention(pp["mixer"], h, state, positions, cfg,
+                                     mesh, rules)
     else:
         y = attn.attention_block(pp["mixer"], h, cfg, causal=True,
-                                 positions=positions)
+                                 positions=positions, mesh=mesh, rules=rules)
     x = x + y.to(x.dtype)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -96,7 +110,7 @@ def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False,
             y, aux = moe_mod.moe_block(pp["ffn"], h, cfg, mesh=mesh,
                                        rules=rules)
         else:
-            y = ffn_mod.ffn_block(pp["ffn"], h, cfg)
+            y = ffn_mod.ffn_block(pp["ffn"], h, cfg, mesh, rules)
         x = x + y.to(x.dtype)
     return x, aux
 
@@ -121,6 +135,18 @@ def _remat(cfg: ModelConfig) -> bool:
             f"remat_policy={cfg.remat_policy!r} is not ported to repro_torch "
             f"yet (only 'nothing'); ROADMAP.md lists it")
     return True
+
+
+def vocab_layout(cfg: ModelConfig, mesh=None, rules=None):
+    """``(group, lo, V_loc)``: the ``model`` group the embedding and the
+    head are split over and this rank's vocab rows ``lo .. lo + V_loc -
+    1``, or None where the ``vocab`` rule does not split them."""
+    if model_dim((cfg.vocab, cfg.d_model), ("vocab", "embed_fsdp"), mesh,
+                 rules) is None:
+        return None
+    group = tp_group(mesh)
+    n = cfg.vocab // group.size
+    return group, tp_rank(group) * n, n
 
 
 def _layer(tree, i: int):
@@ -165,21 +191,39 @@ class Model:
                            self.cfg.pdtype)
 
     # ---- embedding / head ----
-    def embed(self, params, tokens):
-        return params["embed"][tokens.long()].to(self.cfg.cdtype)
+    def embed(self, params, tokens, *, mesh=None, rules=None):
+        vl = vocab_layout(self.cfg, mesh, rules)
+        if vl is None:
+            return params["embed"][tokens.long()].to(self.cfg.cdtype)
+        group, lo, n = vl
+        local = tokens.long() - lo
+        inside = (local >= 0) & (local < n)
+        rows = params["embed"][local.clamp(0, n - 1)]
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return tp_reduce(rows, group).to(self.cfg.cdtype)
 
-    def logits(self, params, x):
-        """f32 logits: compute-dtype inputs, f32 sums."""
+    def logits(self, params, x, *, mesh=None, rules=None):
+        """f32 logits: compute-dtype inputs, f32 sums; where the vocab is
+        split over ``model``, this rank's columns (:func:`vocab_layout`)."""
         w = params.get("lm_head", params["embed"])
         cd = self.cfg.cdtype
-        return torch.einsum("bsd,vd->bsv", x.to(cd).float(),
-                            w.to(cd).float())
+        vl = vocab_layout(self.cfg, mesh, rules)
+        x = tp_copy(x.to(cd).float(), None if vl is None else vl[0])
+        return torch.einsum("bsd,vd->bsv", x, w.to(cd).float())
+
+    def full_logits(self, logits, *, mesh=None, rules=None):
+        """Every rank's vocab columns of ``logits`` gathered over
+        ``model`` (no autograd); ``logits`` as they are where the vocab
+        is whole."""
+        vl = vocab_layout(self.cfg, mesh, rules)
+        return logits if vl is None else tp_gather(logits, vl[0], -1)
 
     # ---- full-sequence forward (train / prefill) ----
     def forward(self, params, tokens, *, mesh=None, rules=None):
-        """tokens: (B, S) -> (logits (B, S, V) f32, aux loss)."""
+        """tokens: (B, S) -> (logits (B, S, V) f32, aux loss); on a mesh
+        that splits the vocab, this rank's (B, S, V / |model|) columns."""
         cfg = self.cfg
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, mesh=mesh, rules=rules)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
@@ -196,7 +240,7 @@ class Model:
                                          rules)
             aux = aux + a
         x = _apply_norm(params["final_norm"], x, cfg)
-        return self.logits(params, x), aux
+        return self.logits(params, x, mesh=mesh, rules=rules), aux
 
     # ---- loss ----
     def loss(self, params, batch, *, mesh=None, rules=None):
@@ -210,11 +254,18 @@ class Model:
         ``1 / n`` for its ``n`` ranks: each rank's loss is its share of
         the global mean times ``n``, so the mean over the ranks of their
         losses (and metrics) is the one-device loss of the global batch,
-        for any split of the mask."""
+        for any split of the mask.  The ``model`` ranks of a row block
+        compute the same loss (a vocab-parallel cross-entropy where the
+        vocab is split)."""
         cfg = self.cfg
         logits, aux = self.forward(params, batch["tokens"], mesh=mesh,
                                    rules=rules)
-        ce = softmax_cross_entropy(logits, batch["labels"], cfg.z_loss)
+        vl = vocab_layout(cfg, mesh, rules)
+        if vl is None:
+            ce = softmax_cross_entropy(logits, batch["labels"], cfg.z_loss)
+        else:
+            ce = vocab_parallel_cross_entropy(logits, batch["labels"],
+                                              cfg.z_loss, vl[0], vl[1])
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones_like(ce)
@@ -233,14 +284,17 @@ class Model:
                        "total_loss": total}
 
     # ---- decode ----
-    def init_caches(self, batch: int, max_seq: int, device="cuda"):
-        """Stacked (n_superblocks, ...) KV caches plus per-slot positions."""
+    def init_caches(self, batch: int, max_seq: int, device="cuda", *,
+                    mesh=None, rules=None):
+        """Stacked (n_superblocks, ...) KV caches plus per-slot positions;
+        on a mesh the kv heads this rank's attention uses
+        (``attention.head_layout``)."""
         cfg = self.cfg
         device = resolve_device(device)
         # sliding-window attention needs only `window` slots (ring buffer)
         slots = min(max_seq, cfg.window) if cfg.window else max_seq
-        spec = attn.CacheSpec(batch, cfg.n_kv_heads, slots, cfg.hd,
-                              cfg.cdtype)
+        spec = attn.CacheSpec(batch, attn.head_layout(cfg, mesh, rules).n_kv,
+                              slots, cfg.hd, cfg.cdtype)
         n = cfg.n_superblocks
         states = {}
         for i in range(len(cfg.superblock)):
@@ -262,10 +316,11 @@ class Model:
 
     def decode_step(self, params, tokens_t, caches, *, mesh=None,
                     rules=None):
-        """tokens_t: (B, 1).  Returns (logits (B, 1, V) f32, caches); the
-        KV caches are updated in place, ``pos`` is a new tensor."""
+        """tokens_t: (B, 1).  Returns (logits (B, 1, V) f32, full-vocab on
+        a mesh too, caches); the KV caches are updated in place, ``pos``
+        is a new tensor."""
         cfg = self.cfg
-        x = self.embed(params, tokens_t)
+        x = self.embed(params, tokens_t, mesh=mesh, rules=rules)
         pos = caches["pos"]
         for i in range(cfg.n_superblocks):
             params_sb = _layer(params["blocks"], i)
@@ -275,5 +330,6 @@ class Model:
                                        pos, state=states_sb[f"pos{j}"],
                                        decode=True, mesh=mesh, rules=rules)
         x = _apply_norm(params["final_norm"], x, cfg)
-        return self.logits(params, x), {"states": caches["states"],
-                                        "pos": pos + 1}
+        logits = self.logits(params, x, mesh=mesh, rules=rules)
+        return self.full_logits(logits, mesh=mesh, rules=rules), {
+            "states": caches["states"], "pos": pos + 1}

@@ -27,18 +27,15 @@ def global_norm(tree, sharding=None) -> torch.Tensor:
     With ``sharding`` (a ``parallel.sharding.ExpertSharding`` for the
     tree on a mesh) the norm is that of the global tree, the same on
     every rank: the squares of the expert leaves are summed over the EP
-    group and divided by the replica count R, so each global expert
-    counts once, and each whole leaf counts once (collective)."""
+    group and divided by the replica count R, those of the leaves split
+    over ``model`` summed over ``model``, and each whole leaf counts
+    once (``ExpertSharding.tree_sq_sum``: collective)."""
     leaves = tree_leaves(tree)
     sq = [torch.sum(torch.square(x.float())) for _, x in leaves]
-    if sharding is None or not sharding.axes:
+    if sharding is None or not (sharding.axes or sharding.model_axes):
         return torch.sqrt(torch.sum(torch.stack(sq)))
-    expert = [s for (p, _), s in zip(leaves, sq) if p in sharding.axes]
-    whole = [s for (p, _), s in zip(leaves, sq) if p not in sharding.axes]
-    total = sharding.expert_sq_sum(torch.sum(torch.stack(expert)))
-    if whole:
-        total = total + torch.sum(torch.stack(whole))
-    return torch.sqrt(total)
+    return torch.sqrt(sharding.tree_sq_sum(
+        [(p, s) for (p, _), s in zip(leaves, sq)]))
 
 
 def clip_by_global_norm(tree, max_norm: float, gnorm=None):

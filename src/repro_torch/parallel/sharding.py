@@ -1,25 +1,36 @@
 """Logical-axis sharding rules and the layout of the sharded training
 state (port of the part of ``repro.parallel.sharding`` the port needs).
 
-The reference maps logical tensor axes ("batch", "expert", ...) to
-physical mesh axes and lets GSPMD shard arrays by them.  The port runs
+The reference maps logical tensor axes ("batch", "expert", "heads", ...)
+to physical mesh axes and lets GSPMD shard arrays by them.  The port runs
 SPMD by hand: each rank already holds its shard, so what is needed is the
-mapping and the few collectives GSPMD would insert:
+mapping and the collectives GSPMD would insert:
 
+* :func:`resolve_spec`, the reference's resolver with its divisibility
+  fallback, and :func:`model_dim`, the dim of a leaf it splits over
+  ``model``;
 * the "batch" rule's split (:func:`batch_axes`, :func:`batch_split`,
   :func:`batch_group`): rank order ``P(("pod", "data"))``, row block
   ``pod * |data| + data``, which is also the EP virtual rank;
-* the expert-parallel group (:func:`ep_axes`, :func:`ep_geometry`);
+* the expert-parallel group (:func:`ep_axes`, :func:`ep_geometry`) and
+  the tensor-parallel group over ``model`` (:func:`tp_group`);
 * :class:`ExpertSharding`, the counterpart of ``param_shardings`` for a
-  tree: which leaves a rank holds as its slice of the expert dim
-  (logical ``"expert"``, split over the EP group), every other leaf
-  whole, and the collectives that move between the two;
+  tree: which leaves a rank holds as its slice of the expert dim (split
+  over the EP group), which as its slice of a dim the resolver splits
+  over ``model`` (heads, kv heads, the FFN's hidden dim, the vocab), and
+  which whole leaves get only a partial gradient on each ``model`` rank;
+  and the collectives that move between the shards and the global tree;
 * :func:`all_reduce_sum`, an all-reduce autograd differentiates (the
-  reference's ``pmean`` inside a differentiated ``shard_map``).
+  reference's ``pmean`` inside a differentiated ``shard_map``), and the
+  two conjugate tensor-parallel Functions, :func:`tp_copy` (identity
+  forward, sum backward: the input of a column-parallel product) and
+  :func:`tp_reduce` (sum forward, identity backward: the output of a
+  row-parallel product).
 
-``resolve_spec``, ``constrain`` and ``use_mesh`` have no counterpart;
-the FSDP rules (``fsdp``, ``embed_fsdp``) and the ``model`` axis are
-not applied (ROADMAP.md).
+``constrain`` and ``use_mesh`` have no counterpart.  Of the resolved
+axes the port applies ``model`` and the expert split; the FSDP rules
+(``fsdp``, ``embed_fsdp``) are not applied, so leaves stay whole over
+``pod`` and ``data`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -91,6 +102,50 @@ class ShardingRules:
             if name not in seen:
                 new.append((name, tuple(kw[name]) if kw[name] else ()))
         return ShardingRules(tuple(new))
+
+
+def resolve_spec(shape, logical, mesh, rules: ShardingRules | None = None
+                 ) -> tuple:
+    """The reference's ``resolve_spec`` without jax: the physical axes
+    (None, a name or a tuple of names) each dim of ``shape`` is split
+    over on ``mesh`` (a ``DeviceMesh`` or ``{dim: size}``).  Fallback, in
+    order: drop axes the mesh lacks; drop axes an earlier dim used; keep
+    the longest prefix of the rule's axes whose size product divides the
+    dim."""
+    rules = rules or ShardingRules()
+    shape_of = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
+    if len(logical) != len(shape):
+        raise ValueError(f"logical {logical} does not match shape {shape}")
+    used: set[str] = set()
+    parts: list = []
+    for dim, name in zip(shape, logical):
+        want = [a for a in rules.lookup(name)
+                if a in shape_of and a not in used]
+        best: tuple[str, ...] = ()
+        acc = 1
+        for a in want:
+            if dim % (acc * shape_of[a]) == 0:
+                acc *= shape_of[a]
+                best = best + (a,)
+            else:
+                break
+        used.update(best)
+        parts.append(None if not best else best[0] if len(best) == 1
+                     else best)
+    return tuple(parts)
+
+
+def model_dim(shape, logical, mesh, rules: ShardingRules | None = None
+              ) -> int | None:
+    """The dim of a leaf of ``shape`` with ``logical`` axes that the
+    resolver splits over ``model``, or None (no mesh, ``model`` absent or
+    1, or no dim of the leaf divides)."""
+    if mesh is None or mesh_shape(mesh).get("model", 1) <= 1:
+        return None
+    for i, part in enumerate(resolve_spec(shape, logical, mesh, rules)):
+        if part == "model" or (isinstance(part, tuple) and "model" in part):
+            return i
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -218,25 +273,127 @@ def all_reduce_sum(x, group):
     return _AllReduceSum.apply(x, group.pg)
 
 
+def tp_comm(mesh):
+    """The communicator over the ``model`` dim (``core.comm.torus_comm``),
+    or None when ``mesh`` has no ``model`` dim over 1."""
+    if mesh is None or mesh_shape(mesh).get("model", 1) <= 1:
+        return None
+    return torus_comm(mesh, ("model",))
+
+
+def tp_group(mesh):
+    """The ``PeerGroup`` over the ``model`` dim (members in ``model``
+    order), or None (see :func:`tp_comm`)."""
+    comm = tp_comm(mesh)
+    return None if comm is None else comm.fact.group
+
+
+def tp_rank(group) -> int:
+    """This rank's ``model`` coordinate in the ``PeerGroup`` ``group``."""
+    return group.members.index(dist.get_rank())
+
+
+# the profiler span of every tensor-parallel collective (host time; the
+# span prefix ``repro_torch.`` is what profile readers filter on)
+TP_SPAN = "repro_torch.tp.all_reduce"
+
+
+def _summed(x, pg):
+    """The sum of ``x`` over ``pg``, formed in f32 and cast back to
+    ``x``'s dtype: one rounding, the same bits on every rank."""
+    with torch.profiler.record_function(TP_SPAN):
+        out = x.float().contiguous().clone()
+        dist.all_reduce(out, group=pg)
+        return out.to(x.dtype)
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        ctx.pg = pg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.pg), None
+
+
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pg):
+        return _summed(x, pg)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(x, group):
+    """Megatron's f: ``x`` as it is, whose cotangent is summed over the
+    ``PeerGroup`` ``group`` in the backward.  It goes at the input of a
+    column-parallel product, whose rank holds a slice of the output
+    features, so that the input's gradient collects every slice's part.
+    ``group=None``: ``x``."""
+    return x if group is None else _TPCopy.apply(x, group.pg)
+
+
+def tp_reduce(x, group):
+    """Megatron's g: the sum of ``x`` over ``group`` (in f32, cast back),
+    whose backward passes the cotangent as it is.  It goes at the output
+    of a row-parallel product, whose rank holds a partial sum.
+    (:func:`all_reduce_sum` would also sum the backward, |model| times
+    the gradient here: every rank's copy of this sum feeds the same
+    loss.)  ``group=None``: ``x``."""
+    return x if group is None else _TPReduce.apply(x, group.pg)
+
+
+def tp_gather(x, group, dim: int = -1):
+    """The concatenation over ``group``, in ``model`` order, of every
+    rank's ``x`` along ``dim`` (no autograd; ``group=None``: ``x``)."""
+    if group is None:
+        return x
+    parts = torch.empty((group.size,) + tuple(x.shape), dtype=x.dtype,
+                        device=x.device)
+    with torch.profiler.record_function(TP_SPAN):
+        dist.all_gather_into_tensor(parts, x.detach().contiguous()[None],
+                                    group=group.pg)
+    if group.order is not None:
+        parts = parts[list(group.order)]
+    return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
 # ---------------------------------------------------------------------------
 # The layout of a sharded tree
 # ---------------------------------------------------------------------------
 
 
 class ExpertSharding:
-    """How this rank holds a tree on ``mesh``: ``axes`` maps the path of
-    each leaf split over the EP group to the index of its expert dim
-    (``n_experts`` long globally, ``E_loc`` here); every other leaf is
-    whole on every rank.  Built by ``models.common.param_shardings``;
-    :meth:`prefixed` and :meth:`merged` carry it to trees that hold the
-    parameters' shapes (the AdamW moments, a trainer's state)."""
+    """How this rank holds a tree on ``mesh`` (the layout of the sharded
+    training state).  ``axes`` maps the path of each leaf split over the
+    EP group to the index of its expert dim (``n_experts`` long globally,
+    ``E_loc`` here); ``model_axes`` maps the path of each leaf split over
+    ``model`` to that dim (``|model|`` times this rank's length
+    globally).  A leaf may be in both: an expert ``w1`` ``(E, D, F)``
+    holds its EP rank's experts and its ``model`` rank's slice of F.
+    ``partial`` names whole leaves whose gradient on each ``model`` rank
+    is that rank's part only (a kv projection kept whole while the query
+    heads are split), which :meth:`sum_partial` sums over ``model``.
+    Every other leaf is whole on every rank.  Built by
+    ``models.common.param_shardings``; :meth:`prefixed` and
+    :meth:`merged` carry it to trees that hold the parameters' shapes
+    (the AdamW moments, a trainer's state)."""
 
-    def __init__(self, axes: dict, n_experts: int, mesh):
+    def __init__(self, axes: dict, n_experts: int, mesh,
+                 model_axes: dict | None = None, partial=()):
         self.axes = dict(axes)
+        self.model_axes = dict(model_axes or {})
+        self.partial = frozenset(partial)
         self.n_experts = n_experts
         self.mesh = mesh
         _, self.G, self.E_loc, self.R = ep_geometry(n_experts, mesh)
         self.comm = ep_comm(mesh) if self.axes else None
+        self.tp = tp_group(mesh) if self.model_axes or self.partial \
+            else None
         self.group = mesh_group(mesh)
 
     @property
@@ -245,16 +402,28 @@ class ExpertSharding:
         mesh coordinate 0)."""
         return self.group is None or dist.get_rank() == self.group.members[0]
 
+    def _with(self, axes, model_axes, partial) -> "ExpertSharding":
+        return ExpertSharding(axes, self.n_experts, self.mesh, model_axes,
+                              partial)
+
     def prefixed(self, prefix: str) -> "ExpertSharding":
-        return ExpertSharding({f"{prefix}/{p}": a
-                               for p, a in self.axes.items()},
-                              self.n_experts, self.mesh)
+        return self._with({f"{prefix}/{p}": a for p, a in self.axes.items()},
+                          {f"{prefix}/{p}": a
+                           for p, a in self.model_axes.items()},
+                          {f"{prefix}/{p}" for p in self.partial})
 
     def merged(self, *others) -> "ExpertSharding":
-        axes = dict(self.axes)
+        axes, model_axes = dict(self.axes), dict(self.model_axes)
+        partial = set(self.partial)
         for o in others:
             axes.update(o.axes)
-        return ExpertSharding(axes, self.n_experts, self.mesh)
+            model_axes.update(o.model_axes)
+            partial |= o.partial
+        return self._with(axes, model_axes, partial)
+
+    def split(self, path: str) -> bool:
+        """Whether this rank holds a slice of the leaf at ``path``."""
+        return path in self.axes or path in self.model_axes
 
     # -- trees and leaves ---------------------------------------------------
 
@@ -279,73 +448,108 @@ class ExpertSharding:
         out = {p: self.gather_to_writer(p, t) for p, t in tree_leaves(tree)}
         return tree_with_leaves(tree, out) if self.writer else None
 
+    def _slices(self, path: str) -> list[tuple]:
+        """``(v, m, rank)`` for each distinct slice of a split leaf, in
+        the global leaf's order: the EP virtual rank ``v`` whose experts
+        it holds (None: not split over EP; with replicas only ``0 ..
+        n_experts - 1``), its ``model`` coordinate ``m`` (None: not split
+        over ``model``), and the global rank that holds it (every other
+        mesh coordinate 0, the writer's)."""
+        shape = mesh_shape(self.mesh)
+        ep = ep_axes(self.mesh) if path in self.axes and self.comm else ()
+        vs = range(self.G if self.R == 1 else self.n_experts) if ep \
+            else [None]
+        ms = range(self.tp.size) if path in self.model_axes and self.tp \
+            else [None]
+        out = []
+        for v in vs:
+            coord, rest = {}, v
+            for a in ep:                   # fastest digit first
+                coord[a], rest = rest % shape[a], rest // shape[a]
+            for m in ms:
+                if m is not None:
+                    coord["model"] = m
+                rank = int(self.mesh.mesh[tuple(
+                    coord.get(a, 0) for a in self.mesh.mesh_dim_names)])
+                out.append((v, m, rank))
+        return out
+
     def gather_to_writer(self, path: str, t):
-        """The global leaf on the writer rank's host, None elsewhere.  An
-        expert leaf's slices travel one at a time (point to point, from
-        the ranks of the writer's EP group that hold a distinct expert
-        slice: with replicas, virtual ranks ``0 .. n_experts - 1``) and
-        each is copied into the host array as it arrives, so no rank
-        holds the global leaf on its device; the other ranks keep
-        nothing.  gloo sends from host memory, NCCL from the card."""
-        ep = None if self.comm is None else self.comm.fact.group
+        """The global leaf on the writer rank's host, None elsewhere.  A
+        split leaf's slices travel one at a time (point to point over the
+        mesh, from the rank that holds each distinct slice: see
+        :meth:`_slices`) and each is copied into the host array as it
+        arrives, so no rank holds the global leaf on its device; the
+        other ranks keep nothing.  gloo sends from host memory, NCCL from
+        the card."""
+        if self.group is None or not self.split(path):
+            return t.detach().to("cpu", copy=True).contiguous() \
+                if self.writer else None
+        slices = self._slices(path)
+        dev = collective_device(self.group.pg)
+        me = dist.get_rank()
         if not self.writer:
-            if path in self.axes and ep is not None:
-                self._send_slice(t)
+            if me in {rank for _, _, rank in slices}:
+                dist.send(t.detach().to(dev).contiguous(),
+                          dst=self.group.members[0], group=self.group.pg)
             return None
-        axis = self.axes.get(path)
-        if axis is None or ep is None:
-            return t.detach().to("cpu", copy=True).contiguous()
         out = torch.empty(self.global_shape(path, t.shape), dtype=t.dtype)
-        dev = collective_device(ep.pg)
-        for v in range(self.G if self.R == 1 else self.n_experts):
-            piece = out.narrow(axis, v * self.E_loc, self.E_loc)
-            if ep.members[v] == dist.get_rank():
+        for v, m, rank in slices:
+            piece = out
+            if v is not None:
+                piece = piece.narrow(self.axes[path], v * self.E_loc,
+                                     self.E_loc)
+            if m is not None:
+                dim = self.model_axes[path]
+                piece = piece.narrow(dim, m * t.shape[dim], t.shape[dim])
+            if rank == me:
                 piece.copy_(t.detach())
                 continue
             buf = torch.empty(t.shape, dtype=t.dtype, device=dev)
-            dist.recv(buf, src=ep.members[v], group=ep.pg)
+            dist.recv(buf, src=rank, group=self.group.pg)
             piece.copy_(buf)
         return out
-
-    def _send_slice(self, t) -> None:
-        """A non-writer's part in :meth:`gather_to_writer`: its slice to
-        the writer, if the writer's EP group is its own and no lower
-        virtual rank holds the same expert."""
-        group = self.comm.fact.group
-        writer = self.group.members[0]
-        if writer not in group.members or self.comm.rank >= (
-                self.G if self.R == 1 else self.n_experts):
-            return
-        dev = collective_device(group.pg)
-        dist.send(t.detach().to(dev).contiguous(), dst=writer, group=group.pg)
 
     def local(self, path: str, t):
         """This rank's slice of the global leaf ``t`` (a copy that owns
         its storage); a whole leaf as it is."""
-        axis = self.axes.get(path)
-        if axis is None:
+        if not self.split(path):
             return t
-        lo, n = expert_range(self.n_experts, self.mesh)
-        return t.detach().narrow(axis, lo, n).clone()
+        t = t.detach()
+        axis = self.axes.get(path)
+        if axis is not None:
+            lo, n = expert_range(self.n_experts, self.mesh)
+            t = t.narrow(axis, lo, n)
+        dim = self.model_axes.get(path)
+        if dim is not None:
+            n = t.shape[dim] // self.tp.size
+            t = t.narrow(dim, tp_rank(self.tp) * n, n)
+        return t.clone()
 
     def global_shape(self, path: str, shape) -> tuple[int, ...]:
-        shape = tuple(shape)
+        shape = list(shape)
         axis = self.axes.get(path)
-        if axis is None:
-            return shape
-        return shape[:axis] + (self.n_experts,) + shape[axis + 1:]
+        if axis is not None:
+            shape[axis] = self.n_experts
+        dim = self.model_axes.get(path)
+        if dim is not None:
+            shape[dim] *= self.tp.size
+        return tuple(shape)
 
     def gather(self, path: str, t):
         """The global leaf from every rank's slice (collective over the EP
-        group; a whole leaf is returned as it is, without one)."""
+        group, then over ``model``; a whole leaf is returned as it is)."""
         axis = self.axes.get(path)
-        if axis is None or self.comm is None:
-            return t
-        parts = _direct_allgather_impl(t.detach().contiguous(),
-                                       self.comm.fact)
-        if self.R > 1:                     # virtual rank v < E holds v
-            parts = parts[:self.n_experts]
-        return torch.cat(list(parts.unbind(0)), dim=axis)
+        if axis is not None and self.comm is not None:
+            parts = _direct_allgather_impl(t.detach().contiguous(),
+                                           self.comm.fact)
+            if self.R > 1:                 # virtual rank v < E holds v
+                parts = parts[:self.n_experts]
+            t = torch.cat(list(parts.unbind(0)), dim=axis)
+        dim = self.model_axes.get(path)
+        if dim is not None:
+            t = tp_gather(t, self.tp, dim)
+        return t
 
     def sum_replicas(self, path: str, g):
         """With replicas (R > 1), each copy of an expert's leaf summed
@@ -361,11 +565,53 @@ class ExpertSharding:
         dist.all_reduce(slots, group=self.comm.fact.group.pg)
         return slots[e]
 
-    def expert_sq_sum(self, sq):
-        """The sum over the EP group of this rank's sum of squares of its
-        expert leaves, each global expert counted once (``/ R``)."""
-        if self.comm is None or self.comm.fact.group is None:
-            return sq
-        sq = sq.clone()
-        dist.all_reduce(sq, group=self.comm.fact.group.pg)
-        return sq / self.R
+    def sum_partial(self, path: str, g):
+        """A ``partial`` leaf's gradient summed over ``model`` (collective
+        over the ``model`` group); any other leaf's as it is."""
+        if path not in self.partial or self.tp is None:
+            return g
+        g = g.clone()
+        dist.all_reduce(g, group=self.tp.pg)
+        return g
+
+    def leaf_sq_sum(self, path: str, sq):
+        """The global leaf's sum of squares from this rank's ``sq`` (any
+        shape, summed elementwise): over the EP group (each global expert
+        once, ``/ R``) and over ``model`` where the leaf is split
+        (collective over those groups)."""
+        if path in self.axes and self.comm is not None:
+            sq = sq.clone()
+            dist.all_reduce(sq, group=self.comm.fact.group.pg)
+            sq = sq / self.R
+        if path in self.model_axes and self.tp is not None:
+            sq = sq.clone()
+            dist.all_reduce(sq, group=self.tp.pg)
+        return sq
+
+    def tree_sq_sum(self, sqs: list):
+        """The global tree's sum of squares from ``(path, this rank's
+        square sum)`` pairs, each global element counted once: at most
+        one all-reduce over the EP group (the expert leaves, ``/ R``) and
+        one over ``model`` (the split leaves), the same value on every
+        rank."""
+        zero = sqs[0][1].new_zeros(())
+        whole, expert, tp_only, both = zero, zero, zero, zero
+        for path, sq in sqs:
+            e, m = path in self.axes, path in self.model_axes
+            if e and m:
+                both = both + sq
+            elif e:
+                expert = expert + sq
+            elif m:
+                tp_only = tp_only + sq
+            else:
+                whole = whole + sq
+        if self.comm is not None:
+            pair = torch.stack([expert, both])
+            dist.all_reduce(pair, group=self.comm.fact.group.pg)
+            expert, both = (pair / self.R).unbind(0)
+        if self.tp is not None:
+            pair = torch.stack([tp_only, both])
+            dist.all_reduce(pair, group=self.tp.pg)
+            tp_only, both = pair.unbind(0)
+        return whole + expert + tp_only + both

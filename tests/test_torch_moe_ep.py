@@ -15,7 +15,8 @@ pipelines dispatch, expert FFN and combine per capacity chunk), dropless
 dispatch (``capacity_factor=None``: the ragged Alltoallv, and the sparse
 one through ``_moe_inner``), ``a2a_backend="autotune"`` after a measured
 search in the world (the plan replays the winner on every rank and
-measures nothing), and the refusal of a "model" axis.  The overlap, tuned and dropless cases are also held against the
+measures nothing), and a (data=2, model=2) mesh, where the experts' F is
+split over "model" and the expert FFN's output summed over it.  The overlap, tuned and dropless cases are also held against the
 JAX ``moe_block`` on the same (data=2, pod=2) mesh, run on 4 forced host
 devices in a subprocess.
 """
@@ -145,15 +146,15 @@ def _ep_ranks(rank, n, params, x, db_path):
         plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C) if cf else \
             moe_dropless_a2a_plan(cfg, mesh, axes, E_loc, C, N)
         tuned[cf] = (type(plan).__name__, plan.describe())
-    refusals = []
-    p = expert_shard({k: torch.from_numpy(v) for k, v in params[4].items()},
-                     _cfg(config, 4), mesh)
+    from repro_torch.parallel.sharding import batch_split
     tp = cart_create(n, (2, 2), ("data", "model"), device_type="cpu")
-    try:
-        moe_block(p, xs, _cfg(config, 4), mesh=tp)
-    except NotImplementedError as e:
-        refusals.append(str(e))
-    return out, (refusals, tuned)
+    p = expert_shard({k: torch.from_numpy(v) for k, v in params[4].items()},
+                     _cfg(config, 4), tp)
+    blocks, i = batch_split(tp)                  # rows over data alone
+    rows = x.shape[0] // blocks
+    y, aux = moe_block(p, torch.from_numpy(x[i * rows:(i + 1) * rows]),
+                       _cfg(config, 4), mesh=tp)
+    return out, ((i, tuple(p["w1"].shape), y.numpy(), float(aux)), tuned)
 
 
 @pytest.fixture(scope="module")
@@ -191,13 +192,27 @@ def test_ep_moe_matches_reference(ep, case):
 
 
 def test_unported_ep_paths_raise(ep):
-    """A "model" axis still raises; ``a2a_backend="autotune"`` runs (its
-    outputs are checked in test_ep_moe_matches_reference): every rank
-    replays the same measured winners, and the replay times nothing."""
-    ranks, _ = ep
-    for _, (refusals, _tuned) in ranks:
-        assert len(refusals) == 1
-        assert "model" in refusals[0] and "ROADMAP" in refusals[0]
+    """A "model" axis runs: on (data=2, model=2) each rank holds 2 of the
+    4 experts and half of F, the two "model" ranks of a row block give
+    the same bits, and the row blocks match the one-process layer
+    (y within 2e-4, aux within 1e-3).  ``a2a_backend="autotune"`` runs
+    (its outputs are checked in test_ep_moe_matches_reference): every
+    rank replays the same measured winners, and the replay times
+    nothing."""
+    ranks, refs = ep
+    y_ref, aux_ref = refs[4, 8.0]
+    by_block = {}
+    for _, ((i, w1_shape, y, aux), _tuned) in ranks:
+        assert w1_shape == (2, D, 32)
+        if i in by_block:
+            np.testing.assert_array_equal(y, by_block[i][0])
+            assert aux == by_block[i][1]
+        by_block[i] = (y, aux)
+        np.testing.assert_allclose(aux, aux_ref, rtol=1e-3)
+    assert sorted(by_block) == [0, 1]
+    np.testing.assert_allclose(
+        np.concatenate([by_block[i][0] for i in (0, 1)]), y_ref, rtol=2e-4,
+        atol=2e-4)
     tuned = [t for _, (_, t) in ranks]
     assert all(t == tuned[0] for t in tuned)
     assert tuned[0]["timing_executions"] == 0

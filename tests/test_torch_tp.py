@@ -1,0 +1,584 @@
+"""Tensor parallelism over ``model`` in the port, on 8-rank gloo worlds,
+against the JAX reference on the same meshes of 8 forced host devices
+and against the port itself on one device.
+
+Both packages run a 2-layer MoE model (d 32, d_ff 64, vocab 128, 4
+experts, top-2, capacity factor 8, f32, remat) on the same weights,
+drawn once with numpy from a seed and carried to each
+(``params_from_jax`` with the mesh: each rank keeps its slices), and one
+numpy batch of 8 x 16 tokens, each row block on the ranks of its
+``(pod, data)`` coordinate.  Cases:
+
+* ``(data=2, model=4)``: query / kv heads 8/4 (both split: case a), 4/2
+  (the kv heads stay whole, each rank reads the ones its query heads
+  map to: case b), 2/2 (attention whole on every rank: case c); the
+  factorized plan.
+* ``(pod=2, data=2, model=2)``, heads 4/2: the factorized plan, the
+  overlap engine and dropless dispatch (the ragged Alltoallv) over the
+  2-dim EP group.
+
+Checked within rtol = atol = 2e-4: the loss, every leaf's reduced
+gradient gathered to the global tree, ``grad_norm`` and the parameters
+after 2 AdamW steps against ``jax.value_and_grad`` / ``make_train_step``
+of the reference on the mesh, and the gradients against the port's
+``mesh=None`` ones on the global batch; prefill (``make_prefill_fn``)
+and decode (``make_serve_step``, 4 ticks after an 8-token prompt)
+logits, full-vocab, against the reference on the mesh and the port
+without one.  Bit for bit: every ``model`` rank of a row block routes
+the same tokens from the same router probabilities, computes the same
+loss and ends with the same reduced gradients and parameters of its
+whole leaves.  The checkpoint of a state split over both the EP group
+and ``model`` restores with and without the mesh bit for bit, and
+``launch.train --mesh debug --smoke --device cpu`` trains 3 steps in
+the 8-rank world.
+"""
+
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from torch_dist import run_world
+
+MESHES = {"dm": ((4, 2), ("model", "data")),               # fastest first
+          "pdm": ((2, 2, 2), ("model", "data", "pod"))}
+# name: (mesh, n_heads, n_kv_heads, a2a_backend, capacity_factor)
+CASES = {"a-8/4": ("dm", 8, 4, "factorized", 8.0),
+         "b-4/2": ("dm", 4, 2, "factorized", 8.0),
+         "c-2/2": ("dm", 2, 2, "factorized", 8.0),
+         "factorized": ("pdm", 4, 2, "factorized", 8.0),
+         "overlap": ("pdm", 4, 2, "overlap", 8.0),
+         "dropless": ("pdm", 4, 2, "factorized", None)}
+SERVE = {"dm": "b-4/2", "pdm": "factorized"}    # the cases served
+GB, SEQ, LR, STEPS = 8, 16, 1e-3, 2
+PROMPT, TICKS = 8, 4
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _cfg(module, name):
+    _, Hq, Hkv, backend, cf = CASES[name]
+    return module.ModelConfig(
+        name="t", family="moe", n_layers=2, d_model=32, n_heads=Hq,
+        n_kv_heads=Hkv, d_ff=64, vocab=128, n_experts=4, top_k=2,
+        capacity_factor=cf, param_dtype="float32", compute_dtype="float32",
+        a2a_backend=backend, remat=True)
+
+
+def _batch():
+    rng = np.random.default_rng(0)
+    return {"tokens": rng.integers(0, 127, (GB, SEQ)).astype(np.int32),
+            "labels": rng.integers(0, 127, (GB, SEQ)).astype(np.int32),
+            "mask": (rng.uniform(size=(GB, SEQ)) < 0.8).astype(np.float32)}
+
+
+def _serve_tokens():
+    return np.random.default_rng(1).integers(
+        0, 127, (GB, PROMPT + TICKS)).astype(np.int32)
+
+
+def _flat(tree):
+    from repro_torch.models.common import tree_leaves
+    return {p: t.detach().numpy().copy() for p, t in tree_leaves(tree)}
+
+
+def _recording_topk(torch, record):
+    """``torch.topk`` that appends its input and indices to ``record`` (on
+    this path only the MoE router calls it); returns the original."""
+    real = torch.topk
+
+    def topk(x, k, *args, **kwargs):
+        out = real(x, k, *args, **kwargs)
+        record.append((x.detach().numpy().copy(),
+                       out.indices.detach().numpy().copy()))
+        return out
+    torch.topk = topk
+    return real
+
+
+def _case(rank, mesh, torch, name, jparams, batch):
+    """One training case on this rank: the gathered reduced gradients,
+    norm, metrics and parameters after 2 steps, what must be the same
+    bits on every ``model`` rank of its row block, and (rank 0) the
+    port's mesh=None gradients of the global batch."""
+    from repro_torch.models import (build_model, config, make_loss_fn,
+                                    make_train_step, reduce_grads)
+    from repro_torch.models.common import (param_shardings, tree_leaves,
+                                           tree_map, tree_with_leaves)
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim import AdamW, AdamWConfig, global_norm
+    from repro_torch.parallel.sharding import batch_group, batch_split
+
+    cfg = _cfg(config, name)
+    model = build_model(cfg)
+    sh = param_shardings(model.specs(), mesh)
+    n, i = batch_split(mesh)
+    rows = GB // n
+    local = {k: torch.from_numpy(v[i * rows:(i + 1) * rows])
+             for k, v in batch.items()}
+    params = params_from_jax(jparams, cfg, "cpu", mesh=mesh)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    leaves = tree_leaves(params)
+    routed = []
+    real = _recording_topk(torch, routed)
+    try:
+        total, _ = make_loss_fn(model, mesh)(params, local)
+    finally:
+        torch.topk = real
+    got = torch.autograd.grad(total, [t for _, t in leaves])
+    grads = reduce_grads(tree_with_leaves(
+        params, {p: g for (p, _), g in zip(leaves, got)}), sh,
+        batch_group(mesh))
+    whole = [p for p, _ in leaves if not sh.split(p)]
+    out = {"block": i, "loss": float(total.detach()), "routed": routed,
+           "shards": {p: tuple(t.shape) for p, t in leaves},
+           "partial": sorted(sh.partial),
+           "grads": _flat(sh.gather_tree(grads)),
+           "whole_grads": {p: g.numpy() for p, g in tree_leaves(grads)
+                           if p in whole},
+           "grad_norm": float(global_norm(grads, sh))}
+    opt = AdamW(AdamWConfig(lr=LR))
+    step = make_train_step(model, opt, mesh)
+    opt_state = opt.init(params)
+    out["steps"] = []
+    for _ in range(STEPS):
+        params, opt_state, m = step(params, opt_state, local)
+        out["steps"].append({k: float(v) for k, v in m.items()})
+    out["params"] = _flat(sh.gather_tree(params))
+    out["whole_params"] = {p: t.detach().numpy() for p, t
+                           in tree_leaves(params) if p in whole}
+    if rank == 0:
+        one = params_from_jax(jparams, cfg, "cpu")
+        tree_map(lambda t: t.requires_grad_(True), one)
+        lv = tree_leaves(one)
+        total1, _ = model.loss(one, {k: torch.from_numpy(v)
+                                     for k, v in batch.items()})
+        g1 = torch.autograd.grad(total1, [t for _, t in lv])
+        out["one_device"] = {p: g.numpy() for (p, _), g in zip(lv, g1)}
+        out["one_loss"] = float(total1.detach())
+    return out
+
+
+def _serve(rank, mesh, torch, name, jparams, tokens):
+    """Prefill and decode on the mesh (this rank's row block), and on rank
+    0 the same without a mesh on every row."""
+    from repro_torch.models import (build_model, config, make_prefill_fn,
+                                    make_serve_step)
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.parallel.sharding import batch_split
+
+    cfg = _cfg(config, name)
+    model = build_model(cfg)
+
+    def run(params, toks, mesh):
+        pre = make_prefill_fn(model, mesh)(params, toks[:, :PROMPT])
+        caches = model.init_caches(toks.shape[0], PROMPT + TICKS, "cpu",
+                                   mesh=mesh)
+        serve = make_serve_step(model, mesh)
+        ticks = []
+        for t in range(PROMPT + TICKS):
+            _, logits, caches = serve(params, caches, toks[:, t:t + 1])
+            if t >= PROMPT - 1:
+                ticks.append(logits[:, 0].numpy())
+        return pre.numpy(), np.stack(ticks, 1)
+
+    n, i = batch_split(mesh)
+    rows = GB // n
+    toks = torch.from_numpy(tokens)
+    out = {"block": i,
+           "mesh": run(params_from_jax(jparams, cfg, "cpu", mesh=mesh),
+                       toks[i * rows:(i + 1) * rows], mesh)}
+    if rank == 0:
+        out["one"] = run(params_from_jax(jparams, cfg, "cpu"), toks, None)
+    return out
+
+
+def _checkpoint(mesh, torch, tmp):
+    """A state split over the EP group and ``model`` saved on the mesh,
+    restored with the mesh and without it."""
+    import json
+    from repro_torch.checkpoint.store import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import config
+    from repro_torch.models.common import param_shardings, tree_leaves
+
+    cfg = _cfg(config, "factorized")
+    model, _, params, opt_state, _ = build_training(
+        cfg, mesh, lr=LR, warmup=1, total=10, seed=3, device="cpu")
+    sh = param_shardings(model.specs(), mesh)
+    state_sh = sh.prefixed("params").merged(sh.prefixed("opt_state/mu"),
+                                            sh.prefixed("opt_state/nu"))
+    live = {"params": params, "opt_state": opt_state}
+    path = save_checkpoint(tmp / "ck", 0, live, sharding=state_sh)
+    same = lambda a, b: all(torch.equal(x, y) for (_, x), (_, y) in
+                            zip(tree_leaves(a), tree_leaves(b)))
+    back, _, _ = restore_checkpoint(tmp / "ck", 0, live, sharding=state_sh)
+    glob = state_sh.gather_tree(live)
+    back_glob, _, _ = restore_checkpoint(tmp / "ck", 0, glob)
+    manifest = json.loads((Path(path) / "manifest.json").read_text())
+    return {"restore_mesh": same(live, back),
+            "restore_no_mesh": same(glob, back_glob),
+            "global_arrays": all(
+                manifest["leaves"][p]["shape"] == list(t.shape)
+                for p, t in tree_leaves(glob)),
+            "both_splits": any(p in state_sh.axes and p in
+                               state_sh.model_axes
+                               for p, _ in tree_leaves(live))}
+
+
+def _launch(tmp):
+    """The launcher's debug mesh in this world: 3 steps of the smoke
+    config on (data=2, model=4)."""
+    from repro_torch.launch import train
+    tr = train.main(["--arch", "phi3.5-moe-42b", "--smoke", "--mesh",
+                     "debug", "--device", "cpu", "--steps", "3", "--batch",
+                     "8", "--seq", "16", "--ckpt-dir", str(tmp / "launch"),
+                     "--ckpt-every", "100"])
+    return {"step": tr.step, "losses": [r["total_loss"]
+                                        for r in tr.metrics_log]}
+
+
+def _ranks(rank, n, key, init, batch, tokens, tmp):
+    import torch
+    from repro_torch.core.cache import cart_create
+    mesh = cart_create(n, *MESHES[key], device_type="cpu")
+    out = {"cases": {name: _case(rank, mesh, torch, name, init[name], batch)
+                     for name, spec in CASES.items() if spec[0] == key},
+           "serve": _serve(rank, mesh, torch, SERVE[key], init[SERVE[key]],
+                           tokens)}
+    if key == "pdm":
+        out["checkpoint"] = _checkpoint(mesh, torch, Path(tmp))
+    else:
+        out["launch"] = _launch(Path(tmp))
+    return out
+
+
+_JAX_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.core.cache import cart_create
+from repro.models import (build_model, config, make_loss_fn,
+                          make_prefill_fn, make_serve_step, make_train_step)
+from repro.models.common import param_shardings
+from repro.optim import AdamW, AdamWConfig
+from repro.parallel.sharding import ShardingRules
+
+data = np.load(sys.argv[1])
+dims, names, cases, serve, lr, steps, prompt, ticks = eval(sys.argv[2])
+
+
+def unflat(name):
+    tree = {}
+    for key in data.files:
+        if key.startswith(name + "|"):
+            node = tree
+            *parts, leaf = key.split("|", 1)[1].split("/")
+            for part in parts:
+                node = node.setdefault(part, {})
+            node[leaf] = jnp.asarray(data[key])
+    return tree
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+mesh = cart_create(8, dims, names)
+rules = ShardingRules()
+rows = NamedSharding(mesh, P(tuple(a for a in ("pod", "data")
+                                   if a in mesh.shape)))
+batch = {k: jax.device_put(jnp.asarray(data[k]), rows)
+         for k in ("tokens", "labels", "mask")}
+out = {}
+for name, (Hq, Hkv, backend, cf) in cases.items():
+    cfg = config.ModelConfig(
+        name="t", family="moe", n_layers=2, d_model=32, n_heads=Hq,
+        n_kv_heads=Hkv, d_ff=64, vocab=128, n_experts=4, top_k=2,
+        capacity_factor=cf, param_dtype="float32", compute_dtype="float32",
+        a2a_backend=backend, remat=True)
+    model = build_model(cfg)
+    params = jax.device_put(unflat(name), param_shardings(model.specs(),
+                                                          mesh, rules))
+    (total, metrics), grads = jax.jit(jax.value_and_grad(
+        make_loss_fn(model, mesh, rules), has_aux=True))(params, batch)
+    out[f"{name}|loss|total"] = np.asarray(total)
+    for k, v in flat(grads).items():
+        out[f"{name}|grad|{k}"] = v
+    if name == serve:
+        toks = jax.device_put(jnp.asarray(data["serve"]), rows)
+        out[f"{name}|serve|prefill"] = np.asarray(jax.jit(make_prefill_fn(
+            model, mesh, rules))(params, toks[:, :prompt]))
+        caches = model.init_caches(toks.shape[0], prompt + ticks)
+        step = jax.jit(make_serve_step(model, mesh, rules))
+        got = []
+        for t in range(prompt + ticks):
+            _, logits, caches = step(params, caches, toks[:, t:t + 1])
+            if t >= prompt - 1:
+                got.append(np.asarray(logits[:, 0]))
+        out[f"{name}|serve|ticks"] = np.stack(got, 1)
+    opt = AdamW(AdamWConfig(lr=lr))
+    state = jax.jit(opt.init)(params)
+    step = jax.jit(make_train_step(model, opt, mesh, rules))
+    for s in range(steps):
+        params, state, m = step(params, state, batch)
+        for k, v in m.items():
+            out[f"{name}|step{s}|{k}"] = np.asarray(v)
+    for k, v in flat(params).items():
+        out[f"{name}|params|{k}"] = v
+np.savez(sys.argv[3], **out)
+"""
+
+
+def _numpy_init(specs, seed, d_model=32):
+    """A parameter tree drawn with numpy from ``seed``, f32: every matmul
+    weight at std 1 / sqrt(its contraction size), the tied embedding at
+    1 / sqrt(d_model), norms at ones.  (At the reference's init, whose
+    stacked weights take their fan-in from the layer dim, activations
+    are O(100) and the reference's own gradients on the mesh and on one
+    device differ by about the tolerance on a leaf here: rounding, not
+    sharding, would decide the gates.)"""
+    from repro_torch.models.common import tree_leaves, tree_with_leaves
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, spec in tree_leaves(specs):
+        name, shape = path.rsplit("/", 1)[-1], spec.shape
+        if spec.init in ("ones", "zeros"):
+            out[path] = (np.ones if spec.init == "ones" else np.zeros)(
+                shape, np.float32)
+            continue
+        fan_in = d_model if name == "embed" else \
+            shape[1] * shape[2] if name == "wo" else \
+            shape[-2] if name in ("w1", "w2", "w3") else shape[1]
+        out[path] = (rng.standard_normal(shape) / np.sqrt(fan_in)) \
+            .astype(np.float32)
+    return tree_with_leaves(specs, out)
+
+
+def _jax_flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_jax_flat(tree[k], f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def _start_jax(tmp, key, init):
+    """The reference on mesh ``key`` in a subprocess of 8 forced host
+    devices; returns (process, output path)."""
+    from repro_torch.models import build_model, config
+    names = [n for n, spec in CASES.items() if spec[0] == key]
+    arrays = dict(_batch(), serve=_serve_tokens())
+    for name in names:
+        arrays.update({f"{name}|{p}": v
+                       for p, v in _jax_flat(init[name]).items()})
+    np.savez(tmp / f"in_{key}.npz", **arrays)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
+        + os.pathsep + env.get("PYTHONPATH", "")
+    args = (*MESHES[key], {n: CASES[n][1:] for n in names}, SERVE[key], LR,
+            STEPS, PROMPT, TICKS)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _JAX_SCRIPT, str(tmp / f"in_{key}.npz"),
+         repr(args), str(tmp / f"out_{key}.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp / f"out_{key}.npz"
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both references started first, then the port's two worlds:
+    ``({mesh: per-rank results}, {case: reference results})``."""
+    from repro_torch.models import build_model, config
+    tmp = tmp_path_factory.mktemp("tp")
+    init = {name: _numpy_init(build_model(_cfg(config, name)).specs(), k)
+            for k, name in enumerate(CASES)}
+    procs = {key: _start_jax(tmp, key, init) for key in MESHES}
+    try:
+        with ThreadPoolExecutor(len(MESHES)) as pool:   # both worlds at once
+            futures = {key: pool.submit(
+                run_world, _ranks, 8, tmp / key, key, init, _batch(),
+                _serve_tokens(), str(tmp / key), timeout=240)
+                for key in MESHES}
+            world = {key: f.result() for key, f in futures.items()}
+        ref = {}
+        for key, (proc, path) in procs.items():
+            _, err = proc.communicate(timeout=300)
+            assert proc.returncode == 0, err
+            for k, v in np.load(path).items():
+                case, what, leaf = k.split("|")
+                ref.setdefault(case, {}).setdefault(what, {})[leaf] = v
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+    return world, ref
+
+
+def _results(runs, case):
+    world, ref = runs
+    return [r["cases"][case] for r in world[CASES[case][0]]], ref[case]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_loss_and_reduced_grads_match_jax(runs, case):
+    ranks, ref = _results(runs, case)
+    want = ref["grad"]
+    losses = {}
+    for r in ranks:
+        losses.setdefault(r["block"], []).append(r["loss"])
+    # each rank's loss is its row block's share times the block count
+    np.testing.assert_allclose(np.mean([v[0] for v in losses.values()]),
+                               float(ref["loss"]["total"]), **TOL)
+    for rank, r in enumerate(ranks):
+        assert set(r["grads"]) == set(want)
+        for path, w in want.items():
+            assert float(np.abs(w).max()) > 0, path
+            np.testing.assert_allclose(r["grads"][path], w, **TOL,
+                                       err_msg=f"{case} {path} rank {rank}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_grad_norm_and_two_steps_match_jax(runs, case):
+    ranks, ref = _results(runs, case)
+    for rank, r in enumerate(ranks):
+        np.testing.assert_allclose(r["grad_norm"],
+                                   float(ref["step0"]["grad_norm"]), **TOL)
+        for s, m in enumerate(r["steps"]):
+            for k, v in m.items():
+                np.testing.assert_allclose(v, float(ref[f"step{s}"][k]),
+                                           **TOL, err_msg=f"step {s} {k}")
+        for path, w in ref["params"].items():
+            np.testing.assert_allclose(r["params"][path], w, **TOL,
+                                       err_msg=f"{case} {path} rank {rank}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_mesh_grads_match_the_one_device_port(runs, case):
+    ranks, _ = _results(runs, case)
+    want = ranks[0]["one_device"]
+    for path, w in want.items():
+        np.testing.assert_allclose(ranks[0]["grads"][path], w, **TOL,
+                                   err_msg=f"{case} {path}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_model_ranks_agree_bit_for_bit(runs, case):
+    """The ``model`` ranks of a row block: the same router probabilities
+    and top-k choices in every layer (forward and remat recompute), the
+    same loss, the same reduced gradients and parameters of every whole
+    leaf; and each gathered tree is the same on every rank."""
+    ranks, _ = _results(runs, case)
+    first = {}
+    for r in ranks:
+        f = first.setdefault(r["block"], r)
+        assert r["loss"] == f["loss"]
+        assert len(r["routed"]) == len(f["routed"]) > 0
+        for (p, idx), (fp, fidx) in zip(r["routed"], f["routed"]):
+            np.testing.assert_array_equal(p, fp)
+            np.testing.assert_array_equal(idx, fidx)
+        for what in ("whole_grads", "whole_params"):
+            assert set(r[what]) == set(f[what])
+            for path, v in r[what].items():
+                np.testing.assert_array_equal(v, f[what][path], err_msg=path)
+        for what in ("grads", "params"):
+            for path, v in r[what].items():
+                np.testing.assert_array_equal(v, ranks[0][what][path])
+    assert len(first) == (2 if CASES[case][0] == "dm" else 4)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_resolver_matches_the_reference(case):
+    """``parallel.sharding.resolve_spec`` against the reference's on every
+    leaf of the case's model and its mesh shape (the reference's resolver
+    reads only ``mesh.shape``)."""
+    from types import SimpleNamespace
+    from repro.parallel.sharding import resolve_spec as jax_resolve
+    from repro_torch.models import build_model, config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel.sharding import resolve_spec
+    dims, names = MESHES[CASES[case][0]]
+    shape = dict(zip(names, dims))
+    for path, spec in tree_leaves(build_model(_cfg(config, case)).specs()):
+        want = tuple(jax_resolve(spec.shape, spec.logical,
+                                 SimpleNamespace(shape=shape)))
+        assert resolve_spec(spec.shape, spec.logical, shape) == want, path
+
+
+def test_head_cases_shard_as_resolved(runs):
+    """On (data=2, model=4): which attention leaves each rank holds as
+    slices in the three head cases, which whole kv leaves are partial,
+    and the vocab and expert splits."""
+    world, _ = runs
+    mixer = "blocks/pos0/mixer/"
+    for case, wq, wk, partial in (
+            ("a-8/4", (2, 32, 2, 4), (2, 32, 1, 4), []),
+            ("b-4/2", (2, 32, 1, 8), (2, 32, 2, 8),
+             [mixer + "wk", mixer + "wv"]),
+            ("c-2/2", (2, 32, 2, 16), (2, 32, 2, 16), [])):
+        for r in world["dm"]:
+            got = r["cases"][case]
+            assert got["shards"][mixer + "wq"] == wq
+            assert got["shards"][mixer + "wk"] == wk
+            assert got["partial"] == partial
+            assert got["shards"]["embed"] == (32, 32)
+            assert got["shards"]["blocks/pos0/ffn/w1"] == (2, 2, 32, 16)
+            assert got["shards"]["blocks/pos0/ffn/router"] == (2, 32, 4)
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+def test_prefill_and_decode_logits_match(runs, key):
+    """Full-vocab logits of ``make_prefill_fn`` and of each decode tick
+    (the last prompt token and 4 more) on the mesh, row blocks in
+    order, against the reference on the mesh and the port without one;
+    equal bits on the ``model`` ranks of a block."""
+    world, ref = runs
+    name = SERVE[key]
+    blocks = {}
+    for r in world[key]:
+        s = r["serve"]
+        if s["block"] in blocks:
+            for a, b in zip(s["mesh"], blocks[s["block"]]):
+                np.testing.assert_array_equal(a, b)
+        blocks[s["block"]] = s["mesh"]
+    pre = np.concatenate([blocks[i][0] for i in sorted(blocks)])
+    ticks = np.concatenate([blocks[i][1] for i in sorted(blocks)])
+    assert pre.shape == (GB, 128) and ticks.shape == (GB, TICKS + 1, 128)
+    np.testing.assert_allclose(pre, ref[name]["serve"]["prefill"], **TOL)
+    np.testing.assert_allclose(ticks, ref[name]["serve"]["ticks"], **TOL)
+    one_pre, one_ticks = world[key][0]["serve"]["one"]
+    np.testing.assert_allclose(pre, one_pre, **TOL)
+    np.testing.assert_allclose(ticks, one_ticks, **TOL)
+    # the last prompt token's decode logits are the prefill's
+    np.testing.assert_allclose(ticks[:, 0], pre, **TOL)
+
+
+def test_checkpoint_round_trip_with_and_without_the_mesh(runs):
+    world, _ = runs
+    for rank, r in enumerate(world["pdm"]):
+        bad = [k for k, v in r["checkpoint"].items() if not v]
+        assert not bad, (rank, bad)
+
+
+def test_launch_train_on_the_debug_mesh(runs):
+    world, _ = runs
+    losses = [r["launch"]["losses"] for r in world["dm"]]
+    for r in world["dm"]:
+        assert r["launch"]["step"] == 3
+    assert all(len(v) == 1 and np.isfinite(v[0]) for v in losses)
+    # every rank logs the batch mean: one value across the world
+    assert len({v[0] for v in losses}) == 1

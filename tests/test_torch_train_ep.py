@@ -33,7 +33,8 @@ engine, 8 with dropless dispatch (the ragged Alltoallv).
   rank's host and nothing on the other ranks, replicas included.
 * The mesh factories: ``make_mesh`` gives each rank ``cart_create``'s
   coordinate; the production and debug factories ask for the reference's
-  shapes, which ``check_trainable`` refuses (their ``model`` dim).
+  shapes, which ``check_trainable`` accepts (tensor parallelism over
+  their ``model`` dim is ported; Ulysses over it is refused).
 * ``Trainer`` on the mesh: 3 steps with a checkpoint at step 2, restored
   into a fresh ``Trainer`` (bit for bit the live state at step 2), whose
   step 3 is then bit for bit the live one's.
@@ -544,7 +545,8 @@ def test_mesh_factories_build_the_reference_shapes(monkeypatch, factory,
                                                    multi_pod, n, dims, names):
     """Each factory asks ``cart_create`` for the reference's mesh (most
     significant dim first there, fastest first here), and the port
-    refuses to train on it: its ``model`` dim is over 1."""
+    trains on it (tensor parallelism over its ``model`` dim), except
+    with Ulysses sequence parallelism over ``model``."""
     from repro_torch.launch import mesh as mesh_mod
     calls = []
     monkeypatch.setattr(mesh_mod, "cart_create",
@@ -555,18 +557,31 @@ def test_mesh_factories_build_the_reference_shapes(monkeypatch, factory,
     shape = dict(zip(reversed(names), reversed(dims)))
     assert shape == (mesh_mod.production_shape if "production" in factory
                      else mesh_mod.debug_shape)(multi_pod=multi_pod)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        mesh_mod.check_trainable(shape)
+    from repro_torch.configs import get_config
+    cfg = get_config("phi3.5-moe-42b", smoke=True)
+    mesh_mod.check_trainable(shape)
+    mesh_mod.check_trainable(shape, cfg)
+    with pytest.raises(NotImplementedError, match="Ulysses"):
+        mesh_mod.check_trainable(shape, cfg.replace(use_ulysses=True))
 
 
-def test_meshes_with_a_model_dim_are_refused():
+def test_meshes_with_a_model_dim_are_refused(monkeypatch):
+    """The debug meshes (``model`` = 4) are trainable; only Ulysses over
+    ``model`` is refused, naming ROADMAP.md.  The launcher started
+    without a world of the mesh's size refuses and names the ranks it
+    needs (``tests/test_torch_tp.py`` trains it under 8 ranks)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.launch.mesh import check_trainable, debug_shape
+    cfg = get_config("phi3.5-moe-42b", smoke=True)
     for multi in (False, True):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            check_trainable(debug_shape(multi_pod=multi))
-    for mesh in ("debug", "debug_multi"):
-        with pytest.raises(NotImplementedError, match="'model'"):
+        check_trainable(debug_shape(multi_pod=multi), cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_trainable(debug_shape(multi_pod=multi),
+                            cfg.replace(use_ulysses=True))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for mesh, n in (("debug", 8), ("debug_multi", 16)):
+        with pytest.raises(SystemExit, match=f"needs {n} ranks"):
             train.main(["--arch", "phi3.5-moe-42b", "--smoke", "--mesh",
                         mesh, "--device", "cpu"])
-    check_trainable({"pod": 2, "data": 2, "model": 1})
+    check_trainable({"pod": 2, "data": 2, "model": 1}, cfg)

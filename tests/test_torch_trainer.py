@@ -15,6 +15,7 @@ from repro.checkpoint import save_checkpoint as jax_save
 from repro_torch.checkpoint import (CheckpointManager, all_steps,
                                     latest_step, restore_checkpoint,
                                     save_checkpoint)
+from repro_torch.configs import get_config
 from repro_torch.data import CopyTaskConfig, SyntheticLM
 from repro_torch.launch import train as train_launch
 from repro_torch.models import ModelConfig, build_model, make_train_step
@@ -323,15 +324,19 @@ def test_train_default_device_refuses_cpu_fallback(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         train_launch.main(["--arch", ARCH, "--smoke", "--steps", "1",
                            "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the debug mesh trains under 8 ranks (tests/test_torch_tp.py);
+    # without a world of that size the launcher refuses and says so
+    with pytest.raises(SystemExit, match="needs 8 ranks"):
         train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                            "--mesh", "debug"])
     # a mesh with a "model" dim (the reference's debug mesh's shape; a
-    # stand-in object, since a DeviceMesh needs a process group of 8)
+    # stand-in object, since a DeviceMesh needs a process group of 8):
+    # what is not ported on it, Ulysses over "model", is refused
     debug = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                   mesh=torch.empty(2, 4))
+    cfg = get_config(ARCH, smoke=True).replace(use_ulysses=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_launch.build_training(None, mesh=debug, device="cpu")
+        train_launch.build_training(cfg, mesh=debug, device="cpu")
 
 
 def test_trainer_traces_steps_and_checkpoints(tmp_path, one_thread):
