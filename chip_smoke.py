@@ -56,7 +56,13 @@ it fails:
              counts with zeros and whole empty lanes: every counted row
              must carry the simulator oracle's tag, ``recv_counts`` must
              be the count matrix's column, and the launches must be the
-             counts phase's and the data rounds' passes.
+             counts phase's and the data rounds' passes.  FSDP on the
+             (2,2) torus: ``parallel.sharding.fsdp_gather`` of each
+             rank's shard of phi3.5-moe's embedding (32064 x 1024 of
+             32064 x 4096, bf16, integer values) must be the whole
+             embedding bit for bit, and its backward (the reduce-scatter
+             in f32 of integer-valued bf16 cotangents) every rank's
+             cotangents' sum over its block, bit for bit.
 7. autotune — in the same world, the tuning DB a file in a temporary
              directory: ``core.autotune.autotune`` on phi3.5-moe's EP
              block (4, 512, 4096) bf16 over (data, pod), 16 MiB a block,
@@ -158,7 +164,15 @@ it fails:
              cut width (d 512, 4/2 heads, d_ff 1024: a checkpoint under
              1 GiB, inside ``DISK_WRITE_BUDGET`` beside [train]'s) with
              an async checkpoint of global arrays at step 2, restored
-             into a fresh ``Trainer`` bit for bit on every rank.
+             into a fresh ``Trainer`` bit for bit on every rank.  The
+             parameters are laid out as the reference's rules say: the
+             experts over the EP group, the embedding's and attention's
+             ``d_model`` dim over (pod, data) by FSDP (gathered before
+             each use, the gradient reduce-scattered); every rank's
+             parameter count must be the layout's, and each prints the
+             parameters and state bytes it holds, its peak memory and
+             the FSDP span's host ms in one step, beside the card's
+             name and power limit.
 12. train_tp — after that world has ended, a second gloo world of 8
              ranks on the one card, the mesh (pod=2, data=2, model=2):
              tensor parallelism over model (query / kv heads 16/4 a rank,
@@ -196,7 +210,13 @@ it fails:
              the mesh, full-vocab logits within 2e-2 of the largest
              one-process logit; ``Trainer.run`` for 4 steps at
              [train_ep]'s cut width with an async checkpoint at step 2
-             restored bit for bit.
+             restored bit for bit.  FSDP splits the embedding's and
+             attention's ``d_model`` dim over (pod, data) as in
+             [train_ep] (the vocab and heads over model as well); the
+             bit-identity of the model ranks covers every leaf whole
+             over model, FSDP shards included, and the per-rank
+             parameters, state, peak and FSDP span are checked and
+             printed as [train_ep]'s.
 13. train  — after the worlds have ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
@@ -1260,6 +1280,68 @@ def _expected(**counts) -> dict:
     return {name: counts.get(name, 0) for name in _read_counts()}
 
 
+@functools.cache
+def _card() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _span_host_ms(fn, key: str) -> tuple[int, float]:
+    """(calls, host ms) of the profiler span ``key`` in one call of
+    ``fn`` under the CPU profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CPU and ev.key == key:
+            return ev.count, ev.cpu_time_total / 1e3
+    return 0, 0.0
+
+
+def _layout_params(model, sharding) -> int:
+    """The parameters a rank holds under ``sharding``, from the specs:
+    each leaf's global size over its splits (EP, ``model``, FSDP)."""
+    from repro_torch.models.common import tree_leaves
+    total = 0
+    for path, spec in tree_leaves(model.specs()):
+        n = math.prod(spec.shape)
+        if path in sharding.axes:
+            n = n * sharding.E_loc // sharding.n_experts
+        if path in sharding.model_axes:
+            n //= sharding.tp.size
+        if path in sharding.fsdp_axes:
+            n //= sharding.fsdp.p
+        total += n
+    return total
+
+
+def _held(params, opt_state, model, sharding) -> dict:
+    """What this rank holds: its parameters, the layout's count, and the
+    bytes of its parameters and AdamW state."""
+    from repro_torch.models.common import tree_leaves
+    return {"n_params": sum(t.numel() for _, t in tree_leaves(params)),
+            "layout_params": _layout_params(model, sharding),
+            "state_gb": sum(t.numel() * t.element_size() for _, t in
+                            tree_leaves({"p": params, "o": opt_state}))
+            / 1e9}
+
+
+def _check_held(phase: str, results, key: str) -> None:
+    """Every rank holds the parameters its layout says."""
+    for rank, r in enumerate(results):
+        t = r[key]
+        if t["n_params"] != t["layout_params"]:
+            fail(f"[{phase}] rank {rank} holds {t['n_params']} parameters, "
+                 f"its layout {t['layout_params']}")
+
+
 def _host_ms(fn):
     """Host-clock ms of one call of ``fn`` that ends in a synchronise."""
     t0 = time.perf_counter()
@@ -1755,10 +1837,49 @@ def _rank_collective(rank: int, n: int) -> dict:
             ok[f"{tag} reduce_scatter {backend}"] = torch.equal(
                 comm.reduce_scatter((B,), torch.int32, backend=backend)
                 .forward(Xi[rank]), Xi[:, rank].sum(0, dtype=torch.int32))
+        if dims == (2, 2):
+            ok.update(_fsdp_checks(mesh, names))
         _overlap_checks(tag, mesh, names, x, want, t, want_t, ok, launches)
         _alltoallv_checks(tag, mesh, names, rank, ok, launches)
     return {"ok": {k: bool(v) for k, v in ok.items()},
             "launches": launches}
+
+
+def _fsdp_checks(mesh, names) -> dict:
+    """FSDP's gather of phi3.5-moe's embedding over the torus ``names``:
+    each rank's shard (a block of the d_model columns, bf16, integer
+    values) gathered must be the whole embedding, and the gradient of
+    its shard (the reduce-scatter of every rank's integer-valued
+    cotangent, summed in f32) the sum of the cotangents' blocks, both bit
+    for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.parallel.sharding import fsdp_gather
+    cfg = get_config(ARCH)
+    comm = torus_comm(mesh, names)
+    n, f = comm.p, comm.rank
+    k = cfg.d_model // n
+
+    def integers(seed, lo, hi):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        return torch.randint(lo, hi, (cfg.vocab, cfg.d_model), generator=gen,
+                             device=DEVICE).to(torch.bfloat16)
+    W = integers(11, -100, 101)
+    x = W[:, f * k:(f + 1) * k].clone().requires_grad_(True)
+    y = fsdp_gather(x, comm, 1)
+    gathered = torch.equal(y.detach(), W)
+    del W
+    want = torch.zeros_like(x)
+    for r in range(n):
+        cot = integers(12 + r, -8, 9)
+        want += cot[:, f * k:(f + 1) * k]
+        if r == f:
+            mine = cot
+    y.backward(mine)
+    torch.cuda.synchronize()
+    return {"2x2 fsdp all_gather (embedding shard)": gathered,
+            "2x2 fsdp reduce_scatter (its gradient)": torch.equal(x.grad,
+                                                                  want)}
 
 
 def _definition(n: int, block, dtype, rank: int):
@@ -2307,7 +2428,7 @@ def _rank_train_ep(rank: int, n: int, seed: int, tmp: str) -> dict:
                                            tree_map)
     from repro_torch.models.moe import _capacity, _group_geometry, \
         moe_a2a_plan
-    from repro_torch.parallel.sharding import batch_split
+    from repro_torch.parallel.sharding import FSDP_SPAN, batch_split
     from repro_torch.runtime import Trainer, TrainerConfig
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2335,10 +2456,7 @@ def _rank_train_ep(rank: int, n: int, seed: int, tmp: str) -> dict:
            "n_chunks": _n_chunks(C, plan.n_chunks)
            if plan.backend == "overlap" else 1,
            "fill": fill, "build_s": build_s,
-           "n_params": sum(t.numel() for _, t in tree_leaves(params)),
-           "state_gb": sum(t.numel() * t.element_size() for _, t in
-                           tree_leaves({"p": params, "o": opt_state}))
-           / 1e9}
+           **_held(params, opt_state, model, sharding)}
 
     # (a) the tuned plan's gradients (with the routing it sent: the
     # tokens per expert from this rank), the factorized plan's, and the
@@ -2391,11 +2509,13 @@ def _rank_train_ep(rank: int, n: int, seed: int, tmp: str) -> dict:
     out["step_counts"] = _read_counts()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     if rank == 0:
-        _profile(lambda: step_fn(params, opt_state, batch),
-                 f"train_ep step (1 layer, B=1, S={TRAIN_EP_S} per rank), "
-                 f"rank 0 of {WORLD}", top=20)
+        prof = _profile(lambda: step_fn(params, opt_state, batch),
+                        f"train_ep step (1 layer, B=1, S={TRAIN_EP_S} per "
+                        f"rank), rank 0 of {WORLD}", top=20)
+        out["fsdp_span"] = prof.summary["spans"].get(FSDP_SPAN, (0, 0.0))
     else:
-        step_fn(params, opt_state, batch)
+        out["fsdp_span"] = _span_host_ms(
+            lambda: step_fn(params, opt_state, batch), FSDP_SPAN)
     torch.cuda.synchronize()
     del model, params, opt_state, step_fn, batch
     torch.cuda.empty_cache()
@@ -2523,8 +2643,8 @@ def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
                                            tree_map)
     from repro_torch.models.moe import (_capacity, _group_geometry,
                                         moe_a2a_plan)
-    from repro_torch.parallel.sharding import (TP_SPAN, batch_split,
-                                               tp_group, tp_rank)
+    from repro_torch.parallel.sharding import (FSDP_SPAN, TP_SPAN,
+                                               batch_split, tp_group, tp_rank)
     from repro_torch.runtime import Trainer, TrainerConfig
     torch.cuda.set_device(0)
     mesh = cart_create(n, *TP_MESH, device_type=DEVICE)
@@ -2612,10 +2732,11 @@ def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
     sharding = param_shardings(model.specs(), mesh)
     batch = SyntheticLM(dcfg, mesh=mesh, task="copy", device=DEVICE).next()
     batch["tokens"][:, :TRAIN_EP_FILL] = fill[block]
-    out["n_params"] = sum(t.numel() for _, t in tree_leaves(params))
-    out["state_gb"] = sum(t.numel() * t.element_size() for _, t in
-                          tree_leaves({"p": params, "o": opt_state})) / 1e9
-    whole = [p for p, _ in tree_leaves(params) if not sharding.split(p)]
+    out.update(_held(params, opt_state, model, sharding))
+    # whole over model (FSDP shards included): the same bits on the model
+    # ranks of a row block
+    whole = [p for p, _ in tree_leaves(params)
+             if p not in sharding.model_axes]
     out["digests"], out["loss"], out["vs_one"] = {"routing": []}, {}, {}
     for init in TP_INITS:
         if init == "fan-in":
@@ -2671,8 +2792,10 @@ def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
                         f"row block), rank 0 of {TP_WORLD}", top=20)
         out["profile"] = prof.summary
         out["tp_span"] = prof.summary["spans"].get(TP_SPAN, (0, 0.0))
+        out["fsdp_span"] = prof.summary["spans"].get(FSDP_SPAN, (0, 0.0))
     else:
-        step_fn(params, opt_state, batch)
+        out["fsdp_span"] = _span_host_ms(
+            lambda: step_fn(params, opt_state, batch), FSDP_SPAN)
     torch.cuda.synchronize()
     out["digests"]["params"] = {p: _digest(t) for p, t
                                 in tree_leaves(params) if p in whole}
@@ -3137,15 +3260,16 @@ def phase_train_ep(results) -> dict:
     if r0["written"] > DISK_WRITE_BUDGET:
         fail(f"[train_ep] the checkpoint wrote {r0['written'] / 2**30:.2f} "
              f"GiB, over the run's disk budget")
+    _check_held("train_ep", results, "train_ep")
     cfg = _train_ep_config()
     log(f"[train_ep] {cfg.name} d={cfg.d_model} F={cfg.d_ff} "
         f"E={cfg.n_experts} vocab={cfg.vocab} layers={cfg.n_layers} "
-        f"remat={cfg.remat_policy}, EP over (data=2, pod=2), B=1 S="
-        f"{TRAIN_EP_S} per rank (C={r0['C']}): {r0['n_params'] / 1e9:.3f} B "
-        f"params per rank, {r0['state_gb']:.2f} GB of params and AdamW "
-        f"state, built in {r0['build_s']:.1f} s; loss tuned "
+        f"remat={cfg.remat_policy}, EP over (data=2, pod=2), FSDP of the "
+        f"embedding and attention over (pod, data), B=1 S={TRAIN_EP_S} per "
+        f"rank (C={r0['C']}), built in {r0['build_s']:.1f} s; loss tuned "
         f"{r0['loss']:.6g}, factorized {r0['fact_loss']:.6g}, one process "
         f"{r0['one_loss']:.6g}")
+    _log_held("train_ep", [r["train_ep"] for r in results])
     log(f"[train_ep] relative norm gaps per leaf (limit {TRAIN_GRAD_TOL}): "
         f"gathered EP (tuned) ~ one-process step, tuned ~ factorized "
         f"(largest over the ranks):")
@@ -3175,6 +3299,18 @@ def phase_train_ep(results) -> dict:
         f"bit on every rank; launches per step {r0['cut_per_step']}")
     return {k: sum(r["train_ep"]["step_counts"][k] for r in results)
             for k in r0["step_counts"]}
+
+
+def _log_held(phase: str, ranks: list) -> None:
+    """Per rank: the parameters and state bytes it holds, its peak memory
+    and the FSDP span's host ms in one step, beside the card."""
+    log(f"[{phase}] per rank on {_card()}: params (B) "
+        f"{[round(t['n_params'] / 1e9, 4) for t in ranks]}, params and "
+        f"AdamW state (GB) {[round(t['state_gb'], 3) for t in ranks]}, peak "
+        f"memory (GiB) {[round(t['peak_gib'], 2) for t in ranks]}, FSDP "
+        f"span (repro_torch.fsdp: gathers and gradient reduce-scatters) "
+        f"calls / host ms in one step "
+        f"{[(t['fsdp_span'][0], round(t['fsdp_span'][1], 1)) for t in ranks]}")
 
 
 def phase_train_tp(results) -> dict:
@@ -3292,19 +3428,20 @@ def phase_train_tp(results) -> dict:
         fail(f"[train_tp] the checkpoints wrote "
              f"{sum(WRITTEN.values()) / 2**30:.2f} GiB, over the run's "
              f"disk budget")
+    _check_held("train_tp", results, "train_tp")
     cfg = _train_ep_config()
     log(f"[train_tp] {cfg.name} d={cfg.d_model} F={cfg.d_ff} heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads} E={cfg.n_experts} vocab="
         f"{cfg.vocab} layers={cfg.n_layers}, mesh (pod=2, data=2, model=2) "
         f"on {TP_WORLD} gloo ranks of one card: EP over (data, pod), heads, "
-        f"F and the vocab over model; B=1 S={TRAIN_EP_S} per row block "
-        f"(C={C}, plan {desc['backend']} n_chunks {desc['n_chunks']}): "
-        f"{r0['n_params'] / 1e9:.3f} B params per rank, "
-        f"{r0['state_gb']:.2f} GB of params and AdamW state, built in "
-        f"{r0['build_s']:.1f} s; the one-process reference's peak "
+        f"F and the vocab over model, the embedding's and attention's "
+        f"d_model over (pod, data) by FSDP; B=1 S={TRAIN_EP_S} per row block "
+        f"(C={C}, plan {desc['backend']} n_chunks {desc['n_chunks']}), "
+        f"built in {r0['build_s']:.1f} s; the one-process reference's peak "
         f"{r0['one_peak_gib']:.2f} GiB, freed before the mesh; router calls "
         f"bit-identical across the model ranks of every row block: "
         f"{n_calls} per rank")
+    _log_held("train_tp", [r["train_tp"] for r in results])
     q = lambda v: "/".join(f"{t:.1f}" for t in np.percentile(v, (25, 50,
                                                                  75)))
     log(f"[train_tp] full-width step (loss, backward, reduce_grads, AdamW) "
@@ -3789,12 +3926,7 @@ def main() -> int:
         if entry["on_main_path"] and entry["launches"] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -15,15 +15,16 @@ The reference's guarantees, kept:
 * **Retention** — the newest ``keep`` checkpoints are kept.
 * **Global arrays on a mesh** — given the state's ``ExpertSharding``
   (``parallel.sharding``), a save gathers every split leaf (experts over
-  the EP group, heads / hidden dim / vocab over ``model``, or both) to
+  the EP group, heads / hidden dim / vocab over ``model``, the FSDP
+  shards of ``d_model`` over ``pod`` / ``data``, or two of these) to
   the rank at mesh coordinate 0, which writes the global tree: slice by
   slice into its host memory (``ExpertSharding.gather_tree_to_writer``,
   a collective: every rank, in the main thread, in path order, before
   any writer thread starts), so no rank holds a global split leaf on its
   device and the others keep nothing; a restore reads the global leaves
   and keeps this rank's slices.  So a checkpoint restores with or
-  without a mesh, onto any EP group and ``model`` dim the leaves divide
-  (the reference's resharding on restore).  ``wait()`` ends in a check every rank makes together, so no
+  without a mesh, onto any EP group, ``model`` dim and FSDP split the
+  leaves divide (the reference's resharding on restore).  ``wait()`` ends in a check every rank makes together, so no
   rank reads a directory the writer has not finished.
 
 Leaves are written raw, not compressed: the port needs no package beyond

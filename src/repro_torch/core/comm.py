@@ -40,6 +40,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.kernels.block_reorder import to_group_order, to_torus_order
+from repro_torch.kernels.ops import _trains
 
 from . import plan as _planmod
 from . import telemetry
@@ -258,11 +259,24 @@ class AllGatherPlan(_DimwisePlan):
 
     def forward(self, x):
         """``x`` is this rank's ``(*block)`` contribution; returns
-        ``(p, *block)`` with ``out[i]`` = rank ``i``'s block."""
+        ``(p, *block)`` with ``out[i]`` = rank ``i``'s block.  Under
+        autograd its backward is the reduce-scatter of the cotangent."""
         self._executable()
+        if _trains(x):
+            return _planmod._BlockwiseFn.apply(x, self._run, self._adjoint)
+        return self._run(x)
+
+    def _run(self, x):
         if self.backend == "direct":
             return _direct_allgather_impl(x, self.fact)
         return _allgather_impl(x, self.fact, round_order=self.order)
+
+    def _adjoint(self, g):
+        """The reduce-scatter of ``g``, stages in the reverse order."""
+        if self.backend == "direct":
+            return _direct_reduce_scatter_impl(g, self.fact)
+        return _reduce_scatter_impl(g, self.fact,
+                                    round_order=self.order[::-1])
 
 
 class ReduceScatterPlan(_DimwisePlan):
@@ -274,11 +288,23 @@ class ReduceScatterPlan(_DimwisePlan):
     def forward(self, x):
         """``x`` is ``(p, *block)``, block ``i`` this rank's term for rank
         ``i``'s reduction; returns ``(*block)`` = the full sum for this
-        rank."""
+        rank.  Under autograd its backward is the all-gather of the
+        cotangent."""
         self._executable()
+        if _trains(x):
+            return _planmod._BlockwiseFn.apply(x, self._run, self._adjoint)
+        return self._run(x)
+
+    def _run(self, x):
         if self.backend == "direct":
             return _direct_reduce_scatter_impl(x, self.fact)
         return _reduce_scatter_impl(x, self.fact, round_order=self.order)
+
+    def _adjoint(self, g):
+        """The all-gather of ``g``, stages in the reverse order."""
+        if self.backend == "direct":
+            return _direct_allgather_impl(g, self.fact)
+        return _allgather_impl(g, self.fact, round_order=self.order[::-1])
 
 
 def _build_dimwise_plan(cls, source, axis_names, block_shape, dtype, *,

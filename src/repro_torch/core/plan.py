@@ -129,12 +129,15 @@ def _sync(t) -> None:
 
 
 class _BlockwiseFn(torch.autograd.Function):
-    """One blockwise all-to-all under autograd.  The exchange permutes
-    the global buffer (rank ``s``'s block ``d`` goes to rank ``d``'s slot
-    ``s``) and is its own transpose, so the backward runs the plan in the
-    other direction on the cotangent: the same passes and exchanges, and
-    bit for bit the adjoint.  ``run`` and ``adjoint`` are the plan's
-    untraced or traced calls in the two round orders."""
+    """One plan call under autograd: ``run`` is the call, ``adjoint`` its
+    transpose, which the backward runs on the cotangent.  A blockwise
+    all-to-all permutes the global buffer (rank ``s``'s block ``d`` goes
+    to rank ``d``'s slot ``s``) and is its own transpose, so its adjoint
+    is the plan in the other direction: the same passes and exchanges,
+    and bit for bit the adjoint (``run`` and ``adjoint`` are the plan's
+    untraced or traced calls in the two round orders).  The gather
+    family's all-gather and reduce-scatter (``core.comm``) are each
+    other's transpose."""
 
     @staticmethod
     def forward(ctx, x, run, adjoint):

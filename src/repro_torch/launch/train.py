@@ -9,7 +9,10 @@
 
 On a mesh, ``build_training(cfg, mesh, rules)`` trains with expert
 parallelism over ``ep_axes(mesh)``, data parallelism over the "batch"
-rule's axes and tensor parallelism over ``model``: every rank of an
+rule's axes, tensor parallelism over ``model`` and FSDP over the
+``embed_fsdp`` rule's axes (the embedding's and attention's ``d_model``
+dim over ``pod`` / ``data``; ``rules=ShardingRules().override(
+embed_fsdp=())`` keeps those leaves whole): every rank of an
 initialised process group (gloo or NCCL) calls it with the same
 ``DeviceMesh`` (``core.cache.cart_create``, or ``launch.mesh``), draws
 the same global parameters from ``seed`` and keeps its shard, and

@@ -3,9 +3,10 @@
 Parameters are plain nested dicts of tensors, built from a ``ParamSpec``
 tree with an explicit ``torch.Generator`` and device.  On a mesh,
 :func:`param_shardings` reads the ``logical`` axes: each leaf with an
-``"expert"`` dim is split over the expert-parallel group, and the dim
-the rules resolve to ``model`` over the tensor-parallel group; leaves
-stay whole over ``pod`` and ``data`` otherwise (no FSDP yet).
+``"expert"`` dim is split over the expert-parallel group, the dim the
+rules resolve to ``model`` over the tensor-parallel group, and the dim
+an FSDP rule (``embed_fsdp``) resolves to ``pod`` / ``data`` over those
+axes, which the model gathers before each use.
 """
 
 from __future__ import annotations
@@ -99,13 +100,18 @@ def param_shardings(specs, mesh, rules=None):
     every leaf whose logical axes name ``"expert"`` over the EP group
     (``ep_axes(mesh)``), and the dim the resolver gives ``model`` under
     ``rules`` (``parallel.sharding.model_dim``: heads, kv heads, the
-    FFN's hidden dim, the vocab) over ``model``.  A ``"kv_heads"`` leaf
+    FFN's hidden dim, the vocab) over ``model``, and the dim an FSDP
+    rule resolves to ``pod`` / ``data`` (``parallel.sharding.fsdp_dim``:
+    the ``d_model`` dim of the embedding, attention and the dense FFN)
+    over the axes the resolver kept.  Expert leaves take no FSDP split:
+    the EP split already spans both FSDP axes.  A ``"kv_heads"`` leaf
     kept whole beside a sibling ``"heads"`` leaf that is split is
     ``partial``: each ``model`` rank projects only the kv heads its query
-    heads read.  The FSDP rules are not applied."""
+    heads read."""
     from repro_torch.parallel.sharding import (ExpertSharding, ep_axes,
-                                               model_dim)
-    axes, model_axes, n_experts = {}, {}, None
+                                               fsdp_dim, model_dim)
+    axes, model_axes, fsdp_axes, n_experts = {}, {}, {}, None
+    kept = set()
     leaves = tree_leaves(specs)
     for path, spec in leaves:
         if ep_axes(mesh) and "expert" in spec.logical:
@@ -118,12 +124,21 @@ def param_shardings(specs, mesh, rules=None):
         dim = model_dim(spec.shape, spec.logical, mesh, rules)
         if dim is not None:
             model_axes[path] = dim
+        split = None if path in axes else fsdp_dim(spec.shape, spec.logical,
+                                                   mesh, rules)
+        if split is not None:
+            fsdp_axes[path] = split[0]
+            kept.add(split[1])
+    if len(kept) > 1:
+        raise NotImplementedError(f"FSDP leaves split over different axes "
+                                  f"{sorted(kept)}: one FSDP group only")
     parent = lambda path: path.rpartition("/")[0]
     split_heads = {parent(p) for p, spec in leaves
                    if "heads" in spec.logical and p in model_axes}
     partial = {p for p, spec in leaves if "kv_heads" in spec.logical
                and p not in model_axes and parent(p) in split_heads}
-    return ExpertSharding(axes, n_experts or 1, mesh, model_axes, partial)
+    return ExpertSharding(axes, n_experts or 1, mesh, model_axes, partial,
+                          fsdp_axes, kept.pop() if kept else (), rules)
 
 
 def init_params(specs, generator: torch.Generator, device,

@@ -13,7 +13,9 @@ moment dtype, and the int32 step.
 
 Given a ``DeviceMesh``, both take the reference's *global* tree and
 return this rank's shard (``common.param_shardings``): the experts'
-slice of the EP group, every other leaf whole.
+slice of the EP group, the ``model`` slices, and the FSDP block of the
+``d_model`` dim (``pod * |data| + data``, the reference's ``P(("pod",
+"data"))`` order); the norms and the router whole.
 """
 
 from __future__ import annotations

@@ -6,10 +6,13 @@ Each step function takes the reference's ``mesh=None, rules=None``.  On a
 ``DeviceMesh`` every rank calls it collectively with its row block of
 the batch and its parameter shard (``common.param_shardings``): the
 experts split over the EP group, heads, the FFN's hidden dim and the
-vocab over ``model``, every other leaf whole.  ``make_train_step`` then
-reduces the gradients with :func:`reduce_grads` so that every rank
-steps with its shard of the one-device gradient of the global batch;
-``make_prefill_fn`` and ``make_serve_step`` return full-vocab logits.
+vocab over ``model``, the ``d_model`` dim of the embedding, attention
+and the dense FFN over the FSDP axes (``pod`` / ``data``; the model
+gathers them before use), the norms and the router whole.
+``make_train_step`` then reduces the gradients with
+:func:`reduce_grads` so that every rank steps with its shard of the
+one-device gradient of the global batch; ``make_prefill_fn`` and
+``make_serve_step`` return full-vocab logits.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from repro_torch.models.common import (param_shardings, tree_leaves,
                                        tree_with_leaves)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model
-from repro_torch.parallel.sharding import batch_group, check_ep_within_batch
+from repro_torch.parallel.sharding import (batch_axes, batch_group,
+                                           check_ep_within_batch)
 
 
 def build_model(cfg: ModelConfig) -> Model:
@@ -49,6 +53,10 @@ def reduce_grads(grads, sharding, group):
 
     * a whole leaf is averaged over the batch group (an all-reduce, then
       ``1 / n``): every rank ends with the same bits;
+    * an FSDP leaf's gradient already holds the sum over the FSDP group
+      (``parallel.sharding.fsdp_gather``'s reduce-scatter brought it), so
+      it is summed only over the batch axes the split did not keep
+      (``ExpertSharding.sum_fsdp_rest``), then scaled by ``1 / n``;
     * an expert leaf already holds the sum over the ranks whose tokens
       its experts served (the dispatch's backward brought it), so it is
       scaled by ``1 / n``; with replicas (``n_experts`` < G) the copies
@@ -68,6 +76,8 @@ def reduce_grads(grads, sharding, group):
         g32 = sharding.sum_partial(path, g.float())
         if path in sharding.axes:
             g32 = sharding.sum_replicas(path, g32)
+        elif path in sharding.fsdp_axes:
+            g32 = sharding.sum_fsdp_rest(path, g32)
         elif group is not None:
             g32 = g32.clone()
             dist.all_reduce(g32, group=group.pg)
@@ -110,6 +120,11 @@ def make_train_step(model, optimizer, mesh=None, rules=None,
     if mesh is not None:
         check_ep_within_batch(mesh, rules)
         sharding = param_shardings(model.specs(), mesh, rules)
+        extra = set(sharding.fsdp_kept) - set(batch_axes(mesh, rules))
+        if extra:
+            raise NotImplementedError(
+                f"training with FSDP over {sorted(extra)} outside the batch "
+                f"rule is not supported: the FSDP axes must split the batch")
         group = batch_group(mesh, rules)
 
     def grads_of(params, batch):

@@ -31,11 +31,22 @@ loss is ``common.vocab_parallel_cross_entropy``; ``decode_step`` and
 ``prefill`` return full-vocab logits, gathered over ``model``.  The
 ``model`` ranks of a row block hold the same rows and compute the same
 loss, so the loss's denominator is the batch group's alone.
+
+FSDP (where an FSDP rule splits a leaf's ``d_model`` dim over ``pod`` /
+``data``: ``ExpertSharding.fsdp_axes``): each rank holds its shard and
+gathers the leaf whole right before use (``parallel.sharding
+.fsdp_gather``, through ``TorusComm.all_gather``; the backward
+reduce-scatters the gradient).  A superblock's leaves are gathered at
+the top of :func:`_apply_superblock`, inside what ``checkpoint`` wraps,
+so the remat recompute gathers them again and the forward keeps no
+gathered copy; the tied embedding is gathered once per ``forward`` /
+``decode_step`` and that copy serves both the lookup and the head, so
+one reduce-scatter carries both uses' gradients.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
@@ -45,7 +56,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
-                                       resolve_device, rms_norm,
+                                       param_shardings, resolve_device,
+                                       rms_norm,
                                        softmax_cross_entropy, stack_specs,
                                        tree_map,
                                        vocab_parallel_cross_entropy)
@@ -115,8 +127,13 @@ def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False,
     return x, aux
 
 
-def _apply_superblock(params_sb, x, cfg, positions, mesh=None, rules=None):
-    """One superblock of positions over the full sequence: (x, aux)."""
+def _apply_superblock(params_sb, x, cfg, positions, mesh=None, rules=None,
+                      fsdp=None):
+    """One superblock of positions over the full sequence: (x, aux).
+    ``fsdp``: the parameters' layout, whose FSDP leaves are gathered
+    here first (None: ``params_sb`` is whole)."""
+    if fsdp is not None:
+        params_sb = fsdp.gather_params(params_sb, "blocks", drop=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for j, (_, ffn) in enumerate(cfg.superblock):
         x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn, positions,
@@ -158,6 +175,9 @@ def _layer(tree, i: int):
 @dataclass
 class Model:
     cfg: ModelConfig
+    # the parameters' layout per (mesh, rules) where FSDP splits a leaf
+    _fsdp_layouts: dict = field(default_factory=dict, init=False,
+                                repr=False, compare=False)
 
     def __post_init__(self):
         cfg = self.cfg
@@ -189,6 +209,26 @@ class Model:
         """Random parameters drawn from ``generator`` (on ``device``)."""
         return init_params(self.specs(), generator, resolve_device(device),
                            self.cfg.pdtype)
+
+    # ---- FSDP ----
+    def fsdp_layout(self, mesh=None, rules=None):
+        """The parameters' ``ExpertSharding`` on ``mesh`` where an FSDP
+        rule splits a leaf, else None (built once per mesh and rules)."""
+        if mesh is None:
+            return None
+        key = (mesh, rules)
+        if key not in self._fsdp_layouts:
+            sh = param_shardings(self.specs(), mesh, rules)
+            self._fsdp_layouts[key] = sh if sh.fsdp_axes else None
+        return self._fsdp_layouts[key]
+
+    def _whole_top(self, params, fsdp):
+        """``params`` with the embedding (and an untied head) gathered
+        whole over FSDP; the stacked blocks stay shards."""
+        if fsdp is None:
+            return params
+        top = {k: v for k, v in params.items() if k != "blocks"}
+        return dict(params, **fsdp.gather_params(top))
 
     # ---- embedding / head ----
     def embed(self, params, tokens, *, mesh=None, rules=None):
@@ -223,6 +263,8 @@ class Model:
         """tokens: (B, S) -> (logits (B, S, V) f32, aux loss); on a mesh
         that splits the vocab, this rank's (B, S, V / |model|) columns."""
         cfg = self.cfg
+        fsdp = self.fsdp_layout(mesh, rules)
+        params = self._whole_top(params, fsdp)
         x = self.embed(params, tokens, mesh=mesh, rules=rules)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
@@ -233,11 +275,11 @@ class Model:
             params_sb = _layer(params["blocks"], i)
             if remat:
                 x, a = checkpoint(_apply_superblock, params_sb, x, cfg,
-                                  positions, mesh, rules,
+                                  positions, mesh, rules, fsdp,
                                   use_reentrant=False)
             else:
                 x, a = _apply_superblock(params_sb, x, cfg, positions, mesh,
-                                         rules)
+                                         rules, fsdp)
             aux = aux + a
         x = _apply_norm(params["final_norm"], x, cfg)
         return self.logits(params, x, mesh=mesh, rules=rules), aux
@@ -320,10 +362,14 @@ class Model:
         a mesh too, caches); the KV caches are updated in place, ``pos``
         is a new tensor."""
         cfg = self.cfg
+        fsdp = self.fsdp_layout(mesh, rules)
+        params = self._whole_top(params, fsdp)
         x = self.embed(params, tokens_t, mesh=mesh, rules=rules)
         pos = caches["pos"]
         for i in range(cfg.n_superblocks):
             params_sb = _layer(params["blocks"], i)
+            if fsdp is not None:
+                params_sb = fsdp.gather_params(params_sb, "blocks", drop=1)
             states_sb = _layer(caches["states"], i)
             for j, (_, ffn) in enumerate(cfg.superblock):
                 x, _ = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn,

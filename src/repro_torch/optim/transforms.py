@@ -28,11 +28,13 @@ def global_norm(tree, sharding=None) -> torch.Tensor:
     tree on a mesh) the norm is that of the global tree, the same on
     every rank: the squares of the expert leaves are summed over the EP
     group and divided by the replica count R, those of the leaves split
-    over ``model`` summed over ``model``, and each whole leaf counts
-    once (``ExpertSharding.tree_sq_sum``: collective)."""
+    over ``model`` summed over ``model``, those of the FSDP shards over
+    the FSDP group, and each whole leaf counts once
+    (``ExpertSharding.tree_sq_sum``: collective)."""
     leaves = tree_leaves(tree)
     sq = [torch.sum(torch.square(x.float())) for _, x in leaves]
-    if sharding is None or not (sharding.axes or sharding.model_axes):
+    if sharding is None or not (sharding.axes or sharding.model_axes
+                                or sharding.fsdp_axes):
         return torch.sqrt(torch.sum(torch.stack(sq)))
     return torch.sqrt(sharding.tree_sq_sum(
         [(p, s) for (p, _), s in zip(leaves, sq)]))

@@ -7,8 +7,9 @@ SPMD by hand: each rank already holds its shard, so what is needed is the
 mapping and the collectives GSPMD would insert:
 
 * :func:`resolve_spec`, the reference's resolver with its divisibility
-  fallback, and :func:`model_dim`, the dim of a leaf it splits over
-  ``model``;
+  fallback, :func:`model_dim`, the dim of a leaf it splits over
+  ``model``, and :func:`fsdp_dim`, the dim it splits over ``pod`` /
+  ``data`` through the FSDP rules (``fsdp``, ``embed_fsdp``);
 * the "batch" rule's split (:func:`batch_axes`, :func:`batch_split`,
   :func:`batch_group`): rank order ``P(("pod", "data"))``, row block
   ``pod * |data| + data``, which is also the EP virtual rank;
@@ -17,20 +18,25 @@ mapping and the collectives GSPMD would insert:
 * :class:`ExpertSharding`, the counterpart of ``param_shardings`` for a
   tree: which leaves a rank holds as its slice of the expert dim (split
   over the EP group), which as its slice of a dim the resolver splits
-  over ``model`` (heads, kv heads, the FFN's hidden dim, the vocab), and
-  which whole leaves get only a partial gradient on each ``model`` rank;
-  and the collectives that move between the shards and the global tree;
+  over ``model`` (heads, kv heads, the FFN's hidden dim, the vocab),
+  which as its FSDP shard (the ``d_model`` dim of the embedding,
+  attention and the dense FFN, over ``pod`` / ``data``), and which
+  whole leaves get only a partial gradient on each ``model`` rank; and
+  the collectives that move between the shards and the global tree;
 * :func:`all_reduce_sum`, an all-reduce autograd differentiates (the
   reference's ``pmean`` inside a differentiated ``shard_map``), and the
   two conjugate tensor-parallel Functions, :func:`tp_copy` (identity
   forward, sum backward: the input of a column-parallel product) and
   :func:`tp_reduce` (sum forward, identity backward: the output of a
-  row-parallel product).
+  row-parallel product), and :func:`fsdp_gather` (FSDP's gather before
+  use: an all-gather forward, a reduce-scatter in f32 backward, both
+  through ``TorusComm``, so factorized over the torus).
 
-``constrain`` and ``use_mesh`` have no counterpart.  Of the resolved
-axes the port applies ``model`` and the expert split; the FSDP rules
-(``fsdp``, ``embed_fsdp``) are not applied, so leaves stay whole over
-``pod`` and ``data`` (ROADMAP.md).
+``constrain`` and ``use_mesh`` have no counterpart.  The port applies
+every resolved axis: the expert split, ``model`` and FSDP.  Expert
+leaves take no FSDP split: their expert dim is split over the whole EP
+group ``(data, pod)``, which holds the same bytes a rank as the
+reference's ``expert`` -> ``data`` with ``D`` -> ``pod``.
 """
 
 from __future__ import annotations
@@ -135,6 +141,9 @@ def resolve_spec(shape, logical, mesh, rules: ShardingRules | None = None
     return tuple(parts)
 
 
+FSDP_RULES = ("fsdp", "embed_fsdp")
+
+
 def model_dim(shape, logical, mesh, rules: ShardingRules | None = None
               ) -> int | None:
     """The dim of a leaf of ``shape`` with ``logical`` axes that the
@@ -145,6 +154,33 @@ def model_dim(shape, logical, mesh, rules: ShardingRules | None = None
     for i, part in enumerate(resolve_spec(shape, logical, mesh, rules)):
         if part == "model" or (isinstance(part, tuple) and "model" in part):
             return i
+    return None
+
+
+def fsdp_dim(shape, logical, mesh, rules: ShardingRules | None = None
+             ) -> tuple[int, tuple[str, ...]] | None:
+    """``(dim, axes)``: the dim of a leaf of ``shape`` with ``logical``
+    axes that the resolver splits on ``mesh`` (a ``DeviceMesh`` or
+    ``{dim: size}``) through an FSDP rule (``fsdp``,
+    ``embed_fsdp``), and the mesh axes it kept there after the
+    divisibility fallback, most significant first (``("pod", "data")``
+    under the default rules); None where no such dim is split over more
+    than one rank (no mesh, the axes absent, of size 1 or not
+    dividing)."""
+    if mesh is None:
+        return None
+    shape_of = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
+    for i, (name, part) in enumerate(zip(
+            logical, resolve_spec(shape, logical, mesh, rules))):
+        if name not in FSDP_RULES or part is None:
+            continue
+        axes = (part,) if isinstance(part, str) else tuple(part)
+        if "model" in axes:
+            raise NotImplementedError(
+                f"an FSDP rule over 'model' ({name} -> {axes}) is not "
+                f"supported: 'model' splits by model_dim")
+        if math.prod(shape_of[a] for a in axes) > 1:
+            return i, axes
     return None
 
 
@@ -347,6 +383,43 @@ def tp_reduce(x, group):
     return x if group is None else _TPReduce.apply(x, group.pg)
 
 
+# the profiler span of FSDP's gather and of its gradient's reduce-scatter
+FSDP_SPAN = "repro_torch.fsdp"
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        with torch.profiler.record_function(FSDP_SPAN):
+            parts = comm.all_gather(tuple(x.shape), x.dtype).forward(
+                x.contiguous())
+        return parts.movedim(0, dim).flatten(dim, dim + 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim = ctx.comm, ctx.dim
+        with torch.profiler.record_function(FSDP_SPAN):
+            parts = g.unflatten(dim, (comm.p, -1)).movedim(dim, 0)
+            # one f32 copy, in the group's block order
+            blocks = torch.empty(parts.shape, dtype=torch.float32,
+                                 device=g.device).copy_(parts)
+            out = comm.reduce_scatter(tuple(blocks.shape[1:]),
+                                      torch.float32).forward(blocks)
+        return out.to(g.dtype), None, None
+
+
+def fsdp_gather(x, comm, dim: int):
+    """FSDP's gather before use: every rank's shard ``x`` of the
+    ``TorusComm`` ``comm`` concatenated along ``dim`` in its torus rank
+    order (``comm.all_gather``, the ``tuned`` backend, in ``x``'s dtype).
+    The backward cuts the cotangent into the group's blocks and sums
+    each over the group in f32 (``comm.reduce_scatter``), cast back
+    once: this rank's shard of the gradient, summed over the group.
+    Collective in both passes; ``comm=None``: ``x``."""
+    return x if comm is None else _FSDPGather.apply(x, comm, dim)
+
+
 def tp_gather(x, group, dim: int = -1):
     """The concatenation over ``group``, in ``model`` order, of every
     rank's ``x`` along ``dim`` (no autograd; ``group=None``: ``x``)."""
@@ -373,27 +446,45 @@ class ExpertSharding:
     EP group to the index of its expert dim (``n_experts`` long globally,
     ``E_loc`` here); ``model_axes`` maps the path of each leaf split over
     ``model`` to that dim (``|model|`` times this rank's length
-    globally).  A leaf may be in both: an expert ``w1`` ``(E, D, F)``
-    holds its EP rank's experts and its ``model`` rank's slice of F.
-    ``partial`` names whole leaves whose gradient on each ``model`` rank
-    is that rank's part only (a kv projection kept whole while the query
-    heads are split), which :meth:`sum_partial` sums over ``model``.
-    Every other leaf is whole on every rank.  Built by
+    globally); ``fsdp_axes`` maps the path of each leaf split by FSDP to
+    that dim, split over the mesh axes ``fsdp_kept`` (most significant
+    first: shard ``i`` is block ``pod * |data| + data`` under the default
+    rules, the torus rank of :attr:`fsdp`, the communicator over them).
+    A leaf may be in two: an expert ``w1`` ``(E, D, F)`` holds its EP
+    rank's experts and its ``model`` rank's slice of F, a ``wq`` ``(L, D,
+    H, hd)`` its FSDP shard of D and its ``model`` rank's heads.
+    ``partial`` names leaves whose gradient on each ``model`` rank is
+    that rank's part only (a kv projection kept whole over ``model``
+    while the query heads are split), which :meth:`sum_partial` sums
+    over ``model``.  Every other leaf is whole on every rank.  Built by
     ``models.common.param_shardings``; :meth:`prefixed` and
     :meth:`merged` carry it to trees that hold the parameters' shapes
     (the AdamW moments, a trainer's state)."""
 
     def __init__(self, axes: dict, n_experts: int, mesh,
-                 model_axes: dict | None = None, partial=()):
+                 model_axes: dict | None = None, partial=(),
+                 fsdp_axes: dict | None = None, fsdp_kept=(),
+                 rules: ShardingRules | None = None):
         self.axes = dict(axes)
         self.model_axes = dict(model_axes or {})
+        self.fsdp_axes = dict(fsdp_axes or {})
+        self.fsdp_kept = tuple(fsdp_kept) if self.fsdp_axes else ()
         self.partial = frozenset(partial)
         self.n_experts = n_experts
         self.mesh = mesh
+        self.rules = rules
         _, self.G, self.E_loc, self.R = ep_geometry(n_experts, mesh)
         self.comm = ep_comm(mesh) if self.axes else None
         self.tp = tp_group(mesh) if self.model_axes or self.partial \
             else None
+        self.fsdp = torus_comm(mesh, self.fsdp_kept[::-1]) \
+            if self.fsdp_kept else None
+        # the batch axes the FSDP split does not cover: an FSDP leaf's
+        # gradient is summed over them after the reduce-scatter
+        rest = tuple(a for a in batch_axes(mesh, rules)
+                     if a not in self.fsdp_kept) if self.fsdp else ()
+        self.fsdp_rest = torus_comm(mesh, rest[::-1]).fact.group \
+            if rest else None
         self.group = mesh_group(mesh)
 
     @property
@@ -402,28 +493,48 @@ class ExpertSharding:
         mesh coordinate 0)."""
         return self.group is None or dist.get_rank() == self.group.members[0]
 
-    def _with(self, axes, model_axes, partial) -> "ExpertSharding":
+    def _with(self, axes, model_axes, partial, fsdp_axes
+              ) -> "ExpertSharding":
         return ExpertSharding(axes, self.n_experts, self.mesh, model_axes,
-                              partial)
+                              partial, fsdp_axes, self.fsdp_kept,
+                              self.rules)
 
     def prefixed(self, prefix: str) -> "ExpertSharding":
         return self._with({f"{prefix}/{p}": a for p, a in self.axes.items()},
                           {f"{prefix}/{p}": a
                            for p, a in self.model_axes.items()},
-                          {f"{prefix}/{p}" for p in self.partial})
+                          {f"{prefix}/{p}" for p in self.partial},
+                          {f"{prefix}/{p}": a
+                           for p, a in self.fsdp_axes.items()})
 
     def merged(self, *others) -> "ExpertSharding":
         axes, model_axes = dict(self.axes), dict(self.model_axes)
-        partial = set(self.partial)
+        fsdp_axes, partial = dict(self.fsdp_axes), set(self.partial)
         for o in others:
             axes.update(o.axes)
             model_axes.update(o.model_axes)
+            fsdp_axes.update(o.fsdp_axes)
             partial |= o.partial
-        return self._with(axes, model_axes, partial)
+        return self._with(axes, model_axes, partial, fsdp_axes)
 
     def split(self, path: str) -> bool:
         """Whether this rank holds a slice of the leaf at ``path``."""
-        return path in self.axes or path in self.model_axes
+        return (path in self.axes or path in self.model_axes
+                or path in self.fsdp_axes)
+
+    def gather_params(self, tree, prefix: str = "", drop: int = 0):
+        """``tree``, the subtree at ``prefix`` of the parameters with
+        ``drop`` leading dims indexed away (a superblock's slice of the
+        stacked leaves: 1), with every FSDP leaf gathered whole over the
+        FSDP group (:func:`fsdp_gather`: differentiable, collective, in
+        path order)."""
+        from repro_torch.models.common import tree_leaves, tree_with_leaves
+        out = {}
+        for p, t in tree_leaves(tree):
+            dim = self.fsdp_axes.get(f"{prefix}/{p}" if prefix else p)
+            out[p] = t if dim is None else fsdp_gather(t, self.fsdp,
+                                                       dim - drop)
+        return tree_with_leaves(tree, out)
 
     # -- trees and leaves ---------------------------------------------------
 
@@ -449,18 +560,20 @@ class ExpertSharding:
         return tree_with_leaves(tree, out) if self.writer else None
 
     def _slices(self, path: str) -> list[tuple]:
-        """``(v, m, rank)`` for each distinct slice of a split leaf, in
+        """``(v, m, f, rank)`` for each distinct slice of a split leaf, in
         the global leaf's order: the EP virtual rank ``v`` whose experts
         it holds (None: not split over EP; with replicas only ``0 ..
         n_experts - 1``), its ``model`` coordinate ``m`` (None: not split
-        over ``model``), and the global rank that holds it (every other
-        mesh coordinate 0, the writer's)."""
+        over ``model``), its FSDP shard ``f`` (None: not split by FSDP),
+        and the global rank that holds it (every other mesh coordinate
+        0, the writer's)."""
         shape = mesh_shape(self.mesh)
         ep = ep_axes(self.mesh) if path in self.axes and self.comm else ()
         vs = range(self.G if self.R == 1 else self.n_experts) if ep \
             else [None]
         ms = range(self.tp.size) if path in self.model_axes and self.tp \
             else [None]
+        fs = range(self.fsdp.p) if path in self.fsdp_axes else [None]
         out = []
         for v in vs:
             coord, rest = {}, v
@@ -469,9 +582,14 @@ class ExpertSharding:
             for m in ms:
                 if m is not None:
                     coord["model"] = m
-                rank = int(self.mesh.mesh[tuple(
-                    coord.get(a, 0) for a in self.mesh.mesh_dim_names)])
-                out.append((v, m, rank))
+                for f in fs:
+                    rest = f
+                    for a in reversed(self.fsdp_kept if f is not None
+                                      else ()):
+                        coord[a], rest = rest % shape[a], rest // shape[a]
+                    rank = int(self.mesh.mesh[tuple(
+                        coord.get(a, 0) for a in self.mesh.mesh_dim_names)])
+                    out.append((v, m, f, rank))
         return out
 
     def gather_to_writer(self, path: str, t):
@@ -489,19 +607,21 @@ class ExpertSharding:
         dev = collective_device(self.group.pg)
         me = dist.get_rank()
         if not self.writer:
-            if me in {rank for _, _, rank in slices}:
+            if me in {rank for *_, rank in slices}:
                 dist.send(t.detach().to(dev).contiguous(),
                           dst=self.group.members[0], group=self.group.pg)
             return None
         out = torch.empty(self.global_shape(path, t.shape), dtype=t.dtype)
-        for v, m, rank in slices:
+        for v, m, f, rank in slices:
             piece = out
             if v is not None:
                 piece = piece.narrow(self.axes[path], v * self.E_loc,
                                      self.E_loc)
-            if m is not None:
-                dim = self.model_axes[path]
-                piece = piece.narrow(dim, m * t.shape[dim], t.shape[dim])
+            for k, dim in ((m, self.model_axes.get(path)),
+                           (f, self.fsdp_axes.get(path))):
+                if k is not None:
+                    piece = piece.narrow(dim, k * t.shape[dim],
+                                         t.shape[dim])
             if rank == me:
                 piece.copy_(t.detach())
                 continue
@@ -524,6 +644,10 @@ class ExpertSharding:
         if dim is not None:
             n = t.shape[dim] // self.tp.size
             t = t.narrow(dim, tp_rank(self.tp) * n, n)
+        dim = self.fsdp_axes.get(path)
+        if dim is not None:
+            n = t.shape[dim] // self.fsdp.p
+            t = t.narrow(dim, self.fsdp.rank * n, n)
         return t.clone()
 
     def global_shape(self, path: str, shape) -> tuple[int, ...]:
@@ -534,11 +658,18 @@ class ExpertSharding:
         dim = self.model_axes.get(path)
         if dim is not None:
             shape[dim] *= self.tp.size
+        dim = self.fsdp_axes.get(path)
+        if dim is not None:
+            shape[dim] *= self.fsdp.p
         return tuple(shape)
 
     def gather(self, path: str, t):
-        """The global leaf from every rank's slice (collective over the EP
-        group, then over ``model``; a whole leaf is returned as it is)."""
+        """The global leaf from every rank's slice (collective over the
+        FSDP group, the EP group, then ``model``; a whole leaf is
+        returned as it is)."""
+        dim = self.fsdp_axes.get(path)
+        if dim is not None:
+            t = fsdp_gather(t.detach(), self.fsdp, dim)
         axis = self.axes.get(path)
         if axis is not None and self.comm is not None:
             parts = _direct_allgather_impl(t.detach().contiguous(),
@@ -574,11 +705,25 @@ class ExpertSharding:
         dist.all_reduce(g, group=self.tp.pg)
         return g
 
+    def sum_fsdp_rest(self, path: str, g):
+        """An FSDP leaf's gradient (already summed over the FSDP group by
+        :func:`fsdp_gather`'s backward) summed over the batch axes the
+        FSDP split did not keep (collective over them); any other leaf's,
+        or where the split kept every batch axis, as it is."""
+        if path not in self.fsdp_axes or self.fsdp_rest is None:
+            return g
+        g = g.clone()
+        dist.all_reduce(g, group=self.fsdp_rest.pg)
+        return g
+
     def leaf_sq_sum(self, path: str, sq):
         """The global leaf's sum of squares from this rank's ``sq`` (any
-        shape, summed elementwise): over the EP group (each global expert
-        once, ``/ R``) and over ``model`` where the leaf is split
-        (collective over those groups)."""
+        shape, summed elementwise): over the FSDP group, the EP group
+        (each global expert once, ``/ R``) and over ``model`` where the
+        leaf is split (collective over those groups)."""
+        if path in self.fsdp_axes:
+            sq = sq.clone()
+            dist.all_reduce(sq, group=self.fsdp.fact.group.pg)
         if path in self.axes and self.comm is not None:
             sq = sq.clone()
             dist.all_reduce(sq, group=self.comm.fact.group.pg)
@@ -591,14 +736,20 @@ class ExpertSharding:
     def tree_sq_sum(self, sqs: list):
         """The global tree's sum of squares from ``(path, this rank's
         square sum)`` pairs, each global element counted once: at most
-        one all-reduce over the EP group (the expert leaves, ``/ R``) and
-        one over ``model`` (the split leaves), the same value on every
-        rank."""
+        one all-reduce over the FSDP group (the FSDP leaves), one over
+        the EP group (the expert leaves, ``/ R``) and one over ``model``
+        (the split leaves), the same value on every rank."""
         zero = sqs[0][1].new_zeros(())
         whole, expert, tp_only, both = zero, zero, zero, zero
+        fsdp_only, fsdp_tp = zero, zero
         for path, sq in sqs:
             e, m = path in self.axes, path in self.model_axes
-            if e and m:
+            if path in self.fsdp_axes:
+                if m:
+                    fsdp_tp = fsdp_tp + sq
+                else:
+                    fsdp_only = fsdp_only + sq
+            elif e and m:
                 both = both + sq
             elif e:
                 expert = expert + sq
@@ -606,6 +757,10 @@ class ExpertSharding:
                 tp_only = tp_only + sq
             else:
                 whole = whole + sq
+        if self.fsdp is not None:
+            pair = torch.stack([fsdp_only, fsdp_tp])
+            dist.all_reduce(pair, group=self.fsdp.fact.group.pg)
+            whole, tp_only = whole + pair[0], tp_only + pair[1]
         if self.comm is not None:
             pair = torch.stack([expert, both])
             dist.all_reduce(pair, group=self.comm.fact.group.pg)

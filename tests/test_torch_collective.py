@@ -10,6 +10,14 @@ comparison is bit-exact (reduce-scatter sums included).  On the (2,3,2)
 torus the outputs are also held against the JAX package's ``host_fn`` on
 12 forced host devices, run in a subprocess (the pytest session itself
 never sets ``XLA_FLAGS``).
+
+The gather family under autograd (``allgather_grad``,
+``reduce_scatter_grad``): f64 inputs and loss weights holding integers,
+so every sum is exact, against the definition (the all-gather's input
+gradient is each rank's block of every rank's cotangent, summed; the
+reduce-scatter's is every rank's cotangent, gathered); on the (2,2)
+torus also against ``jax.grad`` of the reference's plans on 4 forced
+host devices.
 """
 
 import itertools
@@ -29,13 +37,26 @@ WORLDS = {4: ((2, 2), ("a", "b")), 6: ((3, 2), ("a", "b")),
           12: ((2, 3, 2), ("a", "b", "c"))}
 CHECKS = ("rank_order", "direct", "factorized_natural", "factorized_paper",
           "reverse", "tiled", "sub", "all_gather", "reduce_scatter",
-          "registry", "passes", "group_order")
+          "registry", "passes", "group_order", "allgather_grad",
+          "reduce_scatter_grad")
 B = 3
 
 
 def _inputs(p: int) -> np.ndarray:
     """Every rank's (p, B) send buffer: ``X[r, i]`` goes from r to i."""
     return np.random.default_rng(7).integers(-2**31, 2**31, (p, p, B))
+
+
+def _grad_inputs(p: int):
+    """Integer-valued f64 data for the gradient checks: every rank's
+    gather block ``G[r]`` and reduce-scatter terms ``X[r]``, and the loss
+    weights of rank r, ``WG[r]`` on its gathered ``(p, B)`` output and
+    ``WR[r]`` on its reduced ``(B,)`` output."""
+    rng = np.random.default_rng(11)
+    return {"G": rng.integers(-50, 50, (p, B)).astype(np.float64),
+            "X": rng.integers(-50, 50, (p, p, B)).astype(np.float64),
+            "WG": rng.integers(-9, 10, (p, p, B)).astype(np.float64),
+            "WR": rng.integers(-9, 10, (p, B)).astype(np.float64)}
 
 
 def _coset(rank, dims, names, axes):
@@ -125,6 +146,25 @@ def _world_checks(rank, n, dims, names):
             ok["reduce_scatter"] &= torch.equal(rs.forward(X[rank]),
                                                 X[:, rank].sum(0))
 
+    # the gather family under autograd: rank r's loss is the sum of its
+    # output times its weights; each backward is the other collective
+    D = {k: torch.from_numpy(v) for k, v in _grad_inputs(p).items()}
+    grads = {}
+    for backend in ("direct", "factorized"):
+        for order in itertools.permutations(range(active)):
+            ag = comm.all_gather((B,), torch.float64, backend=backend,
+                                 round_order=order)
+            rs = comm.reduce_scatter((B,), torch.float64, backend=backend,
+                                     round_order=order)
+            g_ag = _input_grad(ag, D["G"][rank], D["WG"][rank], D["G"])
+            g_rs = _input_grad(rs, D["X"][rank], D["WR"][rank],
+                               D["X"][:, rank].sum(0))
+            ok["allgather_grad"] &= g_ag is not None and torch.equal(
+                g_ag, D["WG"][:, rank].sum(0))
+            ok["reduce_scatter_grad"] &= g_rs is not None and torch.equal(
+                g_rs, D["WR"])
+            grads[backend] = (g_ag, g_rs)
+
     # registry: a refetch hits; a freed comm rebuilds on the same groups
     plan = comm.all_to_all((B,), torch.int64, backend="factorized")
     ok["registry"] = (comm.all_to_all((B,), torch.int64,
@@ -140,7 +180,22 @@ def _world_checks(rank, n, dims, names):
 
     ok["passes"] = _passes_follow_the_schedule(mesh, names, x, want)
     ok["group_order"] = _group_order_checks(n, dims, names, X)
-    return {k: bool(v) for k, v in ok.items()}, outs
+    return {k: bool(v) for k, v in ok.items()}, outs, grads
+
+
+def _input_grad(plan, x, w, want):
+    """The gradient of ``sum(plan.forward(x) * w)`` with respect to ``x``,
+    or None where the forward is not ``want`` or autograd fails (every
+    rank runs the same calls, so one rank's failure is every rank's)."""
+    x = x.clone().requires_grad_(True)
+    try:
+        y = plan.forward(x)
+        y.mul(w).sum().backward()
+    except RuntimeError:
+        return None
+    if x.grad is None or not torch.equal(y.detach(), want):
+        return None
+    return x.grad
 
 
 def _passes_follow_the_schedule(mesh, names, x, want):
@@ -242,7 +297,7 @@ def world(request, tmp_path_factory):
 @pytest.mark.parametrize("check", CHECKS)
 def test_collective_on_gloo(world, check):
     n, results = world
-    failed = [r for r, (ok, _) in enumerate(results) if not ok[check]]
+    failed = [r for r, (ok, _, _) in enumerate(results) if not ok[check]]
     assert not failed, f"{check} wrong on ranks {failed} of the " \
         f"{WORLDS[n][0]} torus"
 
@@ -286,7 +341,68 @@ def test_factorized_matches_jax_host_fn(tmp_path, tmp_path_factory):
     jax_out = np.load(tmp_path / "out.npz")
     for key in jax_out.files:
         np.testing.assert_array_equal(jax_out[key], X.transpose(1, 0, 2))
-    for rank, (_, outs) in enumerate(results):
+    for rank, (_, outs, _) in enumerate(results):
         for (variant, order), y in outs.items():
             np.testing.assert_array_equal(
                 y.astype(np.int32), jax_out[f"factorized_{variant}"][rank])
+
+
+_JAX_GRAD_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.core.cache import cart_create
+from repro.core.comm import torus_comm
+
+dims, names = (2, 2), ("a", "b")
+D = {k: jnp.asarray(v, jnp.float32) for k, v in np.load(sys.argv[1]).items()}
+mesh = cart_create(4, dims, names)
+comm = torus_comm(mesh, names)
+axes = tuple(reversed(names))
+out = {}
+for backend in ("direct", "factorized"):
+    ag = comm.all_gather((3,), jnp.float32, backend=backend)
+    rs = comm.reduce_scatter((3,), jnp.float32, backend=backend)
+
+    def losses(fn, x, w):
+        local = lambda xl, wl: (fn(xl[0]) * wl[0]).sum()[None]
+        return jax.shard_map(local, mesh=mesh, in_specs=(P(axes), P(axes)),
+                             out_specs=P(axes))(x, w).sum()
+
+    out[f"{backend}_allgather"] = np.asarray(jax.jit(jax.grad(
+        lambda x: losses(ag.forward, x, D["WG"])))(D["G"]))
+    out[f"{backend}_reduce_scatter"] = np.asarray(jax.jit(jax.grad(
+        lambda x: losses(rs.forward, x, D["WR"][:, None])))(D["X"]))
+np.savez(sys.argv[2], **out)
+"""
+
+
+def test_gather_family_grads_match_jax_grad(tmp_path, tmp_path_factory):
+    """(2,2): each rank's input gradients of the all-gather and the
+    reduce-scatter, both backends, == ``jax.grad`` of the reference's
+    plans on 4 forced host devices (rank r's loss: its output times its
+    weights, summed; integer values, exact in f32)."""
+    results = _results(4, tmp_path_factory)
+    D = _grad_inputs(4)
+    np.savez(tmp_path / "in.npz", **D)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
+        + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _JAX_GRAD_SCRIPT,
+                           str(tmp_path / "in.npz"),
+                           str(tmp_path / "out.npz")],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    want = np.load(tmp_path / "out.npz")
+    for rank, (_, _, grads) in enumerate(results):
+        for backend, (g_ag, g_rs) in grads.items():
+            assert g_ag is not None and g_rs is not None, (rank, backend)
+            np.testing.assert_array_equal(g_ag.numpy(), want[f"{backend}_allgather"]
+                                          [rank])
+            np.testing.assert_array_equal(
+                g_rs.numpy(), want[f"{backend}_reduce_scatter"][rank])

@@ -5,9 +5,11 @@ and against the port itself on one device.
 Both packages run a 2-layer MoE model (d 32, d_ff 64, vocab 128, 4
 experts, top-2, capacity factor 8, f32, remat) on the same weights,
 drawn once with numpy from a seed and carried to each
-(``params_from_jax`` with the mesh: each rank keeps its slices), and one
-numpy batch of 8 x 16 tokens, each row block on the ranks of its
-``(pod, data)`` coordinate.  Cases:
+(``params_from_jax`` with the mesh: each rank keeps its slices, the
+FSDP leaves' ``d_model`` dim split over ``pod`` / ``data`` as the
+reference's ``param_shardings`` splits it), and one numpy batch of 8 x
+16 tokens, each row block on the ranks of its ``(pod, data)``
+coordinate.  Cases:
 
 * ``(data=2, model=4)``: query / kv heads 8/4 (both split: case a), 4/2
   (the kv heads stay whole, each rank reads the ones its query heads
@@ -15,7 +17,10 @@ numpy batch of 8 x 16 tokens, each row block on the ranks of its
   factorized plan.
 * ``(pod=2, data=2, model=2)``, heads 4/2: the factorized plan, the
   overlap engine and dropless dispatch (the ragged Alltoallv) over the
-  2-dim EP group.
+  2-dim EP group; and a dense-FFN model (no experts) at d 30, which
+  ``pod`` divides and ``pod * data`` does not, so the FSDP split keeps
+  ``pod`` alone and its gradients are summed over ``data`` after the
+  reduce-scatter.
 
 Checked within rtol = atol = 2e-4: the loss, every leaf's reduced
 gradient gathered to the global tree, ``grad_norm`` and the parameters
@@ -27,10 +32,14 @@ logits, full-vocab, against the reference on the mesh and the port
 without one.  Bit for bit: every ``model`` rank of a row block routes
 the same tokens from the same router probabilities, computes the same
 loss and ends with the same reduced gradients and parameters of its
-whole leaves.  The checkpoint of a state split over both the EP group
-and ``model`` restores with and without the mesh bit for bit, and
-``launch.train --mesh debug --smoke --device cpu`` trains 3 steps in
-the 8-rank world.
+leaves whole over ``model``.  FSDP: each rank holds block ``pod *
+|data| + data`` (over the axes kept) of every FSDP leaf, its AdamW
+moments the same shapes, no expert leaf is split by FSDP, and one case
+per mesh run with ``embed_fsdp=()`` (every such leaf whole) gives the
+same reduced gradients, norm and parameters within 2e-4.  The
+checkpoint of a state split over the EP group, ``model`` and FSDP
+restores with and without the mesh bit for bit, and ``launch.train
+--mesh debug --smoke --device cpu`` trains 3 steps in the 8-rank world.
 """
 
 import os
@@ -42,30 +51,32 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from torch_dist import run_world
+from torch_dist import fsdp_layout, run_world
 
 MESHES = {"dm": ((4, 2), ("model", "data")),               # fastest first
           "pdm": ((2, 2, 2), ("model", "data", "pod"))}
-# name: (mesh, n_heads, n_kv_heads, a2a_backend, capacity_factor)
-CASES = {"a-8/4": ("dm", 8, 4, "factorized", 8.0),
-         "b-4/2": ("dm", 4, 2, "factorized", 8.0),
-         "c-2/2": ("dm", 2, 2, "factorized", 8.0),
-         "factorized": ("pdm", 4, 2, "factorized", 8.0),
-         "overlap": ("pdm", 4, 2, "overlap", 8.0),
-         "dropless": ("pdm", 4, 2, "factorized", None)}
+# the config both packages build, and per case: (mesh, its fields)
+BASE = dict(name="t", family="moe", n_layers=2, d_model=32, n_heads=4,
+            n_kv_heads=2, d_ff=64, vocab=128, n_experts=4, top_k=2,
+            capacity_factor=8.0, param_dtype="float32",
+            compute_dtype="float32", a2a_backend="factorized", remat=True)
+CASES = {"a-8/4": ("dm", dict(n_heads=8, n_kv_heads=4)),
+         "b-4/2": ("dm", {}),
+         "c-2/2": ("dm", dict(n_heads=2)),
+         "factorized": ("pdm", {}),
+         "overlap": ("pdm", dict(a2a_backend="overlap")),
+         "dropless": ("pdm", dict(capacity_factor=None)),
+         "dense": ("pdm", dict(family="dense", n_experts=0, d_model=30,
+                               head_dim=8))}
 SERVE = {"dm": "b-4/2", "pdm": "factorized"}    # the cases served
+WHOLE = {"dm": "b-4/2", "pdm": "factorized"}    # also run embed_fsdp=()
 GB, SEQ, LR, STEPS = 8, 16, 1e-3, 2
 PROMPT, TICKS = 8, 4
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def _cfg(module, name):
-    _, Hq, Hkv, backend, cf = CASES[name]
-    return module.ModelConfig(
-        name="t", family="moe", n_layers=2, d_model=32, n_heads=Hq,
-        n_kv_heads=Hkv, d_ff=64, vocab=128, n_experts=4, top_k=2,
-        capacity_factor=cf, param_dtype="float32", compute_dtype="float32",
-        a2a_backend=backend, remat=True)
+    return module.ModelConfig(**{**BASE, **CASES[name][1]})
 
 
 def _batch():
@@ -99,11 +110,12 @@ def _recording_topk(torch, record):
     return real
 
 
-def _case(rank, mesh, torch, name, jparams, batch):
+def _case(rank, mesh, torch, name, jparams, batch, rules=None):
     """One training case on this rank: the gathered reduced gradients,
     norm, metrics and parameters after 2 steps, what must be the same
-    bits on every ``model`` rank of its row block, and (rank 0) the
-    port's mesh=None gradients of the global batch."""
+    bits on every ``model`` rank of its row block, the FSDP layout, and
+    (rank 0, default rules) the port's mesh=None gradients of the global
+    batch."""
     from repro_torch.models import (build_model, config, make_loss_fn,
                                     make_train_step, reduce_grads)
     from repro_torch.models.common import (param_shardings, tree_leaves,
@@ -114,25 +126,26 @@ def _case(rank, mesh, torch, name, jparams, batch):
 
     cfg = _cfg(config, name)
     model = build_model(cfg)
-    sh = param_shardings(model.specs(), mesh)
-    n, i = batch_split(mesh)
+    sh = param_shardings(model.specs(), mesh, rules)
+    n, i = batch_split(mesh, rules)
     rows = GB // n
     local = {k: torch.from_numpy(v[i * rows:(i + 1) * rows])
              for k, v in batch.items()}
-    params = params_from_jax(jparams, cfg, "cpu", mesh=mesh)
+    params = params_from_jax(jparams, cfg, "cpu", mesh=mesh, rules=rules)
     tree_map(lambda t: t.requires_grad_(True), params)
     leaves = tree_leaves(params)
     routed = []
     real = _recording_topk(torch, routed)
     try:
-        total, _ = make_loss_fn(model, mesh)(params, local)
+        total, _ = make_loss_fn(model, mesh, rules)(params, local)
     finally:
         torch.topk = real
     got = torch.autograd.grad(total, [t for _, t in leaves])
     grads = reduce_grads(tree_with_leaves(
         params, {p: g for (p, _), g in zip(leaves, got)}), sh,
-        batch_group(mesh))
-    whole = [p for p, _ in leaves if not sh.split(p)]
+        batch_group(mesh, rules))
+    # whole over model: the same bits on each model rank of a row block
+    whole = [p for p, _ in leaves if p not in sh.model_axes]
     out = {"block": i, "loss": float(total.detach()), "routed": routed,
            "shards": {p: tuple(t.shape) for p, t in leaves},
            "partial": sorted(sh.partial),
@@ -141,8 +154,9 @@ def _case(rank, mesh, torch, name, jparams, batch):
                            if p in whole},
            "grad_norm": float(global_norm(grads, sh))}
     opt = AdamW(AdamWConfig(lr=LR))
-    step = make_train_step(model, opt, mesh)
+    step = make_train_step(model, opt, mesh, rules)
     opt_state = opt.init(params)
+    out["fsdp"] = fsdp_layout(mesh, sh, params, opt_state, jparams)
     out["steps"] = []
     for _ in range(STEPS):
         params, opt_state, m = step(params, opt_state, local)
@@ -150,7 +164,7 @@ def _case(rank, mesh, torch, name, jparams, batch):
     out["params"] = _flat(sh.gather_tree(params))
     out["whole_params"] = {p: t.detach().numpy() for p, t
                            in tree_leaves(params) if p in whole}
-    if rank == 0:
+    if rank == 0 and rules is None:
         one = params_from_jax(jparams, cfg, "cpu")
         tree_map(lambda t: t.requires_grad_(True), one)
         lv = tree_leaves(one)
@@ -227,7 +241,10 @@ def _checkpoint(mesh, torch, tmp):
                 for p, t in tree_leaves(glob)),
             "both_splits": any(p in state_sh.axes and p in
                                state_sh.model_axes
-                               for p, _ in tree_leaves(live))}
+                               for p, _ in tree_leaves(live)),
+            "fsdp_and_model": any(p in state_sh.fsdp_axes and p in
+                                  state_sh.model_axes
+                                  for p, _ in tree_leaves(live))}
 
 
 def _launch(tmp):
@@ -245,9 +262,13 @@ def _launch(tmp):
 def _ranks(rank, n, key, init, batch, tokens, tmp):
     import torch
     from repro_torch.core.cache import cart_create
+    from repro_torch.parallel.sharding import ShardingRules
     mesh = cart_create(n, *MESHES[key], device_type="cpu")
+    name = WHOLE[key]
     out = {"cases": {name: _case(rank, mesh, torch, name, init[name], batch)
                      for name, spec in CASES.items() if spec[0] == key},
+           "whole": _case(rank, mesh, torch, name, init[name], batch,
+                          ShardingRules().override(embed_fsdp=())),
            "serve": _serve(rank, mesh, torch, SERVE[key], init[SERVE[key]],
                            tokens)}
     if key == "pdm":
@@ -302,12 +323,8 @@ rows = NamedSharding(mesh, P(tuple(a for a in ("pod", "data")
 batch = {k: jax.device_put(jnp.asarray(data[k]), rows)
          for k in ("tokens", "labels", "mask")}
 out = {}
-for name, (Hq, Hkv, backend, cf) in cases.items():
-    cfg = config.ModelConfig(
-        name="t", family="moe", n_layers=2, d_model=32, n_heads=Hq,
-        n_kv_heads=Hkv, d_ff=64, vocab=128, n_experts=4, top_k=2,
-        capacity_factor=cf, param_dtype="float32", compute_dtype="float32",
-        a2a_backend=backend, remat=True)
+for name, fields in cases.items():
+    cfg = config.ModelConfig(**fields)
     model = build_model(cfg)
     params = jax.device_put(unflat(name), param_shardings(model.specs(),
                                                           mesh, rules))
@@ -341,7 +358,7 @@ np.savez(sys.argv[3], **out)
 """
 
 
-def _numpy_init(specs, seed, d_model=32):
+def _numpy_init(specs, seed, d_model):
     """A parameter tree drawn with numpy from ``seed``, f32: every matmul
     weight at std 1 / sqrt(its contraction size), the tied embedding at
     1 / sqrt(d_model), norms at ones.  (At the reference's init, whose
@@ -390,8 +407,8 @@ def _start_jax(tmp, key, init):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
         + os.pathsep + env.get("PYTHONPATH", "")
-    args = (*MESHES[key], {n: CASES[n][1:] for n in names}, SERVE[key], LR,
-            STEPS, PROMPT, TICKS)
+    args = (*MESHES[key], {n: {**BASE, **CASES[n][1]} for n in names},
+            SERVE[key], LR, STEPS, PROMPT, TICKS)
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_SCRIPT, str(tmp / f"in_{key}.npz"),
          repr(args), str(tmp / f"out_{key}.npz")],
@@ -405,7 +422,8 @@ def runs(tmp_path_factory):
     ``({mesh: per-rank results}, {case: reference results})``."""
     from repro_torch.models import build_model, config
     tmp = tmp_path_factory.mktemp("tp")
-    init = {name: _numpy_init(build_model(_cfg(config, name)).specs(), k)
+    init = {name: _numpy_init(build_model(_cfg(config, name)).specs(), k,
+                              _cfg(config, name).d_model)
             for k, name in enumerate(CASES)}
     procs = {key: _start_jax(tmp, key, init) for key in MESHES}
     try:
@@ -480,14 +498,19 @@ def test_mesh_grads_match_the_one_device_port(runs, case):
 def test_model_ranks_agree_bit_for_bit(runs, case):
     """The ``model`` ranks of a row block: the same router probabilities
     and top-k choices in every layer (forward and remat recompute), the
-    same loss, the same reduced gradients and parameters of every whole
-    leaf; and each gathered tree is the same on every rank."""
+    same loss, the same reduced gradients and parameters of every leaf
+    whole over ``model`` (FSDP shards included: the ``model`` ranks of a
+    row block hold the same block); and each gathered tree is the same
+    on every rank."""
+    from repro_torch.models import config
     ranks, _ = _results(runs, case)
+    moe = _cfg(config, case).n_experts > 0
     first = {}
     for r in ranks:
         f = first.setdefault(r["block"], r)
         assert r["loss"] == f["loss"]
-        assert len(r["routed"]) == len(f["routed"]) > 0
+        assert len(r["routed"]) == len(f["routed"])
+        assert len(r["routed"]) > 0 or not moe
         for (p, idx), (fp, fidx) in zip(r["routed"], f["routed"]):
             np.testing.assert_array_equal(p, fp)
             np.testing.assert_array_equal(idx, fidx)
@@ -505,39 +528,100 @@ def test_model_ranks_agree_bit_for_bit(runs, case):
 def test_resolver_matches_the_reference(case):
     """``parallel.sharding.resolve_spec`` against the reference's on every
     leaf of the case's model and its mesh shape (the reference's resolver
-    reads only ``mesh.shape``)."""
+    reads only ``mesh.shape``), and ``fsdp_dim`` against the dim the
+    reference's spec gives the FSDP rule's axes (with those axes)."""
     from types import SimpleNamespace
     from repro.parallel.sharding import resolve_spec as jax_resolve
     from repro_torch.models import build_model, config
     from repro_torch.models.common import tree_leaves
-    from repro_torch.parallel.sharding import resolve_spec
+    from repro_torch.parallel.sharding import fsdp_dim, resolve_spec
     dims, names = MESHES[CASES[case][0]]
     shape = dict(zip(names, dims))
     for path, spec in tree_leaves(build_model(_cfg(config, case)).specs()):
         want = tuple(jax_resolve(spec.shape, spec.logical,
                                  SimpleNamespace(shape=shape)))
         assert resolve_spec(spec.shape, spec.logical, shape) == want, path
+        split = None
+        for i, (name, part) in enumerate(zip(spec.logical, want)):
+            axes = (part,) if isinstance(part, str) else part or ()
+            if name == "embed_fsdp" and np.prod([shape[a] for a in axes]) > 1:
+                split = (i, tuple(axes))
+        assert fsdp_dim(spec.shape, spec.logical, shape) == split, path
 
 
 def test_head_cases_shard_as_resolved(runs):
     """On (data=2, model=4): which attention leaves each rank holds as
-    slices in the three head cases, which whole kv leaves are partial,
+    slices in the three head cases (their ``d_model`` dim split over
+    ``data`` by FSDP), which kv leaves whole over ``model`` are partial,
     and the vocab and expert splits."""
     world, _ = runs
     mixer = "blocks/pos0/mixer/"
     for case, wq, wk, partial in (
-            ("a-8/4", (2, 32, 2, 4), (2, 32, 1, 4), []),
-            ("b-4/2", (2, 32, 1, 8), (2, 32, 2, 8),
+            ("a-8/4", (2, 16, 2, 4), (2, 16, 1, 4), []),
+            ("b-4/2", (2, 16, 1, 8), (2, 16, 2, 8),
              [mixer + "wk", mixer + "wv"]),
-            ("c-2/2", (2, 32, 2, 16), (2, 32, 2, 16), [])):
+            ("c-2/2", (2, 16, 2, 16), (2, 16, 2, 16), [])):
         for r in world["dm"]:
             got = r["cases"][case]
             assert got["shards"][mixer + "wq"] == wq
             assert got["shards"][mixer + "wk"] == wk
             assert got["partial"] == partial
-            assert got["shards"]["embed"] == (32, 32)
+            assert got["shards"]["embed"] == (32, 16)
             assert got["shards"]["blocks/pos0/ffn/w1"] == (2, 2, 32, 16)
             assert got["shards"]["blocks/pos0/ffn/router"] == (2, 32, 4)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fsdp_layout(runs, case):
+    """Every rank holds block ``pod * |data| + data`` (over the axes the
+    resolver kept) of each FSDP leaf, its AdamW moments the same shape;
+    the FSDP leaves are exactly the ``embed_fsdp`` leaves the resolver
+    splits, expert leaves excluded; all ranks agree on the layout."""
+    from repro_torch.models import build_model, config
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel.sharding import fsdp_dim
+    ranks, _ = _results(runs, case)
+    dims, names = MESHES[CASES[case][0]]
+    shape = dict(zip(names, dims))
+    want, kept = {}, set()
+    for path, spec in tree_leaves(build_model(_cfg(config, case)).specs()):
+        split = fsdp_dim(spec.shape, spec.logical, shape)
+        if split is not None and "expert" not in spec.logical:
+            want[path] = split[0]
+            kept.add(split[1])
+    assert want and len(kept) == 1
+    kept = kept.pop()
+    assert kept == (("pod",) if case == "dense" else
+                    tuple(a for a in ("pod", "data") if a in shape))
+    for rank, r in enumerate(ranks):
+        got = r["fsdp"]
+        assert got["axes"] == want and got["kept"] == kept
+        assert not set(got["experts"]) & set(got["axes"])
+        bad = [p for p, ok in got["blocks"].items() if not ok]
+        assert set(got["blocks"]) == set(want) and not bad, (rank, bad)
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+def test_fsdp_matches_the_whole_leaf_run(runs, key):
+    """The FSDP run against the same case with ``embed_fsdp=()`` (every
+    such leaf whole on every rank): reduced gradients (gathered),
+    ``grad_norm``, metrics and the parameters after 2 steps."""
+    world, _ = runs
+    for rank, r in enumerate(world[key]):
+        fsdp, whole = r["cases"][WHOLE[key]], r["whole"]
+        assert whole["fsdp"]["axes"] == {} and fsdp["fsdp"]["axes"]
+        np.testing.assert_allclose(fsdp["grad_norm"], whole["grad_norm"],
+                                   **TOL)
+        for what in ("grads", "params"):
+            assert set(fsdp[what]) == set(whole[what])
+            for path, w in whole[what].items():
+                np.testing.assert_allclose(
+                    fsdp[what][path], w, **TOL,
+                    err_msg=f"{key} {what} {path} rank {rank}")
+        for s, m in enumerate(fsdp["steps"]):
+            for k, v in m.items():
+                np.testing.assert_allclose(v, whole["steps"][s][k], **TOL,
+                                           err_msg=f"step {s} {k}")
 
 
 @pytest.mark.parametrize("key", list(MESHES))

@@ -5,8 +5,9 @@ device.
 
 Both packages run a 2-layer MoE model (d 32, 4/2 heads, d_ff 64, vocab
 100, top-2, f32, remat) on the same weights, drawn once with numpy from
-a seed and carried to each (``params_from_jax`` with the mesh: each rank keeps its
-experts' slice), and one numpy batch
+a seed and carried to each (``params_from_jax`` with the mesh: each rank
+keeps its experts' slice and its FSDP block of the embedding and
+attention, ``d_model`` split over ``(pod, data)``), and one numpy batch
 of 8 x 16 tokens, each rank its row block ``pod * 2 + data``.  Cases: 4
 experts under the factorized plan, 2 (replicas) under the overlap
 engine, 8 with dropless dispatch (the ragged Alltoallv).
@@ -21,7 +22,13 @@ engine, 8 with dropless dispatch (the ragged Alltoallv).
 * The parameters after 2 AdamW steps (clipping active: the norm is about
   19) against the reference's ``make_train_step``, within 2e-4.
 * The port against itself: the reduced gradients against the port's
-  ``mesh=None`` gradients of the global batch, within 2e-4.
+  ``mesh=None`` gradients of the global batch, within 2e-4; and the
+  4-expert case's FSDP run against the same case with ``embed_fsdp=()``
+  (every leaf but the experts whole): reduced gradients, norm, metrics
+  and parameters after 2 steps within 2e-4.
+* The FSDP layout: every rank holds block ``pod * 2 + data`` of each
+  FSDP leaf's ``d_model`` dim, its AdamW moments the same shape, and no
+  expert leaf is split by FSDP.
 * ``opt_state_from_jax`` with the mesh keeps each rank's shard of the
   reference's global moments.
 * ``compressed_psum`` over the world against the reference's int8
@@ -48,11 +55,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from torch_dist import run_world
+from torch_dist import fsdp_layout, run_world
 
 CASES = {"E4-factorized": (4, "factorized", 8.0),
          "E2-overlap": (2, "overlap", 8.0),
          "E8-dropless": (8, "factorized", None)}
+WHOLE = "E4-factorized"                # also run with embed_fsdp=()
 GB, SEQ, LR, STEPS = 8, 16, 1e-3, 2
 MESH = ((1, 2, 2), ("model", "data", "pod"))      # fastest digit first
 GRAD = (4, 4096)                                   # compressed_psum's leaf
@@ -83,10 +91,11 @@ def _flat(tree):
     return {p: t.detach().numpy().copy() for p, t in tree_leaves(tree)}
 
 
-def _case(rank, mesh, torch, name, jparams, batch):
+def _case(rank, mesh, torch, name, jparams, batch, rules=None):
     """One case on this rank: the gathered reduced gradients, the norm and
-    metrics, the parameters after 2 steps, and (rank 0) the port's own
-    mesh=None gradients of the global batch."""
+    metrics, the FSDP layout, the parameters after 2 steps, and (rank 0,
+    default rules) the port's own mesh=None gradients of the global
+    batch."""
     from repro_torch.models import build_model, config, make_loss_fn, \
         make_train_step, reduce_grads
     from repro_torch.models.common import (param_shardings, tree_leaves,
@@ -99,28 +108,31 @@ def _case(rank, mesh, torch, name, jparams, batch):
     E, backend, cf = CASES[name]
     cfg = _cfg(config, E, backend, cf)
     model = build_model(cfg)
-    sh = param_shardings(model.specs(), mesh)
-    n, i = batch_split(mesh)
+    sh = param_shardings(model.specs(), mesh, rules)
+    n, i = batch_split(mesh, rules)
     rows = GB // n
     local = {k: torch.from_numpy(v[i * rows:(i + 1) * rows])
              for k, v in batch.items()}
-    params = params_from_jax(jparams, cfg, "cpu", mesh=mesh)
+    params = params_from_jax(jparams, cfg, "cpu", mesh=mesh, rules=rules)
     tree_map(lambda t: t.requires_grad_(True), params)
     leaves = tree_leaves(params)
-    total, metrics = make_loss_fn(model, mesh)(params, local)
+    total, metrics = make_loss_fn(model, mesh, rules)(params, local)
     got = torch.autograd.grad(total, [t for _, t in leaves])
     grads = reduce_grads(tree_with_leaves(
         params, {p: g for (p, _), g in zip(leaves, got)}), sh,
-        batch_group(mesh))
+        batch_group(mesh, rules))
     out = {"grads": _flat(sh.gather_tree(grads)),
            "grad_norm": float(global_norm(grads, sh))}
-    step = make_train_step(model, AdamW(AdamWConfig(lr=LR)), mesh)
+    step = make_train_step(model, AdamW(AdamWConfig(lr=LR)), mesh, rules)
     opt_state = AdamW(AdamWConfig(lr=LR)).init(params)
+    out["fsdp"] = fsdp_layout(mesh, sh, params, opt_state, jparams)
     out["steps"] = []
     for _ in range(STEPS):
         params, opt_state, m = step(params, opt_state, local)
         out["steps"].append({k: float(v) for k, v in m.items()})
     out["params"] = _flat(sh.gather_tree(params))
+    if rules is not None:
+        return out
     # the checkpoint's gather: the global tree on the writer's host alone
     to_writer = sh.gather_tree_to_writer(params)
     out["to_writer"] = to_writer if to_writer is None else {
@@ -199,6 +211,10 @@ def _checkpoint(rank, mesh, torch, tmp):
     ok["experts_sliced"] = any(
         tuple(a.shape) != tuple(b.shape)
         for (_, a), (_, b) in zip(tree_leaves(live), tree_leaves(glob)))
+    ok["fsdp_sliced"] = all(
+        (p in state_sh.fsdp_axes) == (p.endswith(("embed", "wq", "wk", "wv",
+                                                  "wo")))
+        for p, _ in tree_leaves(live) if not p.endswith("step"))
 
     # Trainer: 2 steps (async checkpoint at 2), restore into a fresh one
     tr.run(max_steps=2)
@@ -225,9 +241,12 @@ def _ranks(rank, n, jparams, batch, tmp):
     from repro_torch.core.cache import cart_create
     from repro_torch.data import CopyTaskConfig, SyntheticLM
     from repro_torch.parallel.sharding import batch_split
+    from repro_torch.parallel.sharding import ShardingRules
     mesh = cart_create(n, *MESH, device_type="cpu")
     out = {"cases": {name: _case(rank, mesh, torch, name, jparams[name],
-                                 batch) for name in CASES}}
+                                 batch) for name in CASES},
+           "whole": _case(rank, mesh, torch, WHOLE, jparams[WHOLE], batch,
+                          ShardingRules().override(embed_fsdp=()))}
     out["compressed"] = _compression(rank, torch)
     out["checkpoint"] = _checkpoint(rank, mesh, torch, Path(tmp))
     from repro_torch.core.cache import mesh_shape
@@ -459,6 +478,48 @@ def test_mesh_grads_match_the_one_device_port(world, case):
     for path, w in want.items():
         np.testing.assert_allclose(got[path], w, rtol=2e-4, atol=2e-4,
                                    err_msg=f"{case} {path}")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_fsdp_layout(world, case):
+    """Every rank holds block ``pod * 2 + data`` of each FSDP leaf's
+    ``d_model`` dim, split over ``(pod, data)``, with AdamW moments of
+    its shape: the embedding and attention leaves (the resolver's
+    ``embed_fsdp`` leaves), no expert leaf, the norms and the router
+    whole."""
+    want = {"embed": 1}
+    for w in ("wq", "wk", "wv"):
+        want[f"blocks/pos0/mixer/{w}"] = 1
+    want["blocks/pos0/mixer/wo"] = 3
+    for r in world:
+        got = r["cases"][case]["fsdp"]
+        assert got["axes"] == want and got["kept"] == ("pod", "data")
+        assert got["experts"] == [f"blocks/pos0/ffn/{w}"
+                                  for w in ("w1", "w2", "w3")]
+        assert set(got["blocks"]) == set(want)
+        assert all(got["blocks"].values()), got["blocks"]
+
+
+def test_fsdp_matches_the_whole_leaf_run(world):
+    """The 4-expert case with FSDP against itself with ``embed_fsdp=()``:
+    reduced gradients (gathered), ``grad_norm``, metrics and the
+    parameters after 2 steps within 2e-4, on every rank."""
+    for rank, r in enumerate(world):
+        fsdp, whole = r["cases"][WHOLE], r["whole"]
+        assert whole["fsdp"]["axes"] == {} and fsdp["fsdp"]["axes"]
+        np.testing.assert_allclose(fsdp["grad_norm"], whole["grad_norm"],
+                                   rtol=2e-4, atol=2e-4)
+        for what in ("grads", "params"):
+            assert set(fsdp[what]) == set(whole[what])
+            for path, w in whole[what].items():
+                np.testing.assert_allclose(
+                    fsdp[what][path], w, rtol=2e-4, atol=2e-4,
+                    err_msg=f"{what} {path} rank {rank}")
+        for s, m in enumerate(fsdp["steps"]):
+            for k, v in m.items():
+                np.testing.assert_allclose(v, whole["steps"][s][k],
+                                           rtol=2e-4, atol=2e-4,
+                                           err_msg=f"step {s} {k}")
 
 
 def test_compressed_psum_matches_the_reference_quantisation(world):

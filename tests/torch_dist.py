@@ -11,6 +11,10 @@ Every world has a deadline of its own (``timeout``, 120 s by default):
 when it passes, the children are killed and the call fails, so a hung
 collective never runs the test session into its time limit.  A rank that
 raises fails the call with its traceback.
+
+``fsdp_layout`` reports, inside a rank, how it holds the FSDP leaves of a
+parameter tree, for the mesh training tests to hold against the global
+tree.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import time
 import traceback
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.multiprocessing as mp
 
@@ -77,3 +82,40 @@ def run_world(fn, n: int, tmp_path, *args, timeout: float = 120.0):
         raise TimeoutError(f"{n}-rank world did not finish in "
                            f"{timeout:.0f} s")
     return [res[1] for res in results]
+
+
+def _block(a, dim, i, n):
+    """Block ``i`` of ``n`` along ``dim`` of the array ``a``."""
+    k = a.shape[dim] // n
+    return np.take(a, range(i * k, (i + 1) * k), axis=dim)
+
+
+def fsdp_layout(mesh, sh, params, opt_state, global_params):
+    """This rank's FSDP split: the leaves and dims, the axes kept, the
+    expert leaves, and for each FSDP leaf whether it is block ``pod *
+    |data| + data`` (row-major over the kept axes) of the global leaf
+    (of this rank's ``model`` slice where ``model`` splits it too), with
+    AdamW moments of its shape.  ``sh`` is the parameters'
+    ``ExpertSharding`` and ``global_params`` the global tree (numpy)."""
+    from repro_torch.core.cache import mesh_shape
+    from repro_torch.models.common import tree_leaves
+    shape = mesh_shape(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    f, size = 0, 1
+    for a in sh.fsdp_kept:
+        f, size = f * shape[a] + coord[a], size * shape[a]
+    glob = dict(tree_leaves(global_params))
+    mu = dict(tree_leaves(opt_state["mu"]))
+    blocks = {}
+    for p, t in tree_leaves(params):
+        if p not in sh.fsdp_axes:
+            continue
+        want = np.asarray(glob[p])
+        if p in sh.model_axes:
+            want = _block(want, sh.model_axes[p], coord["model"],
+                          shape["model"])
+        want = _block(want, sh.fsdp_axes[p], f, size)
+        blocks[p] = (np.array_equal(t.detach().numpy(), want)
+                     and tuple(mu[p].shape) == tuple(t.shape))
+    return {"axes": dict(sh.fsdp_axes), "kept": sh.fsdp_kept,
+            "blocks": blocks, "experts": sorted(sh.axes)}
