@@ -24,8 +24,16 @@ The reference's guarantees, kept:
   device and the others keep nothing; a restore reads the global leaves
   and keeps this rank's slices.  So a checkpoint restores with or
   without a mesh, onto any EP group, ``model`` dim and FSDP split the
-  leaves divide (the reference's resharding on restore).  ``wait()`` ends in a check every rank makes together, so no
-  rank reads a directory the writer has not finished.
+  leaves divide (the reference's resharding on restore).  ``wait()``
+  ends in a check every rank makes together, so no rank reads a
+  directory the writer has not finished.
+* **Restore onto another layout** — ``restore`` takes the layout to
+  restore onto beside the one the target tree is held in (the elastic
+  trainer's survivor mesh after a device loss, ``CheckpointManager
+  .restore(target, sharding)``): each leaf is checked against the
+  target's global shape and sliced for the new layout.  The writer rank
+  and the closing check then run on the new layout's group, whose rank
+  at mesh coordinate 0 writes.
 
 Leaves are written raw, not compressed: the port needs no package beyond
 torch and numpy (the reference uses msgpack and zstandard), bf16 weights
@@ -167,6 +175,9 @@ def latest_step(directory) -> int | None:
     return steps[-1] if steps else None
 
 
+_SAME = object()   # the default layout argument: the current one
+
+
 # Failures that mean "this checkpoint is unusable", as opposed to a caller
 # error: unreadable or corrupt files (OSError, including the sha256
 # IOError), missing leaves, and undecodable manifests or sizes.
@@ -174,25 +185,29 @@ _INTEGRITY_ERRORS = (OSError, KeyError, ValueError)
 
 
 def restore_checkpoint(directory, step: int | None, target_tree,
-                       sharding=None):
+                       sharding=None, target_sharding=_SAME):
     """Restore into the structure of ``target_tree`` (tensors; each
     restored leaf goes to its target leaf's device).  Returns ``(tree,
-    extra, step)``.  With ``sharding`` the target is this rank's shard:
-    each leaf is checked against its global shape and sliced.
+    extra, step)``.  With ``sharding`` each leaf is sliced to this
+    rank's shard of that layout.  ``target_sharding`` is the layout
+    ``target_tree`` is held in (default ``sharding``): each leaf is
+    checked against the global shape it gives.
 
     With ``step=None`` (the latest), a checkpoint that fails its
     integrity checks is skipped with a warning and the next newest is
     tried; an explicit ``step`` raises on corruption."""
     directory = Path(directory)
+    layouts = (sharding,
+               sharding if target_sharding is _SAME else target_sharding)
     if step is not None:
-        return _restore_step(directory, step, target_tree, sharding)
+        return _restore_step(directory, step, target_tree, *layouts)
     steps = all_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no checkpoints in {directory}")
     last_err = None
     for s in reversed(steps):
         try:
-            return _restore_step(directory, s, target_tree, sharding)
+            return _restore_step(directory, s, target_tree, *layouts)
         except _INTEGRITY_ERRORS as e:
             last_err = e
             warnings.warn(f"skipping checkpoint step {s}: "
@@ -202,16 +217,18 @@ def restore_checkpoint(directory, step: int | None, target_tree,
                   f"are unusable") from last_err
 
 
-def _restore_step(directory: Path, step: int, target_tree, sharding=None):
+def _restore_step(directory: Path, step: int, target_tree, sharding,
+                  target_sharding):
     with telemetry.get_tracer().span("checkpoint.restore", cat="checkpoint",
                                      step=int(step), verify=True):
-        out = _restore_step_impl(directory, step, target_tree, sharding)
+        out = _restore_step_impl(directory, step, target_tree, sharding,
+                                 target_sharding)
         telemetry.metrics().counter("checkpoint.restores").inc()
         return out
 
 
-def _restore_step_impl(directory: Path, step: int, target_tree,
-                       sharding=None):
+def _restore_step_impl(directory: Path, step: int, target_tree, sharding,
+                       target_sharding):
     base = directory / f"step_{step:08d}"
     with open(base / "manifest.json") as f:
         manifest = json.load(f)
@@ -227,8 +244,8 @@ def _restore_step_impl(directory: Path, step: int, target_tree,
             raise IOError(f"corrupt leaf {key} in step {step}")
         t = t.view(dtype).reshape(info["shape"])
         ref = torch.as_tensor(ref)
-        want = tuple(ref.shape) if sharding is None \
-            else sharding.global_shape(key, ref.shape)
+        want = tuple(ref.shape) if target_sharding is None \
+            else target_sharding.global_shape(key, ref.shape)
         if tuple(t.shape) != want:
             raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
                              f"target {want}")
@@ -290,6 +307,14 @@ class CheckpointManager:
     def latest(self):
         return latest_step(self.directory)
 
-    def restore(self, target_tree, step=None):
+    def restore(self, target_tree, sharding=_SAME, step=None):
+        """Restore the latest checkpoint (or ``step``) into the structure
+        of ``target_tree``, which is held in the manager's layout.  With
+        ``sharding`` (another layout, e.g. a survivor mesh's) the leaves
+        are sliced for it and the manager keeps it: later saves and
+        waits run on its group."""
+        held = self.sharding
+        if sharding is not _SAME:
+            self.sharding = sharding
         return restore_checkpoint(self.directory, step, target_tree,
-                                  self.sharding)
+                                  self.sharding, held)

@@ -19,10 +19,25 @@ paper's ``MPI_Cart_create`` + ``MPI_Cart_sub`` (Listings 1–2) over a
   unbounded cache keyed by the coset partition, so a descriptor rebuilt
   after ``free`` reuses its groups instead of creating new ones.
 
-Group creation is collective: every rank of the world must look up the
-same descriptors in the same order (SPMD code does), including ranks that
-end up outside a group.  Cache keys are computed alike on every rank, so a
-lookup hits or misses everywhere at once.
+Group creation over a mesh that spans the world is collective: every rank
+of the world must look up the same descriptors in the same order (SPMD
+code does), including ranks that end up outside a group.  Cache keys are
+computed alike on every rank, so a lookup hits or misses everywhere at
+once.
+
+A mesh over a strict subset of the world (the survivors of a device loss,
+``TorusComm.rebuild``; a ``TorusComm.partition`` child) is built by its
+members alone, so a rank that left makes no call: each member creates only
+the groups it belongs to, with ``dist.new_group(ranks,
+use_local_synchronization=True)`` (only the members enter it), and the
+mesh is ``DeviceMesh.from_group`` over them (no group of its own); both
+were checked on torch 2.13 (the gloo tests) and 2.11 (a card's gloo
+world).  The members create their groups in the same
+order (the mesh dims, then the multi-axis cosets as the descriptors ask),
+each step a partition of the members, so no two ranks wait on each other
+crosswise.  These groups are cached by their member set: a rebuilt mesh
+never reuses a group that holds a rank outside it (a lost one), and a set
+is never created twice (its store prefix is a hash of the members).
 """
 
 from __future__ import annotations
@@ -182,8 +197,10 @@ def cart_create(ranks, dims: tuple[int, ...],
     case of Listing 1), or an int ``p`` (ranks ``0..p-1`` of the world).
     ``dims[0]`` is the fastest digit, so the mesh is built with ``dims``
     and ``names`` reversed.  ``device_type`` defaults to the mesh's, else
-    ``"cuda"``.  Collective, like every ``DeviceMesh``; meshes are cached,
-    so calling it again with the same arguments creates no new groups.
+    ``"cuda"``.  Collective, like every ``DeviceMesh``: over the whole
+    world every rank calls it, over a strict subset only the members do
+    (the module docstring); meshes are cached, so calling it again with
+    the same arguments creates no new groups.
     """
     if isinstance(ranks, DeviceMesh):
         device_type = device_type or ranks.device_type
@@ -207,9 +224,53 @@ def cart_create(ranks, dims: tuple[int, ...],
     if mesh is None:
         arr = torch.tensor(ranks, dtype=torch.int).reshape(
             tuple(reversed(dims)))
-        mesh = _MESHES[key] = DeviceMesh(
-            device_type, arr, mesh_dim_names=tuple(reversed(names)))
+        if _spans_world(ranks):
+            mesh = DeviceMesh(device_type, arr,
+                              mesh_dim_names=tuple(reversed(names)))
+        else:
+            mesh = _subset_mesh(arr, tuple(reversed(names)), device_type)
+        _MESHES[key] = mesh
     return mesh
+
+
+def _spans_world(ranks) -> bool:
+    return not dist.is_initialized() \
+        or len(set(ranks)) == dist.get_world_size()
+
+
+def _subset_mesh(arr, dim_names, device_type) -> DeviceMesh:
+    """A ``DeviceMesh`` over a strict subset of the world, built by its
+    members alone (one group per mesh dim: this rank's coset)."""
+    me = dist.get_rank()
+    where = (arr == me).nonzero()
+    if len(where) != 1:
+        raise ValueError(f"rank {me} is not among the mesh's ranks "
+                         f"{arr.flatten().tolist()}: a mesh over a subset "
+                         "of the world is built by its members only")
+    coord = where[0].tolist()
+    groups = []
+    for i in range(arr.dim()):
+        line = arr[tuple(slice(None) if j == i else c
+                         for j, c in enumerate(coord))]
+        groups.append(_local_group(line.tolist()))
+    return DeviceMesh.from_group(groups, device_type, mesh=arr,
+                                 mesh_dim_names=dim_names)
+
+
+# member set -> process group, for groups created by their members alone
+_LOCAL_GROUPS: dict = {}
+
+
+def _local_group(members):
+    """The process group over ``members`` (this rank among them), created
+    by the members only, once per member set."""
+    key = tuple(sorted(int(r) for r in members))
+    pg = _LOCAL_GROUPS.get(key)
+    if pg is None:
+        pg = _LOCAL_GROUPS[key] = dist.new_group(
+            ranks=list(key), use_local_synchronization=True)
+        _SPLIT_COUNTER["groups_created"] += 1
+    return pg
 
 
 _REGISTRY: LRUCache = LRUCache(capacity=128)
@@ -248,6 +309,8 @@ def _peer_group(mesh: DeviceMesh, axes: tuple[str, ...]) -> PeerGroup:
     mine = next((c for c in cosets if me in c), None)
     if len(axes) == 1:
         pg = mesh.get_group(axes[0])
+    elif not _spans_world(mesh.mesh.flatten().tolist()):
+        pg = None if mine is None else _local_group(mine)
     else:
         pg = None
         for c in cosets:        # every rank creates every group, in order

@@ -23,12 +23,20 @@ exchanges.  :class:`TorusComm` makes it explicit over a ``DeviceMesh``:
 * ``comm.free()`` (or the context-manager form) is the delete callback;
   ``comm.stats()`` is the unified cache report.
 
+* ``comm.partition(n_first)`` is the ``MPI_Comm_split`` analogue by rank
+  range (two balanced tori of ``n_first`` and ``p - n_first`` ranks);
+  ``comm.rebuild(surviving)`` the elastic step after a device loss: the
+  survivors re-factorized by ``dims_create``, the dead comm's plan slice
+  freed, its tuning records migrated where their extents survived.
+
 Like every collective here, construction is collective (it may create
 process groups) and execution is SPMD: every rank of the torus calls the
-same methods in the same order.  A comm may be bound to a tuning DB
-(``db=``), which its ``backend="autotune"`` plans read.  ``partition``,
-``rebuild`` and the KV-migration and transpose factories wait for their
-slices (ROADMAP).
+same methods in the same order.  A mesh over a strict subset of the world
+(a rebuilt comm's survivors, a partition's child) is built by its members
+alone (``core.cache``), so ``rebuild`` is collective over the survivors
+only and a lost rank makes no call.  A comm may be bound to a tuning DB
+(``db=``), which its ``backend="autotune"`` plans read.  The KV-migration
+and transpose factories wait for their slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -402,6 +410,11 @@ class TorusComm:
         self._source = mesh if mesh is not None else fact.dims
         self._plan_keys: set = set()
         self._subs: dict[tuple, TorusComm] = {}
+        self._parts: dict[tuple, tuple] = {}
+        # elastic lineage: the dead comm this one was rebuilt from, and
+        # how many tuning records migrated onto it
+        self.rebuilt_from: dict | None = None
+        self.tuning_migrated = 0
         # registry slot (cleared on free) and immutable identity (never
         # cleared — children key their lineage on it)
         self._comm_key = None
@@ -467,6 +480,52 @@ class TorusComm:
                            db=self._db, _parent=self)
         self._subs[axes] = child
         return child
+
+    def partition(self, n_first: int, *, d: int | None = None,
+                  prefixes: tuple[str, str] = ("pre", "dec")
+                  ) -> "tuple[TorusComm, TorusComm]":
+        """The ``MPI_Comm_split`` analogue by rank range: this comm's ``p``
+        ranks split into a leading group of ``n_first`` torus ranks and the
+        remaining ``p - n_first``, each re-factorized into its own
+        balanced torus (``dims_create``), its axes named ``{prefix}0..``.
+        Children are cached on this comm and freed with it; ``d`` is each
+        child's degree (default: this comm's, capped by the child's size).
+        Returns ``(first, rest)``.
+
+        A dims-tuple comm gives dims-tuple children.  On a mesh each rank
+        builds the child it belongs to over its members' ranks (only they
+        take part, ``core.cache``) and holds the other as a dims-tuple
+        comm (resolution only): the rank runs no collective of a torus it
+        is not in."""
+        from .dims import dims_create
+        n_first = int(n_first)
+        if not 0 < n_first < self.p:
+            raise ValueError(f"n_first {n_first} outside (0, p={self.p}); "
+                             "both partitions need at least one rank")
+        if len(prefixes) != 2 or prefixes[0] == prefixes[1]:
+            raise ValueError(f"need two distinct prefixes, got {prefixes}")
+        key = (n_first, d, tuple(prefixes))
+        if key in self._parts and not any(c._freed
+                                          for c in self._parts[key]):
+            return self._parts[key]
+        ranks = None if self.mesh is None \
+            else self.mesh.mesh.flatten().tolist()
+        children = []
+        for prefix, lo, hi in ((prefixes[0], 0, n_first),
+                               (prefixes[1], n_first, self.p)):
+            count = hi - lo
+            dk = min(self.d if d is None else int(d), count)
+            dims = tuple(reversed(dims_create(count, dk)))
+            names = tuple(f"{prefix}{i}" for i in range(len(dims)))
+            source = dims
+            if ranks is not None and dist.get_rank() in ranks[lo:hi]:
+                source = cart_create(ranks[lo:hi], dims, names,
+                                     device_type=self.mesh.device_type)
+            children.append(torus_comm(source, names, variant=self.variant,
+                                       db=self._db, _parent=self))
+        pair = (children[0], children[1])
+        self._parts[key] = pair
+        return pair
 
     # -- collective factories ----------------------------------------------
 
@@ -570,6 +629,10 @@ class TorusComm:
         for child in list(self._subs.values()):
             child.free()
         self._subs.clear()
+        for pair in list(self._parts.values()):
+            for child in pair:
+                child.free()
+        self._parts.clear()
         for key in self._plan_keys:
             _planmod._drop_plan(key)
         self._plan_keys.clear()
@@ -585,12 +648,78 @@ class TorusComm:
     def __exit__(self, *exc) -> None:
         self.free()
 
+    def rebuild(self, surviving, *, d: int | None = None,
+                migrate_tuning: bool = True) -> "TorusComm":
+        """The elastic rebuild step of detect → degrade → rebuild →
+        resume: after a device loss, the communicator over the survivors.
+
+        * ``p' = len(surviving)`` is re-factorized into ``d`` balanced
+          factors (``dims_create``, fastest digit first) and, on a mesh,
+          the survivors' Cartesian mesh is built by ``cart_create`` — by
+          the survivors alone, so this call is collective over them and
+          a lost rank makes none;
+        * exactly this comm's slice of the plan registry is freed
+          (``free()``): another comm's cached plans stay the same objects;
+        * tuning-DB winners measured on the dead rank set whose per-axis
+          extents hold on the new torus migrate to its fingerprint
+          (``autotune.migrate_records``, marked ``migrated``); every
+          survivor puts the same records, so each counts them alike;
+        * returns the fresh comm; its plans resolve lazily on first use.
+
+        ``surviving`` is a list of global ranks (its order is the new
+        torus linearization), or an int: the survivor count, keeping the
+        first ``p'`` ranks of the old torus (mesh-backed) or staying
+        device-agnostic (dims-tuple comms).  Axis names are kept when the
+        degree is unchanged, else they become ``t0..``.
+        """
+        from .autotune import db_fingerprint
+        from .dims import dims_create
+        d = self.d if d is None else int(d)
+        if isinstance(surviving, int):
+            survivors = None if self.mesh is None \
+                else self.mesh.mesh.flatten().tolist()[:surviving]
+            p2 = surviving
+        else:
+            survivors = [int(r) for r in surviving]
+            p2 = len(survivors)
+        if p2 <= 0:
+            raise ValueError(f"no surviving devices (p'={p2})")
+        if self.p == p2 and survivors is None and d == self.d:
+            raise ValueError("rebuild needs a changed device set; "
+                             f"p'={p2} == p={self.p} with no device list")
+        dims2 = tuple(reversed(dims_create(p2, d)))
+        names = self.axis_names if len(self.axis_names) == len(dims2) \
+            else tuple(f"t{i}" for i in range(len(dims2)))
+        with telemetry.get_tracer().span(
+                "comm.rebuild", cat="comm", p_old=self.p, p_new=p2, d=d,
+                dims_old=str(self.dims), dims_new=str(dims2)) as sp:
+            source = dims2 if survivors is None or self.mesh is None \
+                else cart_create(survivors, dims2, names,
+                                 device_type=self.mesh.device_type)
+            old = {"dims": list(self.dims), "axes": list(self.axis_names),
+                   "p": self.p}
+            old_db_key = None if self.mesh is None \
+                else db_fingerprint(self.mesh)
+            self.free()
+            fresh = torus_comm(source, names, variant=self.variant,
+                               db=self._db)
+            fresh.rebuilt_from = old
+            if migrate_tuning and old_db_key is not None \
+                    and fresh.mesh is not None:
+                from .autotune import get_default_db, migrate_records
+                db = self._db if self._db is not None else get_default_db()
+                fresh.tuning_migrated = migrate_records(
+                    db, old_db_key, db_fingerprint(fresh.mesh), fresh.dims,
+                    fresh.axis_names)
+                sp.set(tuning_migrated=fresh.tuning_migrated)
+        telemetry.metrics().counter("comm.rebuilds").inc()
+        return fresh
+
     # -- introspection ------------------------------------------------------
 
     def describe(self) -> dict:
         """Stable, JSON-serializable summary of the communicator (the
-        reference's keys; ``rebuild`` is not ported, so the elastic
-        lineage fields keep their defaults)."""
+        reference's keys)."""
         return {
             "kind": "comm",
             "axes": list(self.axis_names),
@@ -603,8 +732,8 @@ class TorusComm:
             "device_backed": self.mesh is not None,
             "plans": len(self._plan_keys),
             "subs": sorted(list(a) for a in self._subs),
-            "rebuilt_from": None,
-            "tuning_migrated": 0,
+            "rebuilt_from": self.rebuilt_from,
+            "tuning_migrated": self.tuning_migrated,
         }
 
     def stats(self) -> dict:

@@ -42,9 +42,9 @@ class FaultError(RuntimeError):
 class DeviceLossError(FaultError):
     """A device subset became unreachable mid-collective.
 
-    ``devices`` is the tuple of dead device ids; the surviving set is the
-    complement (what the reference's ``TorusComm.rebuild`` takes; not
-    ported yet).
+    ``devices`` is the tuple of dead device ids (global ranks in the
+    port); the surviving set is the complement, what
+    ``TorusComm.rebuild`` takes.
     """
 
     def __init__(self, devices=(), message: str | None = None):

@@ -9,6 +9,9 @@ importing this module touches no device.  The port trains and serves on
 each of them: experts and the batch over ``pod`` / ``data``, tensor
 parallelism over ``model``.  :func:`check_trainable` refuses only what
 is not ported yet on a shape (Ulysses over ``model``).
+:func:`survivor_mesh` is the elastic trainer's mesh after a device loss:
+the EP torus rebuilt over the survivors (``TorusComm.rebuild``), built by
+the survivors alone.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import math
 
 from repro_torch.core.cache import cart_create, mesh_shape
+from repro_torch.parallel.sharding import ep_axes, ep_comm
 
 
 def production_shape(*, multi_pod: bool = False) -> dict[str, int]:
@@ -61,3 +65,23 @@ def check_trainable(mesh_or_shape, cfg=None) -> None:
             f"{cfg.name}: Ulysses sequence parallelism over 'model' "
             f"(use_ulysses) on the mesh {shape} is not ported to "
             f"repro_torch yet (ROADMAP.md)")
+
+
+def survivor_mesh(mesh, lost):
+    """The training mesh over the ranks of ``mesh`` not in ``lost``: its
+    EP torus (``pod`` / ``data``) rebuilt by ``TorusComm.rebuild``
+    (``dims_create`` over the survivors, in ``mesh``'s torus order) with
+    the other dims kept at 1.  Collective over the survivors only; a lost
+    rank makes no call."""
+    shape = mesh_shape(mesh)
+    axes = ep_axes(mesh)
+    if any(n > 1 for a, n in shape.items() if a not in axes):
+        raise NotImplementedError(
+            f"rebuilding the mesh {shape} after a device loss keeps only "
+            f"its EP dims {axes}; every other dim must be 1")
+    survivors = [r for r in mesh.mesh.flatten().tolist() if r not in lost]
+    fresh = ep_comm(mesh).rebuild(survivors)
+    size = dict(zip(fresh.axis_names, fresh.dims))
+    names = tuple(reversed(mesh.mesh_dim_names))      # fastest digit first
+    return cart_create(survivors, tuple(size.get(a, 1) for a in names),
+                       names, device_type=mesh.device_type)

@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, apply_rope
+from repro_torch.models.remat import dot
 from repro_torch.parallel.sharding import (model_dim, tp_copy, tp_group,
                                            tp_rank, tp_reduce)
 from .config import ModelConfig
@@ -131,9 +132,8 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
     heads of ``p`` (this rank's, under tensor parallelism)."""
     cd = cfg.cdtype
     x = x.to(cd)
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(cd))
+    q, k, v = (_heads(dot(x, p[w].to(cd).flatten(1)), p[w].shape[1])
+               for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)[None, :, None, :]
         k = k + p["bk"].to(cd)[None, :, None, :]
@@ -142,6 +142,12 @@ def _project_qkv(p, x, cfg: ModelConfig, positions):
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
     return q, k, v
+
+
+def _heads(y, n: int):
+    """(B, S, n * hd) -> (B, n, S, hd)."""
+    B, S, _ = y.shape
+    return y.reshape(B, S, n, -1).transpose(1, 2)
 
 
 def attention_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
@@ -168,9 +174,11 @@ def _out_projection(out, wo, cfg: ModelConfig, group):
     are summed over ``model``, so the result is rounded to the compute
     dtype once, as on one device."""
     cd = cfg.cdtype
+    B, _, S, _ = out.shape
+    out = out.to(cd).transpose(1, 2).reshape(B, S, -1)
     if group is None:
-        return torch.einsum("bhsk,hkd->bsd", out.to(cd), wo.to(cd))
-    y = torch.einsum("bhsk,hkd->bsd", out.to(cd).float(), wo.to(cd).float())
+        return dot(out, wo.to(cd).flatten(0, 1))
+    y = dot(out.float(), wo.to(cd).float().flatten(0, 1))
     return tp_reduce(y, group).to(cd)
 
 

@@ -10,6 +10,7 @@ after it.
 from __future__ import annotations
 
 from repro_torch.models.common import ParamSpec, gelu, silu
+from repro_torch.models.remat import dot
 from repro_torch.parallel.sharding import (model_dim, tp_copy, tp_group,
                                            tp_reduce)
 from .config import ModelConfig
@@ -40,9 +41,9 @@ def ffn_block(p, x, cfg: ModelConfig, mesh=None, rules=None):
         else tp_group(mesh)
     x = tp_copy(x.to(cd), group)
     if cfg.act == "swiglu":
-        h = silu(x @ p["w1"].to(cd)) * (x @ p["w3"].to(cd))
+        h = silu(dot(x, p["w1"].to(cd))) * dot(x, p["w3"].to(cd))
         return _down(h, p["w2"], cd, group)
-    h = gelu(x @ p["w1"].to(cd) + p["b1"].to(cd))
+    h = gelu(dot(x, p["w1"].to(cd)) + p["b1"].to(cd))
     return _down(h, p["w2"], cd, group) + p["b2"].to(cd)
 
 
@@ -51,5 +52,5 @@ def _down(h, w2, cd, group):
     until they are summed over ``model`` (one rounding, as on one
     device)."""
     if group is None:
-        return h @ w2.to(cd)
-    return tp_reduce(h.float() @ w2.to(cd).float(), group).to(cd)
+        return dot(h, w2.to(cd))
+    return tp_reduce(dot(h.float(), w2.to(cd).float()), group).to(cd)

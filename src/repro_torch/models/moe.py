@@ -61,6 +61,7 @@ from repro_torch.core.tuning import choose_ragged_algorithm, default_links
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (ParamSpec, gelu, param_shardings,
                                        silu)
+from repro_torch.models.remat import dot, saved
 from repro_torch.parallel.sharding import (ShardingRules, all_reduce_sum,
                                            batch_group, ep_geometry,
                                            model_dim, tp_copy, tp_group,
@@ -225,7 +226,7 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
     w1, w3, w2 = w1[0], w3[0], w2[0]
 
     # ---- routing (f32) ----
-    logits = xt.float() @ router_w.float()                       # (N, E)
+    logits = dot(xt.float(), router_w.float())                   # (N, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)  # (N, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
@@ -296,19 +297,26 @@ def _moe_inner(x, router_w, w1, w3, w2, *, cfg: ModelConfig, G, E_loc, R,
         window = E_loc * C
         counts = torch.zeros(G, dtype=torch.int32, device=dev).index_add_(
             0, v_idx, keep.to(torch.int32))
-        recv_rows, recv_counts = ragged_plan.forward(
-            disp.reshape(G, window, D), counts)
+        recv_rows, recv_counts = saved("moe_recv", lambda: (
+            ragged_plan.forward(disp.reshape(G, window, D), counts)))
         recv = recv_rows[:, :window].reshape(G, E_loc, C, D)
-        back_rows, _ = ragged_plan.reverse(
-            expert_ffn(recv).reshape(G, window, D), recv_counts)
+        ye = expert_ffn(recv).reshape(G, window, D)
+        back_rows, _ = saved("moe_back", lambda: ragged_plan.reverse(
+            ye, recv_counts))
         back = back_rows[:, :window].reshape(G, E_loc, C, D)
     elif plan is not None and plan.backend == "overlap":
         # dispatch rounds / expert FFN / combine rounds pipelined per
-        # capacity chunk: chunk c+1's exchanges run behind chunk c's FFN
-        back = plan.overlap(disp, compute_fn=expert_ffn, reverse=True,
-                            chunk_axis=2, params=(w1, w3, w2))
+        # capacity chunk: chunk c+1's exchanges run behind chunk c's FFN.
+        # The Function keeps each chunk as it arrives (the reference's
+        # per-chunk "moe_recv"); kept under "moe_back", the recompute
+        # skips the whole pipeline, whose backward recomputes the FFN
+        back = saved("moe_back", lambda: plan.overlap(
+            disp, compute_fn=expert_ffn, reverse=True, chunk_axis=2,
+            params=(w1, w3, w2)))
     else:
-        back = a2a(expert_ffn(a2a(disp)), reverse=True)
+        recv = saved("moe_recv", lambda: a2a(disp))
+        ye = expert_ffn(recv)
+        back = saved("moe_back", lambda: a2a(ye, reverse=True))
 
     # ---- combine: dropped assignments read a zero pad row ----
     backp = torch.cat([back.reshape(n_rows, D),

@@ -10,8 +10,12 @@ Modes:
   * ``forward``     — full-sequence (train / prefill), returns f32 logits.
     Under autograd with ``cfg.remat`` each superblock runs inside
     ``torch.utils.checkpoint`` (non-reentrant), so backward recomputes its
-    forward, kernels and the MoE's exchanges included, instead of keeping
-    its activations.
+    forward instead of keeping its activations, under ``cfg.remat_policy``
+    (``models.remat``): ``nothing`` keeps nothing (kernels and the MoE's
+    exchanges run again), ``dots`` keeps the products without batch dims
+    (projections, router, dense FFN), ``collectives`` the MoE's exchange
+    results (``moe_recv``, ``moe_back``), so its recompute exchanges
+    nothing.
   * ``loss``        — masked mean cross-entropy plus the router aux loss.
   * ``decode_step`` — one token per batch slot with per-layer KV caches,
     which it updates in place.
@@ -50,11 +54,11 @@ from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import remat as remat_mod
 from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
                                        param_shardings, resolve_device,
                                        rms_norm,
@@ -144,14 +148,8 @@ def _apply_superblock(params_sb, x, cfg, positions, mesh=None, rules=None,
 
 def _remat(cfg: ModelConfig) -> bool:
     """Whether this forward checkpoints each superblock: only under
-    autograd, and only with the policy that saves nothing."""
-    if not (cfg.remat and torch.is_grad_enabled()):
-        return False
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported to repro_torch "
-            f"yet (only 'nothing'); ROADMAP.md lists it")
-    return True
+    autograd."""
+    return cfg.remat and torch.is_grad_enabled()
 
 
 def vocab_layout(cfg: ModelConfig, mesh=None, rules=None):
@@ -274,9 +272,9 @@ class Model:
         for i in range(cfg.n_superblocks):
             params_sb = _layer(params["blocks"], i)
             if remat:
-                x, a = checkpoint(_apply_superblock, params_sb, x, cfg,
-                                  positions, mesh, rules, fsdp,
-                                  use_reentrant=False)
+                x, a = remat_mod.checkpointed(
+                    _apply_superblock, params_sb, x, cfg, positions, mesh,
+                    rules, fsdp, policy=cfg.remat_policy)
             else:
                 x, a = _apply_superblock(params_sb, x, cfg, positions, mesh,
                                          rules, fsdp)

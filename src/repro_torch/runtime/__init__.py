@@ -1,5 +1,5 @@
-"""Runtime of the port: colocated continuous batching, the non-elastic
-trainer and the straggler watchdog."""
+"""Runtime of the port: colocated continuous batching, the trainer (with
+its elastic loop) and the straggler watchdog."""
 
 from .trainer import Trainer, TrainerConfig
 

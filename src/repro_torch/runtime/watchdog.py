@@ -4,10 +4,11 @@
 :class:`StragglerWatchdog` keeps a robust running estimate of the step
 time (median and MAD over a window) and classifies each step as "ok",
 "straggler" or "hang".  :class:`EscalationPolicy` turns verdicts into an
-:class:`Action` (bounded retry with backoff, recovery, abort).  The
-non-elastic trainer uses only the hang verdict; :meth:`StragglerWatchdog
-.check_drift` routes the telemetry drift detector's re-tune
-recommendations through the policy as advisory "retune" actions.
+:class:`Action` (bounded retry with backoff, recovery, abort), which the
+elastic trainer drives on (the non-elastic one uses only the hang
+verdict); :meth:`StragglerWatchdog.check_drift` routes the telemetry drift
+detector's re-tune recommendations through the policy as advisory
+"retune" actions.
 """
 
 from __future__ import annotations

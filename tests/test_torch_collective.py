@@ -1,5 +1,7 @@
 """The port's torus collectives on gloo worlds of 4, 6 and 12 ranks
-(repro_torch.core: cart_create, TorusComm, A2APlan, the gather family).
+(repro_torch.core: cart_create, TorusComm, A2APlan, the gather family),
+and, last in the 12-rank world, ``TorusComm.rebuild`` on the survivors of
+a device loss (``_rebuild_leg``).
 
 One world per torus, spawned once per module (tests/torch_dist.py); every
 check of that world runs inside it, and each check is then a test of its
@@ -180,7 +182,104 @@ def _world_checks(rank, n, dims, names):
 
     ok["passes"] = _passes_follow_the_schedule(mesh, names, x, want)
     ok["group_order"] = _group_order_checks(n, dims, names, X)
+    if n == 12:                    # last: ranks 8-11 leave the world
+        ok.update(_rebuild_leg())
     return {k: bool(v) for k, v in ok.items()}, outs, grads
+
+
+REBUILD_LOST = (8, 9, 10, 11)
+REBUILD_CHECKS = ("fired", "recover", "dims", "lineage", "slice",
+                  "migrated", "bits", "partition")
+
+
+def _rebuild_leg():
+    """``check_rebuild.py`` part 1 on the 12-rank world: a (3,4) torus
+    loses ranks 8-11 on its plan's 3rd call (they then make no call), and
+    the 8 survivors rebuild it to (2,4) by themselves: factorized ==
+    direct == the definition bit for bit on the survivor torus, exactly
+    the dead comm's plan slice freed (another comm's plan kept as the same
+    object), and the one tuning record whose axis kept its extent (j, 4)
+    migrated.  Returns ``{"rebuild:<check>": bool}``."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.core.autotune import TuningDB, db_fingerprint, \
+        plan_db_key
+    from repro_torch.core.cache import cart_create
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.core.faults import (DeviceLossError, FaultInjector,
+                                         FaultSpec)
+    from repro_torch.core.plan import plan_cache_stats
+    from repro_torch.runtime.watchdog import StragglerWatchdog
+
+    rank = dist.get_rank()
+    ok = {f"rebuild:{c}": rank in REBUILD_LOST for c in REBUILD_CHECKS}
+    record = {"version": 1, "axis_names": ["j"], "dims": [4],
+              "winner": {"backend": "factorized", "round_order": [0],
+                         "n_chunks": 1, "median_us": 10.0}}
+    key = lambda fp: plan_db_key(fp, (4,), ("j",), (8,), "float32",
+                                 "natural")
+    with tempfile.TemporaryDirectory() as tmp:
+        db = TuningDB(Path(tmp) / "tuning.json")
+        mesh = cart_create(12, (3, 4), ("i", "j"), device_type="cpu")
+        comm = torus_comm(mesh, ("i", "j"), db=db)
+        plan = comm.all_to_all((4,), torch.float32, backend="factorized")
+        other = torus_comm((5,), ("k",))
+        kept = other.all_to_all((4,), torch.float32, backend="direct")
+        db.put(key(db_fingerprint(mesh)), record)
+        inj = FaultInjector((FaultSpec("device_loss", at_call=3,
+                                       devices=REBUILD_LOST),))
+        inj.install(plan)
+        X = (torch.arange(12 * 12 * 4) % 251).reshape(12, 12, 4).float()
+        err = None
+        for _ in range(3):
+            try:
+                plan.forward(X[comm.rank])
+            except DeviceLossError as e:
+                err = e
+                break
+        if rank in REBUILD_LOST:
+            return ok
+        ok["rebuild:fired"] = err is not None \
+            and err.devices == REBUILD_LOST
+        action = StragglerWatchdog().policy(3, 0.0, verdict="device_loss")
+        ok["rebuild:recover"] = action.kind == "recover"
+        before = plan_cache_stats()["size"]
+        fresh = comm.rebuild([r for r in mesh.mesh.flatten().tolist()
+                              if r not in err.devices])
+        ok["rebuild:dims"] = (fresh.dims == (2, 4) and fresh.p == 8
+                              and fresh.axis_names == ("i", "j")
+                              and fresh.mesh is not None)
+        ok["rebuild:lineage"] = comm._freed and fresh.rebuilt_from == {
+            "dims": [3, 4], "axes": ["i", "j"], "p": 12} \
+            and fresh.describe()["rebuilt_from"]["p"] == 12
+        ok["rebuild:slice"] = (plan_cache_stats()["size"] == before - 1
+                               and other.all_to_all(
+                                   (4,), torch.float32,
+                                   backend="direct") is kept)
+        rec = db.get(key(db_fingerprint(fresh.mesh)))
+        ok["rebuild:migrated"] = fresh.tuning_migrated == 1 \
+            and rec is not None and rec["migrated"] is True
+        X8 = (torch.arange(8 * 8 * 4) % 251).reshape(8, 8, 4).float()
+        x8 = X8[fresh.rank]
+        yf = fresh.all_to_all((4,), torch.float32,
+                              backend="factorized").forward(x8)
+        yd = fresh.all_to_all((4,), torch.float32,
+                              backend="direct").forward(x8)
+        ok["rebuild:bits"] = torch.equal(yf, yd) \
+            and torch.equal(yf, X8[:, fresh.rank])
+        # the survivors split by rank range: each builds its own half's
+        # mesh with its members alone and holds the other half dims-only
+        first, rest = fresh.partition(4)
+        mine, other_half = (first, rest) if fresh.rank < 4 \
+            else (rest, first)
+        X4 = X8[:4, :4]
+        ok["rebuild:partition"] = (
+            first.dims == rest.dims == (2, 2) and mine.mesh is not None
+            and other_half.mesh is None
+            and torch.equal(mine.all_to_all((4,), torch.float32,
+                                            backend="factorized")
+                            .forward(X4[mine.rank]), X4[:, mine.rank]))
+    return ok
 
 
 def _input_grad(plan, x, w, want):
@@ -300,6 +399,16 @@ def test_collective_on_gloo(world, check):
     failed = [r for r, (ok, _, _) in enumerate(results) if not ok[check]]
     assert not failed, f"{check} wrong on ranks {failed} of the " \
         f"{WORLDS[n][0]} torus"
+
+
+@pytest.mark.parametrize("check", REBUILD_CHECKS)
+def test_rebuild_on_the_survivors_of_12(tmp_path_factory, check):
+    """The 8 survivors of the 12-rank world rebuild (3,4) -> (2,4) with no
+    call from ranks 8-11 (``_rebuild_leg``)."""
+    results = _results(12, tmp_path_factory)
+    failed = [r for r, (ok, _, _) in enumerate(results)
+              if not ok[f"rebuild:{check}"]]
+    assert not failed, f"rebuild {check} wrong on ranks {failed}"
 
 
 _JAX_SCRIPT = r"""

@@ -148,16 +148,6 @@ def test_remat_gives_the_same_loss_and_grads(jparams, monkeypatch):
         assert torch.equal(g0[path], g1[path]), path
 
 
-def test_unported_remat_policies_raise(jparams):
-    _, cfg = _configs(remat=True, remat_policy="dots")
-    model = build_model(cfg)
-    params = _port_params(jparams, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss(params, _torch_batch(_batch(cfg.vocab)))
-    with torch.no_grad():                 # serving takes no remat
-        model.loss(params, _torch_batch(_batch(cfg.vocab)))
-
-
 def test_train_steps_match_reference(jparams):
     lr = 1e-3
     jcfg, cfg = _configs()

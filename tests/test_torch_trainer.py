@@ -293,12 +293,6 @@ def test_trainer_preemption_checkpoints_and_stops(tmp_path, one_thread):
     assert tr.step == 7 and tr.ckpt.latest() == 7
 
 
-def test_trainer_elastic_waits_for_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainerConfig(total_steps=1, checkpoint_dir=str(tmp_path),
-                              elastic=True), None, None, {}, {})
-
-
 # ---------------------------------------------------------------------------
 # launcher
 # ---------------------------------------------------------------------------
