@@ -181,6 +181,17 @@ it fails:
              parameters and state bytes it holds, its peak memory and
              the FSDP span's host ms in one step, beside the card's
              name and power limit.
+11a. ring, pipeline — in the same world, between [train_ep] and
+             [elastic]: ``parallel.ring_attention`` on a (model=4) mesh
+             at phi3.5's attention shapes (q (1, 32, 2048 / 4, 128), 8 kv
+             heads, bf16, causal, and once with a 512-token window; k and
+             v rotating by ``ppermute``) must match the flash kernel on
+             the whole sequence within rtol = atol = 2e-2 on every rank;
+             ``parallel.pipeline``'s GPipe schedule on a (pod=4) mesh, 4
+             stages x 2 residual MLP layers (D 4096, H 6400, bf16), 256
+             rows in 4 microbatches: the forward within 2e-2 of the
+             largest |y| of the sequential run of all stages and each
+             stage's gradients within 2e-2 relative norm of its.
 11b. elastic — last in the same world, as the reference's
              ``check_rebuild.py``: (a) [moe_ep]'s layer loses ranks 2, 3
              on its plan's 3rd call (a ``FaultInjector``); the watchdog
@@ -243,6 +254,31 @@ it fails:
              over model, FSDP shards included, and the per-rank
              parameters, state, peak and FSDP span are checked and
              printed as [train_ep]'s.
+12b. ulysses — in the same 8-rank world after [train_tp]: phi3.5-moe
+             at [train_tp]'s width, depth and tokens with ``use_ulysses``:
+             each rank projects 512 of its row block's 1024 tokens with
+             the attention weights whole over model (FSDP over (pod,
+             data), gradients partial over model), the tiled all-to-all
+             re-shards q (1, 32, 512, 128) to (1, 16, 1024, 128) and k /
+             v likewise around the flash kernel, and the rows are
+             gathered back over model before the MoE under TP.  Rank 0
+             first runs the one-process reference at the fan-in init of
+             phase 13 (d) (prefill and 8 decode ticks, a loss + backward
+             with its routing recorded) and frees it.  Then on the mesh:
+             prefill and decode logits within 2e-2 of the largest
+             one-process logit (one flash ``wgmma`` launch per layer in
+             the prefill); a loss + backward replaying the routing,
+             every reduced leaf finite, non-zero and, gathered to rank
+             0, within 2e-2 relative norm of the one-process step's, the
+             loss within 1e-2; its launches and those of one
+             ``make_train_step`` step [train_tp]'s prediction; the model
+             ranks of each row block bit-identical (router calls, whole
+             leaves' reduced gradients and parameters, serving logits);
+             the re-shard of the path's q shard equal to the definition
+             of the tiled all-to-all bit for bit both ways; the GQA
+             all-gather path (4 / 1 heads, Hkv < sp) within 2e-2 of the
+             flash kernel on the whole sequence.  The seconds of
+             [ulysses], [ring] and [pipeline] are printed with their sum.
 13. train  — after the worlds have ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
@@ -399,6 +435,13 @@ TP_TICKS = 8                       # [train_tp]: decode ticks on the mesh
 TP_SWEEP_F = (3200, 1600)          # [kernels]: F / |model| at model 2, 4
 TP_INITS = ("reference", "fan-in")  # [train_tp]: the gradient runs' inits
 TP_GATED = ("fan-in",)             # [train_tp]: inits gated at TRAIN_GRAD_TOL
+ULYSSES_GQA = (4, 1)               # [ulysses]: query / kv heads, Hkv < sp
+RING_MESH = ((4,), ("model",))     # [ring]: the SP axis over the 4 ranks
+RING_SHAPE = (1, 32, 8, 2048, 128)  # [ring]: B, Hq, Hkv, S, hd (phi3.5's)
+RING_WINDOW = 512                  # [ring]: the windowed case's window
+PIPE_MESH = ((4,), ("pod",))       # [pipeline]: 4 stages over pod
+PIPE_SHAPE = (2, 4096, 6400, 256, 4)   # [pipeline]: layers a stage, D, H,
+#                                    batch rows, microbatches
 
 
 def fail(msg: str):
@@ -2942,22 +2985,278 @@ def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
     return out
 
 
+def _ulysses_config():
+    """[ulysses]'s configuration: [train_tp]'s (phi3.5-moe at full width,
+    1 layer, capacity factor 8) with ``use_ulysses``."""
+    return _train_ep_config(use_ulysses=True)
+
+
+def _shard_input(gen_seed: int, shape, scale: float = 1.0):
+    """A bf16 tensor on the card drawn from ``gen_seed``: any rank can
+    draw any other rank's shard."""
+    g = torch.Generator(device=DEVICE).manual_seed(gen_seed)
+    return (torch.randn(shape, generator=g, device=DEVICE) * scale
+            ).to(torch.bfloat16)
+
+
+def _ulysses_exchanges(mesh, cfg, block: int) -> dict:
+    """[ulysses]'s exchange checks on one rank: the tiled re-shard of the
+    path's q shard (1, 32, 512, 128) bf16 against the definition, bit for
+    bit, both ways; and the GQA all-gather path (4 / 1 heads, hd 128,
+    S 1024: Hkv < sp) against the flash kernel on the whole sequence."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.ulysses import sp_comm, ulysses_attention
+    comm = sp_comm(mesh, cfg)
+    sp, me = comm.p, comm.rank
+    S_loc, hd = TRAIN_EP_S // sp, cfg.hd
+    x = [_shard_input(9000 + 16 * block + j, (1, cfg.n_heads, S_loc, hd))
+         for j in range(sp)]
+    hq = cfg.n_heads // sp
+    plan = comm.all_to_all((1, hq, S_loc, hd), torch.bfloat16,
+                           backend="factorized")
+    got = plan.tiled(x[me], 1, 2)
+    want = torch.cat([t[:, me * hq:(me + 1) * hq] for t in x], dim=2)
+    back = plan.tiled(got, 2, 1, reverse=True)
+    ok = {"reshard": torch.equal(got, want),
+          "reshard back": torch.equal(back, x[me])}
+    Hq, Hkv = ULYSSES_GQA
+    qkv = [[_shard_input(9500 + 16 * block + 4 * j + i,
+                         (1, h, S_loc, hd)) for j in range(sp)]
+           for i, h in enumerate((Hq, Hkv, Hkv))]
+    _reset_counts()
+    out = ulysses_attention(*(t[me] for t in qkv), cfg, causal=True,
+                            mesh=mesh)
+    launches = _read_counts()["flash_attention"]
+    whole = ops.attention(*(torch.cat(t, dim=2) for t in qkv), causal=True)
+    err = compare(f"[ulysses] GQA all-gather path (heads {Hq}/{Hkv}, sp "
+                  f"{sp}) vs the flash kernel on the whole sequence", out,
+                  whole[:, :, me * S_loc:(me + 1) * S_loc].contiguous(),
+                  TOL[torch.bfloat16])
+    return {"ok": ok, "gqa_err": err, "gqa_launches": launches}
+
+
+def _rank_ulysses(rank: int, n: int, seed: int) -> dict:
+    """[ulysses] on one rank of [train_tp]'s world, after it: the
+    one-process reference on rank 0 first (prefill and decode logits,
+    the loss + backward with its routing, at the fan-in init; freed
+    before the mesh state exists), then ``build_training`` under
+    ``use_ulysses`` on TP_MESH, serving and the gated loss + backward on
+    the mesh, one timed step, and the exchange checks."""
+    import torch.distributed as dist
+    from repro_torch.core.cache import cart_create
+    from repro_torch.data import (CopyTaskConfig, SyntheticLM,
+                                  make_copy_task_batch)
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import build_model
+    from repro_torch.models.common import (param_shardings, tree_leaves,
+                                           tree_map)
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        moe_a2a_plan)
+    from repro_torch.parallel.sharding import batch_split, tp_group, tp_rank
+    torch.cuda.set_device(0)
+    mesh = cart_create(n, *TP_MESH, device_type=DEVICE)
+    cfg = _ulysses_config()
+    model = build_model(cfg)
+    dcfg = CopyTaskConfig(vocab=cfg.vocab, seq_len=TRAIN_EP_S,
+                          global_batch=TP_BLOCKS)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, TRAIN_EP_S, max(cfg.n_experts, G))
+    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    _, block = batch_split(mesh)
+    prefill_toks, decode_toks = _tp_serve_tokens(cfg.vocab)
+    out = {"block": block, "model": tp_rank(tp_group(mesh)),
+           "per_step": _train_ep_launches(cfg, plan, C)}
+    n_router = 2 * cfg.n_layers
+    routes = torch.zeros((n_router, TP_BLOCKS * TRAIN_EP_S, cfg.top_k),
+                         dtype=torch.int64, device=DEVICE)
+    t0 = time.perf_counter()
+    if rank == 0:
+        gparams = _fan_in_init(model, cfg, seed)
+        gbatch = make_copy_task_batch(dcfg, 0, DEVICE)
+        with torch.no_grad():
+            out["one_serve"] = _tp_serve(model, gparams, prefill_toks,
+                                         decode_toks)
+        tree_map(lambda t: t.requires_grad_(True), gparams)
+        leaves = tree_leaves(gparams)
+        rec = []
+        with _routing(record=rec):
+            total, _ = model.loss(gparams, gbatch)
+            ref = torch.autograd.grad(total, [t for _, t in leaves])
+        if len(rec) != n_router:
+            fail(f"[ulysses] the one-process step called the router "
+                 f"{len(rec)} times, expected {n_router}")
+        routes = torch.stack(rec)
+        out["one_loss"] = float(total.detach())
+        one_grads = {path: g.to("cpu") for (path, _), g in zip(leaves, ref)}
+        del gparams, gbatch, total, ref, leaves
+        torch.cuda.empty_cache()
+    dist.broadcast(routes, src=0)
+    routes = list(routes[:, block * TRAIN_EP_S:
+                         (block + 1) * TRAIN_EP_S].unbind(0))
+    dist.barrier()           # the reference is freed before the mesh state
+    out["one_s"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    model, _, params, opt_state, step_fn = build_training(
+        cfg, mesh, lr=1e-4, warmup=2, total=TRAIN_EP_STEPS, seed=seed,
+        device=DEVICE)
+    _fan_in_scale(params, model.specs(), cfg)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    sharding = param_shardings(model.specs(), mesh)
+    out["partial"] = sorted(sharding.partial)
+    out["model_axes"] = sorted(sharding.model_axes)
+    out.update(_held(params, opt_state, model, sharding))
+    batch = SyntheticLM(dcfg, mesh=mesh, task="copy", device=DEVICE).next()
+    whole = [p for p, _ in tree_leaves(params)
+             if p not in sharding.model_axes]
+    _reset_counts()
+    with torch.no_grad():
+        out["serve"], out["serve_ms"] = _host_ms(lambda: _tp_serve(
+            model, params, prefill_toks[block:block + 1],
+            decode_toks[block:block + 1], mesh))
+    out["serve_counts"] = _read_counts()
+    out["digests"] = {"routing": []}
+    t0 = time.perf_counter()
+    with _routing(replay=routes) as switched, \
+            _routing_digests(out["digests"]["routing"]):
+        grads, out["loss"], out["counts"] = _ep_loss_grads(
+            model, params, batch, mesh, sharding)
+    out["grad_s"] = time.perf_counter() - t0
+    out["switched"] = dict(switched)
+    out["finite_nonzero"] = all(
+        bool(torch.isfinite(g).all()) and float(g.float().abs().sum()) > 0
+        for _, g in tree_leaves(grads))
+    out["digests"]["grads"] = {p: _digest(g) for p, g in tree_leaves(grads)
+                               if p in whole}
+    full = sharding.gather_tree_to_writer(grads)
+    del grads
+    if rank == 0:
+        out["vs_one"] = {
+            path: (float((g.float() - one_grads[path].float()).norm()
+                         / one_grads[path].float().norm()),
+                   float(g.float().norm()),
+                   float(one_grads[path].float().norm()))
+            for path, g in tree_leaves(full)}
+        del one_grads
+    del full
+    dist.barrier()           # the others waited for rank 0's comparison
+    _reset_counts()
+    _, out["step_ms"] = _host_ms(lambda: step_fn(params, opt_state, batch))
+    out["step_counts"] = _read_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["digests"]["params"] = {p: _digest(t) for p, t
+                                in tree_leaves(params) if p in whole}
+    out["exchanges"] = _ulysses_exchanges(mesh, cfg, block)
+    del model, params, opt_state, step_fn, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_ring(rank: int, n: int) -> dict:
+    """[ring] on one rank of the 4-rank world: ring attention on a
+    (model=4) mesh at phi3.5's attention shapes, bf16, causal and with a
+    window, against the flash kernel on the whole sequence (every rank
+    draws every shard)."""
+    from repro_torch.core.cache import cart_create
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.ring_attention import ring_attention
+    mesh = cart_create(n, *RING_MESH, device_type=DEVICE)
+    m = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["model"]
+    B, Hq, Hkv, S, hd = RING_SHAPE
+    Sl = S // n
+    qkv = [[_shard_input(7000 + 4 * j + i, (B, h, Sl, hd))
+            for j in range(n)] for i, h in enumerate((Hq, Hkv, Hkv))]
+    out = {"errs": {}, "ms": {}}
+    for window in (None, RING_WINDOW):
+        got, out["ms"][window] = _host_ms(lambda: ring_attention(
+            *(t[m] for t in qkv), causal=True, window=window, mesh=mesh))
+        whole = ops.attention(*(torch.cat(t, dim=2) for t in qkv),
+                              causal=True, window=window)
+        out["errs"][window] = compare(
+            f"[ring] rank {rank} window {window} vs the flash kernel on the "
+            f"whole sequence", got,
+            whole[:, :, m * Sl:(m + 1) * Sl].contiguous(),
+            TOL[torch.bfloat16])
+    return out
+
+
+def _pipe_stage_fn(p, x):
+    """One pipeline stage: residual MLP layers ``x + tanh(x w1) w2``."""
+    for w1, w2 in zip(p["w1"], p["w2"]):
+        x = x + torch.tanh(x @ w1) @ w2
+    return x
+
+
+def _rank_pipeline(rank: int, n: int) -> dict:
+    """[pipeline] on one rank of the 4-rank world: the GPipe schedule over
+    a (pod=4) mesh, each stage 2 residual MLP layers at D 4096, H 6400,
+    bf16, 4 microbatches; the forward and this stage's gradients against
+    the sequential run of all stages on this rank."""
+    from repro_torch.core.cache import cart_create
+    from repro_torch.parallel.pipeline import (bubble_fraction,
+                                               make_pipelined_forward)
+    mesh = cart_create(n, *PIPE_MESH, device_type=DEVICE)
+    stage = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["pod"]
+    L, D, H, rows, M = PIPE_SHAPE
+    ws = [{"w1": _shard_input(8000 + 2 * s, (L, D, H), D ** -0.5),
+           "w2": _shard_input(8001 + 2 * s, (L, H, D), H ** -0.5)}
+          for s in range(n)]
+    x = _shard_input(8100, (rows, D))
+    g = _shard_input(8101, (rows, D)).float()
+    for w in ws:
+        for t in w.values():
+            t.requires_grad_(True)
+    run = make_pipelined_forward(_pipe_stage_fn, mesh, axis="pod",
+                                 n_microbatches=M)
+    y, ms = _host_ms(lambda: run(ws[stage], x))
+    got = torch.autograd.grad((y.float() * g).sum(),
+                              (ws[stage]["w1"], ws[stage]["w2"]))
+    seq = x
+    for w in ws:
+        seq = _pipe_stage_fn(w, seq)
+    want = torch.autograd.grad((seq.float() * g).sum(),
+                               (ws[stage]["w1"], ws[stage]["w2"]))
+    err = compare(f"[pipeline] stage {stage} forward vs the sequential run",
+                  y.detach(), seq.detach(), TOL[torch.bfloat16], of_max=True)
+    gaps = [float((a.float() - b.float()).norm() / b.float().norm())
+            for a, b in zip(got, want)]
+    return {"stage": stage, "err": err, "max": float(seq.detach().abs().max()),
+            "gaps": gaps, "ms": ms, "bubble": bubble_fraction(n, M)}
+
+
+def _timed(fn, *args) -> dict:
+    """``fn(*args)``'s result with its host seconds under ``"seconds"``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
+    """One rank of the 8-rank world on TP_MESH: [train_tp], then
+    [ulysses]."""
+    return {"train_tp": _rank_train_tp(rank, n, seed, tmp),
+            "ulysses": _timed(_rank_ulysses, rank, n, seed)}
+
+
 def run_tp_world(seed: int, timeout: float = 900.0) -> list:
-    """Spawn [train_tp]'s 8-rank world (as :func:`run_world`) and return
-    each rank's result."""
+    """Spawn the 8-rank world of [train_tp] and [ulysses] (as
+    :func:`run_world`) and return each rank's result."""
     import os
     import torch_dist
     with tempfile.TemporaryDirectory() as tmp:
         os.environ["REPRO_TORCH_TUNING_DB"] = str(Path(tmp) / "tuning.json")
         try:
-            return [{"train_tp": r} for r in torch_dist.run_world(
-                _rank_train_tp, TP_WORLD, tmp, seed, tmp, timeout=timeout)]
+            return torch_dist.run_world(_tp_world_rank, TP_WORLD, tmp, seed,
+                                        tmp, timeout=timeout)
         except (AssertionError, TimeoutError) as exc:
             fail(f"the {TP_WORLD}-rank world: {exc}")
 
 
 def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
-    """One rank of the 4-rank gloo world: phases 6 to 12 (``tmp`` is the
+    """One rank of the 4-rank gloo world: phases 6 to 11b (``tmp`` is the
     world's shared directory, [train_ep]'s and [elastic]'s checkpoints go
     there).  [elastic] comes last: ranks 2 and 3 leave in it."""
     torch.cuda.set_device(0)
@@ -2967,6 +3266,8 @@ def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
             "moe_dropless": _rank_moe_dropless(rank, n, seed),
             "tracing": _rank_tracing(rank, n, seed),
             "train_ep": _rank_train_ep(rank, n, seed, tmp),
+            "ring": _timed(_rank_ring, rank, n),
+            "pipeline": _timed(_rank_pipeline, rank, n),
             "elastic": _rank_elastic(rank, n, seed, tmp)}
 
 
@@ -3919,6 +4220,173 @@ def phase_train_tp(results) -> dict:
             for k in keys}
 
 
+def phase_ulysses(results) -> dict:
+    """[ulysses]'s gates: every attention leaf whole over ``model`` and
+    partial; the ``model`` ranks of each row block bit-identical (router
+    probabilities and top-k, whole leaves' reduced gradients and
+    parameters after the step, the serving logits); every reduced
+    gradient finite and non-zero and, gathered to rank 0, within
+    TRAIN_GRAD_TOL of the one-process kernel step's at the fan-in init,
+    the loss within 1e-2; prefill and decode logits within 2e-2 of the
+    largest one-process logit; the launches of the loss + backward and
+    of the step [train_tp]'s prediction, one flash ``wgmma`` launch per
+    layer in the mesh prefill; the re-shard the definition bit for bit
+    both ways, and the GQA all-gather path within 2e-2 of the flash
+    kernel on the whole sequence.  Returns the mesh's launches (serving,
+    loss + backward, step) over the ranks."""
+    r0 = results[0]["ulysses"]
+    cfg = _ulysses_config()
+    mixer = {f"blocks/pos0/mixer/{w}" for w in ("wq", "wk", "wv", "wo")}
+    by_block = {}
+    for rank, r in enumerate(results):
+        u = r["ulysses"]
+        by_block.setdefault(u["block"], []).append(u)
+        if not mixer <= set(u["partial"]) or mixer & set(u["model_axes"]):
+            fail(f"[ulysses] rank {rank}: attention leaves not whole over "
+                 f"model and partial: partial {u['partial']}")
+        if not u["finite_nonzero"]:
+            fail(f"[ulysses] rank {rank}: a reduced gradient leaf is not "
+                 f"finite or is zero")
+        for what, got in (("loss + backward", u["counts"]),
+                          ("step", u["step_counts"])):
+            if got != u["per_step"]:
+                fail(f"[ulysses] rank {rank}'s {what} launched {got}, "
+                     f"expected {u['per_step']}")
+        sc = u["serve_counts"]
+        if (sc["flash_attention"], sc["flash_attention_wgmma"]) != (
+                cfg.n_layers, cfg.n_layers):
+            fail(f"[ulysses] rank {rank}'s mesh prefill launched the flash "
+                 f"kernel {sc['flash_attention']} times "
+                 f"({sc['flash_attention_wgmma']} wgmma), expected "
+                 f"{cfg.n_layers}")
+        ex = u["exchanges"]
+        bad = [k for k, v in ex["ok"].items() if not v]
+        if bad or ex["gqa_launches"] != 1:
+            fail(f"[ulysses] rank {rank}: {bad} not the definition bit for "
+                 f"bit; the GQA path launched the flash kernel "
+                 f"{ex['gqa_launches']} times, expected 1")
+    for b, ranks in by_block.items():
+        for t in ranks[1:]:
+            for what in ranks[0]["digests"]:
+                if t["digests"][what] != ranks[0]["digests"][what]:
+                    fail(f"[ulysses] row block {b}: model rank "
+                         f"{t['model']}'s {what} differ from model rank "
+                         f"{ranks[0]['model']}'s bits")
+            for a, w in zip(t["serve"], ranks[0]["serve"]):
+                if not torch.equal(a, w):
+                    fail(f"[ulysses] row block {b}: the model ranks' "
+                         f"serving logits differ")
+    worst = max(r0["vs_one"].items(), key=lambda kv: kv[1][0])
+    if not worst[1][0] <= TRAIN_GRAD_TOL:
+        fail(f"[ulysses] at the fan-in init the gathered gradient of "
+             f"{worst[0]} lies {worst[1][0]:.3g} from the one-process "
+             f"step's (limit {TRAIN_GRAD_TOL})")
+    loss, one = r0["loss"], r0["one_loss"]
+    if not abs(loss - one) <= 1e-2 * abs(one):
+        fail(f"[ulysses] the loss {loss} vs the one-process {one} (limit "
+             f"1e-2 relative)")
+    pre = torch.cat([by_block[b][0]["serve"][0] for b in range(TP_BLOCKS)])
+    ticks = torch.cat([by_block[b][0]["serve"][1] for b in range(TP_BLOCKS)])
+    one_pre, one_ticks = r0["one_serve"]
+    err_pre = _logit_gate("[ulysses] mesh prefill", pre, one_pre,
+                          "one-process")
+    err_ticks = _logit_gate(f"[ulysses] mesh decode ({TP_TICKS} ticks)",
+                            ticks, one_ticks, "one-process")
+    _check_held("ulysses", results, "ulysses")
+    sp = dict(zip(TP_MESH[1], TP_MESH[0]))["model"]
+    log(f"[ulysses] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} layers={cfg.n_layers} use_ulysses on (pod=2, "
+        f"data=2, model=2), {TP_WORLD} gloo ranks of one card: each rank "
+        f"projects {TRAIN_EP_S // sp} of its row block's {TRAIN_EP_S} "
+        f"tokens with the whole attention weights (FSDP over (pod, data); "
+        f"partial over model), the tiled all-to-all re-shards q (1, "
+        f"{cfg.n_heads}, {TRAIN_EP_S // sp}, {cfg.hd}) to (1, "
+        f"{cfg.n_heads // sp}, {TRAIN_EP_S}, {cfg.hd}) and k / v likewise "
+        f"(Hkv {cfg.n_kv_heads} divides sp {sp}), the flash kernel runs on "
+        f"q (1, {cfg.n_heads // sp}, {TRAIN_EP_S}, {cfg.hd}); the MoE under "
+        f"TP as [train_tp]; the re-shard equal to the definition bit for "
+        f"bit both ways on every rank")
+    log(f"[ulysses] relative norm gaps per leaf, gathered ~ one-process "
+        f"step at the fan-in init (limit {TRAIN_GRAD_TOL}), with ||mesh|| "
+        f"/ ||one process||:")
+    for path, (gap, a, b) in r0["vs_one"].items():
+        log(f"[ulysses]   {path:32s} {gap:.3e} ({a:.4g} / {b:.4g})")
+    sw = [r["ulysses"]["switched"] for r in results]
+    log(f"[ulysses] loss {loss:.6g}, one process {one:.6g}; the mesh "
+        f"replayed the one-process routing and would have routed otherwise "
+        f"{sum(x['switched'] for x in sw) // sp} of "
+        f"{sum(x['tokens'] for x in sw) // sp} (token, router call) pairs; "
+        f"mesh prefill and {TP_TICKS} decode ticks vs one process: max "
+        f"|diff| {err_pre:.4g} / {err_ticks:.4g} (largest logit "
+        f"{float(one_pre.abs().max()):.4g} / "
+        f"{float(one_ticks.abs().max()):.4g}; limit 2e-2 of it)")
+    Hq, Hkv = ULYSSES_GQA
+    log(f"[ulysses] the GQA all-gather path (heads {Hq}/{Hkv}, Hkv < sp): "
+        f"max |diff| to the flash kernel on the whole sequence per rank "
+        f"{[round(r['ulysses']['exchanges']['gqa_err'], 5) for r in results]}"
+        f"; launches per rank: serving {r0['serve_counts']}, loss + "
+        f"backward and step {r0['per_step']}")
+    log(f"[ulysses] per rank on {_card()}: params (B) "
+        f"{[round(r['ulysses']['n_params'] / 1e9, 4) for r in results]}, "
+        f"state (GB) {[round(r['ulysses']['state_gb'], 3) for r in results]}"
+        f", peak (GiB) "
+        f"{[round(r['ulysses']['peak_gib'], 2) for r in results]}; host ms: "
+        f"serving {[round(r['ulysses']['serve_ms'], 1) for r in results]}, "
+        f"step {[round(r['ulysses']['step_ms'], 1) for r in results]}; "
+        f"one-process reference {r0['one_s']:.1f} s, build "
+        f"{r0['build_s']:.1f} s, gated loss + backward {r0['grad_s']:.1f} s;"
+        f" [ulysses] {max(r['ulysses']['seconds'] for r in results):.1f} s")
+    keys = r0["step_counts"]
+    return {k: sum(r["ulysses"][w][k] for r in results
+                   for w in ("serve_counts", "counts", "step_counts"))
+            for k in keys}
+
+
+def phase_ring(results) -> float:
+    """[ring]'s log (each rank compared its shard with the flash kernel
+    within 2e-2 as it ran); returns its seconds."""
+    B, Hq, Hkv, S, hd = RING_SHAPE
+    ring = [r["ring"] for r in results]
+    log(f"[ring] ring attention over (model={WORLD}) on {WORLD} gloo ranks "
+        f"of one card: q ({B}, {Hq}, {S} / {WORLD}, {hd}), kv heads {Hkv}, "
+        f"bf16, causal, f32 partial sums, k and v rotating by ppermute "
+        f"({WORLD - 1} steps); max |diff| to the flash kernel on the whole "
+        f"sequence per rank {[round(t['errs'][None], 5) for t in ring]}, "
+        f"window {RING_WINDOW} "
+        f"{[round(t['errs'][RING_WINDOW], 5) for t in ring]}"
+        f" (limit rtol = atol = 2e-2); host ms per call "
+        f"{[round(t['ms'][None], 1) for t in ring]} / "
+        f"{[round(t['ms'][RING_WINDOW], 1) for t in ring]}; "
+        f"{max(t['seconds'] for t in ring):.1f} s")
+    return max(t["seconds"] for t in ring)
+
+
+def phase_pipeline(results) -> float:
+    """[pipeline]'s gates: each stage's gradients within TRAIN_GRAD_TOL
+    relative norm of the sequential run's (the forward was held within
+    2e-2 of its largest |y| on each rank); returns its seconds."""
+    L, D, H, rows, M = PIPE_SHAPE
+    pipe = [r["pipeline"] for r in results]
+    if sorted(t["stage"] for t in pipe) != list(range(WORLD)):
+        fail(f"[pipeline] stages {[t['stage'] for t in pipe]}")
+    for t in pipe:
+        if not max(t["gaps"]) <= TRAIN_GRAD_TOL:
+            fail(f"[pipeline] stage {t['stage']}'s gradients lie "
+                 f"{t['gaps']} from the sequential run's (limit "
+                 f"{TRAIN_GRAD_TOL} relative norm)")
+    log(f"[pipeline] GPipe over (pod={WORLD}) on {WORLD} gloo ranks of one "
+        f"card: {WORLD} stages x {L} residual MLP layers (D {D}, H {H}, "
+        f"bf16), {rows} rows in {M} microbatches (bubble "
+        f"{pipe[0]['bubble']:.2f}): forward max |diff| to the sequential "
+        f"run per stage {[round(t['err'], 5) for t in pipe]} (largest |y| "
+        f"{pipe[0]['max']:.4g}, limit 2e-2 of it); w1 / w2 gradient gaps "
+        f"{[[round(g, 5) for g in t['gaps']] for t in pipe]} (limit "
+        f"{TRAIN_GRAD_TOL}); forward host ms "
+        f"{[round(t['ms'], 1) for t in pipe]}; "
+        f"{max(t['seconds'] for t in pipe):.1f} s")
+    return max(t["seconds"] for t in pipe)
+
+
 def _train_launches_per_step(cfg) -> dict:
     """Predicted launches of one training step: per layer the flash
     forward and the 3 gmm run twice (forward and remat recompute), the
@@ -4350,9 +4818,15 @@ def main() -> int:
              "moe_dropless": phase_moe_dropless(world, seed)}
     phase_tracing(world)
     paths["train_ep"] = phase_train_ep(world)
+    added = phase_ring(world) + phase_pipeline(world)
     paths["elastic"] = phase_elastic(world, seed)
     del world
-    paths["train_tp"] = phase_train_tp(run_tp_world(seed))
+    tp_world = run_tp_world(seed)
+    paths["train_tp"] = phase_train_tp(tp_world)
+    paths["ulysses"] = phase_ulysses(tp_world)
+    added += max(r["ulysses"]["seconds"] for r in tp_world)
+    del tp_world
+    log(f"[ulysses] + [ring] + [pipeline]: {added:.1f} s of the run")
     paths["train"] = phase_train()
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts.get(name, 0)

@@ -7,8 +7,9 @@ The shapes are the reference's, most significant dim first: production
 collective and needs a process group of exactly that many ranks;
 importing this module touches no device.  The port trains and serves on
 each of them: experts and the batch over ``pod`` / ``data``, tensor
-parallelism over ``model``.  :func:`check_trainable` refuses only what
-is not ported yet on a shape (Ulysses over ``model``).
+parallelism or, with ``use_ulysses``, sequence parallelism over
+``model``.  :func:`check_trainable` refuses a configuration whose query
+heads Ulysses cannot share out over ``model``.
 :func:`survivor_mesh` is the elastic trainer's mesh after a device loss:
 the EP torus rebuilt over the survivors (``TorusComm.rebuild``), built by
 the survivors alone.
@@ -55,16 +56,20 @@ def make_debug_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
 
 
 def check_trainable(mesh_or_shape, cfg=None) -> None:
-    """Raise unless the port trains ``cfg`` on this mesh (or ``{dim:
-    size}``): Ulysses sequence parallelism (``cfg.use_ulysses``) over a
-    ``model`` dim over 1 is not ported."""
+    """Raise before anything is built unless the port trains ``cfg`` on
+    this mesh (or ``{dim: size}``): Ulysses sequence parallelism
+    (``cfg.use_ulysses``) gives each ``model`` rank ``n_heads / |model|``
+    query heads over the whole sequence, so the query heads must divide
+    ``model`` (the reference's ``ulysses_attention`` raises the same at
+    its first call)."""
     shape = mesh_or_shape if isinstance(mesh_or_shape, dict) \
         else mesh_shape(mesh_or_shape)
-    if cfg is not None and cfg.use_ulysses and shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: Ulysses sequence parallelism over 'model' "
-            f"(use_ulysses) on the mesh {shape} is not ported to "
-            f"repro_torch yet (ROADMAP.md)")
+    sp = shape.get("model", 1)
+    if cfg is not None and cfg.use_ulysses and cfg.n_heads % sp:
+        raise ValueError(
+            f"{cfg.name}: Ulysses over 'model' needs n_heads "
+            f"({cfg.n_heads}) divisible by model ({sp}) on the mesh "
+            f"{shape}")
 
 
 def survivor_mesh(mesh, lost):

@@ -1,5 +1,5 @@
 """GQA attention: full-sequence (prefill) and KV-cache decode (port of
-``repro.models.attention``; no Ulysses).
+``repro.models.attention``), with Ulysses sequence parallelism.
 
 The full-sequence path goes through ``kernels.ops.attention`` (the flash
 kernel on a card).  Decode attention stays plain torch, as the reference
@@ -21,6 +21,17 @@ its query heads ``h`` (their gradients are partial: ``ExpertSharding
 every rank.  The KV cache keeps the kv heads the rank uses.  The
 reference's ``seq_sp`` decode layout is an XLA lowering of the same math
 and is not ported.
+
+With ``cfg.use_ulysses`` and ``model`` > 1 the full-sequence path is
+sequence-parallel instead (``parallel.ulysses``): the attention leaves
+are whole over ``model`` (``ParamSpec.seq_parallel``; their gradients
+partial), each rank projects its slice of the sequence, the tiled
+all-to-all re-shards seq <-> heads around the kernel, the ``wo`` product
+runs on the rank's rows, and the rows are gathered over ``model``
+(``parallel.sharding.sp_gather``) back to the replicated ``(B, S, D)``
+that the layers after attention take.  Decode runs whole attention on
+every rank with a cache of every kv head, as the reference's decode
+ignores ``use_ulysses``.
 """
 
 from __future__ import annotations
@@ -33,23 +44,32 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import ParamSpec, apply_rope
 from repro_torch.models.remat import dot
-from repro_torch.parallel.sharding import (model_dim, tp_copy, tp_group,
-                                           tp_rank, tp_reduce)
+from repro_torch.parallel.sharding import (model_dim, sp_gather, tp_copy,
+                                           tp_group, tp_rank, tp_reduce)
+from repro_torch.parallel.ulysses import sp_comm, ulysses_attention
 from .config import ModelConfig
 
 
 def attn_specs(cfg: ModelConfig) -> dict:
     D, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    sp = cfg.use_ulysses
     specs = {
-        "wq": ParamSpec((D, Hq, hd), ("embed_fsdp", "heads", None)),
-        "wk": ParamSpec((D, Hkv, hd), ("embed_fsdp", "kv_heads", None)),
-        "wv": ParamSpec((D, Hkv, hd), ("embed_fsdp", "kv_heads", None)),
-        "wo": ParamSpec((Hq, hd, D), ("heads", None, "embed_fsdp")),
+        "wq": ParamSpec((D, Hq, hd), ("embed_fsdp", "heads", None),
+                        seq_parallel=sp),
+        "wk": ParamSpec((D, Hkv, hd), ("embed_fsdp", "kv_heads", None),
+                        seq_parallel=sp),
+        "wv": ParamSpec((D, Hkv, hd), ("embed_fsdp", "kv_heads", None),
+                        seq_parallel=sp),
+        "wo": ParamSpec((Hq, hd, D), ("heads", None, "embed_fsdp"),
+                        seq_parallel=sp),
     }
     if cfg.qkv_bias:
-        specs["bq"] = ParamSpec((Hq, hd), ("heads", None), init="zeros")
-        specs["bk"] = ParamSpec((Hkv, hd), ("kv_heads", None), init="zeros")
-        specs["bv"] = ParamSpec((Hkv, hd), ("kv_heads", None), init="zeros")
+        specs["bq"] = ParamSpec((Hq, hd), ("heads", None), init="zeros",
+                                seq_parallel=sp)
+        specs["bk"] = ParamSpec((Hkv, hd), ("kv_heads", None),
+                                init="zeros", seq_parallel=sp)
+        specs["bv"] = ParamSpec((Hkv, hd), ("kv_heads", None),
+                                init="zeros", seq_parallel=sp)
     return specs
 
 
@@ -79,20 +99,17 @@ class HeadLayout:
 
 def head_layout(cfg: ModelConfig, mesh=None, rules=None) -> HeadLayout:
     """The resolver's split of ``attn_specs(cfg)`` on ``mesh``: cases (a),
-    (b) and (c) of the module docstring."""
+    (b) and (c) of the module docstring; every head where the leaves are
+    whole over ``model`` (no mesh, or Ulysses)."""
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     whole = HeadLayout(slice(0, Hq), slice(0, Hkv), False, False)
-    if mesh is None:
+    if mesh is None or cfg.use_ulysses:
         return whole
     specs = attn_specs(cfg)
     q_split = model_dim(specs["wq"].shape, specs["wq"].logical, mesh,
                         rules) is not None
     kv_split = model_dim(specs["wk"].shape, specs["wk"].logical, mesh,
                          rules) is not None
-    if cfg.use_ulysses and (q_split or kv_split):
-        raise NotImplementedError(
-            "Ulysses sequence parallelism over 'model' (use_ulysses) is "
-            "not ported to repro_torch yet (ROADMAP.md)")
     if not q_split:                                       # case (c)
         return whole
     group = tp_group(mesh)
@@ -154,11 +171,16 @@ def attention_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
                     mesh=None, rules=None):
     """Full self-attention over x: (B, S, D) -> (B, S, D); on a mesh with
     ``model`` > 1 over this rank's heads, the output summed over
-    ``model``."""
+    ``model``, or under ``cfg.use_ulysses`` over this rank's sequence
+    slice, the rows gathered over ``model``."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+    comm = sp_comm(mesh, cfg) if cfg.use_ulysses else None
+    if comm is not None:
+        return _ulysses_block(p, x, cfg, comm, causal, positions, mesh,
+                              rules)
     lay = head_layout(cfg, mesh, rules)
     p = _local_heads(p, lay)
     x = tp_copy(x, lay.group)
@@ -166,6 +188,27 @@ def attention_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
     out = kops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          causal=causal, window=cfg.window)
     return _out_projection(out, p["wo"], cfg, lay.group)
+
+
+def _ulysses_block(p, x, cfg: ModelConfig, comm, causal, positions, mesh,
+                   rules):
+    """Sequence-parallel attention over ``comm`` (the ``model`` torus):
+    this rank's rows ``[i S / sp, (i + 1) S / sp)`` (``i`` its torus
+    rank) projected with the whole weights and rotated at their absolute
+    positions, attention through the tiled all-to-all, ``wo`` on the
+    rows, and every rank's rows gathered back in sequence order."""
+    B, S, _ = x.shape
+    if S % comm.p:
+        raise ValueError(f"Ulysses needs the sequence ({S}) divisible by "
+                         f"sp ({comm.p})")
+    n = S // comm.p
+    rows = slice(comm.rank * n, (comm.rank + 1) * n)
+    x = tp_copy(x, comm.fact.group)
+    q, k, v = _project_qkv(p, x[:, rows], cfg, positions[:, rows])
+    out = ulysses_attention(q, k, v, cfg, causal=causal, mesh=mesh,
+                            rules=rules)
+    y = _out_projection(out, p["wo"], cfg, None)       # (B, S / sp, D)
+    return sp_gather(y, comm.fact.group, 1)
 
 
 def _out_projection(out, wo, cfg: ModelConfig, group):

@@ -12,7 +12,7 @@ axes, which the model gathers before each use.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -42,6 +42,9 @@ class ParamSpec:
     init: str = "normal"          # normal | zeros | ones | embed
     scale: float | None = None    # None -> 1/sqrt(fan_in)
     dtype: Any = None             # None -> model param_dtype
+    # read by a sequence-parallel block over ``model`` (Ulysses): held
+    # whole over ``model``, each rank's gradient its sequence slice's part
+    seq_parallel: bool = False
 
     def initializer(self, generator: torch.Generator, device,
                     param_dtype: torch.dtype) -> torch.Tensor:
@@ -107,7 +110,10 @@ def param_shardings(specs, mesh, rules=None):
     the EP split already spans both FSDP axes.  A ``"kv_heads"`` leaf
     kept whole beside a sibling ``"heads"`` leaf that is split is
     ``partial``: each ``model`` rank projects only the kv heads its query
-    heads read."""
+    heads read.  A ``seq_parallel`` leaf (Ulysses attention) is held
+    whole over ``model`` and is ``partial`` where ``model`` > 1: each
+    ``model`` rank projects only its slice of the sequence."""
+    from repro_torch.core.cache import mesh_shape
     from repro_torch.parallel.sharding import (ExpertSharding, ep_axes,
                                                fsdp_dim, model_dim)
     axes, model_axes, fsdp_axes, n_experts = {}, {}, {}, None
@@ -121,7 +127,8 @@ def param_shardings(specs, mesh, rules=None):
                 raise ValueError(f"{path}: {spec.shape[axis]} experts, "
                                  f"other leaves {n_experts}")
             n_experts = spec.shape[axis]
-        dim = model_dim(spec.shape, spec.logical, mesh, rules)
+        dim = None if spec.seq_parallel else model_dim(
+            spec.shape, spec.logical, mesh, rules)
         if dim is not None:
             model_axes[path] = dim
         split = None if path in axes else fsdp_dim(spec.shape, spec.logical,
@@ -137,6 +144,8 @@ def param_shardings(specs, mesh, rules=None):
                    if "heads" in spec.logical and p in model_axes}
     partial = {p for p, spec in leaves if "kv_heads" in spec.logical
                and p not in model_axes and parent(p) in split_heads}
+    if mesh_shape(mesh).get("model", 1) > 1:
+        partial |= {p for p, spec in leaves if spec.seq_parallel}
     return ExpertSharding(axes, n_experts or 1, mesh, model_axes, partial,
                           fsdp_axes, kept.pop() if kept else (), rules)
 
@@ -151,9 +160,8 @@ def init_params(specs, generator: torch.Generator, device,
 
 def stack_specs(specs, n: int, axis_name: str | None = None):
     """Prepend a layer dimension to every spec (stacked layer params)."""
-    return tree_map(lambda s: ParamSpec((n,) + s.shape,
-                                        (axis_name,) + s.logical,
-                                        s.init, s.scale, s.dtype), specs)
+    return tree_map(lambda s: replace(
+        s, shape=(n,) + s.shape, logical=(axis_name,) + s.logical), specs)
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,12 @@ mapping and the collectives GSPMD would insert:
   :func:`tp_reduce` (sum forward, identity backward: the output of a
   row-parallel product), and :func:`fsdp_gather` (FSDP's gather before
   use: an all-gather forward, a reduce-scatter in f32 backward, both
-  through ``TorusComm``, so factorized over the torus).
+  through ``TorusComm``, so factorized over the torus);
+* the exchanges of sequence and pipeline parallelism, both autograd
+  Functions: :func:`sp_gather` (the sequence gathered over ``model``
+  after a Ulysses block; the backward keeps the rank's own slice) and
+  :func:`ppermute` (``jax.lax.ppermute``: point to point, the backward
+  the inverse permutation).
 
 ``constrain`` and ``use_mesh`` have no counterpart.  The port applies
 every resolved axis: the expert split, ``model`` and FSDP.  Expert
@@ -433,6 +438,92 @@ def tp_gather(x, group, dim: int = -1):
     if group.order is not None:
         parts = parts[list(group.order)]
     return torch.cat(list(parts.unbind(0)), dim=dim)
+
+
+class _SPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.rank, ctx.dim, ctx.n = tp_rank(group), dim, x.shape[dim]
+        return tp_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def sp_gather(x, group, dim: int):
+    """The sequence gathered over ``model`` after a sequence-parallel
+    block: every rank's ``x`` concatenated along ``dim`` in ``model``
+    order (:func:`tp_gather`).  The backward passes this rank's own slice
+    of the cotangent, summed with nothing: every ``model`` rank computes
+    the same replica of the rest of the step, so each one's cotangent is
+    already the whole gradient of the gathered tensor.  ``group=None``:
+    ``x``."""
+    return x if group is None else _SPGather.apply(x, group, dim)
+
+
+# the profiler span of every point-to-point permutation
+PPERMUTE_SPAN = "repro_torch.ppermute"
+
+
+def _permuted(x, group, perm):
+    """This rank's part of the permutation ``perm`` over ``group``: send
+    ``x`` to the member ``perm`` maps it to and return what the member
+    mapped to it sent (zeros where none is).  NCCL sends from the card in
+    one ``batch_isend_irecv``; gloo's point-to-point takes host tensors,
+    so there the tensors are staged through host memory."""
+    me = tp_rank(group)
+    dst = next((d for s, d in perm if s == me), None)
+    src = next((s for s, d in perm if d == me), None)
+    if dst == me:
+        return x.clone()
+    dev = collective_device(group.pg)
+    with torch.profiler.record_function(PPERMUTE_SPAN):
+        ops, recv = [], None
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, x.detach().to(dev).contiguous(),
+                                  group.members[dst], group.pg))
+        if src is not None:
+            recv = torch.empty(x.shape, dtype=x.dtype, device=dev)
+            ops.append(dist.P2POp(dist.irecv, recv, group.members[src],
+                                  group.pg))
+        if dev.type == "cuda":
+            works = dist.batch_isend_irecv(ops) if ops else []
+        else:
+            works = [op.op(op.tensor, op.peer, group=op.group) for op in ops]
+        for w in works:
+            w.wait()
+    if recv is None:
+        return torch.zeros_like(x)
+    return recv.to(x.device)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group, ctx.perm = group, perm
+        return _permuted(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _permuted(g, ctx.group, inverse), None, None
+
+
+def ppermute(x, group, perm):
+    """``jax.lax.ppermute`` over the ``PeerGroup`` ``group``: ``perm`` is
+    a sequence of ``(source, destination)`` pairs of member indices (the
+    group's coordinate, as :func:`tp_rank` gives it); each source sends
+    its ``x`` to its destination, and a member no pair names as a
+    destination gets zeros.  Differentiable: the backward sends each
+    cotangent back along the inverse permutation.  Collective in both
+    passes: every member must reach each call's backward too, so a
+    caller keeps every result in the graph of its loss (as a masked
+    ``torch.where`` does, whose zero branch still reaches the call).
+    ``group=None``: ``x``."""
+    if group is None:
+        return x
+    return _PPermute.apply(x, group, tuple(perm))
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,13 @@ coordinate.  Cases:
   (the kv heads stay whole, each rank reads the ones its query heads
   map to: case b), 2/2 (attention whole on every rank: case c); the
   factorized plan.
+* ``(data=2, model=4)`` under ``use_ulysses``: the sequence split over
+  ``model`` and re-sharded to heads by the tiled all-to-all around
+  attention, with every attention leaf whole over ``model`` and partial:
+  heads 8/4 (k and v re-sharded too), 4/2 (k and v all-gathered along
+  the sequence, each rank reading its query heads' kv heads) and 8/8
+  under the overlap backend (2 head-group chunks through the pipelined
+  re-shard).
 * ``(pod=2, data=2, model=2)``, heads 4/2: the factorized plan, the
   overlap engine and dropless dispatch (the ragged Alltoallv) over the
   2-dim EP group; and a dense-FFN model (no experts) at d 30, which
@@ -67,8 +74,13 @@ CASES = {"a-8/4": ("dm", dict(n_heads=8, n_kv_heads=4)),
          "overlap": ("pdm", dict(a2a_backend="overlap")),
          "dropless": ("pdm", dict(capacity_factor=None)),
          "dense": ("pdm", dict(family="dense", n_experts=0, d_model=30,
-                               head_dim=8))}
+                               head_dim=8)),
+         "u-8/4": ("dm", dict(n_heads=8, n_kv_heads=4, use_ulysses=True)),
+         "u-4/2": ("dm", dict(use_ulysses=True)),
+         "u-overlap": ("dm", dict(n_heads=8, n_kv_heads=8, use_ulysses=True,
+                                  a2a_backend="overlap", a2a_chunks=2))}
 SERVE = {"dm": "b-4/2", "pdm": "factorized"}    # the cases served
+ULYSSES = ("u-8/4", "u-4/2", "u-overlap")       # served too
 WHOLE = {"dm": "b-4/2", "pdm": "factorized"}    # also run embed_fsdp=()
 GB, SEQ, LR, STEPS = 8, 16, 1e-3, 2
 PROMPT, TICKS = 8, 4
@@ -202,7 +214,7 @@ def _serve(rank, mesh, torch, name, jparams, tokens):
     n, i = batch_split(mesh)
     rows = GB // n
     toks = torch.from_numpy(tokens)
-    out = {"block": i,
+    out = {"case": name, "block": i,
            "mesh": run(params_from_jax(jparams, cfg, "cpu", mesh=mesh),
                        toks[i * rows:(i + 1) * rows], mesh)}
     if rank == 0:
@@ -259,6 +271,12 @@ def _launch(tmp):
                                         for r in tr.metrics_log]}
 
 
+def _served(key):
+    """The cases served on mesh ``key``: ``SERVE``'s and the Ulysses
+    cases on it."""
+    return (SERVE[key],) + tuple(c for c in ULYSSES if CASES[c][0] == key)
+
+
 def _ranks(rank, n, key, init, batch, tokens, tmp):
     import torch
     from repro_torch.core.cache import cart_create
@@ -269,8 +287,9 @@ def _ranks(rank, n, key, init, batch, tokens, tmp):
                      for name, spec in CASES.items() if spec[0] == key},
            "whole": _case(rank, mesh, torch, name, init[name], batch,
                           ShardingRules().override(embed_fsdp=())),
-           "serve": _serve(rank, mesh, torch, SERVE[key], init[SERVE[key]],
-                           tokens)}
+           "serve": {served: _serve(rank, mesh, torch, served, init[served],
+                                    tokens)
+                     for served in _served(key)}}
     if key == "pdm":
         out["checkpoint"] = _checkpoint(mesh, torch, Path(tmp))
     else:
@@ -333,7 +352,7 @@ for name, fields in cases.items():
     out[f"{name}|loss|total"] = np.asarray(total)
     for k, v in flat(grads).items():
         out[f"{name}|grad|{k}"] = v
-    if name == serve:
+    if name in serve:
         toks = jax.device_put(jnp.asarray(data["serve"]), rows)
         out[f"{name}|serve|prefill"] = np.asarray(jax.jit(make_prefill_fn(
             model, mesh, rules))(params, toks[:, :prompt]))
@@ -408,7 +427,7 @@ def _start_jax(tmp, key, init):
     env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
         + os.pathsep + env.get("PYTHONPATH", "")
     args = (*MESHES[key], {n: {**BASE, **CASES[n][1]} for n in names},
-            SERVE[key], LR, STEPS, PROMPT, TICKS)
+            _served(key), LR, STEPS, PROMPT, TICKS)
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_SCRIPT, str(tmp / f"in_{key}.npz"),
          repr(args), str(tmp / f"out_{key}.npz")],
@@ -553,14 +572,19 @@ def test_head_cases_shard_as_resolved(runs):
     """On (data=2, model=4): which attention leaves each rank holds as
     slices in the three head cases (their ``d_model`` dim split over
     ``data`` by FSDP), which kv leaves whole over ``model`` are partial,
-    and the vocab and expert splits."""
+    and the vocab and expert splits; under Ulysses every attention leaf
+    whole over ``model`` and partial."""
     world, _ = runs
     mixer = "blocks/pos0/mixer/"
     for case, wq, wk, partial in (
             ("a-8/4", (2, 16, 2, 4), (2, 16, 1, 4), []),
             ("b-4/2", (2, 16, 1, 8), (2, 16, 2, 8),
              [mixer + "wk", mixer + "wv"]),
-            ("c-2/2", (2, 16, 2, 16), (2, 16, 2, 16), [])):
+            ("c-2/2", (2, 16, 2, 16), (2, 16, 2, 16), []),
+            ("u-8/4", (2, 16, 8, 4), (2, 16, 4, 4),
+             [mixer + w for w in ("wk", "wo", "wq", "wv")]),
+            ("u-4/2", (2, 16, 4, 8), (2, 16, 2, 8),
+             [mixer + w for w in ("wk", "wo", "wq", "wv")])):
         for r in world["dm"]:
             got = r["cases"][case]
             assert got["shards"][mixer + "wq"] == wq
@@ -630,11 +654,22 @@ def test_prefill_and_decode_logits_match(runs, key):
     (the last prompt token and 4 more) on the mesh, row blocks in
     order, against the reference on the mesh and the port without one;
     equal bits on the ``model`` ranks of a block."""
+    _check_served(runs, key, SERVE[key])
+
+
+@pytest.mark.parametrize("case", ULYSSES)
+def test_ulysses_prefill_and_decode_logits_match(runs, case):
+    """As above for the Ulysses cases: prefill sequence-parallel over
+    ``model`` through the tiled all-to-all, decode whole attention on
+    every rank with a cache of every kv head."""
+    _check_served(runs, CASES[case][0], case)
+
+
+def _check_served(runs, key, name):
     world, ref = runs
-    name = SERVE[key]
     blocks = {}
     for r in world[key]:
-        s = r["serve"]
+        s = r["serve"][name]
         if s["block"] in blocks:
             for a, b in zip(s["mesh"], blocks[s["block"]]):
                 np.testing.assert_array_equal(a, b)
@@ -644,7 +679,7 @@ def test_prefill_and_decode_logits_match(runs, key):
     assert pre.shape == (GB, 128) and ticks.shape == (GB, TICKS + 1, 128)
     np.testing.assert_allclose(pre, ref[name]["serve"]["prefill"], **TOL)
     np.testing.assert_allclose(ticks, ref[name]["serve"]["ticks"], **TOL)
-    one_pre, one_ticks = world[key][0]["serve"]["one"]
+    one_pre, one_ticks = world[key][0]["serve"][name]["one"]
     np.testing.assert_allclose(pre, one_pre, **TOL)
     np.testing.assert_allclose(ticks, one_ticks, **TOL)
     # the last prompt token's decode logits are the prefill's

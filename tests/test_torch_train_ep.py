@@ -41,7 +41,8 @@ engine, 8 with dropless dispatch (the ragged Alltoallv).
 * The mesh factories: ``make_mesh`` gives each rank ``cart_create``'s
   coordinate; the production and debug factories ask for the reference's
   shapes, which ``check_trainable`` accepts (tensor parallelism over
-  their ``model`` dim is ported; Ulysses over it is refused).
+  their ``model`` dim, and Ulysses over it where the query heads divide
+  it).
 * ``Trainer`` on the mesh: 3 steps with a checkpoint at step 2, restored
   into a fresh ``Trainer`` (bit for bit the live state at step 2), whose
   step 3 is then bit for bit the live one's.
@@ -606,8 +607,9 @@ def test_mesh_factories_build_the_reference_shapes(monkeypatch, factory,
                                                    multi_pod, n, dims, names):
     """Each factory asks ``cart_create`` for the reference's mesh (most
     significant dim first there, fastest first here), and the port
-    trains on it (tensor parallelism over its ``model`` dim), except
-    with Ulysses sequence parallelism over ``model``."""
+    trains on it (tensor parallelism over its ``model`` dim), and with
+    Ulysses sequence parallelism over ``model`` where the query heads
+    divide it."""
     from repro_torch.launch import mesh as mesh_mod
     calls = []
     monkeypatch.setattr(mesh_mod, "cart_create",
@@ -622,24 +624,31 @@ def test_mesh_factories_build_the_reference_shapes(monkeypatch, factory,
     cfg = get_config("phi3.5-moe-42b", smoke=True)
     mesh_mod.check_trainable(shape)
     mesh_mod.check_trainable(shape, cfg)
-    with pytest.raises(NotImplementedError, match="Ulysses"):
+    # phi3.5-moe's 32 query heads divide every factory's model dim; the
+    # smoke config's 4 divide the debug meshes' 4, not production's 16
+    mesh_mod.check_trainable(shape, get_config("phi3.5-moe-42b").replace(
+        use_ulysses=True))
+    if shape["model"] == 4:
         mesh_mod.check_trainable(shape, cfg.replace(use_ulysses=True))
+    else:
+        with pytest.raises(ValueError, match="Ulysses"):
+            mesh_mod.check_trainable(shape, cfg.replace(use_ulysses=True))
 
 
 def test_meshes_with_a_model_dim_are_refused(monkeypatch):
-    """The debug meshes (``model`` = 4) are trainable; only Ulysses over
-    ``model`` is refused, naming ROADMAP.md.  The launcher started
-    without a world of the mesh's size refuses and names the ranks it
-    needs (``tests/test_torch_tp.py`` trains it under 8 ranks)."""
+    """The debug meshes (``model`` = 4) are trainable, Ulysses over
+    ``model`` included.  The launcher started without a world of the
+    mesh's size refuses and names the ranks it needs
+    (``tests/test_torch_tp.py`` trains it under 8 ranks, with and
+    without Ulysses)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.launch.mesh import check_trainable, debug_shape
     cfg = get_config("phi3.5-moe-42b", smoke=True)
     for multi in (False, True):
         check_trainable(debug_shape(multi_pod=multi), cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_trainable(debug_shape(multi_pod=multi),
-                            cfg.replace(use_ulysses=True))
+        check_trainable(debug_shape(multi_pod=multi),
+                        cfg.replace(use_ulysses=True))
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     for mesh, n in (("debug", 8), ("debug_multi", 16)):
         with pytest.raises(SystemExit, match=f"needs {n} ranks"):

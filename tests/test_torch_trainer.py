@@ -325,12 +325,12 @@ def test_train_default_device_refuses_cpu_fallback(tmp_path):
                            "--mesh", "debug"])
     # a mesh with a "model" dim (the reference's debug mesh's shape; a
     # stand-in object, since a DeviceMesh needs a process group of 8):
-    # what is not ported on it, Ulysses over "model", is refused
+    # the launcher's check accepts Ulysses over "model" on it (its 4
+    # query heads divide model = 4; tests/test_torch_tp.py trains it)
     debug = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                   mesh=torch.empty(2, 4))
     cfg = get_config(ARCH, smoke=True).replace(use_ulysses=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_launch.build_training(cfg, mesh=debug, device="cpu")
+    train_launch.check_trainable(debug, cfg)
 
 
 def test_trainer_traces_steps_and_checkpoints(tmp_path, one_thread):
