@@ -35,6 +35,25 @@ it fails:
              grouped-matmul count must grow by 3 * 4 layers * ticks.
 5. profile — where the time goes: a warm prefill call and 4 warm decode
              ticks under torch.profiler (device time by op, busy share).
+5a. archs  — the attention-only archs at full width, random weights from
+             a seed, each model freed before the next: deepseek-7b (MHA
+             32/32), internlm2-20b (GQA 48/8), qwen2.5-3b (GQA 16/2,
+             qkv_bias), h2o-danube-1.8b (GQA 32/8, head dim 80, window
+             4096) and grok-1-314b (8 experts top-2, d_ff 32768).  (a)
+             Depth cut to 4 layers (grok 2): ``make_prefill_fn`` at B=2,
+             S=2048 (danube B=1, S=8192, so its window masks the second
+             half) must launch one flash ``wgmma`` a layer (never
+             ``simt``) and, for grok, 3 gmm ``wgmma`` a layer, and its
+             last-position logits must match the plain versions (grok's
+             expert matmul on the tensor cores) within 2e-2 of the largest
+             logit at the reference init and, drawn anew, at the fan-in
+             init of phase 13 (d); ``ContinuousBatcher`` answers 4
+             requests (prompts of 8-16 tokens, 16 new tokens each), grok's
+             ticks launching 3 gmm ``decode`` a layer, the dense archs'
+             none.  (b) deepseek-7b, qwen2.5-3b and h2o-danube-1.8b also
+             at full depth: a timed warm prefill, its logits' gap to the
+             plain versions logged (not gated), the 4 requests, peak
+             memory.
 6. collective — a 4-rank gloo world on the one card (every rank on
              cuda:0; NCCL refuses two ranks on one device).  The port's
              ``TorusComm`` on dims (2,2) and (4,): direct, factorized
@@ -99,6 +118,13 @@ it fails:
              phase 7's winner on every rank (``tuned_from ==
              "measured"``), equal the factorized call's output bit for
              bit and launch the winner's gmm and reorder passes.
+             Then grok-1-314b's MoE layer at full width (d 6144, d_ff
+             32768), 2 of its 8 experts and 512 tokens a rank, capacity
+             factor 8, its own tuned plan (must resolve to overlap): the
+             gathered output within 2e-2 of the largest |y| of the
+             mesh=None layer, equal to the factorized call bit for bit on
+             every rank, each call's launches the prediction (3 gmm a
+             chunk, round_schedule's reorder passes a chunk each way).
              The overlap call, the factorized call, the autotune call and
              the dropless calls of phase 9 are profiled on rank 0 (device
              and wall time, the port's profiler spans such as each
@@ -316,6 +342,14 @@ it fails:
              runs replay the kernel run's top-2 routing (the remat
              recompute must route as the forward did); the number of
              choices they would have made otherwise is logged.
+13b. train_danube — h2o-danube-1.8b at full width (head dim 80, window
+             4096) cut to 2 layers, the copy task at B=1, S=6144: one loss
+             + backward with the kernels against the plain versions at the
+             fan-in init, as (d) but without the f32 run: every leaf
+             within 2e-2 relative norm, the loss within 1e-2, 4 flash
+             forward-with-lse ``wgmma`` and 2 backward launches at head
+             dim 80.  The seconds of [archs], grok's [moe_ep] layer and
+             [train_danube] are printed with their sum.
 
 The grouped matmul has three variants (``moe_gmm.variant``): wgmma (TMA
 and tensor cores) for bf16 at aligned shapes, decode (mma.sync, a
@@ -327,8 +361,9 @@ launch counts fix the variant: a main-path gmm that took SIMT fails.
 
 The flash forward (serving, and the forward-with-lse of training) has two
 variants (``flash_attention.variant``): wgmma (TMA and tensor cores) for
-bf16 at head dims 64 and 128, SIMT (f32 FMA) for the rest.  Phase 2 times
-both at the prefill / training shape, and the wgmma one again with q x 100
+bf16 at head dims 64, 80 and 128, SIMT (f32 FMA) for the rest.  Phase 2 times
+both at the prefill / training shape and at h2o-danube-1.8b's prefill
+(q (1, 32, 8192, 80), window 4096), and the wgmma one again with q x 100
 (logits in the hundreds, where it re-sums the logits near each row's max
 in f32 FMA order), checks that two wgmma runs agree bit for bit, and runs
 both sweeps through the variant each case takes and, for wgmma, through
@@ -339,14 +374,16 @@ variant's re-summation fires and what the tensor cores' summation order
 alone does to the training gates.)
 
 Phase 2 also holds the training kernels against their plain versions at
-the training shapes of phases 11, 12 and 13 (derived from the same
-constants,
-config and resolved plans) and at GQA / window / ragged shapes: the flash
+the training shapes of phases 11, 12, 13 and 13b (derived from the same
+constants, config and resolved plans) and at GQA / window / ragged
+shapes, head dim 80 among them: the flash
 forward that keeps lse, the FA2 backward (run twice, equal bit for bit),
 and the grouped matmul's backward (``GroupedMatmulFn``, whose products
 read ``rhs^T`` and ``lhs^T`` as views) against autograd of the plain gmm;
 and the gmm at the F that tensor parallelism cuts (3200 and 1600 at
-model 2 and 4: multiples of 8, not of 128) in all four operand layouts.
+model 2 and 4: multiples of 8, not of 128) in all four operand layouts,
+and at grok-1's shapes (E = 8, D 6144, F 32768: prefill C = 1280, decode
+C = 4, and its [moe_ep] layer's chunk and factorized rows).
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
 unpack and the fused unpack-then-pack between rounds) against its plain
@@ -442,6 +479,16 @@ RING_WINDOW = 512                  # [ring]: the windowed case's window
 PIPE_MESH = ((4,), ("pod",))       # [pipeline]: 4 stages over pod
 PIPE_SHAPE = (2, 4096, 6400, 256, 4)   # [pipeline]: layers a stage, D, H,
 #                                    batch rows, microbatches
+# [archs]: arch -> (the gate's depth, prefill B, S, whether it also runs
+# at full depth); danube's S = 2 windows, so its window masks half
+ARCHS = {"deepseek-7b": (4, 2, 2048, True),
+         "internlm2-20b": (4, 2, 2048, False),
+         "qwen2.5-3b": (4, 2, 2048, True),
+         "h2o-danube-1.8b": (4, 1, 8192, True),
+         "grok-1-314b": (2, 2, 2048, False)}
+DANUBE = "h2o-danube-1.8b"         # head dim 80, window 4096
+GROK = "grok-1-314b"               # 8 experts: 2 a rank in [moe_ep]
+TRAIN_DANUBE = (2, 1, 6144)        # [train_danube]: layers, B, S
 
 
 def fail(msg: str):
@@ -540,6 +587,7 @@ def phase_kernels(gen):
             if K == 4096:    # the SIMT variant at the same shape, timed
                 cases.append(_gmm_case(f"gmm {phase}", a, b, force="simt"))
             del a, b
+    cases += _grok_gmm_cases(gen)
     cases += _path_gmm_cases(gen)
     _gmm_sweep(gen)
     cases += _gmm_tp_cases(gen)
@@ -566,12 +614,14 @@ def phase_kernels(gen):
         lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), "sdpa", q, k, v)
     del q, k, v
+    danube = _danube_flash_rows(gen)
     _flash_sweep(gen)
     for which, row in rows.items():
         results[f"flash_attention_{which}"] = dict(
             name=f"flash_attention_{which}", route="cuda",
             source="src/repro_torch/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:86", **row)
+            replaces="src/repro/kernels/flash_attention.py:86", **row,
+            cases=[row, danube[which]])
     results.update(_flash_train_kernels(gen))
     results.update(_reorder_kernels(gen))
     torch.cuda.synchronize()
@@ -611,6 +661,26 @@ def _gmm_case(label, lhs, rhs, force=None, got=None, want=None,
         f"torch.bmm {row['library_ms']:.3f} ms, bound {b_ms:.3f} ms "
         f"({b_by})")
     return row
+
+
+def _grok_gmm_cases(gen) -> list:
+    """grok-1's expert FFN products (E = 8, D 6144, F 32768) at the
+    capacities of [archs]: its prefill (B=2, S=2048: C = 1280) and its
+    decode ticks (4 slots: C = 4); w1/w3 and w2, as _gmm_case times them.
+    One layer's rhs has 1.61e9 of the 2^31 elements the kernel indexes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity
+    cfg = get_config(GROK)
+    _, B, S, _ = ARCHS[GROK]
+    E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+    cases = []
+    for label, C in (("grok prefill", _capacity(cfg, B * S, E)),
+                     ("grok decode", _capacity(cfg, 4, E))):
+        for K, N in ((D, F_), (F_, D)):
+            a, b = _randn(gen, E, C, K), _randn(gen, E, K, N)
+            cases.append(_gmm_case(f"gmm {label}", a, b))
+            del a, b
+    return cases
 
 
 def _gmm_sweep(gen):
@@ -708,9 +778,29 @@ def _gmm_backward_cases(gen):
     return rows
 
 
-def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v):
-    """The flash rows at one causal shape: the variant the call takes, then
-    SIMT (forced), each against the plain version (out at the bf16
+def _pairs(S: int, causal: bool = True, window: int | None = None) -> int:
+    """Unmasked (row, col) pairs of S x S self-attention (kv offset 0)."""
+    i = np.arange(S)
+    hi = i + 1 if causal else np.full(S, S)
+    lo = np.maximum(0, i - window + 1) if window else 0
+    return int((hi - lo).sum())
+
+
+def _window_sdpa(Hq: int, k, v, window: int):
+    """``(mask, k, v)`` for SDPA on a causal sliding window, the library
+    yardstick of a windowed flash call: a boolean (S, S) mask, and k and v
+    expanded to the ``Hq`` query heads once here, outside the timed call
+    (SDPA's masked kernels take no GQA)."""
+    i = torch.arange(k.shape[2], device=k.device)
+    mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    group = Hq // k.shape[1]
+    return (mask, *(t.repeat_interleave(group, 1) for t in (k, v)))
+
+
+def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v,
+                **kw):
+    """The flash rows at one causal shape (``kw``: the mask's options, a
+    window): the variant the call takes, then SIMT (forced), each against the plain version (out at the bf16
     tolerance, lse at f32's), timed beside the plain version, the library
     call (a yardstick only) and the bound; the taken variant run twice on
     the same inputs must agree bit for bit, and its row carries the SIMT
@@ -720,7 +810,8 @@ def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v):
     force=...)`` and ``plain(q, k, v)`` return the output or ``(out,
     lse)``.  The bound is the function's (4 operations per unmasked (row,
     col) pair and head dim); the wgmma log line also gives the bound of
-    its own work, whose P V runs once per P term (``numerics()``)."""
+    its own work, whose P V runs once per P term (``numerics()``) over
+    the head dim padded to whole 64-column boxes."""
     from repro_torch.kernels.flash_attention import choose, numerics
 
     def agree(what, got, want):
@@ -729,50 +820,81 @@ def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v):
         return max(compare(f"{what} {n}", g, w, TOL[w.dtype])
                    for n, g, w in zip(("out", "lse"), got, want))
 
-    want = plain(q, k, v)
+    want = plain(q, k, v, **kw)
     B, Hq, S, Dh = q.shape
     n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) \
         + 4 * (B * Hq * S if isinstance(want, tuple) else 0)
-    flops = 4 * B * Hq * Dh * (S * (S + 1) // 2)
+    pairs = _pairs(S, **kw)
+    flops = 4 * B * Hq * Dh * pairs
     b_ms, b_by = bound(n_bytes, flops)
-    plain_ms = cuda_ms(lambda: plain(q, k, v))
+    plain_ms = cuda_ms(lambda: plain(q, k, v, **kw))
     lib_ms = cuda_ms(lambda: library(q, k, v))
     taken = choose(q, k, v)
     rows = {}
     for which in dict.fromkeys((taken, "simt")):
         what = f"{label} {shape} [{which}]"
-        got = run(q, k, v, force=which)
+        got = run(q, k, v, force=which, **kw)
         err = agree(what, got, want)
         if which == taken:
-            again = run(q, k, v, force=which)
+            again = run(q, k, v, force=which, **kw)
             got, again = ((x if isinstance(x, tuple) else (x,))
                           for x in (got, again))
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 fail(f"{what}: two runs on the same inputs differ")
         del got
         rows[which] = {"shape": what, "variant": which, "max_abs_err": err,
-                       "ms": cuda_ms(lambda: run(q, k, v, force=which)),
+                       "ms": cuda_ms(lambda: run(q, k, v, force=which,
+                                                 **kw)),
                        "plain_ms": plain_ms, "library_ms": lib_ms,
                        "bound_ms": b_ms, "bound_by": b_by}
     row = rows[taken]
     row["simt_ms"] = rows["simt"]["ms"]
     q100 = q * 100
     row["q_x100_max_abs_err"] = agree(f"{label} {shape} q x100 [{taken}]",
-                                      run(q100, k, v), plain(q100, k, v))
-    row["q_x100_ms"] = cuda_ms(lambda: run(q100, k, v))
+                                      run(q100, k, v, **kw),
+                                      plain(q100, k, v, **kw))
+    row["q_x100_ms"] = cuda_ms(lambda: run(q100, k, v, **kw))
     del q100
     for which, r in rows.items():
         own = ""
         if which == "wgmma":
-            parts = numerics()["p_parts"]
+            parts, tile = numerics()["p_parts"], -(-Dh // 64) * 64
+            own_flops = 2 * B * Hq * pairs * (Dh + tile * parts)
             own = (f"; its own work with P in {parts} bf16 terms "
-                   f"{bound(n_bytes, flops * (1 + parts) / 2)[0]:.4f} ms")
+                   f"{bound(n_bytes, own_flops)[0]:.4f} ms")
         extra = (f"; two runs equal bit for bit; q x100 (near one-hot): "
                  f"max_abs_err {r['q_x100_max_abs_err']:.3g}, kernel "
                  f"{r['q_x100_ms']:.3f} ms" if which == taken else "")
         log(f"[kernels] {r['shape']}: max_abs_err {r['max_abs_err']:.3g}, "
             f"kernel {r['ms']:.3f} ms, plain {plain_ms:.3f} ms, {lib_name} "
             f"{lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}{own}){extra}")
+    return rows
+
+
+def _danube_flash_rows(gen) -> dict:
+    """The serving flash rows at h2o-danube-1.8b's prefill in [archs]
+    (B=1, S=8192, 32 / 8 heads, head dim 80, causal, window 4096: the
+    wgmma variant's 128-column tile with columns 80..127 zero-filled),
+    SDPA with the window as a mask the yardstick."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    F = torch.nn.functional
+    cfg = get_config(DANUBE)
+    _, B, S, _ = ARCHS[DANUBE]
+    Hq, Hkv, Dh, W = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    q = _randn(gen, B, Hq, S, Dh)
+    k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
+    mask, ke, ve = _window_sdpa(Hq, k, v, W)
+    shape = (f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal window "
+             f"{W} bf16 ({DANUBE})")
+    rows = _flash_rows(
+        "flash", shape, flash_attention, flash_attention_plain,
+        lambda q, k, v: F.scaled_dot_product_attention(q, ke, ve,
+                                                       attn_mask=mask),
+        "sdpa (window mask, kv expanded)", q, k, v, causal=True, window=W)
+    del q, k, v, ke, ve, mask
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -791,6 +913,10 @@ _FLASH_SWEEP = tuple(
        ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4)),
        ((1, 2, 1, 40, 40, 64), dict(causal=True, kv_offset=-4)),
        ((1, 4, 2, 300, 300, 128), dict(causal=True, window=100)),
+       # head dim 80 (h2o-danube): GQA, a window, ragged S, a kv offset
+       ((1, 4, 2, 160, 160, 80), dict(causal=True, window=40)),
+       ((1, 4, 2, 37, 77, 80), dict(causal=True, kv_offset=40)),
+       ((2, 6, 3, 48, 48, 80), dict(causal=False)),
        # logits |x| of hundreds, softmax near one-hot: the wgmma variant
        # re-sums the logits near each row's max in FMA order
        ((1, 4, 2, 256, 256, 128), dict(causal=True, q_scale=100.0)),
@@ -799,7 +925,7 @@ _FLASH_SWEEP = tuple(
 
 def _flash_sweep(gen):
     """The CPU sweep's shapes (GQA, causal, windows, kv offsets, ragged S,
-    Dh 16-128, fully masked rows) in f32 and bf16: the serving forward
+    Dh 16-128 (80 too), fully masked rows) in f32 and bf16: the serving forward
     through the variant each takes and, where that is not SIMT, through
     SIMT too, against the plain version."""
     from repro_torch.kernels.flash_attention import (VARIANTS, choose,
@@ -822,15 +948,17 @@ def _flash_sweep(gen):
                         flash_attention(q, k, v, force=force, **kw), want,
                         TOL[dtype])
     log(f"[kernels] flash sweep: {len(_FLASH_SWEEP)} cases in f32 and bf16 "
-        f"(GQA, causal, windows, kv offsets, ragged S, Dh 16-128, fully "
+        f"(GQA, causal, windows, kv offsets, ragged S, Dh 16-128 and 80, "
+        f"fully "
         f"masked rows, near one-hot softmaxes) agree (variants taken "
         f"{taken}; each wgmma case through SIMT too)")
 
 
 def _flash_train_kernels(gen):
     """The flash forward that keeps lse and the FA2 backward against their
-    plain versions: at the training shapes, [train]'s and [train_ep]'s
-    per rank at full and at cut width (each forward variant as
+    plain versions: at the training shapes, [train]'s, [train_ep]'s and
+    [train_tp]'s per rank at full and at cut width, and [train_danube]'s
+    (head dim 80, its window) (each forward variant as
     :func:`_flash_rows` times it, with SDPA's forward and backward as the
     library yardstick; the backward run twice must agree bit for bit) and
     at GQA / window / kv-offset / ragged shapes in f32 and bf16, the
@@ -838,6 +966,7 @@ def _flash_train_kernels(gen):
     f32 (tolerance 1e-4); the bf16 backward rounds p and ds to bf16 as
     they enter the tensor cores and dk / dv sum the group's query heads,
     so it is held within ``tol`` of the largest |value| of each output."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import VARIANTS, choose
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
@@ -863,36 +992,43 @@ def _flash_train_kernels(gen):
                for g, w in zip(got, want)]
         return bwd_err, rel
 
-    def shape_rows(B, Hq, Hkv, S, Dh, label):
+    def shape_rows(B, Hq, Hkv, S, Dh, label, window=None):
         """The forward's rows (:func:`_flash_rows`) and the backward's at
-        one causal training shape."""
+        one causal training shape (with ``window``: the library yardstick
+        SDPA with the window as a mask, k and v expanded)."""
         q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
         k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
-        shape = (f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal bf16"
-                 f" ({label})")
+        kw = dict(causal=True, window=window)
+        shape = (f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal"
+                 f"{f' window {window}' if window else ''} bf16 ({label})")
+        if window is None:
+            lib_k, lib_v, lib_kw = k, v, dict(is_causal=True,
+                                              enable_gqa=True)
+        else:
+            mask, lib_k, lib_v = _window_sdpa(Hq, k, v, window)
+            lib_kw = dict(attn_mask=mask)
         fwd = _flash_rows(
             "flash fwd+lse", shape, flash_attention_fwd,
             flash_attention_fwd_plain,
             lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), "sdpa forward",
-            q, k, v)
-        bwd_err, rel = check(f"flash train {shape}", q, k, v, do)
-        out, lse = flash_attention_fwd(q, k, v)
-        runs = [flash_attention_bwd(q, k, v, out, lse, do) for _ in range(2)]
+                q, lib_k, lib_v, **lib_kw), "sdpa forward", q, k, v, **kw)
+        bwd_err, rel = check(f"flash train {shape}", q, k, v, do, **kw)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        runs = [flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                for _ in range(2)]
         if not all(torch.equal(x, y) for x, y in zip(*runs)):
             fail(f"flash bwd {shape}: two runs on the same inputs differ")
         del runs
-        pairs = S * (S + 1) // 2
+        pairs = _pairs(S, **kw)
         bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
                              + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
-        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-        o_lib = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                               enable_gqa=True)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, lib_k, lib_v))
+        o_lib = F.scaled_dot_product_attention(qs, ks, vs, **lib_kw)
         bwd = {"shape": f"flash bwd {shape}", "max_abs_err": bwd_err,
                "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse,
-                                                         do)),
+                                                         do, **kw)),
                "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
-                   q, k, v, out, lse, do)),
+                   q, k, v, out, lse, do, **kw)),
                "library_ms": cuda_ms(lambda: torch.autograd.grad(
                    o_lib, (qs, ks, vs), do, retain_graph=True)),
                "bound_ms": bb_ms, "bound_by": bb_by, "rel_norm_err": rel}
@@ -914,6 +1050,9 @@ def _flash_train_kernels(gen):
     for t in _train_tp_geometry():     # this rank's heads under TP
         shapes.append((1, t["Hq"], t["Hkv"], TRAIN_EP_S, t["cfg"].hd,
                        t["label"]))
+    dcfg = get_config(DANUBE)          # [train_danube]: head dim 80
+    shapes.append((TRAIN_DANUBE[1], dcfg.n_heads, dcfg.n_kv_heads,
+                   TRAIN_DANUBE[2], dcfg.hd, "train_danube", dcfg.window))
     by_shape = [shape_rows(*sh) for sh in shapes]
     fwd, bwd = by_shape[0]
     n = 0
@@ -932,6 +1071,8 @@ def _flash_train_kernels(gen):
                 ((1, 2, 1, 40, 40, 128), dict(causal=True, kv_offset=-4)),
                 ((1, 4, 2, 130, 200, 128),
                  dict(causal=True, window=50, kv_offset=70)),
+                ((1, 4, 2, 160, 160, 80), dict(causal=True, window=40)),
+                ((1, 4, 2, 37, 77, 80), dict(causal=True, kv_offset=40)),
                 ((1, 4, 2, 256, 256, 128), dict(causal=True, q_scale=100.0))):
             kw = dict(kw)
             q_scale = kw.pop("q_scale", 1.0)
@@ -943,7 +1084,8 @@ def _flash_train_kernels(gen):
                   _randn(gen, Bb, Hq_, Sq, D, dtype=dtype), **kw)
             n += 1
     log(f"[kernels] flash fwd+lse / bwd sweep: {n} cases (GQA, causal, "
-        f"windows, kv offsets, ragged S, Dh 16-128, fully masked rows, a "
+        f"windows, kv offsets, ragged S, Dh 16-128 and 80, fully masked "
+        f"rows, a "
         f"near one-hot softmax) agree (forward variants taken {taken}, the training shape "
         f"included; each wgmma case through SIMT too)")
     out = {f"flash_attention_fwd_{which}": dict(
@@ -1116,6 +1258,19 @@ def _ep_geometry() -> dict:
                                             EP_TOKENS))
 
 
+def _grok_ep_geometry() -> dict:
+    """What grok-1's layer in [moe_ep] runs per rank (from the dims
+    alone, as :func:`_ep_geometry`): experts per rank, the capacity, the
+    tuned plan and its chunk count."""
+    from repro_torch.models.moe import _capacity, moe_a2a_plan
+    cfg = _ep_config(GROK)
+    E_loc = cfg.n_experts // WORLD
+    C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, WORLD))
+    plan = moe_a2a_plan(cfg, (2, 2), ("data", "pod"), E_loc, C)
+    return dict(cfg=cfg, E_loc=E_loc, C=C, plan=plan,
+                n=_n_chunks(C, plan.n_chunks))
+
+
 def _train_ep_geometry() -> list:
     """What [train_ep] runs per rank, from the same constants and config
     and the plans they resolve (from the dims alone): for the full width
@@ -1161,7 +1316,8 @@ def _path_gmm_shapes() -> dict:
     factorized call and the dropless window (WORLD*C rows each);
     [train_ep]'s tuned chunk and factorized call at full width, and its
     Trainer's chunk at the cut width; [train_tp]'s tuned chunk at its
-    F / |model|, at full and cut width."""
+    F / |model|, at full and cut width; grok-1's layer in [moe_ep]: its
+    tuned chunk and its factorized call."""
     g = _ep_geometry()
     cfg, E_loc, C, n = g["cfg"], g["E_loc"], g["C"], g["n"]
     F_ = cfg.d_ff
@@ -1177,6 +1333,11 @@ def _path_gmm_shapes() -> dict:
     for t in _train_tp_geometry():
         rows.append((t["E_loc"], TP_BLOCKS * t["C"] // t["n"], t["F"],
                      t["cfg"], f"{t['label']} {t['plan'].backend} chunk"))
+    g = _grok_ep_geometry()
+    rows += [(g["E_loc"], WORLD * g["C"] // g["n"], g["cfg"].d_ff, g["cfg"],
+              f"grok moe_ep {g['plan'].backend} chunk"),
+             (g["E_loc"], WORLD * g["C"], g["cfg"].d_ff, g["cfg"],
+              "grok moe_ep factorized")]
     shapes = {}
     for E_loc_, r, f, c, label in rows:
         shapes.setdefault((E_loc_, r, c.d_model, f), []).append(label)
@@ -1514,7 +1675,15 @@ def phase_prefill(model, params, cfg, tokens):
     return counts
 
 
-def phase_serve(model, params, cfg):
+def _moe_layers(cfg) -> int:
+    """The layers of ``cfg`` whose FFN is the MoE (3 gmm each a call)."""
+    return cfg.n_superblocks * sum(ffn == "moe" for _, ffn in cfg.superblock)
+
+
+def phase_serve(model, params, cfg, tag: str = "serve"):
+    """The launcher's colocated body answers 4 requests; every tick
+    launches 3 gmm (``decode``) per MoE layer and nothing else (decode
+    attention is plain torch).  Returns the launches."""
     from repro_torch.launch.serve import batcher_step, serve_colocated
     from repro_torch.models import make_serve_step
     from repro_torch.runtime.serving import Request
@@ -1538,20 +1707,24 @@ def phase_serve(model, params, cfg):
         serve_step=checked_step)
     counts = _read_counts()
     ticks = batcher.ticks
-    want = _expected(grouped_matmul=3 * cfg.n_layers * ticks,
-                     grouped_matmul_decode=3 * cfg.n_layers * ticks)
+    gmm = 3 * _moe_layers(cfg) * ticks
+    want = _expected(grouped_matmul=gmm, grouped_matmul_decode=gmm)
     if counts != want:
-        fail(f"serve launched {counts} in {ticks} ticks, expected {want}")
+        fail(f"[{tag}] serve launched {counts} in {ticks} ticks, expected "
+             f"{want}")
     if sorted(batcher.done) != list(range(len(reqs))):
-        fail(f"answered {sorted(batcher.done)} of {len(reqs)} requests")
+        fail(f"[{tag}] answered {sorted(batcher.done)} of {len(reqs)} "
+             f"requests")
     for rid, toks in batcher.done.items():
         if len(toks) != gen_len or not all(0 <= t < cfg.vocab for t in toks):
-            fail(f"request {rid}: tokens {toks} out of range or short")
+            fail(f"[{tag}] request {rid}: tokens {toks} out of range or "
+                 f"short")
     if not bool(torch.stack(finite).all()):
-        fail("non-finite decode logits")
+        fail(f"[{tag}] non-finite decode logits")
     tick_ms = np.diff(stamps) * 1e3
-    log(f"[serve] {len(reqs)} requests (prompts {lengths}, {gen_len} new "
-        f"tokens each) in {ticks} ticks, {secs * 1e3 / ticks:.2f} ms/tick "
+    log(f"[{tag}] {cfg.name} x{cfg.n_layers} layers: {len(reqs)} "
+        f"requests (prompts {lengths}, {gen_len} new tokens each) in "
+        f"{ticks} ticks, {secs * 1e3 / ticks:.2f} ms/tick "
         f"overall, median tick {float(np.median(tick_ms)):.2f} ms; launches "
         f"{counts}; request 0 tokens {batcher.done[0]}")
     return counts
@@ -1618,6 +1791,141 @@ def phase_profile(model, params, cfg, tokens):
 
 
 # ---------------------------------------------------------------------------
+# phase 5a: the attention-only archs at full width
+# ---------------------------------------------------------------------------
+
+
+def _sum_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def _arch_prefill(model, params, cfg, tokens, init: str,
+                  tensor_core_ref: bool = False, gate: bool = True,
+                  warm: int = 1) -> tuple[dict, dict]:
+    """One prefill of [archs]: the kernel path's last-position logits
+    (launches counted: one flash ``wgmma`` a layer, 3 gmm ``wgmma`` a MoE
+    layer, nothing else), ``warm`` more calls timed, and the plain
+    versions' logits, with the expert matmul on the tensor cores if
+    ``tensor_core_ref`` (:func:`_tensor_core_gmm`); with ``gate`` the two
+    must lie within 2e-2 of the largest logit.  Returns the launches and
+    what the log lines read."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import make_prefill_fn
+    prefill = make_prefill_fn(model)
+    L, gmm = cfg.n_layers, 3 * _moe_layers(cfg)
+    _reset_counts()
+    out, cold_ms = _host_ms(lambda: prefill(params, tokens))
+    counts = _read_counts()
+    want = _expected(flash_attention=L, flash_attention_wgmma=L,
+                     grouped_matmul=gmm, grouped_matmul_wgmma=gmm)
+    if counts != want:
+        fail(f"[archs] {cfg.name} prefill launched {counts}, expected "
+             f"{want}")
+    if out.shape != (tokens.shape[0], cfg.vocab) \
+            or not torch.isfinite(out).all():
+        fail(f"[archs] {cfg.name} prefill logits {tuple(out.shape)} not "
+             f"finite (B, V)")
+    warm_ms = [_host_ms(lambda: prefill(params, tokens))[1]
+               for _ in range(warm)]
+    ref_gmm = _tensor_core_gmm if tensor_core_ref else contextlib.nullcontext
+    with ops.plain_versions(), ref_gmm():
+        ref, plain_ms = _host_ms(lambda: prefill(params, tokens))
+    err = float((out - ref).abs().max())
+    if gate:
+        _logit_gate(f"[archs] {cfg.name} {init} init", out, ref,
+                    "plain (tensor-core gmm)" if tensor_core_ref
+                    else "plain")
+    return counts, dict(err=err, scale=float(ref.abs().max()),
+                        same_top=bool((out.argmax(-1) == ref.argmax(-1))
+                                      .all()),
+                        cold_ms=cold_ms, warm_ms=warm_ms, plain_ms=plain_ms)
+
+
+def _arch_model(arch: str, layers: int | None = None):
+    """(config, model, parameters at the reference init from seed 0,
+    their count) of ``arch`` at full width, depth cut to ``layers``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=layers or cfg.n_layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+    return cfg, model, params, sum(t.numel() for _, t in tree_leaves(params))
+
+
+def _arch_gate(arch: str, layers: int, B: int, S: int) -> dict:
+    """(a) of [archs]: ``arch`` at full width cut to ``layers`` layers,
+    the prefill gate at the reference init and at the fan-in init, and 4
+    requests through the batcher.  Returns the kernel path's launches."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, n_params = _arch_model(arch, layers)
+    tokens = prefill_tokens(cfg, B, S)
+    c_ref, ref = _arch_prefill(model, params, cfg, tokens, "reference",
+                               tensor_core_ref=bool(_moe_layers(cfg)))
+    c_serve = phase_serve(model, params, cfg, tag="archs")
+    del params
+    torch.cuda.empty_cache()
+    soft = _fan_in_init(model, cfg, seed=1)
+    c_fan, fan = _arch_prefill(model, soft, cfg, tokens, "fan-in")
+    del soft, model
+    torch.cuda.empty_cache()
+    log(f"[archs] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.hd} F={cfg.d_ff} E={cfg.n_experts} "
+        f"window={cfg.window} qkv_bias={cfg.qkv_bias} vocab={cfg.vocab} "
+        f"x{layers} layers: {n_params / 1e9:.3f} B params; prefill B={B} "
+        f"S={S}: first {ref['cold_ms']:.1f} ms, second "
+        f"{ref['warm_ms'][0]:.1f} ms, plain {ref['plain_ms']:.1f} ms (host "
+        f"clock); launches {c_ref}; reference init: max |logit - plain| "
+        f"{ref['err']:.4g} of max |logit| {ref['scale']:.4g}, same argmax: "
+        f"{ref['same_top']}; fan-in init: {fan['err']:.4g} of "
+        f"{fan['scale']:.4g}, same argmax: {fan['same_top']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return _sum_counts(c_ref, c_serve, c_fan)
+
+
+def _arch_full(arch: str, B: int, S: int) -> dict:
+    """(b) of [archs]: ``arch`` at full width and full depth: 3 timed warm
+    prefills, the logits' gap to the plain versions (logged, not gated:
+    the reference init's near one-hot softmaxes over the whole depth), 4
+    requests through the batcher, peak memory.  Returns the launches."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, n_params = _arch_model(arch)
+    tokens = prefill_tokens(cfg, B, S)
+    counts, r = _arch_prefill(model, params, cfg, tokens, "reference",
+                              gate=False, warm=3)
+    c_serve = phase_serve(model, params, cfg, tag="archs")
+    log(f"[archs] {cfg.name} at full depth ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB bf16): "
+        f"prefill B={B} S={S} first {r['cold_ms']:.1f} ms, warm "
+        f"{[round(t, 1) for t in r['warm_ms']]} ms, plain versions "
+        f"{r['plain_ms']:.1f} ms (host clock); max |logit - plain| "
+        f"{r['err']:.4g} of max |logit| {r['scale']:.4g} (logged), same "
+        f"argmax: {r['same_top']}; launches {counts}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {_card()}")
+    del params, model
+    torch.cuda.empty_cache()
+    return _sum_counts(counts, c_serve)
+
+
+def phase_archs() -> tuple[dict, float]:
+    """[archs]: every attention-only arch at full width (:func:`_arch_gate`)
+    and, where ``ARCHS`` says so, at full depth (:func:`_arch_full`), each
+    model freed before the next.  Returns the launches and the seconds."""
+    t0 = time.perf_counter()
+    total = None
+    for arch, (layers, B, S, full) in ARCHS.items():
+        counts = _arch_gate(arch, layers, B, S)
+        if full:
+            counts = _sum_counts(counts, _arch_full(arch, B, S))
+        total = counts if total is None else _sum_counts(total, counts)
+    secs = time.perf_counter() - t0
+    log(f"[archs] {len(ARCHS)} archs in {secs:.1f} s; launches {total}")
+    return total, secs
+
+
+# ---------------------------------------------------------------------------
 # phases 6-10: the collective, autotune, expert-parallel MoE and tracing,
 # 4 ranks on one card
 # ---------------------------------------------------------------------------
@@ -1643,11 +1951,12 @@ def _ep_inputs(cfg, rank: int, seed: int):
     return router, x
 
 
-def _ep_config(**changes):
-    """[moe_ep]'s configuration: phi3.5-moe's own (a2a_backend "tuned"),
-    capacity factor 8 so that no token drops; ``changes`` on top."""
+def _ep_config(arch: str = ARCH, **changes):
+    """[moe_ep]'s configuration: phi3.5-moe's own, or ``arch``'s
+    (a2a_backend "tuned"), capacity factor 8 so that no token drops;
+    ``changes`` on top."""
     from repro_torch.configs import get_config
-    return get_config(ARCH).replace(**{"capacity_factor": 8.0, **changes})
+    return get_config(arch).replace(**{"capacity_factor": 8.0, **changes})
 
 
 def _ep_weights(cfg, v: int, E_loc: int, seed: int) -> dict:
@@ -2156,6 +2465,55 @@ def _rank_moe_ep(rank: int, n: int, seed: int) -> dict:
                              for t in p.values()) / 1e9,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     out["y"] = out["y"].float().cpu().numpy()
+    return out
+
+
+def _rank_moe_ep_grok(rank: int, n: int, seed: int) -> dict:
+    """grok-1's MoE layer at full width in [moe_ep]'s world: this rank's 2
+    of the 8 experts and [moe_ep]'s 512 tokens through ``moe_block`` under
+    the config's tuned plan (a counted cold call, 2 warm ones), then the
+    same call under the factorized plan (counted), whose output the tuned
+    call's must equal bit for bit."""
+    from repro_torch.core.cache import cart_create
+    from repro_torch.models.moe import _capacity, _group_geometry, \
+        moe_a2a_plan, moe_block, moe_ep_comm
+    t0 = time.perf_counter()
+    cfg = _ep_config(GROK)
+    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, G))
+    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    p = _ep_weights(cfg, moe_ep_comm(cfg, mesh, axes).rank, E_loc, seed)
+    _, x = _ep_inputs(cfg, rank, seed)
+    torch.cuda.synchronize()
+    _reset_counts()
+    (y, aux), cold_ms = _host_ms(lambda: moe_block(p, x, cfg, mesh=mesh))
+    counts = _read_counts()
+    warm = [_host_ms(lambda: moe_block(p, x, cfg, mesh=mesh))[1]
+            for _ in range(2)]
+    fcfg = _ep_config(GROK, a2a_backend="factorized")
+    fplan = moe_a2a_plan(fcfg, mesh, axes, E_loc, C)
+    _reset_counts()
+    (yf, _), fact_ms = _host_ms(lambda: moe_block(p, x, fcfg, mesh=mesh))
+    fact_counts = _read_counts()
+    n_chunks = _n_chunks(C, plan.n_chunks)
+    out = dict(describe=plan.describe(), n_chunks=n_chunks, C=C,
+               counts=counts, fact_counts=fact_counts,
+               predicted=_sum_launches(
+                   _dense_launches(plan, False, n_chunks),
+                   _dense_launches(plan, True, n_chunks)),
+               fact_predicted=_sum_launches(_dense_launches(fplan, False),
+                                            _dense_launches(fplan, True)),
+               equal=torch.equal(y, yf),
+               dy_factorized=float((y.float() - yf.float()).abs().max()),
+               y=y.float().cpu().numpy(), aux=float(aux), cold_ms=cold_ms,
+               warm_ms=warm, fact_ms=fact_ms,
+               weight_gb=sum(t.numel() * t.element_size()
+                             for t in p.values()) / 1e9,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del p, x, y, yf
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3263,6 +3621,7 @@ def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
     return {"collective": _rank_collective(rank, n),
             "autotune": _rank_autotune(rank, n),
             "moe_ep": _rank_moe_ep(rank, n, seed),
+            "moe_ep_grok": _rank_moe_ep_grok(rank, n, seed),
             "moe_dropless": _rank_moe_dropless(rank, n, seed),
             "tracing": _rank_tracing(rank, n, seed),
             "train_ep": _rank_train_ep(rank, n, seed, tmp),
@@ -3733,6 +4092,52 @@ def phase_moe_ep(results, seed: int) -> dict:
         f"{r0['chunk_copies']} chunk copies and {r0['concat_copies']} "
         f"concatenations; peak memory per rank "
         f"{r0['peak_gib']:.2f} GiB")
+    return total
+
+
+def phase_moe_ep_grok(results, seed: int) -> dict:
+    """grok-1's layer in [moe_ep]: its tuned plan must be the overlap
+    engine, each call's launches the prediction (3 gmm a chunk, the
+    reorder passes ``round_schedule`` lists a chunk each way), the tuned
+    call's output the factorized call's bit for bit and, gathered, the
+    one-process layer's within 2e-2 of the largest |y|.  Returns the
+    tuned call's launches over all ranks."""
+    cfg = _ep_config(GROK)
+    r0 = results[0]["moe_ep_grok"]
+    desc, n, C = r0["describe"], r0["n_chunks"], r0["C"]
+    if desc["requested_backend"] != "tuned" or desc["backend"] != "overlap":
+        fail(f"[moe_ep] {GROK}: the config's a2a_backend "
+             f"{desc['requested_backend']!r} resolved to "
+             f"{desc['backend']!r}, expected the overlap engine")
+    E_loc = cfg.n_experts // WORLD
+    total = _check_counts("moe_ep_grok", results, _expected(
+        **_gmm_launches(cfg, E_loc, WORLD * C // n, n), **r0["predicted"]))
+    _check_counts("moe_ep_grok", results, _expected(
+        **_gmm_launches(cfg, E_loc, WORLD * C, 1), **r0["fact_predicted"]),
+        key="fact_counts")
+    for rank, r in enumerate(results):
+        if not r["moe_ep_grok"]["equal"]:
+            fail(f"[moe_ep] {GROK} rank {rank}: the tuned call's output "
+                 f"differs from the factorized call's by up to "
+                 f"{r['moe_ep_grok']['dy_factorized']:.4g}")
+    errs, scale, aux, aux_ref = _one_process_gate("moe_ep_grok", cfg,
+                                                  results, seed)
+    warm = [t for r in results for t in r["moe_ep_grok"]["warm_ms"]]
+    secs = max(r["moe_ep_grok"]["seconds"] for r in results)
+    log(f"[moe_ep] {GROK} MoE layer (d {cfg.d_model}, F {cfg.d_ff}, "
+        f"{cfg.n_experts} experts top{cfg.top_k}), EP over (data=2, pod=2), "
+        f"{EP_TOKENS} tokens x {WORLD} ranks, E_loc={E_loc} "
+        f"({r0['weight_gb']:.3f} GB of expert weights per rank), "
+        f"a2a_backend tuned -> overlap, {n} chunks of C={C // n}: max |y - "
+        f"one-process y| {errs['y']:.4g} of max |y| {scale:.4g}; equal to "
+        f"the factorized call bit for bit on every rank; aux {aux:.6f} vs "
+        f"{aux_ref:.6f}; host ms per call: first "
+        f"{max(r['moe_ep_grok']['cold_ms'] for r in results):.1f}, warm "
+        f"median {float(np.median(warm)):.1f}, factorized "
+        f"{float(np.median([r['moe_ep_grok']['fact_ms'] for r in results])):.1f}"
+        f"; launches per rank per call {r0['counts']} (factorized "
+        f"{r0['fact_counts']}); peak memory per rank "
+        f"{r0['peak_gib']:.2f} GiB; {secs:.1f} s in the world")
     return total
 
 
@@ -4398,21 +4803,21 @@ def _train_launches_per_step(cfg) -> dict:
                      grouped_matmul_wgmma=(3 + 3 + 6) * L)
 
 
-def _check_grads(leaves, got, want):
+def _check_grads(leaves, got, want, tag: str = "train"):
     """Every leaf's kernel-path gradient exists, is finite and non-zero
     and lies within TRAIN_GRAD_TOL relative norm of the plain path's."""
     worst = (0.0, "")
     for (path, _), g, w in zip(leaves, got, want):
         if g is None or w is None:
-            fail(f"[train] no gradient for {path}")
+            fail(f"[{tag}] no gradient for {path}")
         g, w = g.float(), w.float()
         norm = float(g.norm())
         if not torch.isfinite(g).all() or norm == 0.0:
-            fail(f"[train] gradient of {path} is not finite or is zero "
+            fail(f"[{tag}] gradient of {path} is not finite or is zero "
                  f"(norm {norm})")
         rel = float((g - w).norm() / w.norm())
         if not rel <= TRAIN_GRAD_TOL:
-            fail(f"[train] gradient of {path} differs from the plain path's "
+            fail(f"[{tag}] gradient of {path} differs from the plain path's "
                  f"by {rel:.3g} relative norm (limit {TRAIN_GRAD_TOL})")
         worst = max(worst, (rel, path))
     return worst
@@ -4480,7 +4885,8 @@ def _routing(record: list | None = None, replay: list | None = None):
 
 
 def _grad_gate(model, params, batch, per_step, label: str,
-               f32: bool = False, tensor_core_ref: bool = False):
+               f32: bool = False, tensor_core_ref: bool = False,
+               tag: str = "train"):
     """One loss + backward with the kernels, one on the plain versions and
     one FA2 witness (:func:`_fa2_in_plain_torch`) from the same params and
     batch.  With ``tensor_core_ref`` the plain and witness runs take the
@@ -4510,20 +4916,20 @@ def _grad_gate(model, params, batch, per_step, label: str,
     with _routing(record=routes):
         (loss, got), ms = _host_ms(loss_and_grads)
     if _read_counts() != per_step:
-        fail(f"[train] loss + backward launched {_read_counts()}, expected "
+        fail(f"[{tag}] loss + backward launched {_read_counts()}, expected "
              f"{per_step}")
     n = len(routes) // 2          # forward, then the recompute in reverse
-    if len(routes) != 2 * model.cfg.n_layers or not all(
+    if len(routes) != 2 * _moe_layers(model.cfg) or not all(
             torch.equal(routes[i], routes[-1 - i]) for i in range(n)):
-        fail(f"[train] the remat recompute routed otherwise than the "
+        fail(f"[{tag}] the remat recompute routed otherwise than the "
              f"forward ({len(routes)} router calls)")
     ref_gmm = _tensor_core_gmm if tensor_core_ref else contextlib.nullcontext
     with ops.plain_versions(), ref_gmm(), \
             _routing(replay=routes) as switched:
         (loss_p, want), ms_p = _host_ms(loss_and_grads)
     if not math.isfinite(loss) or abs(loss - loss_p) > 1e-2 * abs(loss_p):
-        fail(f"[train] loss {loss} vs plain {loss_p} (limit 1e-2 relative)")
-    worst, worst_path = _check_grads(leaves, got, want)
+        fail(f"[{tag}] loss {loss} vs plain {loss_p} (limit 1e-2 relative)")
+    worst, worst_path = _check_grads(leaves, got, want, tag)
     with ref_gmm(), _fa2_in_plain_torch(), _routing(replay=routes):
         loss_w, wit = loss_and_grads()
     gaps = [_rel_gaps(got, want), _rel_gaps(wit, want), _rel_gaps(got, wit)]
@@ -4552,12 +4958,13 @@ def _grad_gate(model, params, batch, per_step, label: str,
         del ref
         for (path, _), kf, pf in zip(leaves, gaps[3], gaps[4]):
             if not kf <= F32_GAP_RATIO * pf:
-                fail(f"[train] {label}: the kernel path's gradient of {path} "
+                fail(f"[{tag}] {label}: the kernel path's gradient of {path} "
                      f"lies {kf:.3g} from the f32 one, the plain path's "
                      f"{pf:.3g} (limit {F32_GAP_RATIO}x)")
         cols += f", kernels~f32, plain~f32 (f32 loss {loss_32:.6g})"
     del got, want
-    log(f"[train] {label}: loss + backward (B={TRAIN_B}, S={TRAIN_S}): "
+    B, S = batch["tokens"].shape
+    log(f"[{tag}] {label}: loss + backward (B={B}, S={S}): "
         f"loss {loss:.6g}, plain {loss_p:.6g}, FA2 witness {loss_w:.6g}; "
         f"the plain path's own top-{model.cfg.top_k} differs from the "
         f"kernel path's for {switched['switched']} of "
@@ -4569,7 +4976,7 @@ def _grad_gate(model, params, batch, per_step, label: str,
         f"host ms {ms:.1f}, plain {ms_p:.1f}; launches {per_step}.  "
         f"Relative norm gaps per leaf: {cols}:")
     for (path, _), row in zip(leaves, zip(*gaps)):
-        log(f"[train]   {path:32s} " + " ".join(f"{g:.3e}" for g in row))
+        log(f"[{tag}]   {path:32s} " + " ".join(f"{g:.3e}" for g in row))
 
 
 def _fan_in_init(model, cfg, seed: int):
@@ -4767,6 +5174,48 @@ def phase_train() -> dict:
     return counts
 
 
+def phase_train_danube() -> tuple[dict, float]:
+    """[train_danube]: h2o-danube-1.8b at full width (head dim 80, window
+    4096) cut to 2 layers, the copy task at B=1, S=6144 (past the
+    window), one loss + backward with the kernels against the plain
+    versions at the fan-in init (:func:`_grad_gate`: every leaf within
+    2e-2 relative norm, the loss within 1e-2; remat on, so per step 2
+    forward-with-lse ``wgmma`` and 1 backward a layer).  Returns the
+    launches and the seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import CopyTaskConfig, make_copy_task_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    layers, B, S = TRAIN_DANUBE
+    cfg = get_config(DANUBE).replace(n_layers=layers)
+    if not cfg.remat:
+        fail(f"[train_danube] {cfg.name} should train with remat")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = _fan_in_init(model, cfg, seed=1)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    batch = make_copy_task_batch(CopyTaskConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B), 0, DEVICE)
+    L = cfg.n_layers
+    per_step = _expected(flash_attention_fwd=2 * L,
+                         flash_attention_fwd_wgmma=2 * L,
+                         flash_attention_bwd=L)
+    log(f"[train_danube] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.hd} window={cfg.window} F={cfg.d_ff} "
+        f"vocab={cfg.vocab} layers={L} remat={cfg.remat_policy}: "
+        f"{sum(t.numel() for _, t in tree_leaves(params)) / 1e9:.3f} B "
+        f"params")
+    _grad_gate(model, params, batch, per_step, "fan-in init",
+               tag="train_danube")
+    del model, params, batch
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[train_danube] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {secs:.1f} s")
+    return per_step, secs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4808,19 +5257,26 @@ def main() -> int:
     phase_profile(model, params, cfg, tokens)
     del model, params
     torch.cuda.empty_cache()
+    archs_counts, new_secs = phase_archs()
 
     seed = 3
     world = run_world(seed)
     paths = {"prefill": prefill_counts, "serve": serve_counts,
+             "archs": archs_counts,
              "collective": phase_collective(world),
              "autotune": phase_autotune(world),
              "moe_ep": phase_moe_ep(world, seed),
+             "moe_ep_grok": phase_moe_ep_grok(world, seed),
              "moe_dropless": phase_moe_dropless(world, seed)}
+    new_secs += max(r["moe_ep_grok"]["seconds"] for r in world)
     phase_tracing(world)
     paths["train_ep"] = phase_train_ep(world)
     added = phase_ring(world) + phase_pipeline(world)
     paths["elastic"] = phase_elastic(world, seed)
     del world
+    # the one-process gates above (grok's 8 experts) leave this process's
+    # allocator holding blocks the 8 ranks of the next world need
+    torch.cuda.empty_cache()
     tp_world = run_tp_world(seed)
     paths["train_tp"] = phase_train_tp(tp_world)
     paths["ulysses"] = phase_ulysses(tp_world)
@@ -4828,6 +5284,10 @@ def main() -> int:
     del tp_world
     log(f"[ulysses] + [ring] + [pipeline]: {added:.1f} s of the run")
     paths["train"] = phase_train()
+    paths["train_danube"], secs = phase_train_danube()
+    new_secs += secs
+    log(f"[archs] + grok's [moe_ep] + [train_danube]: {new_secs:.1f} s of "
+        f"the run")
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts.get(name, 0)
                                      for path, counts in paths.items()}

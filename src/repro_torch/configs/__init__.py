@@ -12,12 +12,15 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "grok-1-314b": "grok_1_314b",
     "phi3.5-moe-42b": "phi35_moe_42b",
+    "internlm2-20b": "internlm2_20b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "deepseek-7b": "deepseek_7b",
+    "qwen2.5-3b": "qwen25_3b",
 }
 
-NOT_PORTED = ("grok-1-314b", "jamba-v0.1-52b", "xlstm-1.3b", "internvl2-2b",
-              "internlm2-20b", "h2o-danube-1.8b", "deepseek-7b",
-              "qwen2.5-3b", "whisper-tiny")
+NOT_PORTED = ("jamba-v0.1-52b", "xlstm-1.3b", "internvl2-2b", "whisper-tiny")
 
 ARCH_NAMES = tuple(_MODULES)
 
@@ -33,4 +36,8 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCH_NAMES", "NOT_PORTED", "get_config"]
+def list_configs() -> dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_NAMES}
+
+
+__all__ = ["ARCH_NAMES", "NOT_PORTED", "get_config", "list_configs"]

@@ -25,8 +25,8 @@
 // online softmax, and neither uses atomics (every block writes its own
 // rows), so two runs on the same inputs are equal bit for bit.
 //
-// * wgmma (1) -- bf16 at head dims 64 and 128, 16-byte aligned bases: the
-//   tensor-core kernel, FlashAttention-3's forward without its ping-pong
+// * wgmma (1) -- bf16 at head dims 64, 80 and 128, 16-byte aligned bases:
+//   the tensor-core kernel, FlashAttention-3's forward without its ping-pong
 //   scheduling or intra-warpgroup overlap.  One block (3 warpgroups) per
 //   (q head, batch, 128-row q tile), the q tiles in reverse order so the
 //   heavy causal tiles start first:
@@ -35,7 +35,12 @@
 //       2-stage ring, each stage with a full and an empty mbarrier.  TMA
 //       reads 3-D maps (Dh, S, B*H) in boxes of 64 bf16 (128 bytes,
 //       swizzled) x 128 rows; GQA is the map coordinate b*Hkv + h/group (no
-//       repeat), rows past Sq or Skv are zero-filled, never the next head's;
+//       repeat), rows past Sq or Skv are zero-filled, never the next head's.
+//       Head dim 80 (h2o-danube's 2560 / 32) takes the 128-column tile: the
+//       maps keep the true inner dim 80 (rows of 160 bytes), the second box
+//       reaches past it and TMA zero-fills columns 80..127, so S = Q K^T
+//       runs its 5 k steps over the true head dim, and columns 80..127 of
+//       P V are 0 and never stored (1.6x the P V work of an n = 80 tile);
 //     - two consumer warpgroups, 64 q rows each: S = Q K^T by wgmma
 //       m64n128k16 with both operands K-major in shared memory and f32
 //       accumulators (bf16 x bf16 products are exact in f32, so S differs
@@ -84,7 +89,7 @@
 //   to tf32); only the output is rounded to the input dtype.  Thread
 //   (ty, tx) = (tid / 16, tid % 16) owns q rows 4*ty .. 4*ty+3 and, of the
 //   scores, kv columns tx + 16*j (j < 4), of the output, head-dim columns
-//   tx + 16*j (j < Dh/16); the 16 threads of a row group are one half warp,
+//   tx + 16*j (j < Dh/16; Dh 16, 32, 64, 80 or 128); the 16 threads of a row group are one half warp,
 //   which reduces row max and sum by shuffles.
 //
 // Masks (both variants) follow the TPU kernel: cols < kv_len, causal
@@ -310,6 +315,9 @@ cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                            has_window, window, kv_offset, scale, s);
+    case 80:
+      return launch<T, 80>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
+                           has_window, window, kv_offset, scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                             has_window, window, kv_offset, scale, s);
@@ -319,7 +327,8 @@ cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma: TMA producer warpgroup + two consumer warpgroups (bf16, Dh 64/128)
+// wgmma: TMA producer warpgroup + two consumer warpgroups (bf16, Dh 64, 80,
+// 128)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -339,10 +348,18 @@ constexpr int P_PARTS = 3;
 constexpr float RESUM_MIN = 16.f;
 constexpr float RESUM_WINDOW = 24.f;
 
+// The tile width of head dim D: whole 64-column boxes (80 -> 128; TMA
+// zero-fills the columns past D)
+template <int D>
+__host__ __device__ constexpr int tile_dim() {
+  return (D + 63) / 64 * 64;
+}
+
 // Q tile, then per stage a K and a V tile, then the mbarriers
 template <int D>
 constexpr int smem_bytes() {
-  return 1024 + (1 + 2 * STAGES) * (D / 64) * BOX + (2 * STAGES + 1) * 8;
+  return 1024 + (1 + 2 * STAGES) * (tile_dim<D>() / 64) * BOX +
+         (2 * STAGES + 1) * 8;
 }
 }  // namespace tc
 
@@ -394,7 +411,8 @@ __global__ void __launch_bounds__(tc::NT, 1)
   constexpr int BQ = tc::BQ, BKV = tc::BKV, STAGES = tc::STAGES;
   constexpr int BOX = tc::BOX;
   constexpr int P_PARTS = tc::P_PARTS;
-  constexpr int NB = D / 64;                 // 64-column boxes per row tile
+  constexpr int DT = tc::tile_dim<D>();      // D padded to whole boxes
+  constexpr int NB = DT / 64;                // 64-column boxes per row tile
   constexpr int TILE = NB * BOX;             // one 128-row tile of Q, K or V
   extern __shared__ uint8_t smem_raw[];
   // tiles 1024-byte aligned (the 128-byte swizzle's period)
@@ -466,9 +484,9 @@ __global__ void __launch_bounds__(tc::NT, 1)
                          q0 + 64 * w + r0 + 8 + kv_offset};
     const int wrow_lo = q0 + 64 * w + kv_offset, wrow_hi = wrow_lo + 63;
 
-    float acc[D / 2], s[64];
+    float acc[DT / 2], s[64];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DT / 2; ++i) acc[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 64; ++i) s[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -482,7 +500,8 @@ __global__ void __launch_bounds__(tc::NT, 1)
       const uint32_t k_base = ptx::smem_u32(ring + st * 2 * TILE);
       const uint32_t v_base = k_base + TILE;
 
-      // S = Q K^T: both K-major; 16 head dims are 32 bytes of a row
+      // S = Q K^T: both K-major; 16 head dims are 32 bytes of a row; the
+      // k steps cover the true head dim (zero-filled columns add nothing)
       ptx::fence_regs(s);
       ptx::wgmma_fence();
 #pragma unroll
@@ -561,7 +580,7 @@ __global__ void __launch_bounds__(tc::NT, 1)
         l[(i / 2) % 2] += s[i];
       }
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DT / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
       // P as wgmma A fragments, in P_PARTS bf16 terms: k step kk is
       // columns 16 kk .. 16 kk + 15, i.e. s[8 kk .. 8 kk + 7] in the order
@@ -590,7 +609,7 @@ __global__ void __launch_bounds__(tc::NT, 1)
         const uint64_t dv = ptx::wgmma_desc(v_base + kk * 2048, BOX, 1024);
 #pragma unroll
         for (int t = 0; t < P_PARTS; ++t) {
-          if constexpr (D == 128)
+          if constexpr (DT == 128)
             ptx::wgmma_m64n128k16_rs<1>(acc, pa[t][kk], dv);
           else
             ptx::wgmma_m64n64k16_rs<1>(acc, pa[t][kk], dv);
@@ -603,7 +622,8 @@ __global__ void __launch_bounds__(tc::NT, 1)
     }
 
     // ---- epilogue: O / l to bf16, staged through this warpgroup's rows
-    // of the Q tile (same 128-byte swizzle), 16-byte stores ----
+    // of the Q tile (same 128-byte swizzle), 16-byte stores of each row's
+    // first D columns ----
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -693,6 +713,9 @@ int run(const void* q, const void* k, const void* v, void* o, float* lse,
            aligned16(k) && aligned16(v) && aligned16(o)) {
     if (Dh == 64)
       err = launch_wgmma<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
+                             has_window, window, kv_offset, scale, s);
+    else if (Dh == 80)
+      err = launch_wgmma<80>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,
                              has_window, window, kv_offset, scale, s);
     else if (Dh == 128)
       err = launch_wgmma<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal,

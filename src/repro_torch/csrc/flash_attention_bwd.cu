@@ -32,7 +32,10 @@
 //     Tiles are staged in shared memory as bf16 (rows padded by 16 bytes,
 //     so ldmatrix's 8 row addresses hit 8 bank groups) by cp.async, the
 //     next kv (dq kernel) or q (dkv kernel) tile loading while the current
-//     one is multiplied.  q.k and dO.v^T read their operands with ldmatrix;
+//     one is multiplied (at head dim 80 a row is 5 k steps of 16 and 10 n
+//     tiles of 8, its pitch 176 bytes: an odd count of 16-byte units, so
+//     ldmatrix's 8 rows still hit 8 bank groups).  q.k and dO.v^T read
+//     their operands with ldmatrix;
 //     p and ds stay in registers, rounded to bf16 as they enter the next
 //     product (the accumulator fragment of m16n8 is the A fragment of
 //     m16k16), as FlashAttention-2 does; the products with k, q and dO
@@ -742,6 +745,7 @@ extern "C" int repro_flash_attention_bwd(
     case 16: err = launch<16>(dtype, a, dq, dk, dv, s); break;
     case 32: err = launch<32>(dtype, a, dq, dk, dv, s); break;
     case 64: err = launch<64>(dtype, a, dq, dk, dv, s); break;
+    case 80: err = launch<80>(dtype, a, dq, dk, dv, s); break;
     case 128: err = launch<128>(dtype, a, dq, dk, dv, s); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -10,9 +10,11 @@ The kernel has two variants, chosen by :func:`variant` from the head dim,
 dtype and alignment (an explicit dispatch between hand-written kernels,
 each counted in ``flash_attention.variant_launches``):
 
-* ``"wgmma"``: bf16 at head dims 64 and 128 with 16-byte aligned bases:
-  TMA loads and wgmma on the tensor cores (``csrc/flash_attention.cu``
-  says how it keeps the softmax to the plain version's f32 arithmetic);
+* ``"wgmma"``: bf16 at head dims 64, 80 and 128 with 16-byte aligned
+  bases: TMA loads and wgmma on the tensor cores (head dim 80 in the
+  128-column tile, its columns past 80 zero-filled; ``csrc/
+  flash_attention.cu`` says how it keeps the softmax to the plain
+  version's f32 arithmetic);
 * ``"simt"``: everything else (f32, which the tensor cores would round to
   tf32; head dims 16 and 32; unaligned bases): f32 FMA throughout.
 """
@@ -28,9 +30,9 @@ from . import build
 from .ref import ref_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 VARIANTS = ("simt", "wgmma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float]
              + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 

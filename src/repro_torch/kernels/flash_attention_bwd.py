@@ -9,8 +9,8 @@ Port of ``repro.kernels.flash_attention_bwd`` (Pallas ``_fwd_kernel``,
 * :func:`flash_attention_fwd` launches the second entry point of
   ``csrc/flash_attention.cu``, the serving kernel that also writes
   ``lse = m + log(l)`` per row (``l == 0`` counts as 1), in the variant
-  ``flash_attention.variant`` picks (``wgmma`` for bf16 at head dims 64
-  and 128, ``simt`` otherwise), counted per variant in
+  ``flash_attention.variant`` picks (``wgmma`` for bf16 at head dims 64,
+  80 and 128, ``simt`` otherwise), counted per variant in
   ``flash_attention_fwd.variant_launches``;
 * :func:`flash_attention_bwd` launches the dq and the dkv kernel of
   ``csrc/flash_attention_bwd.cu`` (tensor cores for bf16); the dkv kernel

@@ -1,0 +1,122 @@
+"""The attention-only archs of the port (deepseek-7b, internlm2-20b,
+qwen2.5-3b, h2o-danube-1.8b, grok-1-314b) against the JAX reference:
+their configs, forward logits, ``make_prefill_fn`` and decode ticks.
+
+Each arch runs its ``SMOKE`` config (2 layers, d 64, f32) on the
+reference's random weights, carried over by ``params_from_jax``, with
+the attention biases (qwen2.5-3b's ``qkv_bias``; zero at the
+reference's init) drawn from numpy so that they count; tokens come from
+numpy.  Two narrow cases reach shapes the SMOKE configs do not:
+``internlm2-20b-g6`` (12 / 2 heads: groups of 6, as the full config's 48
+/ 8) and ``h2o-danube-1.8b-dh80`` (d 160 over 2 / 1 heads: head dim 80,
+the full config's, window 8).  The reference runs
+``attention_impl="pallas_interpret"`` (its flash kernel in interpret
+mode), the port its kernels' plain versions (CPU tensors).  The
+gradients are in ``test_torch_archs_train.py``.
+
+Tolerances as ``test_torch_models.py``'s: logits and decode ticks within
+1e-4 of the largest reference magnitude (two layers of f32 sums in
+another order over O(100) activations).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import list_configs as jax_list_configs
+from repro.models import build_model as jax_build_model
+from repro_torch.configs import (ARCH_NAMES, NOT_PORTED, get_config,
+                                 list_configs)
+from repro_torch.models import build_model, make_prefill_fn
+from repro_torch.models.common import tree_leaves
+from torch_archs import ARCHS, CASES, case_setup
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def _close(got, want, tol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=tol,
+                               atol=tol * float(np.abs(want).max()))
+
+
+def _jax(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_matches_reference_field_for_field(arch, smoke):
+    jcfg, cfg = jax_get_config(arch, smoke=smoke), get_config(arch, smoke)
+    names = [f.name for f in dataclasses.fields(jcfg)]
+    assert names == [f.name for f in dataclasses.fields(cfg)]
+    for name in names:
+        assert getattr(cfg, name) == getattr(jcfg, name), name
+    for prop in ("hd", "superblock", "n_superblocks", "dropless"):
+        assert getattr(cfg, prop) == getattr(jcfg, prop), prop
+
+
+def test_registry():
+    assert set(ARCH_NAMES) == set(ARCHS) | {"phi3.5-moe-42b"}
+    assert set(NOT_PORTED) == {"jamba-v0.1-52b", "xlstm-1.3b",
+                               "internvl2-2b", "whisper-tiny"}
+    assert set(ARCH_NAMES) | set(NOT_PORTED) == set(jax_list_configs())
+    assert {n: c.name for n, c in list_configs().items()} == \
+        {n: n for n in ARCH_NAMES}
+    for name in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(name)
+    assert get_config("h2o-danube-1.8b").hd == 80
+    assert get_config("qwen2.5-3b").qkv_bias
+    assert get_config("deepseek-7b").n_heads == \
+        get_config("deepseek-7b").n_kv_heads
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_forward_and_prefill_match_reference(case):
+    jcfg, jparams, cfg, params = case_setup(case)
+    if cfg.qkv_bias:      # params_from_jax carried the bias leaves over
+        for path, t in tree_leaves(params):
+            if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
+                assert t.abs().max() > 0, path
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab, (2, 16))
+    want, want_aux = jax_build_model(jcfg).forward(
+        _jax(jparams), jnp.asarray(tokens, jnp.int32))
+    model = build_model(cfg)
+    got, aux = model.forward(params, torch.from_numpy(tokens))
+    assert got.dtype == torch.float32 and got.shape == (2, 16, cfg.vocab)
+    _close(got.numpy(), np.asarray(want), 1e-4)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5,
+                               atol=1e-7)
+    last = make_prefill_fn(model)(params, torch.from_numpy(tokens))
+    _close(last.numpy(), np.asarray(want)[:, -1], 1e-4)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_decode_ticks_match_reference(case):
+    # 12 ticks; under danube's window of 8 the ring buffer of 8 slots wraps
+    jcfg, jparams, cfg, params = case_setup(case)
+    jmodel, model = jax_build_model(jcfg), build_model(cfg)
+    B, ticks = 3, 12
+    jcaches = jmodel.init_caches(B, ticks)
+    caches = model.init_caches(B, ticks, "cpu")
+    slots = caches["states"]["pos0"]["k"].shape[-2]
+    assert slots == min(ticks, cfg.window or ticks)
+    step = jax.jit(jmodel.decode_step)
+    jp = _jax(jparams)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (ticks, B, 1))
+    for t in range(ticks):
+        want, jcaches = step(jp, jnp.asarray(toks[t], jnp.int32), jcaches)
+        got, caches = model.decode_step(params, torch.from_numpy(toks[t]),
+                                        caches)
+        _close(got.numpy(), np.asarray(want), 1e-4)
+    assert caches["pos"].tolist() == [ticks] * B
+    for key in ("k", "v", "slot_pos"):
+        _close(caches["states"]["pos0"][key].numpy(),
+               np.asarray(jcaches["states"]["pos0"][key]), 1e-4)

@@ -54,9 +54,10 @@ RESUM = (16.0, 24.0)      # the kernel's tc::RESUM_MIN, tc::RESUM_WINDOW
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 80, 128])
 def test_variant_rule(dtype, Dh):
-    want = "wgmma" if dtype == torch.bfloat16 and Dh in (64, 128) else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 and Dh in (64, 80, 128) \
+        else "simt"
     assert variant(Dh, dtype) == want
     assert variant(Dh, dtype, aligned=False) == "simt"
 
@@ -240,6 +241,9 @@ CASES = [
     ((1, 2, 1, 40, 40, 64), dict(causal=True, kv_offset=-4), 1.0),
     ((1, 4, 2, 300, 300, 128), dict(causal=True, window=100), 1.0),
     ((1, 4, 2, 256, 256, 128), dict(causal=True), 30.0),
+    # head dim 80 (h2o-danube), which the kernel runs in the 128-column
+    # tile with the columns past 80 zero: 5 k steps of S, P V over 80
+    ((1, 4, 2, 160, 160, 80), dict(causal=True, window=40), 1.0),
 ]
 _JAX = {}
 

@@ -87,7 +87,7 @@ def test_capacity_matches_reference(n_tokens, n_slots):
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen2.5-3b")
+        get_config("jamba-v0.1-52b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(get_config(ARCH, smoke=True).replace(
             block_pattern=("mamba",)))

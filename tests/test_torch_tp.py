@@ -14,7 +14,9 @@ coordinate.  Cases:
 * ``(data=2, model=4)``: query / kv heads 8/4 (both split: case a), 4/2
   (the kv heads stay whole, each rank reads the ones its query heads
   map to: case b), 2/2 (attention whole on every rank: case c); the
-  factorized plan.
+  factorized plan; and a dense model with qwen2.5-3b's ``qkv_bias`` and
+  h2o-danube's sliding window (4 tokens) at heads 4/2, so case b slices
+  the query bias by the rank's heads and keeps the kv biases whole.
 * ``(data=2, model=4)`` under ``use_ulysses``: the sequence split over
   ``model`` and re-sharded to heads by the tiled all-to-all around
   attention, with every attention leaf whole over ``model`` and partial:
@@ -78,7 +80,9 @@ CASES = {"a-8/4": ("dm", dict(n_heads=8, n_kv_heads=4)),
          "u-8/4": ("dm", dict(n_heads=8, n_kv_heads=4, use_ulysses=True)),
          "u-4/2": ("dm", dict(use_ulysses=True)),
          "u-overlap": ("dm", dict(n_heads=8, n_kv_heads=8, use_ulysses=True,
-                                  a2a_backend="overlap", a2a_chunks=2))}
+                                  a2a_backend="overlap", a2a_chunks=2)),
+         "b-bias-window": ("dm", dict(family="dense", n_experts=0,
+                                      qkv_bias=True, window=4))}
 SERVE = {"dm": "b-4/2", "pdm": "factorized"}    # the cases served
 ULYSSES = ("u-8/4", "u-4/2", "u-overlap")       # served too
 WHOLE = {"dm": "b-4/2", "pdm": "factorized"}    # also run embed_fsdp=()
@@ -380,7 +384,8 @@ np.savez(sys.argv[3], **out)
 def _numpy_init(specs, seed, d_model):
     """A parameter tree drawn with numpy from ``seed``, f32: every matmul
     weight at std 1 / sqrt(its contraction size), the tied embedding at
-    1 / sqrt(d_model), norms at ones.  (At the reference's init, whose
+    1 / sqrt(d_model), norms at ones, the attention biases (zero at the
+    reference's init) at std 1.  (At the reference's init, whose
     stacked weights take their fan-in from the layer dim, activations
     are O(100) and the reference's own gradients on the mesh and on one
     device differ by about the tolerance on a leaf here: rounding, not
@@ -390,6 +395,9 @@ def _numpy_init(specs, seed, d_model):
     out = {}
     for path, spec in tree_leaves(specs):
         name, shape = path.rsplit("/", 1)[-1], spec.shape
+        if name in ("bq", "bk", "bv"):
+            out[path] = rng.standard_normal(shape).astype(np.float32)
+            continue
         if spec.init in ("ones", "zeros"):
             out[path] = (np.ones if spec.init == "ones" else np.zeros)(
                 shape, np.float32)
