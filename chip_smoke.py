@@ -350,6 +350,29 @@ it fails:
              forward-with-lse ``wgmma`` and 2 backward launches at head
              dim 80.  The seconds of [archs], grok's [moe_ep] layer and
              [train_danube] are printed with their sum.
+14. recurrent — jamba-v0.1-52b at full width, one superblock (8 layers:
+             7 mamba, 1 attention, 4 MoE): the prefill (B=2, S=2048) gate
+             at both inits, the plain runs replaying the kernel runs'
+             routing (1 flash and 12 gmm ``wgmma`` a prefill); 5 requests
+             on 4 slots, a finished request's slot reused (12 gmm
+             ``decode`` a tick); forward vs 32 decode ticks, dropless:
+             in f32 on the plain versions within 1e-3 of the largest
+             logit (the state hand-off), in bf16 with the kernels no
+             farther from the f32 forward than twice the bf16 forward.
+             The spectral substitute at jamba's width: the FFT
+             convolution against the recurrence.  xlstm-1.3b at full
+             width and depth (48 layers, fan-in init): prefill (chunkwise
+             mLSTM, per-step sLSTM; no kernel), 5 requests on 4 slots,
+             forward vs decode one superblock deep, one mLSTM layer
+             chunked against per-step at S=512.
+15. train_recurrent — jamba (8 layers, B=1, S=1024, fan-in init): one
+             loss + backward against the plain versions with the expert
+             matmul on the tensor cores, every leaf within 2e-2 relative
+             norm, the loss within 1e-2 (2 forward-with-lse, 1 backward,
+             48 gmm ``wgmma``); xlstm-1.3b at 8 layers: one
+             ``make_train_step`` AdamW step, every leaf's gradient finite
+             and non-zero; one mLSTM layer's gradients chunked vs
+             per-step at S=256 within 2e-2.  Their seconds are printed.
 
 The grouped matmul has three variants (``moe_gmm.variant``): wgmma (TMA
 and tensor cores) for bf16 at aligned shapes, decode (mma.sync, a
@@ -384,6 +407,11 @@ and the gmm at the F that tensor parallelism cuts (3200 and 1600 at
 model 2 and 4: multiples of 8, not of 128) in all four operand layouts,
 and at grok-1's shapes (E = 8, D 6144, F 32768: prefill C = 1280, decode
 C = 4, and its [moe_ep] layer's chunk and factorized rows).
+
+Phase 2 also holds the gmm at jamba-v0.1-52b's shapes (E = 16, D 4096,
+F 14336: prefill C = 640, decode C = 4, training's backward at C = 160)
+and at a 65 536-token prefill's C = 10240, whose w1 output, w2 lhs and
+drhs operand hold 2.35e9 elements, past 2^31 (fault F3).
 
 Phase 2 also holds the block-reorder kernel (the round-k datatype pack,
 unpack and the fused unpack-then-pack between rounds) against its plain
@@ -489,6 +517,23 @@ ARCHS = {"deepseek-7b": (4, 2, 2048, True),
 DANUBE = "h2o-danube-1.8b"         # head dim 80, window 4096
 GROK = "grok-1-314b"               # 8 experts: 2 a rank in [moe_ep]
 TRAIN_DANUBE = (2, 1, 6144)        # [train_danube]: layers, B, S
+JAMBA = "jamba-v0.1-52b"           # mamba + attention 7:1, MoE every 2nd
+XLSTM = "xlstm-1.3b"               # mLSTM + sLSTM 7:1
+RECURRENT_B, RECURRENT_S = 2, 2048  # [recurrent]: prefill batch, length
+JAMBA_LAYERS = 8                   # [recurrent], [train_recurrent]: one
+                                   # superblock (the full 32 do not fit)
+DECODE_CHECK = 32                  # [recurrent]: forward vs decode positions
+FVD_TOL = 1e-3                     # [recurrent]: its f32 limit, of the
+                                   # largest logit
+FVD_RATIO = 2.0                    # [recurrent]: bf16 ticks vs bf16 forward,
+                                   # each from the f32 forward
+MLSTM_CHECK_S = (512, 256)         # [recurrent] / [train_recurrent]: one
+                                   # full-width mLSTM, chunked vs per-step
+TRAIN_RECURRENT = (1, 1024)        # [train_recurrent]: B, S
+XLSTM_CUT_LAYERS = 8               # xlstm's depth in [recurrent]'s forward
+                                   # vs decode and in [train_recurrent]
+F3_TOKENS = 65536                  # [kernels]: jamba's gmm at this prefill
+                                   # (C = 10240): E*C*N past 2^31 (fault F3)
 
 
 def fail(msg: str):
@@ -588,6 +633,7 @@ def phase_kernels(gen):
                 cases.append(_gmm_case(f"gmm {phase}", a, b, force="simt"))
             del a, b
     cases += _grok_gmm_cases(gen)
+    cases += _jamba_gmm_cases(gen)
     cases += _path_gmm_cases(gen)
     _gmm_sweep(gen)
     cases += _gmm_tp_cases(gen)
@@ -629,7 +675,7 @@ def phase_kernels(gen):
 
 
 def _gmm_case(label, lhs, rhs, force=None, got=None, want=None,
-              against="the plain gmm"):
+              against="the plain gmm", iters: int = 5):
     """One gmm row: the variant the call takes (or ``force``), the kernel
     against its plain version (or ``got`` against ``want``), and the
     kernel, the plain version, ``torch.bmm`` and the bound timed on these
@@ -651,9 +697,11 @@ def _gmm_case(label, lhs, rhs, force=None, got=None, want=None,
                        2 * E * C * K * N)
     row = {"shape": what, "variant": which, "max_abs_err": err,
            "share_differing": differ,
-           "ms": cuda_ms(lambda: grouped_matmul(lhs, rhs, force=force)),
-           "plain_ms": cuda_ms(lambda: grouped_matmul_plain(lhs, rhs)),
-           "library_ms": cuda_ms(lambda: torch.bmm(lhs, rhs)),
+           "ms": cuda_ms(lambda: grouped_matmul(lhs, rhs, force=force),
+                         iters),
+           "plain_ms": cuda_ms(lambda: grouped_matmul_plain(lhs, rhs),
+                               iters),
+           "library_ms": cuda_ms(lambda: torch.bmm(lhs, rhs), iters),
            "bound_ms": b_ms, "bound_by": b_by}
     log(f"[kernels] {what}: max_abs_err {err:.3g} (against {against}; "
         f"{100 * differ:.3f}% of outputs differ), "
@@ -680,6 +728,54 @@ def _grok_gmm_cases(gen) -> list:
             a, b = _randn(gen, E, C, K), _randn(gen, E, K, N)
             cases.append(_gmm_case(f"gmm {label}", a, b))
             del a, b
+    return cases
+
+
+def _jamba_geometry() -> dict:
+    """jamba-v0.1-52b's expert FFN: its config and the capacities of
+    [recurrent]'s prefill (B*S tokens) and decode ticks (4 slots),
+    [train_recurrent]'s step, and fault F3's 65 536-token prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import _capacity
+    cfg = get_config(JAMBA)
+    E = cfg.n_experts
+    B, S = TRAIN_RECURRENT
+    return dict(cfg=cfg, prefill=_capacity(cfg, RECURRENT_B * RECURRENT_S, E),
+                decode=_capacity(cfg, 4, E), train=_capacity(cfg, B * S, E),
+                f3=_capacity(cfg, F3_TOKENS, E))
+
+
+def _jamba_gmm_cases(gen) -> list:
+    """jamba's expert FFN products (E = 16, D 4096, F 14336): w1/w3 and
+    w2 at [recurrent]'s prefill (C = 640) and decode (C = 4), and fault
+    F3's rows, whose outputs or operands pass 2^31 elements: w1, w2 and
+    the backward's drhs of w1 at C = 10240 (a 65 536-token prefill), each
+    against its plain version (f32 sums: up to 16 GB of temporaries),
+    timed over 2 calls."""
+    g = _jamba_geometry()
+    cfg = g["cfg"]
+    E, D, F_ = cfg.n_experts, cfg.d_model, cfg.d_ff
+    cases = []
+    for label, C in (("jamba prefill", g["prefill"]),
+                     ("jamba decode", g["decode"])):
+        for K, N in ((D, F_), (F_, D)):
+            a, b = _randn(gen, E, C, K), _randn(gen, E, K, N)
+            cases.append(_gmm_case(f"gmm {label}", a, b))
+            del a, b
+    C = g["f3"]
+    for K, N in ((D, F_), (F_, D)):
+        a, b = _randn(gen, E, C, K), _randn(gen, E, K, N)
+        cases.append(_gmm_case(f"gmm F3 past 2^31 ({E * C * F_:.3g} "
+                               f"elements)", a, b, iters=2))
+        if K == D:        # drhs of w1 = gmm(lhs^T, dout): dout (E, C, F)
+            del b
+            d = _randn(gen, E, C, F_)
+            cases.append(_gmm_case(
+                f"gmm F3 backward drhs of w1 ({E * C * F_:.3g} elements)",
+                a.transpose(1, 2), d, iters=2))
+            del d
+        del a
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -752,7 +848,10 @@ def _gmm_backward_cases(gen):
     the transposed views."""
     from repro_torch.kernels.moe_gmm import (GroupedMatmulFn,
                                              grouped_matmul_plain)
-    shapes = {(16, 640, 4096, 6400): ["train"]}
+    jamba = _jamba_geometry()
+    shapes = {(16, 640, 4096, 6400): ["train"],
+              (16, jamba["train"], jamba["cfg"].d_model, jamba["cfg"].d_ff):
+              ["train_recurrent"]}
     shapes.update({s: [lb for lb in labels if lb.startswith("train_")]
                    for s, labels in _path_gmm_shapes().items()
                    if any(lb.startswith("train_") for lb in labels)})
@@ -1680,15 +1779,24 @@ def _moe_layers(cfg) -> int:
     return cfg.n_superblocks * sum(ffn == "moe" for _, ffn in cfg.superblock)
 
 
-def phase_serve(model, params, cfg, tag: str = "serve"):
-    """The launcher's colocated body answers 4 requests; every tick
-    launches 3 gmm (``decode``) per MoE layer and nothing else (decode
-    attention is plain torch).  Returns the launches."""
+def _attn_layers(cfg) -> int:
+    """The layers of ``cfg`` whose mixer is attention (one flash forward
+    each a prefill)."""
+    return cfg.n_superblocks * sum(m == "attn" for m, _ in cfg.superblock)
+
+
+def phase_serve(model, params, cfg, tag: str = "serve",
+                lengths: tuple = (8, 11, 13, 16), max_batch: int = 4):
+    """The launcher's colocated body answers a request per prompt length
+    on ``max_batch`` slots (where there are more requests, a finished
+    request's slot is reset and reused); every tick launches 3 gmm
+    (``decode``) per MoE layer and nothing else (decode attention is
+    plain torch).  Returns the launches."""
     from repro_torch.launch.serve import batcher_step, serve_colocated
     from repro_torch.models import make_serve_step
     from repro_torch.runtime.serving import Request
     rng = np.random.default_rng(2)
-    lengths, gen_len = (8, 11, 13, 16), 16
+    gen_len = 16
     reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, L)],
                     gen_len) for i, L in enumerate(lengths)]
     step = batcher_step(make_serve_step(model))
@@ -1702,7 +1810,7 @@ def phase_serve(model, params, cfg, tag: str = "serve"):
 
     _reset_counts()
     batcher, secs = serve_colocated(
-        model, params, reqs, max_batch=len(reqs),
+        model, params, reqs, max_batch=max_batch,
         max_seq=max(lengths) + gen_len, device=DEVICE,
         serve_step=checked_step)
     counts = _read_counts()
@@ -1723,7 +1831,8 @@ def phase_serve(model, params, cfg, tag: str = "serve"):
         fail(f"[{tag}] non-finite decode logits")
     tick_ms = np.diff(stamps) * 1e3
     log(f"[{tag}] {cfg.name} x{cfg.n_layers} layers: {len(reqs)} "
-        f"requests (prompts {lengths}, {gen_len} new tokens each) in "
+        f"requests on {max_batch} slots (prompts {lengths}, "
+        f"{gen_len} new tokens each) in "
         f"{ticks} ticks, {secs * 1e3 / ticks:.2f} ms/tick "
         f"overall, median tick {float(np.median(tick_ms)):.2f} ms; launches "
         f"{counts}; request 0 tokens {batcher.done[0]}")
@@ -1801,44 +1910,54 @@ def _sum_counts(*counts) -> dict:
 
 def _arch_prefill(model, params, cfg, tokens, init: str,
                   tensor_core_ref: bool = False, gate: bool = True,
-                  warm: int = 1) -> tuple[dict, dict]:
-    """One prefill of [archs]: the kernel path's last-position logits
-    (launches counted: one flash ``wgmma`` a layer, 3 gmm ``wgmma`` a MoE
-    layer, nothing else), ``warm`` more calls timed, and the plain
-    versions' logits, with the expert matmul on the tensor cores if
-    ``tensor_core_ref`` (:func:`_tensor_core_gmm`); with ``gate`` the two
-    must lie within 2e-2 of the largest logit.  Returns the launches and
+                  warm: int = 1, tag: str = "archs",
+                  replay: bool = False) -> tuple[dict, dict]:
+    """One prefill of [archs] or [recurrent]: the kernel path's
+    last-position logits (launches counted: one flash ``wgmma`` an
+    attention layer, 3 gmm ``wgmma`` a MoE layer, nothing else),
+    ``warm`` more calls timed, and the plain versions' logits, with the
+    expert matmul on the tensor cores if ``tensor_core_ref``
+    (:func:`_tensor_core_gmm`); with ``gate`` the two
+    must lie within 2e-2 of the largest logit.  With ``replay`` the plain
+    run takes the kernel run's expert choices (:func:`_routing`), so a
+    near-tie in the router does not move a token between experts (nor,
+    past a full expert, which tokens drop).  Returns the launches and
     what the log lines read."""
     from repro_torch.kernels import ops
     from repro_torch.models import make_prefill_fn
     prefill = make_prefill_fn(model)
-    L, gmm = cfg.n_layers, 3 * _moe_layers(cfg)
+    L, gmm = _attn_layers(cfg), 3 * _moe_layers(cfg)
     _reset_counts()
-    out, cold_ms = _host_ms(lambda: prefill(params, tokens))
+    routes = []
+    with _routing(record=routes) if replay else contextlib.nullcontext():
+        out, cold_ms = _host_ms(lambda: prefill(params, tokens))
     counts = _read_counts()
     want = _expected(flash_attention=L, flash_attention_wgmma=L,
                      grouped_matmul=gmm, grouped_matmul_wgmma=gmm)
     if counts != want:
-        fail(f"[archs] {cfg.name} prefill launched {counts}, expected "
+        fail(f"[{tag}] {cfg.name} prefill launched {counts}, expected "
              f"{want}")
     if out.shape != (tokens.shape[0], cfg.vocab) \
             or not torch.isfinite(out).all():
-        fail(f"[archs] {cfg.name} prefill logits {tuple(out.shape)} not "
+        fail(f"[{tag}] {cfg.name} prefill logits {tuple(out.shape)} not "
              f"finite (B, V)")
     warm_ms = [_host_ms(lambda: prefill(params, tokens))[1]
                for _ in range(warm)]
     ref_gmm = _tensor_core_gmm if tensor_core_ref else contextlib.nullcontext
-    with ops.plain_versions(), ref_gmm():
+    with ops.plain_versions(), ref_gmm(), \
+            _routing(replay=routes) if replay else \
+            contextlib.nullcontext({}) as switched:
         ref, plain_ms = _host_ms(lambda: prefill(params, tokens))
     err = float((out - ref).abs().max())
     if gate:
-        _logit_gate(f"[archs] {cfg.name} {init} init", out, ref,
+        _logit_gate(f"[{tag}] {cfg.name} {init} init", out, ref,
                     "plain (tensor-core gmm)" if tensor_core_ref
                     else "plain")
     return counts, dict(err=err, scale=float(ref.abs().max()),
                         same_top=bool((out.argmax(-1) == ref.argmax(-1))
                                       .all()),
-                        cold_ms=cold_ms, warm_ms=warm_ms, plain_ms=plain_ms)
+                        cold_ms=cold_ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                        switched=switched)
 
 
 def _arch_model(arch: str, layers: int | None = None):
@@ -4793,14 +4912,15 @@ def phase_pipeline(results) -> float:
 
 
 def _train_launches_per_step(cfg) -> dict:
-    """Predicted launches of one training step: per layer the flash
-    forward and the 3 gmm run twice (forward and remat recompute), the
-    flash backward once and two gmm per forward gmm."""
-    L = cfg.n_layers
-    return _expected(flash_attention_fwd=2 * L,
-                     flash_attention_fwd_wgmma=2 * L, flash_attention_bwd=L,
-                     grouped_matmul=(3 + 3 + 6) * L,
-                     grouped_matmul_wgmma=(3 + 3 + 6) * L)
+    """Predicted launches of one training step with remat: per attention
+    layer the flash forward twice (forward and remat recompute) and its
+    backward once; per MoE layer the 3 gmm twice and two gmm per forward
+    gmm."""
+    A, M = _attn_layers(cfg), _moe_layers(cfg)
+    return _expected(flash_attention_fwd=2 * A,
+                     flash_attention_fwd_wgmma=2 * A, flash_attention_bwd=A,
+                     grouped_matmul=(3 + 3 + 6) * M,
+                     grouped_matmul_wgmma=(3 + 3 + 6) * M)
 
 
 def _check_grads(leaves, got, want, tag: str = "train"):
@@ -4810,7 +4930,7 @@ def _check_grads(leaves, got, want, tag: str = "train"):
     for (path, _), g, w in zip(leaves, got, want):
         if g is None or w is None:
             fail(f"[{tag}] no gradient for {path}")
-        g, w = g.float(), w.float()
+        g, w = g.to(DEVICE).float(), w.to(DEVICE).float()
         norm = float(g.norm())
         if not torch.isfinite(g).all() or norm == 0.0:
             fail(f"[{tag}] gradient of {path} is not finite or is zero "
@@ -4825,8 +4945,8 @@ def _check_grads(leaves, got, want, tag: str = "train"):
 
 def _rel_gaps(got, want) -> list:
     """``||got - want|| / ||want||`` per leaf."""
-    return [float((g.float() - w.float()).norm() / w.float().norm())
-            for g, w in zip(got, want)]
+    return [float((g.to(DEVICE).float() - w.to(DEVICE).float()).norm()
+                  / w.to(DEVICE).float().norm()) for g, w in zip(got, want)]
 
 
 @contextlib.contextmanager
@@ -4886,7 +5006,8 @@ def _routing(record: list | None = None, replay: list | None = None):
 
 def _grad_gate(model, params, batch, per_step, label: str,
                f32: bool = False, tensor_core_ref: bool = False,
-               tag: str = "train"):
+               tag: str = "train", witness: bool = True,
+               offload: bool = False):
     """One loss + backward with the kernels, one on the plain versions and
     one FA2 witness (:func:`_fa2_in_plain_torch`) from the same params and
     batch.  With ``tensor_core_ref`` the plain and witness runs take the
@@ -4901,7 +5022,11 @@ def _grad_gate(model, params, batch, per_step, label: str,
     ``f32`` it also runs the plain path in f32 (parameters and compute,
     same routing) and fails unless every leaf of the kernel path lies
     within F32_GAP_RATIO times the plain path's distance from it: bf16
-    rounding sets the floor both paths sit on."""
+    rounding sets the floor both paths sit on.  ``witness=False`` skips
+    the FA2 witness; ``offload`` keeps each path's gradients in host
+    memory once computed (a model whose gradient trees do not fit the
+    card beside its parameters), and the comparisons move one leaf at a
+    time back to the card."""
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_leaves, tree_map
@@ -4918,23 +5043,34 @@ def _grad_gate(model, params, batch, per_step, label: str,
     if _read_counts() != per_step:
         fail(f"[{tag}] loss + backward launched {_read_counts()}, expected "
              f"{per_step}")
-    n = len(routes) // 2          # forward, then the recompute in reverse
+    # forward, then the recompute: superblocks in reverse, the positions
+    # of each in order
+    m = max(1, _moe_layers(model.cfg) // model.cfg.n_superblocks)
+    fwd = [routes[i:i + m] for i in range(0, len(routes) // 2, m)]
+    rec = [routes[i:i + m] for i in range(len(routes) // 2, len(routes), m)]
     if len(routes) != 2 * _moe_layers(model.cfg) or not all(
-            torch.equal(routes[i], routes[-1 - i]) for i in range(n)):
+            torch.equal(a, b) for f, r in zip(fwd, reversed(rec))
+            for a, b in zip(f, r)):
         fail(f"[{tag}] the remat recompute routed otherwise than the "
              f"forward ({len(routes)} router calls)")
+    if offload:
+        got = [g.to("cpu") for g in got]
     ref_gmm = _tensor_core_gmm if tensor_core_ref else contextlib.nullcontext
     with ops.plain_versions(), ref_gmm(), \
             _routing(replay=routes) as switched:
         (loss_p, want), ms_p = _host_ms(loss_and_grads)
+    if offload:
+        want = [w.to("cpu") for w in want]
     if not math.isfinite(loss) or abs(loss - loss_p) > 1e-2 * abs(loss_p):
         fail(f"[{tag}] loss {loss} vs plain {loss_p} (limit 1e-2 relative)")
     worst, worst_path = _check_grads(leaves, got, want, tag)
-    with ref_gmm(), _fa2_in_plain_torch(), _routing(replay=routes):
-        loss_w, wit = loss_and_grads()
-    gaps = [_rel_gaps(got, want), _rel_gaps(wit, want), _rel_gaps(got, wit)]
-    del wit
-    cols = "kernels~plain, FA2 witness~plain, kernels~FA2 witness"
+    gaps, cols, loss_w = [_rel_gaps(got, want)], "kernels~plain", None
+    if witness:
+        with ref_gmm(), _fa2_in_plain_torch(), _routing(replay=routes):
+            loss_w, wit = loss_and_grads()
+        gaps += [_rel_gaps(wit, want), _rel_gaps(got, wit)]
+        del wit
+        cols += ", FA2 witness~plain, kernels~FA2 witness"
     if tensor_core_ref:
         with ops.plain_versions(), _routing(replay=routes):
             loss_s, stand = loss_and_grads()
@@ -4956,7 +5092,7 @@ def _grad_gate(model, params, batch, per_step, label: str,
         del params32, total
         gaps += [_rel_gaps(got, ref), _rel_gaps(want, ref)]
         del ref
-        for (path, _), kf, pf in zip(leaves, gaps[3], gaps[4]):
+        for (path, _), kf, pf in zip(leaves, gaps[-2], gaps[-1]):
             if not kf <= F32_GAP_RATIO * pf:
                 fail(f"[{tag}] {label}: the kernel path's gradient of {path} "
                      f"lies {kf:.3g} from the f32 one, the plain path's "
@@ -4965,7 +5101,8 @@ def _grad_gate(model, params, batch, per_step, label: str,
     del got, want
     B, S = batch["tokens"].shape
     log(f"[{tag}] {label}: loss + backward (B={B}, S={S}): "
-        f"loss {loss:.6g}, plain {loss_p:.6g}, FA2 witness {loss_w:.6g}; "
+        f"loss {loss:.6g}, plain {loss_p:.6g}"
+        + (f", FA2 witness {loss_w:.6g}" if witness else "") + "; "
         f"the plain path's own top-{model.cfg.top_k} differs from the "
         f"kernel path's for {switched['switched']} of "
         f"{switched['tokens']} (token, router call) pairs, recompute "
@@ -4992,6 +5129,13 @@ def _fan_in_init(model, cfg, seed: int):
     return params
 
 
+# the weights whose contraction size is their second-to-last dim: the
+# FFNs' and the recurrent mixers' projections (the depthwise conv's taps)
+_FAN_IN_PENULTIMATE = ("w1", "w2", "w3", "in_proj", "x_proj", "dt_proj",
+                       "out_proj", "conv_w", "up", "down", "wif", "w_gates",
+                       "r_gates", "up1", "up2")
+
+
 def _fan_in_scale(params, specs, cfg) -> None:
     """Rescale a tree drawn at the reference's init in place to the
     fan-in init of :func:`_fan_in_init`; each factor comes from the
@@ -5003,9 +5147,9 @@ def _fan_in_scale(params, specs, cfg) -> None:
             name, shape = path.rsplit("/", 1)[-1], shapes[path]
             if name in ("wq", "wk", "wv", "router"):
                 fan_in = shape[1]
-            elif name == "wo":
-                fan_in = shape[1] * shape[2]
-            elif name in ("w1", "w2", "w3"):
+            elif name == "wo":             # attention's (L, H, hd, D)
+                fan_in = math.prod(shape[1:-1])
+            elif name in _FAN_IN_PENULTIMATE:
                 fan_in = shape[-2]
             elif name == "embed":
                 t.mul_(1.0 / math.sqrt(cfg.d_model))
@@ -5216,6 +5360,390 @@ def phase_train_danube() -> tuple[dict, float]:
     return per_step, secs
 
 
+# ---------------------------------------------------------------------------
+# the recurrent archs: jamba-v0.1-52b and xlstm-1.3b at full width
+# ---------------------------------------------------------------------------
+
+
+def _cast_in_place(tree, dtype) -> None:
+    """Every leaf of ``tree`` cast to ``dtype`` in place, one at a time
+    (the old leaf is freed as the next is made)."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            _cast_in_place(value, dtype)
+        else:
+            tree[key] = value.to(dtype)
+
+
+def _forward_vs_decode(model, params, tokens, tag: str) -> dict:
+    """The full-sequence forward's logits at the first DECODE_CHECK
+    positions against as many ``decode_step`` ticks on the same tokens,
+    every recurrent state handed from tick to tick: (a) in bf16 with the
+    kernels, (b) in f32 on the plain versions (``params`` cast in place:
+    the caller's tree is f32 afterwards).  The state hand-off is gated in
+    f32, where the forward and the ticks differ only by f32 sums: within
+    FVD_TOL of the largest logit.  In bf16 the roundings alone move these
+    models' logits by percents (PERF.md), so the bf16 ticks are gated
+    against the f32 forward: no farther from it than FVD_RATIO times the
+    bf16 forward (plus the f32 limit).  Returns the gaps, the scale and
+    the median bf16 tick's host ms."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    B = tokens.shape[0]
+
+    def run(m, p):
+        full = m.forward(p, tokens)[0][:, :DECODE_CHECK]
+        caches = m.init_caches(B, DECODE_CHECK, DEVICE)
+        outs, ms = [], []
+        for t in range(DECODE_CHECK):
+            (lg, caches), tick = _host_ms(lambda: m.decode_step(
+                p, tokens[:, t:t + 1], caches))
+            outs.append(lg)
+            ms.append(tick)
+        return full, torch.cat(outs, 1), float(np.median(ms))
+
+    with torch.no_grad():
+        full_b, dec_b, tick_ms = run(model, params)
+        _cast_in_place(params, torch.float32)
+        torch.cuda.empty_cache()
+        m32 = build_model(model.cfg.replace(param_dtype="float32",
+                                            compute_dtype="float32"))
+        with ops.plain_versions():
+            full_f, dec_f, _ = run(m32, params)
+    gap = lambda a, b: float((a - b).abs().max())
+    r = dict(f32=gap(dec_f, full_f), scale=float(full_f.abs().max()),
+             bf16=gap(dec_b, full_b), dec_b=gap(dec_b, full_f),
+             full_b=gap(full_b, full_f), tick_ms=tick_ms)
+    name = model.cfg.name
+    if not torch.isfinite(dec_b).all() or not r["f32"] <= FVD_TOL * r["scale"]:
+        fail(f"[{tag}] {name}: f32 decode ticks differ from the forward's "
+             f"first {DECODE_CHECK} positions by {r['f32']:.4g} (largest "
+             f"logit {r['scale']:.4g}; limit {FVD_TOL} of it)")
+    if not r["dec_b"] <= FVD_RATIO * r["full_b"] + FVD_TOL * r["scale"]:
+        fail(f"[{tag}] {name}: bf16 decode ticks lie {r['dec_b']:.4g} from "
+             f"the f32 forward, the bf16 forward {r['full_b']:.4g} (limit "
+             f"{FVD_RATIO}x that, plus the f32 limit)")
+    return r
+
+
+def _fvd_log(r) -> str:
+    return (f"forward vs {DECODE_CHECK} decode ticks: f32 (plain) "
+            f"{r['f32']:.4g} of max |logit| {r['scale']:.4g} (limit "
+            f"{FVD_TOL} of it); bf16 (kernels) {r['bf16']:.4g}, the bf16 "
+            f"ticks {r['dec_b']:.4g} and the bf16 forward {r['full_b']:.4g} "
+            f"from the f32 forward (limit {FVD_RATIO}x); median bf16 tick "
+            f"{r['tick_ms']:.2f} ms at B={RECURRENT_B}")
+
+
+def _recurrent_jamba() -> dict:
+    """[recurrent] (a): jamba at full width, one superblock (8 layers):
+    the prefill gate at the reference and the fan-in inits (1 flash and
+    12 gmm ``wgmma`` a prefill), 5 requests on 4 slots (12 gmm
+    ``decode`` a tick), and forward against decode without a capacity
+    limit (no token dropped on either path).  Returns the launches."""
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, n_params = _arch_model(JAMBA, JAMBA_LAYERS)
+    tokens = prefill_tokens(cfg, RECURRENT_B, RECURRENT_S)
+    c_ref, ref = _arch_prefill(model, params, cfg, tokens, "reference",
+                               tensor_core_ref=True, tag="recurrent",
+                               replay=True)
+    del params
+    torch.cuda.empty_cache()
+    soft = _fan_in_init(model, cfg, seed=1)
+    c_fan, fan = _arch_prefill(model, soft, cfg, tokens, "fan-in",
+                               warm=2, tag="recurrent", replay=True)
+    c_serve = phase_serve(model, soft, cfg, tag="recurrent",
+                          lengths=(8, 11, 13, 16, 10))
+    _reset_counts()
+    fvd = _forward_vs_decode(build_model(cfg.replace(capacity_factor=None)),
+                             soft, tokens, "recurrent")
+    c_fvd = _read_counts()
+    del soft, model
+    torch.cuda.empty_cache()
+    log(f"[recurrent] {cfg.name} d={cfg.d_model} "
+        f"Ein={cfg.ssm_expand * cfg.d_model} "
+        f"n={cfg.ssm_state} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"F={cfg.d_ff} E={cfg.n_experts} vocab={cfg.vocab} x{cfg.n_layers} "
+        f"layers ({_attn_layers(cfg)} attention, {_moe_layers(cfg)} MoE): "
+        f"{n_params / 1e9:.3f} B params; prefill B={RECURRENT_B} "
+        f"S={RECURRENT_S}: first {ref['cold_ms']:.1f} ms, warm "
+        f"{[round(t, 1) for t in ref['warm_ms'] + fan['warm_ms']]} ms, "
+        f"plain {fan['plain_ms']:.1f} ms (host clock); launches {c_ref}; "
+        f"reference init: max |logit - plain| {ref['err']:.4g} of max "
+        f"|logit| {ref['scale']:.4g}, same argmax: {ref['same_top']}; "
+        f"fan-in init: {fan['err']:.4g} of {fan['scale']:.4g}, same "
+        f"argmax: {fan['same_top']} (the plain runs replay the kernel "
+        f"runs' routing; their own top-{cfg.top_k} differs for "
+        f"{ref['switched']['switched']} / {fan['switched']['switched']} of "
+        f"{fan['switched']['tokens']} (token, router call) pairs); dropless "
+        f"{_fvd_log(fvd)}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s; {_card()}")
+    return _sum_counts(c_ref, c_fan, c_serve, c_fvd)
+
+
+def _recurrent_spectral(gen) -> None:
+    """[recurrent] (b): one jamba position with ``spectral_long_conv`` at
+    full width, the FFT convolution against the step recurrence (the same
+    linear system): outputs within 2e-2 of the largest, the final state
+    within 1e-3 of its largest (f32 on both paths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import spectral
+    from repro_torch.models.common import init_params
+    cfg = get_config(JAMBA).replace(spectral_long_conv=True)
+    params = init_params(spectral.spectral_specs(cfg), gen, DEVICE,
+                         cfg.pdtype)
+    x = _randn(gen, RECURRENT_B, RECURRENT_S, cfg.d_model)
+    with torch.no_grad():
+        (y_c, s_c), conv_ms = _host_ms(
+            lambda: spectral.spectral_block(params, x, cfg))
+        zero = {"ssm": torch.zeros_like(s_c["ssm"])}
+        (y_r, s_r), rec_ms = _host_ms(
+            lambda: spectral.spectral_block(params, x, cfg, state=zero))
+    err = float((y_c.float() - y_r.float()).abs().max())
+    scale = float(y_r.float().abs().max())
+    s_err = float((s_c["ssm"] - s_r["ssm"]).abs().max())
+    s_scale = float(s_r["ssm"].abs().max())
+    log(f"[recurrent] spectral position (jamba, Ein="
+        f"{cfg.ssm_expand * cfg.d_model}, n={cfg.ssm_state}) B={RECURRENT_B} "
+        f"S={RECURRENT_S}: FFT conv {conv_ms:.1f} ms, recurrence "
+        f"{rec_ms:.1f} ms (host clock); max |conv - recurrence| {err:.4g} "
+        f"of {scale:.4g} (limit 2e-2 of it), final state {s_err:.4g} of "
+        f"{s_scale:.4g} (limit 1e-3 of it)")
+    if not (torch.isfinite(y_c).all() and err <= 2e-2 * scale
+            and s_err <= 1e-3 * s_scale):
+        fail("[recurrent] the spectral block's FFT convolution and its "
+             "recurrence disagree")
+
+
+def _mlstm_forms(gen, S: int, grads: bool) -> dict:
+    """One xlstm-1.3b mLSTM layer at full width (Din 4096, 4 heads of
+    1024) on one sequence of S tokens: the chunkwise form (L = 128)
+    against the per-step one, outputs and states, or with ``grads`` every
+    leaf's gradient (and the input's) of a fixed random projection of the
+    output.  Returns the gaps (relative to the per-step form's largest,
+    or relative norms) and host ms of each form."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.models.common import init_params, tree_leaves
+    cfg = get_config(XLSTM)
+    params = init_params(xlstm.mlstm_specs(cfg), gen, DEVICE, cfg.pdtype)
+    x = _randn(gen, 1, S, cfg.d_model)
+    proj = torch.randn(1, S, cfg.d_model, generator=gen, device=DEVICE)
+    leaves = [t.requires_grad_(grads) for _, t in tree_leaves(params)]
+    x.requires_grad_(grads)
+    out = {}
+    for form, L in (("chunked", cfg.xlstm_chunk), ("per-step", 0)):
+        c = cfg.replace(xlstm_chunk=L)
+
+        def run():
+            with torch.set_grad_enabled(grads):
+                y, state = xlstm.mlstm_block(params, x, c)
+            if grads:
+                return torch.autograd.grad((y.float() * proj).sum(),
+                                           leaves + [x])
+            return (y,) + tuple(state[k] for k in ("C", "n", "m"))
+        out[form], out[f"{form}_ms"] = _host_ms(run)
+    if grads:
+        return dict(gaps=_rel_gaps(out["chunked"], out["per-step"]),
+                    ms=(out["chunked_ms"], out["per-step_ms"]))
+    return dict(gaps=[float((a.float() - b.float()).abs().max()
+                            / b.float().abs().max())
+                      for a, b in zip(out["chunked"], out["per-step"])],
+                ms=(out["chunked_ms"], out["per-step_ms"]))
+
+
+def _recurrent_xlstm(gen) -> dict:
+    """[recurrent] (c): xlstm-1.3b at full width and depth (48 layers) at
+    the fan-in init: prefill B=2, S=2048 (chunkwise mLSTM, per-step
+    sLSTM), no kernel launched; 5 requests on 4 slots; forward against
+    decode one superblock deep; one mLSTM layer chunked against
+    per-step.  Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, make_prefill_fn
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(XLSTM)
+    model = build_model(cfg)
+    params = _fan_in_init(model, cfg, seed=1)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    tokens = prefill_tokens(cfg, RECURRENT_B, RECURRENT_S)
+    prefill = make_prefill_fn(model)
+    _reset_counts()
+    out, cold_ms = _host_ms(lambda: prefill(params, tokens))
+    counts = _read_counts()
+    if counts != _expected():
+        fail(f"[recurrent] {cfg.name} prefill launched {counts}, expected "
+             f"no kernel")
+    if out.shape != (RECURRENT_B, cfg.vocab) or not torch.isfinite(out).all():
+        fail(f"[recurrent] {cfg.name} prefill logits {tuple(out.shape)} not "
+             f"finite (B, V)")
+    warm_ms = [_host_ms(lambda: prefill(params, tokens))[1] for _ in range(2)]
+    c_serve = phase_serve(model, params, cfg, tag="recurrent",
+                          lengths=(8, 11, 13, 16, 10))
+    del params, model
+    torch.cuda.empty_cache()
+    # forward vs decode one superblock deep: at 48 layers the f32 sums'
+    # own order differences grow to percents of the largest logit (PERF.md)
+    cut = build_model(cfg.replace(n_layers=XLSTM_CUT_LAYERS))
+    _reset_counts()
+    fvd = _forward_vs_decode(cut, _fan_in_init(cut, cut.cfg, seed=1),
+                             tokens, "recurrent")
+    c_fvd = _read_counts()
+    del cut
+    torch.cuda.empty_cache()
+    S = MLSTM_CHECK_S[0]
+    forms = _mlstm_forms(gen, S, grads=False)
+    if not forms["gaps"][0] <= 2e-2 or not max(forms["gaps"][1:]) <= 1e-3:
+        fail(f"[recurrent] one mLSTM layer: chunked vs per-step gaps "
+             f"{forms['gaps']} (y, C, n, m relative to the largest; limits "
+             f"2e-2 for y, 1e-3 for the f32 states)")
+    log(f"[recurrent] {cfg.name} d={cfg.d_model} heads {cfg.n_heads} "
+        f"(hd {2 * cfg.d_model // cfg.n_heads}) chunk {cfg.xlstm_chunk} "
+        f"vocab={cfg.vocab} x{cfg.n_layers} layers: {n_params / 1e9:.3f} B "
+        f"params, fan-in init; prefill B={RECURRENT_B} S={RECURRENT_S}: "
+        f"first {cold_ms:.1f} ms, warm {[round(t, 1) for t in warm_ms]} ms "
+        f"(host clock), launches none; at {XLSTM_CUT_LAYERS} layers "
+        f"{_fvd_log(fvd)}; "
+        f"one mLSTM layer at S={S}: chunked vs per-step gaps (y, C, n, m; "
+        f"of the largest) {[f'{g:.3g}' for g in forms['gaps']]} (limits "
+        f"2e-2, 1e-3), {forms['ms'][0]:.1f} ms vs {forms['ms'][1]:.1f} ms; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return _sum_counts(c_serve, c_fvd, counts)
+
+
+def phase_recurrent() -> tuple[dict, float]:
+    """[recurrent]: jamba-v0.1-52b (:func:`_recurrent_jamba`), the spectral
+    substitute (:func:`_recurrent_spectral`) and xlstm-1.3b
+    (:func:`_recurrent_xlstm`), each model freed before the next.
+    Returns the launches and the seconds."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    counts = _recurrent_jamba()
+    _recurrent_spectral(gen)
+    torch.cuda.empty_cache()
+    counts = _sum_counts(counts, _recurrent_xlstm(gen))
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[recurrent] {secs:.1f} s; launches {counts}")
+    return counts, secs
+
+
+class _Recorded:
+    """An optimizer that records the gradients it is handed."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, grads, state, sharding=None):
+        self.grads = grads
+        return self.opt.update(params, grads, state, sharding=sharding)
+
+
+def phase_train_recurrent() -> tuple[dict, float]:
+    """[train_recurrent]: (a) jamba at full width, one superblock, the
+    copy task at B=1, S=1024, fan-in init: one loss + backward with the
+    kernels against the plain versions with the expert matmul on the
+    tensor cores (:func:`_grad_gate`, :func:`_tensor_core_gmm`: on an
+    H100 the order of ``ref_gmm``'s f32 sums alone moves every leaf of
+    this model by 1.6-3.5e-2, as the logged plain path as it stands
+    shows; each
+    path's gradients held in host memory once computed; launches per step
+    from :func:`_train_launches_per_step`); (b) xlstm-1.3b cut to 8
+    layers: one ``make_train_step`` step (AdamW), every leaf's gradient
+    finite and non-zero, no kernel launched; (c) one full-width mLSTM
+    layer's gradients, chunked against per-step at S=256, within 2e-2
+    relative norm.  Returns the launches and the seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import CopyTaskConfig, make_copy_task_batch
+    from repro_torch.models import build_model, make_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamW, AdamWConfig
+    t0 = time.perf_counter()
+    B, S = TRAIN_RECURRENT
+    # (a) jamba
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(JAMBA).replace(n_layers=JAMBA_LAYERS)
+    if not (cfg.remat and cfg.recurrent_step_remat):
+        fail(f"[train_recurrent] {cfg.name} should train with remat")
+    model = build_model(cfg)
+    params = _fan_in_init(model, cfg, seed=1)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    batch = make_copy_task_batch(CopyTaskConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B), 0, DEVICE)
+    per_step = _train_launches_per_step(cfg)
+    _grad_gate(model, params, batch, per_step, "fan-in init",
+               tensor_core_ref=True, tag="train_recurrent", witness=False,
+               offload=True)
+    log(f"[train_recurrent] {cfg.name} x{cfg.n_layers} layers, B={B} "
+        f"S={S}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params, batch
+    torch.cuda.empty_cache()
+
+    # (b) xlstm, 8 layers, one AdamW step
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(XLSTM).replace(n_layers=XLSTM_CUT_LAYERS)
+    model = build_model(cfg)
+    params = _fan_in_init(model, cfg, seed=1)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    batch = make_copy_task_batch(CopyTaskConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B), 0, DEVICE)
+    opt = _Recorded(AdamW(AdamWConfig(lr=1e-3)))
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    _reset_counts()
+    (params, opt_state, metrics), ms = _host_ms(
+        lambda: step(params, opt_state, batch))
+    if _read_counts() != _expected():
+        fail(f"[train_recurrent] {cfg.name} step launched {_read_counts()}, "
+             f"expected no kernel")
+    bad = [path for path, g in tree_leaves(opt.grads)
+           if not torch.isfinite(g).all() or not g.abs().max() > 0]
+    if bad or not all(math.isfinite(float(v)) for v in metrics.values()):
+        fail(f"[train_recurrent] {cfg.name}: gradients not finite or zero "
+             f"for {bad[:5]}, metrics "
+             f"{ {k: float(v) for k, v in metrics.items()} }")
+    if not all(torch.isfinite(t).all() for _, t in tree_leaves(params)):
+        fail(f"[train_recurrent] {cfg.name}: parameters not finite after "
+             f"the AdamW step")
+    log(f"[train_recurrent] {cfg.name} x{cfg.n_layers} layers ("
+        f"{n_params / 1e9:.3f} B params, chunk {cfg.xlstm_chunk}), B={B} "
+        f"S={S}, fan-in init: one make_train_step step (AdamW) in "
+        f"{ms:.1f} ms (host clock), loss {float(metrics['total_loss']):.6g}, "
+        f"grad norm {float(metrics['grad_norm']):.6g}; all "
+        f"{len(tree_leaves(opt.grads))} leaves' gradients finite and "
+        f"non-zero; launches none; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, params, opt_state, opt, batch
+    torch.cuda.empty_cache()
+
+    # (c) one mLSTM layer's gradients, chunked vs per-step
+    S_c = MLSTM_CHECK_S[1]
+    forms = _mlstm_forms(torch.Generator(device=DEVICE).manual_seed(6), S_c,
+                         grads=True)
+    worst = max(forms["gaps"])
+    log(f"[train_recurrent] one mLSTM layer at S={S_c}: gradients chunked "
+        f"vs per-step within {worst:.3g} relative norm (every leaf and the "
+        f"input; limit {TRAIN_GRAD_TOL}), {forms['ms'][0]:.1f} ms vs "
+        f"{forms['ms'][1]:.1f} ms")
+    if not worst <= TRAIN_GRAD_TOL:
+        fail(f"[train_recurrent] one mLSTM layer: chunked gradients differ "
+             f"from the per-step ones by {forms['gaps']}")
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[train_recurrent] {secs:.1f} s")
+    return per_step, secs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5288,6 +5816,9 @@ def main() -> int:
     new_secs += secs
     log(f"[archs] + grok's [moe_ep] + [train_danube]: {new_secs:.1f} s of "
         f"the run")
+    paths["recurrent"], secs = phase_recurrent()
+    paths["train_recurrent"], more = phase_train_recurrent()
+    log(f"[recurrent] + [train_recurrent]: {secs + more:.1f} s of the run")
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts.get(name, 0)
                                      for path, counts in paths.items()}

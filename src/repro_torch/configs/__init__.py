@@ -1,8 +1,8 @@
 """Architecture registry of the port: the archs ported so far.
 
 The reference registry (``repro.configs``) holds ten archs; the others
-wait for their mixers and are named here so that asking for one says why
-it is missing.
+wait for the encoder-decoder and the frontends and are named here so
+that asking for one says why it is missing.
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "deepseek-7b": "deepseek_7b",
     "qwen2.5-3b": "qwen25_3b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
-NOT_PORTED = ("jamba-v0.1-52b", "xlstm-1.3b", "internvl2-2b", "whisper-tiny")
+NOT_PORTED = ("internvl2-2b", "whisper-tiny")
 
 ARCH_NAMES = tuple(_MODULES)
 

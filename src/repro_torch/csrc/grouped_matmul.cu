@@ -42,6 +42,14 @@
 // Tensor maps are encoded on the host by csrc/tma_host.cuh
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, no -lcuda).
 //
+// Sizes.  Every element offset is formed in 64 bits (size_t, or the long
+// long Strides), and the tensor maps take 64-bit dims and strides, so no
+// product of E, C, K and N is limited: jamba's expert FFN at C = 10240 has
+// 2.35e9 output elements.  What is 32-bit: E, C, K and N each (ints here,
+// and TMA's box coordinates), a grid's y and z dims (65535), and a tensor
+// map's stride (below 2^40 bytes); kernels/moe_gmm.py refuses a call past
+// any of them before it launches.
+//
 // C interface: repro_grouped_matmul(...) launches the variant asked for on
 // the given stream and returns cudaGetLastError() (cudaErrorInvalidValue
 // for a variant that cannot take the call); the caller allocates the

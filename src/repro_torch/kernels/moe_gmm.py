@@ -36,6 +36,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 VARIANTS = ("simt", "wgmma", "decode")
 DECODE_ROWS = 16          # C at or below which the decode variant runs
+INT_MAX = 2 ** 31 - 1     # E, C, K, N cross the C interface as int
+GRID_YZ_MAX = 65535       # CUDA's limit on a grid's y and z dims
+TMA_STRIDE_LIMIT = 2 ** 40  # cuTensorMapEncodeTiled: a stride's bytes
 
 
 def grouped_matmul_plain(lhs, rhs):
@@ -69,10 +72,31 @@ def _check(lhs, rhs) -> tuple[str, str]:
                         f"of one dtype; got {lhs.dtype} and {rhs.dtype}")
     if rhs.device != lhs.device:
         raise ValueError(f"operands on {lhs.device} and {rhs.device}")
-    if max(lhs.numel(), rhs.numel(), E * C * rhs.shape[2]) >= 2 ** 31:
-        raise ValueError("grouped_matmul indexes each expert's slice "
-                         "with 32-bit ints")
+    if max(E, C, K, rhs.shape[2]) > INT_MAX:
+        raise ValueError(f"grouped_matmul passes E, C, K and N as 32-bit "
+                         f"ints; got {tuple(lhs.shape)} @ {tuple(rhs.shape)}")
     return (_major(lhs, "lhs", "k", "mn"), _major(rhs, "rhs", "mn", "k"))
+
+
+def _check_launch(E: int, C: int, K: int, N: int, which: str) -> None:
+    """Refuse a call that the variant ``which`` cannot launch: a grid's y
+    or z dimension past the CUDA limit, or (wgmma) a TMA tensor map whose
+    per-expert stride reaches 2^40 bytes.  Element offsets are 64-bit in
+    every variant, so no element count is limited."""
+    if which == "wgmma":
+        grid_yz = (-(-N // 256), E)
+        if 2 * max(C * K, K * N) >= TMA_STRIDE_LIMIT:
+            raise ValueError(f"grouped_matmul (wgmma): an expert's slice of "
+                             f"(E={E}, C={C}, K={K}, N={N}) reaches "
+                             f"the TMA stride limit of 2^40 bytes")
+    elif which == "decode":
+        grid_yz = (E,)
+    else:
+        grid_yz = (-(-C // (8 if C <= 8 else 128)), E)
+    if max(grid_yz) > GRID_YZ_MAX:
+        raise ValueError(f"grouped_matmul ({which}): grid dims {grid_yz} of "
+                         f"(E={E}, C={C}, K={K}, N={N}) exceed the CUDA "
+                         f"limit {GRID_YZ_MAX}")
 
 
 def variant(E: int, C: int, K: int, N: int, dtype,
@@ -108,6 +132,7 @@ def grouped_matmul(lhs, rhs, *, force: str | None = None):
     N = rhs.shape[2]
     which = force or variant(E, C, K, N, lhs.dtype, layouts, aligned=all(
         t.data_ptr() % 16 == 0 for t in (lhs, rhs)))
+    _check_launch(E, C, K, N, which)
     out = torch.empty((E, C, N), dtype=lhs.dtype, device=lhs.device)
     fn = build.load("grouped_matmul").repro_grouped_matmul
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int

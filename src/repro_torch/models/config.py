@@ -2,8 +2,8 @@
 with torch dtypes.
 
 Every field of the reference is kept, so a config reads the same in both
-packages; fields of code paths not ported yet (other mixers, meshes,
-collective backends) are carried but unused.  ``attention_impl`` is kept
+packages; fields of code paths not ported yet (the frontends and the
+encoder-decoder) are carried but unused.  ``attention_impl`` is kept
 for parity only: the port's ops choose the kernel by the tensor's device
 (``kernels.ops``), not by this string.
 """
@@ -52,7 +52,7 @@ class ModelConfig:
     # --- layer mixer pattern (repeating) ---
     block_pattern: tuple[str, ...] = ("attn",)
 
-    # --- ssm / xlstm / spectral (mixers not ported yet) ---
+    # --- ssm / xlstm / spectral ---
     ssm_state: int = 16
     ssm_conv: int = 4
     ssm_expand: int = 2

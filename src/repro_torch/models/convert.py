@@ -9,7 +9,8 @@ so the conversion is a checked copy: every leaf's shape and dtype must
 match the port's spec, and a missing or extra leaf raises.
 ``opt_state_from_jax`` does the same for the reference's AdamW state
 ``{"mu", "nu", "step"}``: moments shaped like the parameters, in the
-moment dtype, and the int32 step.
+moment dtype, and the int32 step; ``caches_from_jax`` for a decode-state
+tree (``Model.init_caches``'s: KV caches, recurrent states, positions).
 
 Given a ``DeviceMesh``, both take the reference's *global* tree and
 return this rank's shard (``common.param_shardings``): the experts'
@@ -23,13 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.common import (is_spec, param_shardings,
-                                       tree_leaves, tree_map)
+from repro_torch.models.common import (ParamSpec, is_spec,
+                                       param_shardings, tree_leaves, tree_map)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model_api import build_model
 
 _NP_DTYPES = {"float32": torch.float32, "float16": torch.float16,
-              "bfloat16": torch.bfloat16}
+              "bfloat16": torch.bfloat16, "int32": torch.int32}
 
 
 def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -68,10 +69,16 @@ def _shard(tree, specs, mesh, rules):
     return param_shardings(specs, mesh, rules).shard_tree(tree)
 
 
+def _specs(cfg: ModelConfig, mesh):
+    model = build_model(cfg)
+    model.check_mesh(mesh)
+    return model.specs()
+
+
 def params_from_jax(tree, cfg: ModelConfig, device, mesh=None, rules=None):
     """The reference's parameter tree (numpy leaves) -> the port's (this
     rank's shard of it on a mesh)."""
-    specs = build_model(cfg).specs()
+    specs = _specs(cfg, mesh)
     return _shard(_checked(tree, specs,
                            lambda spec: spec.dtype or cfg.pdtype,
                            "parameter", device), specs, mesh, rules)
@@ -86,7 +93,7 @@ def opt_state_from_jax(state, params_cfg: ModelConfig, device, mesh=None,
     if set(state) != {"mu", "nu", "step"}:
         raise ValueError(f"AdamW state has keys {sorted(state)}, want "
                          f"['mu', 'nu', 'step']")
-    specs = build_model(params_cfg).specs()
+    specs = _specs(params_cfg, mesh)
     step = np.asarray(state["step"])
     if step.shape != () or step.dtype != np.int32:
         raise ValueError(f"step: got {step.shape} {step.dtype}, want () "
@@ -95,6 +102,22 @@ def opt_state_from_jax(state, params_cfg: ModelConfig, device, mesh=None,
                                   lambda spec: torch.float32, name, device),
                          specs, mesh, rules) for name in ("mu", "nu")} | {
         "step": torch.tensor(int(step), dtype=torch.int32, device=device)}
+
+
+def caches_from_jax(caches, cfg: ModelConfig, device):
+    """The reference's decode-state tree (``init_caches`` / ``decode_step``
+    output, numpy leaves) -> the port's, each leaf checked against the
+    shape and dtype of the port's ``init_caches`` for the same batch and
+    cache length (no mesh)."""
+    B = np.shape(caches["pos"])[0]
+    slots = [np.shape(v["k"])[-2] for v in caches["states"].values()
+             if "k" in v]
+    model = build_model(cfg)
+    like = model.init_caches(B, max(slots, default=1), "meta")
+    specs = tree_map(lambda t: ParamSpec(tuple(t.shape), (), dtype=t.dtype),
+                     like)
+    return _checked(caches, specs, lambda spec: spec.dtype,
+                    "decode state", device)
 
 
 def _paths(specs, prefix: str = ""):

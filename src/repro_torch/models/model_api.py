@@ -118,6 +118,7 @@ def make_train_step(model, optimizer, mesh=None, rules=None,
     loss_fn = make_loss_fn(model, mesh, rules)
     sharding = group = None
     if mesh is not None:
+        model.check_mesh(mesh)
         check_ep_within_batch(mesh, rules)
         sharding = param_shardings(model.specs(), mesh, rules)
         extra = set(sharding.fsdp_kept) - set(batch_axes(mesh, rules))

@@ -170,3 +170,28 @@ def dot(x, w):
     if tape is not None:
         tape.record("dot", out)
     return out
+
+
+SCAN_CHUNK = 64            # steps per call of the per-step recurrences
+
+
+def chunked_scan(fn, carry, xs, consts=(), *, chunk: int = SCAN_CHUNK,
+                 remat: bool):
+    """``lax.scan`` over dim 1 of every tensor in ``xs``, ``chunk`` steps
+    per call of ``fn(carry, *xs_chunk, *consts) -> (carry, ys)``, with
+    ``ys`` (B, T, ...) joined over dim 1.  With ``remat`` and under
+    autograd each call runs inside ``torch.utils.checkpoint``
+    (non-reentrant): backward keeps only the carry between chunks and
+    recomputes each chunk's steps, as the reference's per-step
+    ``jax.checkpoint`` keeps only the carried state; the recompute
+    repeats the forward's arithmetic, so the gradients are those of the
+    unrematted scan."""
+    remat = remat and torch.is_grad_enabled()
+    S = xs[0].shape[1]
+    ys = []
+    for s in range(0, S, chunk):
+        args = (carry, *(x[:, s:s + chunk] for x in xs), *consts)
+        carry, y = checkpoint(fn, *args, use_reentrant=False) if remat \
+            else fn(*args)
+        ys.append(y)
+    return carry, ys[0] if len(ys) == 1 else torch.cat(ys, 1)

@@ -1,0 +1,120 @@
+"""Spectral long-convolution mixer, port of ``repro.models.spectral``: an
+LTI diagonal SSM whose full-sequence pass is an FFT causal convolution.
+
+The state-space kernel is time-invariant (unlike mamba's selective
+scan), so the length-S output is a causal convolution with the
+materialized kernel ``K[t, e] = sum_n C[e,n] * Abar[e,n]^t * Bbar[e,n]``,
+computed in O(S log S) with ``torch.fft`` instead of an O(S) scan.
+Decode keeps the recurrent form: one O(Ein*n) state update per token,
+the same linear system.
+
+Opt-in via ``ModelConfig(spectral_long_conv=True)`` (substitutes the
+recurrent mixers in ``block_pattern``) or ``block_pattern=("spectral",)``.
+Only the local path is ported: the sequence-parallel convolution through
+the pencil FFT (:func:`distributed_fft_causal_conv`) waits for the FFT
+slice of ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import ParamSpec, silu
+from repro_torch.models.remat import chunked_scan, dot
+from .config import ModelConfig
+
+
+def spectral_specs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    Ein = cfg.ssm_expand * D
+    n = cfg.ssm_state
+    return {
+        "in_proj": ParamSpec((D, 2 * Ein), ("embed_fsdp", "mlp")),
+        "A_log": ParamSpec((Ein, n), ("mlp", None), init="ones"),
+        "B": ParamSpec((Ein, n), ("mlp", None)),
+        "C": ParamSpec((Ein, n), ("mlp", None)),
+        "dt_log": ParamSpec((Ein,), ("mlp",), init="zeros"),
+        "D_skip": ParamSpec((Ein,), ("mlp",), init="ones"),
+        "out_proj": ParamSpec((Ein, D), ("mlp", "embed_fsdp")),
+    }
+
+
+def _discretize(p):
+    """(Abar, Bbar, C, dt * A) of the ZOH-Euler discretized diagonal
+    system."""
+    A = -torch.exp(p["A_log"].float())                     # (Ein, n) < 0
+    dt = F.softplus(p["dt_log"].float())[:, None]
+    dA = torch.exp(dt * A)                                 # (Ein, n)
+    dB = dt * p["B"].float()                               # (Ein, n)
+    return dA, dB, p["C"].float(), dt * A
+
+
+def ssm_kernel(p, L: int):
+    """The causal conv kernel ``K``: (L, Ein), ``K[t] = C . Abar^t .
+    Bbar`` (so ``K[0] = C . Bbar``)."""
+    _, dB, C, dtA = _discretize(p)
+    t = torch.arange(L, dtype=torch.float32, device=dB.device)
+    powers = torch.exp(t[:, None, None] * dtA[None])       # (L, Ein, n)
+    return torch.einsum("len,en->le", powers, C * dB)
+
+
+def fft_causal_conv(x, kernel):
+    """Causal (linear, not circular) convolution of ``x``: (B, S, E)
+    with the per-channel ``kernel``: (S, E) through a zero-padded FFT;
+    float32."""
+    S = x.shape[1]
+    L = 2 * S
+    X = torch.fft.rfft(x.float(), n=L, dim=1)
+    Kf = torch.fft.rfft(kernel.float(), n=L, dim=0)
+    return torch.fft.irfft(X * Kf[None], n=L, dim=1)[:, :S]
+
+
+def distributed_fft_causal_conv(comm, x, kernel, *, mesh=None):
+    """The sequence-sharded causal convolution through the pencil FFT
+    (``repro.workloads.fft.PencilFFT`` and its transpose plans): not
+    ported yet."""
+    raise NotImplementedError(
+        "distributed_fft_causal_conv needs workloads/fft.py's PencilFFT and "
+        "TransposePlan, which are not ported yet: ROADMAP.md, queue 1, "
+        "slice 16 (the encoder-decoder, the frontends and the pencil FFT)")
+
+
+def _recurrence_chunk(h, x, dA, dB, C):
+    """T steps of the recurrence: x (B, T, Ein), h (B, Ein, n).  Returns
+    (h, y (B, T, Ein))."""
+    ys = []
+    for t in range(x.shape[1]):
+        h = dA[None] * h + dB[None] * x[:, t, :, None]
+        ys.append(torch.einsum("ben,en->be", h, C))
+    return h, torch.stack(ys, 1)
+
+
+def spectral_block(p, x, cfg: ModelConfig, state=None):
+    """x: (B, S, D).  ``state=None`` (train / prefill from scratch) runs
+    the FFT convolution and returns the final recurrent state for the
+    decode hand-off; with a state dict (``{'ssm': (B, Ein, n)}``) it runs
+    the step recurrence, the same linear system.  Returns (y,
+    new_state)."""
+    B, S, D = x.shape
+    cd = cfg.cdtype
+    xz = dot(x.to(cd), p["in_proj"].to(cd))                # (B, S, 2Ein)
+    xs, z = xz.chunk(2, dim=-1)
+    xs_f = xs.float()
+    dA, dB, C, dtA = _discretize(p)
+
+    if state is None:
+        y = fft_causal_conv(xs_f, ssm_kernel(p, S))        # (B, S, Ein)
+        # decode hand-off: h[S-1] = sum_s Abar^{S-1-s} Bbar x[s]
+        rev = torch.arange(S - 1, -1, -1, dtype=torch.float32,
+                           device=x.device)
+        powers = torch.exp(rev[:, None, None] * dtA[None])  # (S, Ein, n)
+        h_final = torch.einsum("sen,bse->ben", powers * dB[None], xs_f)
+    else:
+        h_final, y = chunked_scan(_recurrence_chunk, state["ssm"], (xs_f,),
+                                  (dA, dB, C), remat=False)
+
+    y = y + xs_f * p["D_skip"].float()
+    y = y.to(cd) * silu(z)
+    out = dot(y, p["out_proj"].to(cd))
+    return out, {"ssm": h_final}

@@ -3,8 +3,10 @@
 
 Parameters of the repeating (mixer, ffn) superblock are stacked
 ``(n_superblocks, ...)`` as in the reference; where the reference scans
-over them, the port loops in Python.  Only the ``attn`` mixer is ported;
-the others (mamba, mLSTM, sLSTM, spectral) wait for their slices.
+over them, the port loops in Python.  The mixers are attention, mamba,
+mLSTM, sLSTM and the spectral long convolution (``models.mamba``,
+``models.xlstm``, ``models.spectral``); the encoder-decoder and the
+frontends wait for their slice.
 
 Modes:
   * ``forward``     — full-sequence (train / prefill), returns f32 logits.
@@ -17,14 +19,16 @@ Modes:
     results (``moe_recv``, ``moe_back``), so its recompute exchanges
     nothing.
   * ``loss``        — masked mean cross-entropy plus the router aux loss.
-  * ``decode_step`` — one token per batch slot with per-layer KV caches,
-    which it updates in place.
+  * ``decode_step`` — one token per batch slot with per-layer KV caches
+    and recurrent states, which it updates in place.
 
 Each takes ``mesh=None, rules=None`` as the reference does and hands them
 to the attention, FFN and MoE layers.  On a ``DeviceMesh`` every rank
 calls them collectively with its row block of the batch and its
 parameter shard (``models.common.param_shardings``); the ranks issue the
-same collectives in the same order, the remat recompute's included.
+same collectives in the same order, the remat recompute's included.  A
+model with a recurrent mixer refuses a mesh (``check_mesh``): its leaves
+take no split yet.
 
 Tensor parallelism over ``model`` (where the ``vocab`` rule splits the
 vocab, :func:`vocab_layout`): the embedding is vocab-parallel (each rank
@@ -57,8 +61,11 @@ import torch.distributed as dist
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import remat as remat_mod
+from repro_torch.models import spectral as spectral_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
                                        param_shardings, resolve_device,
                                        rms_norm,
@@ -70,7 +77,11 @@ from repro_torch.parallel.sharding import (batch_group, model_dim, tp_copy,
                                            tp_reduce)
 from .config import ModelConfig
 
-PORTED_MIXERS = ("attn",)
+# the recurrent mixers' blocks: (p, x, cfg, state) -> (y, new_state)
+RECURRENT = {"mamba": mamba_mod.mamba_block, "mlstm": xlstm_mod.mlstm_block,
+             "slstm": xlstm_mod.slstm_block,
+             "spectral": spectral_mod.spectral_block}
+PORTED_MIXERS = ("attn", *RECURRENT)
 
 
 def _norm_specs(cfg):
@@ -86,6 +97,13 @@ def _apply_norm(p, x, cfg):
     return rms_norm(x, p["g"])
 
 
+def _mixer_specs(cfg, kind):
+    return {"attn": attn.attn_specs, "mamba": mamba_mod.mamba_specs,
+            "mlstm": xlstm_mod.mlstm_specs,
+            "slstm": xlstm_mod.slstm_specs,
+            "spectral": spectral_mod.spectral_specs}[kind](cfg)
+
+
 def _ffn_specs(cfg, kind):
     if kind == "dense":
         return ffn_mod.ffn_specs(cfg)
@@ -95,7 +113,7 @@ def _ffn_specs(cfg, kind):
 
 
 def position_specs(cfg, mixer, ffn):
-    out = {"norm1": _norm_specs(cfg), "mixer": attn.attn_specs(cfg)}
+    out = {"norm1": _norm_specs(cfg), "mixer": _mixer_specs(cfg, mixer)}
     if ffn != "none":
         out["norm2"] = _norm_specs(cfg)
         out["ffn"] = _ffn_specs(cfg, ffn)
@@ -107,16 +125,68 @@ def superblock_specs(cfg: ModelConfig):
             for i, (mixer, ffn) in enumerate(cfg.superblock)}
 
 
-def _apply_position(pp, x, cfg, ffn, positions, state=None, decode=False,
-                    mesh=None, rules=None):
-    """One (attn, ffn) position.  Returns (x, aux)."""
+# ---------------------------------------------------------------------------
+# Decode state (the reference's ``_position_state``)
+# ---------------------------------------------------------------------------
+
+def _position_state(cfg: ModelConfig, mixer, batch, max_seq, device,
+                    n_kv: int):
+    """One position's decode state: the attention's KV cache (``n_kv``
+    heads; sliding-window attention needs only ``window`` slots, a ring
+    buffer), or the recurrent mixer's state at its start values."""
+    if mixer == "attn":
+        slots = min(max_seq, cfg.window) if cfg.window else max_seq
+        return attn.init_cache(attn.CacheSpec(batch, n_kv, slots, cfg.hd,
+                                              cfg.cdtype), device)
+    D = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    if mixer == "mamba":
+        Ein = cfg.ssm_expand * D
+        return {"ssm": torch.zeros((batch, Ein, cfg.ssm_state), **f32),
+                "conv": torch.zeros((batch, cfg.ssm_conv - 1, Ein),
+                                    dtype=cfg.cdtype, device=device)}
+    if mixer == "spectral":
+        Ein = cfg.ssm_expand * D
+        return {"ssm": torch.zeros((batch, Ein, cfg.ssm_state), **f32)}
+    if mixer == "mlstm":
+        Din = 2 * D
+        H = cfg.n_heads
+        hd = Din // H
+        return {"C": torch.zeros((batch, H, hd, hd), **f32),
+                "n": torch.zeros((batch, H, hd), **f32),
+                "m": torch.full((batch, H), -1e30, **f32)}
+    if mixer == "slstm":
+        return {"c": torch.zeros((batch, D), **f32),
+                "n": torch.full((batch, D), 1e-6, **f32),
+                "m": torch.full((batch, D), -1e30, **f32),
+                "h": torch.zeros((batch, D), **f32)}
+    raise ValueError(mixer)
+
+
+# ---------------------------------------------------------------------------
+# Superblock application
+# ---------------------------------------------------------------------------
+
+def _apply_position(pp, x, cfg, mixer, ffn, positions, state=None,
+                    decode=False, mesh=None, rules=None):
+    """One (mixer, ffn) position.  Returns (x, aux); in decode the
+    position's state is updated in place."""
     h = _apply_norm(pp["norm1"], x, cfg)
-    if decode:
-        y, _ = attn.decode_attention(pp["mixer"], h, state, positions, cfg,
-                                     mesh, rules)
+    if mixer == "attn":
+        if decode:
+            y, _ = attn.decode_attention(pp["mixer"], h, state, positions,
+                                         cfg, mesh, rules)
+        else:
+            y = attn.attention_block(pp["mixer"], h, cfg, causal=True,
+                                     positions=positions, mesh=mesh,
+                                     rules=rules)
     else:
-        y = attn.attention_block(pp["mixer"], h, cfg, causal=True,
-                                 positions=positions, mesh=mesh, rules=rules)
+        # forward throws the final state away, as the reference does
+        y, new_state = RECURRENT[mixer](pp["mixer"], h, cfg,
+                                        state=state if decode else None)
+        if decode:
+            for key, value in new_state.items():
+                state[key].copy_(value)
     x = x + y.to(x.dtype)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -139,9 +209,9 @@ def _apply_superblock(params_sb, x, cfg, positions, mesh=None, rules=None,
     if fsdp is not None:
         params_sb = fsdp.gather_params(params_sb, "blocks", drop=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for j, (_, ffn) in enumerate(cfg.superblock):
-        x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn, positions,
-                               mesh=mesh, rules=rules)
+    for j, (mixer, ffn) in enumerate(cfg.superblock):
+        x, a = _apply_position(params_sb[f"pos{j}"], x, cfg, mixer, ffn,
+                               positions, mesh=mesh, rules=rules)
         aux = aux + a
     return x, aux
 
@@ -182,10 +252,22 @@ class Model:
         missing = {m for m, _ in cfg.superblock} - set(PORTED_MIXERS)
         if missing or cfg.frontend is not None or cfg.encoder_layers:
             raise NotImplementedError(
-                f"{cfg.name}: only the 'attn' mixer of decoder-only archs is "
-                f"ported to repro_torch so far (needs {sorted(missing)}, "
+                f"{cfg.name}: only decoder-only archs without a frontend "
+                f"are ported to repro_torch so far (needs {sorted(missing)}, "
                 f"frontend={cfg.frontend}, encoder_layers="
                 f"{cfg.encoder_layers}); ROADMAP.md lists the slices to come")
+
+    def check_mesh(self, mesh) -> None:
+        """Refuse a mesh where a recurrent mixer's leaves would need a
+        split (tensor parallelism over ``model``, FSDP) that is not
+        ported yet."""
+        recurrent = sorted({m for m, _ in self.cfg.superblock
+                            if m in RECURRENT})
+        if mesh is not None and recurrent:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the recurrent mixers {recurrent} run "
+                f"without a mesh only; their split over a mesh is ROADMAP.md "
+                f"queue 1, 'the recurrent mixers on a mesh'")
 
     # ---- parameter specs ----
     def specs(self):
@@ -214,6 +296,7 @@ class Model:
         rule splits a leaf, else None (built once per mesh and rules)."""
         if mesh is None:
             return None
+        self.check_mesh(mesh)
         key = (mesh, rules)
         if key not in self._fsdp_layouts:
             sh = param_shardings(self.specs(), mesh, rules)
@@ -326,19 +409,17 @@ class Model:
     # ---- decode ----
     def init_caches(self, batch: int, max_seq: int, device="cuda", *,
                     mesh=None, rules=None):
-        """Stacked (n_superblocks, ...) KV caches plus per-slot positions;
-        on a mesh the kv heads this rank's attention uses
-        (``attention.head_layout``)."""
+        """Stacked (n_superblocks, ...) decode states (KV caches, recurrent
+        states) plus per-slot positions; on a mesh the kv heads this
+        rank's attention uses (``attention.head_layout``)."""
         cfg = self.cfg
+        self.check_mesh(mesh)
         device = resolve_device(device)
-        # sliding-window attention needs only `window` slots (ring buffer)
-        slots = min(max_seq, cfg.window) if cfg.window else max_seq
-        spec = attn.CacheSpec(batch, attn.head_layout(cfg, mesh, rules).n_kv,
-                              slots, cfg.hd, cfg.cdtype)
+        n_kv = attn.head_layout(cfg, mesh, rules).n_kv
         n = cfg.n_superblocks
         states = {}
-        for i in range(len(cfg.superblock)):
-            one = attn.init_cache(spec, device)
+        for i, (mixer, _) in enumerate(cfg.superblock):
+            one = _position_state(cfg, mixer, batch, max_seq, device, n_kv)
             states[f"pos{i}"] = tree_map(
                 lambda a: a[None].repeat((n,) + (1,) * a.dim()), one)
         return {"states": states,
@@ -357,8 +438,8 @@ class Model:
     def decode_step(self, params, tokens_t, caches, *, mesh=None,
                     rules=None):
         """tokens_t: (B, 1).  Returns (logits (B, 1, V) f32, full-vocab on
-        a mesh too, caches); the KV caches are updated in place, ``pos``
-        is a new tensor."""
+        a mesh too, caches); the KV caches and recurrent states are
+        updated in place, ``pos`` is a new tensor."""
         cfg = self.cfg
         fsdp = self.fsdp_layout(mesh, rules)
         params = self._whole_top(params, fsdp)
@@ -369,9 +450,9 @@ class Model:
             if fsdp is not None:
                 params_sb = fsdp.gather_params(params_sb, "blocks", drop=1)
             states_sb = _layer(caches["states"], i)
-            for j, (_, ffn) in enumerate(cfg.superblock):
-                x, _ = _apply_position(params_sb[f"pos{j}"], x, cfg, ffn,
-                                       pos, state=states_sb[f"pos{j}"],
+            for j, (mixer, ffn) in enumerate(cfg.superblock):
+                x, _ = _apply_position(params_sb[f"pos{j}"], x, cfg, mixer,
+                                       ffn, pos, state=states_sb[f"pos{j}"],
                                        decode=True, mesh=mesh, rules=rules)
         x = _apply_norm(params["final_norm"], x, cfg)
         logits = self.logits(params, x, mesh=mesh, rules=rules)

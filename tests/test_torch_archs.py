@@ -1,15 +1,18 @@
-"""The attention-only archs of the port (deepseek-7b, internlm2-20b,
-qwen2.5-3b, h2o-danube-1.8b, grok-1-314b) against the JAX reference:
-their configs, forward logits, ``make_prefill_fn`` and decode ticks.
+"""The archs of the port (deepseek-7b, internlm2-20b, qwen2.5-3b,
+h2o-danube-1.8b, grok-1-314b, and the recurrent jamba-v0.1-52b and
+xlstm-1.3b) against the JAX reference: their configs, forward logits,
+``make_prefill_fn`` and decode ticks.
 
 Each arch runs its ``SMOKE`` config (2 layers, d 64, f32) on the
 reference's random weights, carried over by ``params_from_jax``, with
 the attention biases (qwen2.5-3b's ``qkv_bias``; zero at the
 reference's init) drawn from numpy so that they count; tokens come from
-numpy.  Two narrow cases reach shapes the SMOKE configs do not:
+numpy.  Three cases reach shapes the SMOKE configs do not:
 ``internlm2-20b-g6`` (12 / 2 heads: groups of 6, as the full config's 48
-/ 8) and ``h2o-danube-1.8b-dh80`` (d 160 over 2 / 1 heads: head dim 80,
-the full config's, window 8).  The reference runs
+/ 8), ``h2o-danube-1.8b-dh80`` (d 160 over 2 / 1 heads: head dim 80,
+the full config's, window 8) and ``xlstm-1.3b-chunk8`` (the chunkwise
+mLSTM, 8 tokens a chunk).  The recurrent archs run at a fan-in init
+(``torch_archs.fan_in_init`` says why).  The reference runs
 ``attention_impl="pallas_interpret"`` (its flash kernel in interpret
 mode), the port its kernels' plain versions (CPU tensors).  The
 gradients are in ``test_torch_archs_train.py``.
@@ -34,7 +37,8 @@ from repro_torch.configs import (ARCH_NAMES, NOT_PORTED, get_config,
                                  list_configs)
 from repro_torch.models import build_model, make_prefill_fn
 from repro_torch.models.common import tree_leaves
-from torch_archs import ARCHS, CASES, case_setup
+from torch_archs import (ARCHS, CASES, RECURRENT_ARCHS, case_setup,
+                         fan_in_init)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -64,8 +68,7 @@ def test_config_matches_reference_field_for_field(arch, smoke):
 
 def test_registry():
     assert set(ARCH_NAMES) == set(ARCHS) | {"phi3.5-moe-42b"}
-    assert set(NOT_PORTED) == {"jamba-v0.1-52b", "xlstm-1.3b",
-                               "internvl2-2b", "whisper-tiny"}
+    assert set(NOT_PORTED) == {"internvl2-2b", "whisper-tiny"}
     assert set(ARCH_NAMES) | set(NOT_PORTED) == set(jax_list_configs())
     assert {n: c.name for n, c in list_configs().items()} == \
         {n: n for n in ARCH_NAMES}
@@ -76,6 +79,32 @@ def test_registry():
     assert get_config("qwen2.5-3b").qkv_bias
     assert get_config("deepseek-7b").n_heads == \
         get_config("deepseek-7b").n_kv_heads
+    assert {m for m, _ in get_config("jamba-v0.1-52b").superblock} == \
+        {"mamba", "attn"}
+    assert get_config("xlstm-1.3b").xlstm_chunk == 128
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_recurrent_cases_need_the_fan_in_init(arch):
+    # flip the last bit of every reference parameter (x (1 +- 1e-7)): at
+    # the SMOKE init the reference's own logits move by more than this
+    # file's 1e-4 of the largest, at the fan-in init by less
+    jcfg = jax_get_config(arch, smoke=True)
+    model = jax_build_model(jcfg)
+    tokens = jnp.asarray(np.random.default_rng(3).integers(
+        0, jcfg.vocab, (2, 16)), jnp.int32)
+    forward = jax.jit(lambda p: model.forward(p, tokens)[0])
+    init = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(0)
+    moved = {}
+    for name, tree in (("smoke", init),
+                       ("fan-in", fan_in_init(init, jcfg.d_model))):
+        flipped = jax.tree.map(lambda a: (a * (1 + 1e-7 * rng.choice(
+            [-1, 1], a.shape))).astype(a.dtype), tree)
+        want = np.asarray(forward(_jax(tree)))
+        moved[name] = float(np.abs(np.asarray(forward(_jax(flipped)))
+                                   - want).max() / np.abs(want).max())
+    assert moved["smoke"] > 1e-4 > moved["fan-in"], moved
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -106,8 +135,10 @@ def test_decode_ticks_match_reference(case):
     B, ticks = 3, 12
     jcaches = jmodel.init_caches(B, ticks)
     caches = model.init_caches(B, ticks, "cpu")
-    slots = caches["states"]["pos0"]["k"].shape[-2]
-    assert slots == min(ticks, cfg.window or ticks)
+    for j, (mixer, _) in enumerate(cfg.superblock):
+        if mixer == "attn":
+            slots = caches["states"][f"pos{j}"]["k"].shape[-2]
+            assert slots == min(ticks, cfg.window or ticks)
     step = jax.jit(jmodel.decode_step)
     jp = _jax(jparams)
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (ticks, B, 1))
@@ -117,6 +148,9 @@ def test_decode_ticks_match_reference(case):
                                         caches)
         _close(got.numpy(), np.asarray(want), 1e-4)
     assert caches["pos"].tolist() == [ticks] * B
-    for key in ("k", "v", "slot_pos"):
-        _close(caches["states"]["pos0"][key].numpy(),
-               np.asarray(jcaches["states"]["pos0"][key]), 1e-4)
+    want_states = dict(tree_leaves(jax.tree.map(np.asarray,
+                                                jcaches["states"])))
+    got_states = tree_leaves(caches["states"])
+    assert {p for p, _ in got_states} == set(want_states)
+    for path, t in got_states:
+        _close(t.float().numpy(), want_states[path], 1e-4)

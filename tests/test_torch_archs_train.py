@@ -1,8 +1,11 @@
-"""The attention-only archs' training path against the JAX reference:
-``Model.loss`` and every leaf's gradient against ``jax.value_and_grad``
-of the reference loss, per case of ``torch_archs.CASES`` (the five
-``SMOKE`` configs, 12 / 2 heads, head dim 80), on the same weights
-(attention biases drawn from numpy) and copy-task batches from numpy.
+"""The archs' training path against the JAX reference: ``Model.loss``
+and every leaf's gradient against ``jax.value_and_grad`` of the
+reference loss, per case of ``torch_archs.CASES`` (the seven ``SMOKE``
+configs, 12 / 2 heads, head dim 80, the chunkwise mLSTM), on the same
+weights (attention biases drawn from numpy; the recurrent archs at a
+fan-in init) and copy-task batches from numpy.  The recurrent archs'
+SMOKE configs keep ``recurrent_step_remat``, so their scans run
+checkpointed chunk by chunk, as the reference's steps do.
 
 The reference runs ``attention_impl="xla"`` (autodiff of its oracles),
 as ``test_torch_train.py``'s does, and for the head-dim-80 case also

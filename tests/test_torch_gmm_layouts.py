@@ -119,6 +119,53 @@ def test_check_refuses_other_layouts(lhs, rhs):
         moe_gmm._check(lhs, rhs)
 
 
+# jamba-v0.1-52b's expert FFN (E 16, d 4096, F 14336) at a 65 536-token
+# prefill (C = 10240): E * C * N = 2.35e9 elements past 2^31, and the
+# backward's drhs of w1 in its C-major / N-major layouts
+JAMBA_C = 10240
+PAST_2_31 = [
+    ("w1", (16, JAMBA_C, 4096, 14336), ("k", "mn")),
+    ("w2", (16, JAMBA_C, 14336, 4096), ("k", "mn")),
+    ("drhs w1", (16, 4096, JAMBA_C, 14336), ("mn", "mn")),
+]
+
+
+def _meta(E, C, K, N, layouts):
+    lhs = torch.empty(E, C, K, dtype=BF16, device="meta") \
+        if layouts[0] == "k" else \
+        torch.empty(E, K, C, dtype=BF16, device="meta").transpose(1, 2)
+    rhs = torch.empty(E, K, N, dtype=BF16, device="meta") \
+        if layouts[1] == "mn" else \
+        torch.empty(E, N, K, dtype=BF16, device="meta").transpose(1, 2)
+    return lhs, rhs
+
+
+@pytest.mark.parametrize("what,shape,layouts", PAST_2_31,
+                         ids=[m[0] for m in PAST_2_31])
+def test_check_takes_products_past_2_31_elements(what, shape, layouts):
+    E, C, K, N = shape
+    assert max(C * K, K * N, C * N) * E >= 2 ** 31
+    assert moe_gmm._check(*_meta(E, C, K, N, layouts)) == layouts
+    which = variant(E, C, K, N, BF16, layouts)
+    assert which == "wgmma"
+    moe_gmm._check_launch(E, C, K, N, which)
+
+
+@pytest.mark.parametrize("call", [
+    lambda: moe_gmm._check(*_meta(1, 2 ** 31, 8, 8, ("k", "mn"))),
+    lambda: moe_gmm._check(*_meta(1, 8, 8, 2 ** 31, ("k", "k"))),
+    lambda: moe_gmm._check_launch(65536, 4, 8, 8, "decode"),
+    lambda: moe_gmm._check_launch(65536, 640, 8, 8, "wgmma"),
+    lambda: moe_gmm._check_launch(1, 640, 8, 256 * 65535 + 8, "wgmma"),
+    lambda: moe_gmm._check_launch(1, 128 * 65535 + 1, 8, 8, "simt"),
+    lambda: moe_gmm._check_launch(1, 2 ** 26, 2 ** 13, 8, "wgmma"),
+], ids=["C 2^31", "N 2^31", "decode grid y", "wgmma grid z",
+        "wgmma grid y", "simt grid y", "TMA stride 2^40 B"])
+def test_check_refuses_what_is_32_bit(call):
+    with pytest.raises(ValueError):
+        call()
+
+
 # ---------------------------------------------------------------------------
 # GroupedMatmulFn's backward: transposed views, no copies
 # ---------------------------------------------------------------------------
