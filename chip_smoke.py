@@ -373,6 +373,29 @@ it fails:
              ``make_train_step`` AdamW step, every leaf's gradient finite
              and non-zero; one mLSTM layer's gradients chunked vs
              per-step at S=256 within 2e-2.  Their seconds are printed.
+16. encdec — whisper-tiny at its full config (4 encoder + 4 decoder
+             layers, d 384, 6 heads of 64, 1500 frames, vocab 51865;
+             frames and weights from seeds): ``make_prefill_fn`` at B=4
+             over 448 decoder tokens (12 flash ``wgmma``: 4 encoder, 4
+             decoder self, 4 cross) against the plain versions within
+             2e-2 of the largest logit at the fan-in init, and at the
+             reference init (near one-hot softmaxes, where both bf16
+             paths lie ~80% from f32) no farther from an f32 run than
+             1.25 times the plain path; ``encode`` (4); the forward
+             against 32 decode ticks in f32 on the plain versions at the
+             fan-in init within 1e-3 of the largest logit; the
+             launcher's body with the memory answers 4
+             requests (one cross-attention ``wgmma`` a decoder layer a
+             tick); the card ms of a tick and of its cross K / V
+             recompute.
+17. train_encdec — whisper-tiny at its full config (B=4, S=448, 1500
+             frames, fan-in init) and internvl2-2b cut to 4 layers (B=1,
+             S=2048 after 256 patch tokens): one loss + backward each
+             against the plain versions as 13b; then 3 whisper
+             ``make_train_step`` AdamW steps, finite, each with 24 flash
+             forward-with-lse and 12 backward launches.  Phase 5a also
+             runs internvl2-2b (its prefill with 256 seeded patch
+             embeddings; 4 layers and full depth).
 
 The grouped matmul has three variants (``moe_gmm.variant``): wgmma (TMA
 and tensor cores) for bf16 at aligned shapes, decode (mma.sync, a
@@ -385,8 +408,13 @@ launch counts fix the variant: a main-path gmm that took SIMT fails.
 The flash forward (serving, and the forward-with-lse of training) has two
 variants (``flash_attention.variant``): wgmma (TMA and tensor cores) for
 bf16 at head dims 64, 80 and 128, SIMT (f32 FMA) for the rest.  Phase 2 times
-both at the prefill / training shape and at h2o-danube-1.8b's prefill
-(q (1, 32, 8192, 80), window 4096), and the wgmma one again with q x 100
+both at the prefill / training shape, at h2o-danube-1.8b's prefill
+(q (1, 32, 8192, 80), window 4096), at whisper-tiny's encoder (q (4, 6,
+1500, 64), non-causal), its cross-attention (q (4, 6, 448, 64) against
+1500 rows) and a decode tick's (one query row against them), and at
+internvl2-2b's prefill (q (2, 16, 2304, 128), causal GQA 16/8; the
+training rows add whisper's encoder and cross shapes), and the wgmma one
+again with q x 100
 (logits in the hundreds, where it re-sums the logits near each row's max
 in f32 FMA order), checks that two wgmma runs agree bit for bit, and runs
 both sweeps through the variant each case takes and, for wgmma, through
@@ -507,13 +535,15 @@ RING_WINDOW = 512                  # [ring]: the windowed case's window
 PIPE_MESH = ((4,), ("pod",))       # [pipeline]: 4 stages over pod
 PIPE_SHAPE = (2, 4096, 6400, 256, 4)   # [pipeline]: layers a stage, D, H,
 #                                    batch rows, microbatches
-# [archs]: arch -> (the gate's depth, prefill B, S, whether it also runs
-# at full depth); danube's S = 2 windows, so its window masks half
+# [archs]: arch -> (the gate's depth, prefill B, S text tokens, whether it
+# also runs at full depth); danube's S = 2 windows, so its window masks
+# half; internvl2's prefill puts 256 stub patch tokens before its S
 ARCHS = {"deepseek-7b": (4, 2, 2048, True),
          "internlm2-20b": (4, 2, 2048, False),
          "qwen2.5-3b": (4, 2, 2048, True),
          "h2o-danube-1.8b": (4, 1, 8192, True),
-         "grok-1-314b": (2, 2, 2048, False)}
+         "grok-1-314b": (2, 2, 2048, False),
+         "internvl2-2b": (4, 2, 2048, True)}
 DANUBE = "h2o-danube-1.8b"         # head dim 80, window 4096
 GROK = "grok-1-314b"               # 8 experts: 2 a rank in [moe_ep]
 TRAIN_DANUBE = (2, 1, 6144)        # [train_danube]: layers, B, S
@@ -534,6 +564,11 @@ XLSTM_CUT_LAYERS = 8               # xlstm's depth in [recurrent]'s forward
                                    # vs decode and in [train_recurrent]
 F3_TOKENS = 65536                  # [kernels]: jamba's gmm at this prefill
                                    # (C = 10240): E*C*N past 2^31 (fault F3)
+WHISPER = "whisper-tiny"           # encoder-decoder, 1500 frames, hd 64
+INTERNVL = "internvl2-2b"          # 256 stub patch tokens before the text
+ENCDEC_B, ENCDEC_S = 4, 448        # [encdec] / [train_encdec]: batch,
+                                   # decoder tokens (whisper's text context)
+INTERNVL_TRAIN = (4, 1, 2048)      # [train_encdec]: layers, B, text tokens
 
 
 def fail(msg: str):
@@ -661,13 +696,14 @@ def phase_kernels(gen):
             q, k, v, is_causal=True, enable_gqa=True), "sdpa", q, k, v)
     del q, k, v
     danube = _danube_flash_rows(gen)
+    encdec = _encdec_flash_rows(gen)
     _flash_sweep(gen)
     for which, row in rows.items():
         results[f"flash_attention_{which}"] = dict(
             name=f"flash_attention_{which}", route="cuda",
             source="src/repro_torch/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:86", **row,
-            cases=[row, danube[which]])
+            cases=[row, danube[which], *encdec[which]])
     results.update(_flash_train_kernels(gen))
     results.update(_reorder_kernels(gen))
     torch.cuda.synchronize()
@@ -877,8 +913,14 @@ def _gmm_backward_cases(gen):
     return rows
 
 
-def _pairs(S: int, causal: bool = True, window: int | None = None) -> int:
-    """Unmasked (row, col) pairs of S x S self-attention (kv offset 0)."""
+def _pairs(S: int, causal: bool = True, window: int | None = None,
+           Skv: int | None = None) -> int:
+    """Unmasked (row, col) pairs of S x S self-attention (kv offset 0), or
+    of S queries against all ``Skv`` rows (non-causal cross-attention)."""
+    if Skv is not None and Skv != S:
+        if causal or window:
+            raise ValueError("pairs of Sq != Skv count non-causal calls")
+        return S * Skv
     i = np.arange(S)
     hi = i + 1 if causal else np.full(S, S)
     lo = np.maximum(0, i - window + 1) if window else 0
@@ -898,8 +940,8 @@ def _window_sdpa(Hq: int, k, v, window: int):
 
 def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v,
                 **kw):
-    """The flash rows at one causal shape (``kw``: the mask's options, a
-    window): the variant the call takes, then SIMT (forced), each against the plain version (out at the bf16
+    """The flash rows at one shape (``kw``: the mask's options, causal or
+    not, a window; Sq != Skv non-causal): the variant the call takes, then SIMT (forced), each against the plain version (out at the bf16
     tolerance, lse at f32's), timed beside the plain version, the library
     call (a yardstick only) and the bound; the taken variant run twice on
     the same inputs must agree bit for bit, and its row carries the SIMT
@@ -923,7 +965,7 @@ def _flash_rows(label, shape, run, plain, library, lib_name, q, k, v,
     B, Hq, S, Dh = q.shape
     n_bytes = 2 * (2 * q.numel() + 2 * k.numel()) \
         + 4 * (B * Hq * S if isinstance(want, tuple) else 0)
-    pairs = _pairs(S, **kw)
+    pairs = _pairs(S, Skv=k.shape[2], **kw)
     flops = 4 * B * Hq * Dh * pairs
     b_ms, b_by = bound(n_bytes, flops)
     plain_ms = cuda_ms(lambda: plain(q, k, v, **kw))
@@ -995,6 +1037,47 @@ def _danube_flash_rows(gen) -> dict:
     del q, k, v, ke, ve, mask
     torch.cuda.empty_cache()
     return rows
+
+
+def _encdec_flash_rows(gen) -> dict:
+    """The serving flash rows at this slice's shapes: whisper-tiny's
+    encoder (q (4, 6, 1500, 64), non-causal: 1500 is no multiple of the kv
+    tile), its prefill's cross-attention (448 decoder rows against the
+    1500 memory rows) and a decode tick's (one query row against them),
+    and internvl2-2b's prefill (GQA 16 / 8, head dim 128, 256 patch + 2048
+    text positions, causal); SDPA the yardstick.  Returns variant -> rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    F = torch.nn.functional
+    w, vl = get_config(WHISPER), get_config(INTERNVL)
+    frames = w.n_frontend_tokens
+    cases = [((ENCDEC_B, w.n_heads, w.n_kv_heads, frames, frames, w.hd),
+              False, f"{WHISPER} encoder"),
+             ((ENCDEC_B, w.n_heads, w.n_kv_heads, ENCDEC_S, frames, w.hd),
+              False, f"{WHISPER} cross-attention"),
+             ((ENCDEC_B, w.n_heads, w.n_kv_heads, 1, frames, w.hd), False,
+              f"{WHISPER} decode tick's cross-attention"),
+             ((ARCHS[INTERNVL][1], vl.n_heads, vl.n_kv_heads,
+               ARCHS[INTERNVL][2] + vl.n_frontend_tokens,
+               ARCHS[INTERNVL][2] + vl.n_frontend_tokens, vl.hd), True,
+              f"{INTERNVL} prefill")]
+    out = {}
+    for (B, Hq, Hkv, Sq, Skv, Dh), causal, label in cases:
+        q = _randn(gen, B, Hq, Sq, Dh)
+        k, v = _randn(gen, B, Hkv, Skv, Dh), _randn(gen, B, Hkv, Skv, Dh)
+        shape = (f"q({B},{Hq},{Sq},{Dh}) kv({B},{Hkv},{Skv},{Dh}) "
+                 f"{'causal' if causal else 'non-causal'} bf16 ({label})")
+        rows = _flash_rows(
+            "flash", shape, flash_attention, flash_attention_plain,
+            lambda q, k, v, c=causal: F.scaled_dot_product_attention(
+                q, k, v, is_causal=c, enable_gqa=True), "sdpa", q, k, v,
+            causal=causal)
+        for which, row in rows.items():
+            out.setdefault(which, []).append(row)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return out
 
 
 _FLASH_SWEEP = tuple(
@@ -1091,17 +1174,21 @@ def _flash_train_kernels(gen):
                for g, w in zip(got, want)]
         return bwd_err, rel
 
-    def shape_rows(B, Hq, Hkv, S, Dh, label, window=None):
+    def shape_rows(B, Hq, Hkv, S, Dh, label, window=None, causal=True,
+                   Skv=None):
         """The forward's rows (:func:`_flash_rows`) and the backward's at
-        one causal training shape (with ``window``: the library yardstick
-        SDPA with the window as a mask, k and v expanded)."""
+        one training shape (with ``window``: the library yardstick SDPA
+        with the window as a mask, k and v expanded; ``Skv``: kv rows of a
+        non-causal cross-attention, else S)."""
+        Skv = Skv or S
         q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
-        k, v = _randn(gen, B, Hkv, S, Dh), _randn(gen, B, Hkv, S, Dh)
-        kw = dict(causal=True, window=window)
-        shape = (f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{S},{Dh}) causal"
+        k, v = _randn(gen, B, Hkv, Skv, Dh), _randn(gen, B, Hkv, Skv, Dh)
+        kw = dict(causal=causal, window=window)
+        shape = (f"q({B},{Hq},{S},{Dh}) kv({B},{Hkv},{Skv},{Dh}) "
+                 f"{'causal' if causal else 'non-causal'}"
                  f"{f' window {window}' if window else ''} bf16 ({label})")
         if window is None:
-            lib_k, lib_v, lib_kw = k, v, dict(is_causal=True,
+            lib_k, lib_v, lib_kw = k, v, dict(is_causal=causal,
                                               enable_gqa=True)
         else:
             mask, lib_k, lib_v = _window_sdpa(Hq, k, v, window)
@@ -1118,7 +1205,7 @@ def _flash_train_kernels(gen):
         if not all(torch.equal(x, y) for x, y in zip(*runs)):
             fail(f"flash bwd {shape}: two runs on the same inputs differ")
         del runs
-        pairs = _pairs(S, **kw)
+        pairs = _pairs(S, Skv=Skv, **kw)
         bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
                              + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, lib_k, lib_v))
@@ -1152,6 +1239,13 @@ def _flash_train_kernels(gen):
     dcfg = get_config(DANUBE)          # [train_danube]: head dim 80
     shapes.append((TRAIN_DANUBE[1], dcfg.n_heads, dcfg.n_kv_heads,
                    TRAIN_DANUBE[2], dcfg.hd, "train_danube", dcfg.window))
+    wcfg = get_config(WHISPER)         # [train_encdec]: encoder, cross
+    frames = wcfg.n_frontend_tokens
+    shapes.append((ENCDEC_B, wcfg.n_heads, wcfg.n_kv_heads, frames, wcfg.hd,
+                   f"train_encdec {WHISPER} encoder", None, False))
+    shapes.append((ENCDEC_B, wcfg.n_heads, wcfg.n_kv_heads, ENCDEC_S,
+                   wcfg.hd, f"train_encdec {WHISPER} cross-attention", None,
+                   False, frames))
     by_shape = [shape_rows(*sh) for sh in shapes]
     fwd, bwd = by_shape[0]
     n = 0
@@ -1690,6 +1784,17 @@ def prefill_tokens(cfg, B: int = 2, S: int = 2048):
         0, cfg.vocab, (B, S))).to(DEVICE)
 
 
+def frontend_embeds(cfg, B: int, seed: int = 4):
+    """Stub frontend inputs (B, n_frontend_tokens, d_model) f32 from a
+    seed (internvl2's patches, whisper's frames), as the shape cells'
+    ``input_specs`` give them; None for a model without a frontend."""
+    if cfg.frontend is None:
+        return None
+    return torch.randn((B, cfg.n_frontend_tokens, cfg.d_model),
+                       generator=torch.Generator(device=DEVICE)
+                       .manual_seed(seed), device=DEVICE)
+
+
 @contextlib.contextmanager
 def _tensor_core_gmm():
     """The reference run's expert matmul on the tensor cores: inside, the
@@ -1780,18 +1885,25 @@ def _moe_layers(cfg) -> int:
 
 
 def _attn_layers(cfg) -> int:
-    """The layers of ``cfg`` whose mixer is attention (one flash forward
-    each a prefill)."""
+    """The attention calls of one full-sequence forward (one flash forward
+    each): the layers of ``cfg`` whose mixer is attention, or, for the
+    encoder-decoder, each encoder layer's and each decoder layer's two
+    (self and cross)."""
+    if cfg.encoder_layers:
+        return cfg.encoder_layers + 2 * cfg.n_layers
     return cfg.n_superblocks * sum(m == "attn" for m, _ in cfg.superblock)
 
 
 def phase_serve(model, params, cfg, tag: str = "serve",
-                lengths: tuple = (8, 11, 13, 16), max_batch: int = 4):
+                lengths: tuple = (8, 11, 13, 16), max_batch: int = 4,
+                memory=None):
     """The launcher's colocated body answers a request per prompt length
     on ``max_batch`` slots (where there are more requests, a finished
     request's slot is reset and reused); every tick launches 3 gmm
     (``decode``) per MoE layer and nothing else (decode attention is
-    plain torch).  Returns the launches."""
+    plain torch); with an encoder-decoder's ``memory`` (one row per
+    request, so ``max_batch`` requests) also one flash ``wgmma`` per
+    decoder layer, the cross-attention.  Returns the launches."""
     from repro_torch.launch.serve import batcher_step, serve_colocated
     from repro_torch.models import make_serve_step
     from repro_torch.runtime.serving import Request
@@ -1799,7 +1911,7 @@ def phase_serve(model, params, cfg, tag: str = "serve",
     gen_len = 16
     reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, L)],
                     gen_len) for i, L in enumerate(lengths)]
-    step = batcher_step(make_serve_step(model))
+    step = batcher_step(make_serve_step(model), memory)
     finite, stamps = [], []
 
     def checked_step(params, toks, caches):
@@ -1816,7 +1928,9 @@ def phase_serve(model, params, cfg, tag: str = "serve",
     counts = _read_counts()
     ticks = batcher.ticks
     gmm = 3 * _moe_layers(cfg) * ticks
-    want = _expected(grouped_matmul=gmm, grouped_matmul_decode=gmm)
+    cross = 0 if memory is None else cfg.n_layers * ticks
+    want = _expected(grouped_matmul=gmm, grouped_matmul_decode=gmm,
+                     flash_attention=cross, flash_attention_wgmma=cross)
     if counts != want:
         fail(f"[{tag}] serve launched {counts} in {ticks} ticks, expected "
              f"{want}")
@@ -1911,8 +2025,9 @@ def _sum_counts(*counts) -> dict:
 def _arch_prefill(model, params, cfg, tokens, init: str,
                   tensor_core_ref: bool = False, gate: bool = True,
                   warm: int = 1, tag: str = "archs",
-                  replay: bool = False) -> tuple[dict, dict]:
-    """One prefill of [archs] or [recurrent]: the kernel path's
+                  replay: bool = False, frontend=None) -> tuple[dict, dict]:
+    """One prefill of [archs] or [recurrent] (with ``frontend``: its
+    ``frontend_embeds``): the kernel path's
     last-position logits (launches counted: one flash ``wgmma`` an
     attention layer, 3 gmm ``wgmma`` a MoE layer, nothing else),
     ``warm`` more calls timed, and the plain versions' logits, with the
@@ -1925,7 +2040,8 @@ def _arch_prefill(model, params, cfg, tokens, init: str,
     what the log lines read."""
     from repro_torch.kernels import ops
     from repro_torch.models import make_prefill_fn
-    prefill = make_prefill_fn(model)
+    prefill = functools.partial(make_prefill_fn(model),
+                                frontend_embeds=frontend)
     L, gmm = _attn_layers(cfg), 3 * _moe_layers(cfg)
     _reset_counts()
     routes = []
@@ -1974,27 +2090,34 @@ def _arch_model(arch: str, layers: int | None = None):
     return cfg, model, params, sum(t.numel() for _, t in tree_leaves(params))
 
 
+def _frontend_note(cfg) -> str:
+    return "" if cfg.frontend is None else (
+        f" + {cfg.n_frontend_tokens} {cfg.frontend} tokens")
+
+
 def _arch_gate(arch: str, layers: int, B: int, S: int) -> dict:
     """(a) of [archs]: ``arch`` at full width cut to ``layers`` layers,
     the prefill gate at the reference init and at the fan-in init, and 4
     requests through the batcher.  Returns the kernel path's launches."""
     torch.cuda.reset_peak_memory_stats()
     cfg, model, params, n_params = _arch_model(arch, layers)
-    tokens = prefill_tokens(cfg, B, S)
+    tokens, fe = prefill_tokens(cfg, B, S), frontend_embeds(cfg, B)
     c_ref, ref = _arch_prefill(model, params, cfg, tokens, "reference",
-                               tensor_core_ref=bool(_moe_layers(cfg)))
+                               tensor_core_ref=bool(_moe_layers(cfg)),
+                               frontend=fe)
     c_serve = phase_serve(model, params, cfg, tag="archs")
     del params
     torch.cuda.empty_cache()
     soft = _fan_in_init(model, cfg, seed=1)
-    c_fan, fan = _arch_prefill(model, soft, cfg, tokens, "fan-in")
+    c_fan, fan = _arch_prefill(model, soft, cfg, tokens, "fan-in",
+                               frontend=fe)
     del soft, model
     torch.cuda.empty_cache()
     log(f"[archs] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads} hd={cfg.hd} F={cfg.d_ff} E={cfg.n_experts} "
         f"window={cfg.window} qkv_bias={cfg.qkv_bias} vocab={cfg.vocab} "
         f"x{layers} layers: {n_params / 1e9:.3f} B params; prefill B={B} "
-        f"S={S}: first {ref['cold_ms']:.1f} ms, second "
+        f"S={S}{_frontend_note(cfg)}: first {ref['cold_ms']:.1f} ms, second "
         f"{ref['warm_ms'][0]:.1f} ms, plain {ref['plain_ms']:.1f} ms (host "
         f"clock); launches {c_ref}; reference init: max |logit - plain| "
         f"{ref['err']:.4g} of max |logit| {ref['scale']:.4g}, same argmax: "
@@ -2013,11 +2136,12 @@ def _arch_full(arch: str, B: int, S: int) -> dict:
     cfg, model, params, n_params = _arch_model(arch)
     tokens = prefill_tokens(cfg, B, S)
     counts, r = _arch_prefill(model, params, cfg, tokens, "reference",
-                              gate=False, warm=3)
+                              gate=False, warm=3,
+                              frontend=frontend_embeds(cfg, B))
     c_serve = phase_serve(model, params, cfg, tag="archs")
     log(f"[archs] {cfg.name} at full depth ({cfg.n_layers} layers, "
         f"{n_params / 1e9:.3f} B params, {n_params * 2 / 1e9:.2f} GB bf16): "
-        f"prefill B={B} S={S} first {r['cold_ms']:.1f} ms, warm "
+        f"prefill B={B} S={S}{_frontend_note(cfg)} first {r['cold_ms']:.1f} ms, warm "
         f"{[round(t, 1) for t in r['warm_ms']]} ms, plain versions "
         f"{r['plain_ms']:.1f} ms (host clock); max |logit - plain| "
         f"{r['err']:.4g} of max |logit| {r['scale']:.4g} (logged), same "
@@ -5744,6 +5868,260 @@ def phase_train_recurrent() -> tuple[dict, float]:
     return per_step, secs
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper-tiny) and the stub frontend (internvl2-2b)
+# ---------------------------------------------------------------------------
+
+
+def _encdec_forward_vs_decode(model, params, tokens, frames) -> dict:
+    """The full-sequence forward's logits at the first DECODE_CHECK
+    positions against as many ``decode_step`` ticks over the same tokens
+    and memory, both in f32 on the plain versions (a copy of ``params``
+    cast to f32): the KV cache's hand-off from tick to tick, within
+    FVD_TOL of the largest logit."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    m32 = build_model(model.cfg.replace(param_dtype="float32",
+                                        compute_dtype="float32"))
+    p32 = tree_map(lambda t: t.detach().float(), params)
+    tokens, B = tokens[:, :DECODE_CHECK], tokens.shape[0]
+    with torch.no_grad(), ops.plain_versions():
+        full = m32.forward(p32, tokens, frontend_embeds=frames)[0]
+        memory = m32.encode(p32, frames)
+        caches = m32.init_caches(B, DECODE_CHECK, DEVICE)
+        outs = []
+        for t in range(DECODE_CHECK):
+            logits, caches = m32.decode_step(p32, tokens[:, t:t + 1], caches,
+                                             memory)
+            outs.append(logits)
+    gap = float((torch.cat(outs, 1) - full).abs().max())
+    scale = float(full.abs().max())
+    if not gap <= FVD_TOL * scale:
+        fail(f"[encdec] {model.cfg.name}: f32 decode ticks differ from the "
+             f"forward's first {DECODE_CHECK} positions by {gap:.4g} "
+             f"(largest logit {scale:.4g}; limit {FVD_TOL} of it)")
+    return {"gap": gap, "scale": scale}
+
+
+def _encdec_reference_gate(model, params, tokens, frames) -> dict:
+    """The reference-init prefill held against an f32 run: the kernel
+    path's and the plain path's last-position logits (bf16), each against
+    the plain versions in f32 (a copy of ``params`` cast to f32); fails
+    unless the kernel path lies within F32_GAP_RATIO times the plain
+    path's distance from it.  At whisper's reference init every softmax
+    is near one-hot over 1500 frames and the two bf16 paths lie as far
+    from f32 as from each other (PERF.md), so the 2e-2 gate against the
+    plain path is the fan-in init's."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, make_prefill_fn
+    from repro_torch.models.common import tree_map
+    m32 = build_model(model.cfg.replace(param_dtype="float32",
+                                        compute_dtype="float32"))
+    prefill = make_prefill_fn(model)
+    out = prefill(params, tokens, frames)
+    with ops.plain_versions():
+        ref = prefill(params, tokens, frames)
+        want = make_prefill_fn(m32)(tree_map(lambda t: t.float(), params),
+                                    tokens, frames)
+    gap = lambda a: float((a - want).abs().max())
+    r = dict(k32=gap(out), p32=gap(ref), scale=float(want.abs().max()),
+             top=[float((a.argmax(-1) == want.argmax(-1)).float().mean())
+                  for a in (out, ref)])
+    if not r["k32"] <= F32_GAP_RATIO * r["p32"]:
+        fail(f"[encdec] {model.cfg.name} reference init: the kernel path's "
+             f"logits lie {r['k32']:.4g} from the f32 run, the plain "
+             f"path's {r['p32']:.4g} (limit {F32_GAP_RATIO}x)")
+    return r
+
+
+def _cross_kv_ms(model, params, memory) -> tuple[float, float, float]:
+    """Card ms of one decode tick on the batcher's slots, of what it
+    spends recomputing every decoder layer's cross-attention K and V
+    from the memory (the two projections a cross-attention cache would
+    keep), and of its flash calls on them: CUDA events, warm."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import _heads
+    cfg, cd = model.cfg, model.cfg.cdtype
+    B = memory.shape[0]
+    dec = params["decoder"]["cross_attn"]
+    q = _randn(torch.Generator(device=DEVICE).manual_seed(7), B,
+               cfg.n_heads, 1, cfg.hd)
+
+    def kv():
+        return [_heads(memory @ dec[w][i].to(cd).flatten(1), cfg.n_kv_heads)
+                .contiguous() for i in range(cfg.n_layers)
+                for w in ("wk", "wv")]
+    kvs = kv()
+
+    def flash():
+        for i in range(cfg.n_layers):
+            ops.attention(q, kvs[2 * i], kvs[2 * i + 1], causal=False)
+    caches = model.init_caches(B, ENCDEC_S, DEVICE)
+    toks = torch.zeros((B, 1), dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        tick = cuda_ms(lambda: model.decode_step(params, toks, caches,
+                                                 memory))
+        return tick, cuda_ms(kv), cuda_ms(flash)
+
+
+def phase_encdec() -> tuple[dict, float]:
+    """[encdec]: whisper-tiny at its full config (4 encoder + 4 decoder
+    layers, d 384, 6 heads of 64, 1500 frames, vocab 51865; random
+    weights from a seed, frames from a seed).  (a) ``make_prefill_fn``
+    with the frames at B=4 over 448 decoder tokens: 4 encoder, 4 decoder
+    self- and 4 cross-attention flash ``wgmma`` launches, never ``simt``;
+    its last-position logits within 2e-2 of the largest from the plain
+    versions' at the fan-in init, and at the reference init no farther
+    from an f32 run than F32_GAP_RATIO times the plain path
+    (:func:`_encdec_reference_gate`).  (b) ``model.encode`` launches 4.
+    (c) The forward against as many decode ticks, in f32 on the plain
+    versions at the fan-in init (:func:`_encdec_forward_vs_decode`; at
+    the reference init the reference's own f32 ticks lie 4.8e-3 of the
+    largest logit from its forward, past the limit:
+    ``tools/encdec_numerics.py``).
+    (d) The launcher's body (``serve_colocated`` with the memory) answers
+    4 requests of 8-16 prompt tokens, 16 new tokens each, every tick
+    launching one cross-attention flash ``wgmma`` a decoder layer.  Logs
+    the card ms of a tick and of its cross K / V recompute.  Returns the
+    launches and the seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WHISPER)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0),
+                        DEVICE)
+    n_params = sum(t.numel() for _, t in tree_leaves(params))
+    tokens = prefill_tokens(cfg, ENCDEC_B, ENCDEC_S)
+    frames = frontend_embeds(cfg, ENCDEC_B)
+    c_ref, ref = _arch_prefill(model, params, cfg, tokens, "reference",
+                               tag="encdec", frontend=frames, gate=False)
+    ref.update(_encdec_reference_gate(model, params, tokens, frames))
+    _reset_counts()
+    with torch.no_grad():
+        memory, enc_ms = _host_ms(lambda: model.encode(params, frames))
+    c_enc = _read_counts()
+    want = _expected(flash_attention=cfg.encoder_layers,
+                     flash_attention_wgmma=cfg.encoder_layers)
+    if c_enc != want:
+        fail(f"[encdec] encode launched {c_enc}, expected {want}")
+    if memory.shape != frames.shape or not torch.isfinite(memory).all():
+        fail(f"[encdec] memory {tuple(memory.shape)} not finite "
+             f"{tuple(frames.shape)}")
+    c_serve = phase_serve(model, params, cfg, tag="encdec", memory=memory)
+    tick, kv, flash = _cross_kv_ms(model, params, memory)
+    del params
+    torch.cuda.empty_cache()
+    soft = _fan_in_init(model, cfg, seed=1)
+    c_fan, fan = _arch_prefill(model, soft, cfg, tokens, "fan-in",
+                               tag="encdec", frontend=frames)
+    fvd = _encdec_forward_vs_decode(model, soft, tokens, frames)
+    del soft, model, memory
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[encdec] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} hd={cfg.hd} F={cfg.d_ff} vocab={cfg.vocab} "
+        f"{cfg.encoder_layers}+{cfg.n_layers} layers, "
+        f"{cfg.n_frontend_tokens} frames: {n_params / 1e6:.2f} M params; "
+        f"prefill B={ENCDEC_B} S={ENCDEC_S}: first {ref['cold_ms']:.1f} ms, "
+        f"second {ref['warm_ms'][0]:.1f} ms, plain {ref['plain_ms']:.1f} ms "
+        f"(host clock); launches {c_ref}; reference init: max |logit - "
+        f"plain| {ref['err']:.4g}, from the f32 run: kernels "
+        f"{ref['k32']:.4g}, plain {ref['p32']:.4g} (limit "
+        f"{F32_GAP_RATIO}x) of max |logit| {ref['scale']:.4g}, argmax as "
+        f"f32's for {ref['top'][0]:.3f} / {ref['top'][1]:.3f} of the rows; "
+        f"fan-in init: {fan['err']:.4g} of {fan['scale']:.4g} (limit 2e-2 "
+        f"of it), same argmax: {fan['same_top']}; encode "
+        f"{enc_ms:.1f} ms (host), launches {c_enc}; forward vs "
+        f"{DECODE_CHECK} decode ticks (f32, plain, fan-in init) "
+        f"{fvd['gap']:.4g} of max |logit| {fvd['scale']:.4g} (limit "
+        f"{FVD_TOL} of it); a tick on "
+        f"{ENCDEC_B} slots {tick:.3f} ms on the card, of which the cross "
+        f"K / V recompute of {cfg.n_frontend_tokens} frames x "
+        f"{cfg.n_layers} layers {kv:.3f} ms and its flash calls "
+        f"{flash:.3f} ms; peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; {secs:.1f} s; {_card()}")
+    return _sum_counts(c_ref, c_enc, c_serve, c_fan), secs
+
+
+def phase_train_encdec() -> tuple[dict, float]:
+    """[train_encdec]: (a) whisper-tiny at its full config, the copy task
+    at B=4, S=448 over 1500 frames from a seed, fan-in init (as
+    [train_danube]): one loss + backward with the kernels against the
+    plain versions (:func:`_grad_gate`: every leaf within 2e-2 relative
+    norm, the loss within 1e-2; remat on, so per step 2 forward-with-lse
+    ``wgmma`` and 1 backward per attention call: 4 encoder, 4 decoder
+    self, 4 cross), then 3 ``make_train_step`` AdamW steps with those
+    launches each and a finite loss and gradient norm; (b) internvl2-2b
+    cut to 4 layers, B=1, S=2048 text tokens after its 256 patch tokens,
+    one loss + backward, the same gate.  Returns the launches and the
+    seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import CopyTaskConfig, make_copy_task_batch
+    from repro_torch.models import build_model, make_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import AdamW, AdamWConfig
+    t0 = time.perf_counter()
+    layers, B_vl, S_vl = INTERNVL_TRAIN
+    total = None
+    for arch, B, S, cut in ((WHISPER, ENCDEC_B, ENCDEC_S, None),
+                            (INTERNVL, B_vl, S_vl, layers)):
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=cut or cfg.n_layers)
+        if not cfg.remat:
+            fail(f"[train_encdec] {cfg.name} should train with remat")
+        model = build_model(cfg)
+        params = _fan_in_init(model, cfg, seed=1)
+        tree_map(lambda t: t.requires_grad_(True), params)
+        batch = make_copy_task_batch(CopyTaskConfig(
+            vocab=cfg.vocab, seq_len=S, global_batch=B), 0, DEVICE)
+        batch["frontend_embeds"] = frontend_embeds(cfg, B)
+        per_step = _train_launches_per_step(cfg)
+        log(f"[train_encdec] {cfg.name} x{cfg.n_layers} layers"
+            f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+            f", B={B} S={S}{_frontend_note(cfg)}, remat "
+            f"{cfg.remat_policy}: "
+            f"{sum(t.numel() for _, t in tree_leaves(params)) / 1e9:.3f} B "
+            f"params")
+        _grad_gate(model, params, batch, per_step, "fan-in init",
+                   tag="train_encdec")
+        total = per_step if total is None else _sum_counts(total, per_step)
+        if arch == WHISPER:
+            opt = AdamW(AdamWConfig(lr=1e-3))
+            opt_state = opt.init(params)
+            step = make_train_step(model, opt)
+            losses, norms, times = [], [], []
+            for _ in range(3):
+                _reset_counts()
+                (params, opt_state, metrics), ms = _host_ms(
+                    lambda: step(params, opt_state, batch))
+                if _read_counts() != per_step:
+                    fail(f"[train_encdec] AdamW step launched "
+                         f"{_read_counts()}, expected {per_step}")
+                losses.append(float(metrics["total_loss"]))
+                norms.append(float(metrics["grad_norm"]))
+                times.append(round(ms, 1))
+                total = _sum_counts(total, per_step)
+            if not all(map(math.isfinite, losses + norms)):
+                fail(f"[train_encdec] AdamW steps: losses {losses}, grad "
+                     f"norms {norms}")
+            log(f"[train_encdec] {cfg.name}: 3 make_train_step steps "
+                f"(AdamW): loss {losses}, grad norm {norms}, host ms "
+                f"{times}; launches {per_step} each")
+            del opt, opt_state
+        log(f"[train_encdec] {cfg.name}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, params, batch
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[train_encdec] {secs:.1f} s; {_card()}")
+    return total, secs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5819,6 +6197,9 @@ def main() -> int:
     paths["recurrent"], secs = phase_recurrent()
     paths["train_recurrent"], more = phase_train_recurrent()
     log(f"[recurrent] + [train_recurrent]: {secs + more:.1f} s of the run")
+    paths["encdec"], secs = phase_encdec()
+    paths["train_encdec"], more = phase_train_encdec()
+    log(f"[encdec] + [train_encdec]: {secs + more:.1f} s of the run")
     for name, entry in kernels.items():
         entry["launches_by_path"] = {path: counts.get(name, 0)
                                      for path, counts in paths.items()}

@@ -1,8 +1,10 @@
-"""Architecture registry of the port: the archs ported so far.
+"""Architecture registry of the port: the reference's ten archs
+(``repro.configs``), each config equal to the reference's field for
+field, and the shape cells (``configs.shapes``).
 
-The reference registry (``repro.configs``) holds ten archs; the others
-wait for the encoder-decoder and the frontends and are named here so
-that asking for one says why it is missing.
+``NOT_PORTED`` names archs the registry knows but the port cannot build
+yet, so that asking for one says why it is missing; every arch is
+ported, so it is empty.
 """
 
 from __future__ import annotations
@@ -10,19 +12,22 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.models.config import ModelConfig
+from .shapes import SHAPES, ShapeCell, applicable, input_specs
 
 _MODULES = {
     "grok-1-314b": "grok_1_314b",
     "phi3.5-moe-42b": "phi35_moe_42b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "internvl2-2b": "internvl2_2b",
     "internlm2-20b": "internlm2_20b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "deepseek-7b": "deepseek_7b",
     "qwen2.5-3b": "qwen25_3b",
-    "jamba-v0.1-52b": "jamba_v01_52b",
-    "xlstm-1.3b": "xlstm_1_3b",
+    "whisper-tiny": "whisper_tiny",
 }
 
-NOT_PORTED = ("internvl2-2b", "whisper-tiny")
+NOT_PORTED: tuple[str, ...] = ()
 
 ARCH_NAMES = tuple(_MODULES)
 
@@ -42,4 +47,5 @@ def list_configs() -> dict[str, ModelConfig]:
     return {n: get_config(n) for n in ARCH_NAMES}
 
 
-__all__ = ["ARCH_NAMES", "NOT_PORTED", "get_config", "list_configs"]
+__all__ = ["ARCH_NAMES", "NOT_PORTED", "SHAPES", "ShapeCell", "applicable",
+           "get_config", "input_specs", "list_configs"]

@@ -4,8 +4,12 @@
       --smoke --batch 4 --prompt-len 16 --gen 16            # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3.5-moe-42b \
       --smoke --device cpu                                  # on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --smoke --device cpu                                  # encoder-decoder
 
 ``--device`` defaults to ``cuda`` and raises on a machine without a card.
+An encoder-decoder arch (whisper-tiny) encodes seeded frame embeddings
+once and every decode tick reads that memory.
 Prefill/decode disaggregation (``--disaggregate``) needs the collective
 slice and raises until then.
 """
@@ -24,12 +28,14 @@ from repro_torch.models.common import resolve_device
 from repro_torch.runtime.serving import ContinuousBatcher, Request
 
 
-def batcher_step(serve):
-    """Adapt ``make_serve_step``'s ``(params, caches, toks) -> (nxt,
-    logits, caches)`` to the batcher's ``(params, toks, caches) ->
-    (logits, caches)`` contract."""
+def batcher_step(serve, memory=None):
+    """Adapt ``make_serve_step``'s ``(params, caches, toks[, memory]) ->
+    (nxt, logits, caches)`` to the batcher's ``(params, toks, caches) ->
+    (logits, caches)`` contract.  A fixed ``memory`` (the
+    encoder-decoder's) rides along: valid when slot ``i`` serves request
+    ``i``, i.e. ``max_batch == len(requests)``."""
     def step(params, toks, caches):
-        _, logits, caches = serve(params, caches, toks)
+        _, logits, caches = serve(params, caches, toks, memory)
         return logits, caches
     return step
 
@@ -74,11 +80,19 @@ def main(argv=None):
     B = args.batch
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab, (B, args.prompt_len))
+    memory = None
+    if cfg.encoder_layers:
+        frames = torch.randn(
+            (B, cfg.n_frontend_tokens, cfg.d_model), device=device,
+            generator=torch.Generator(device=device).manual_seed(2))
+        with torch.no_grad():
+            memory = model.encode(params, frames)
     reqs = [Request(i, [int(t) for t in prompts[i]], args.gen)
             for i in range(B)]
     batcher, elapsed = serve_colocated(
         model, params, reqs, max_batch=B,
-        max_seq=args.prompt_len + args.gen, device=device)
+        max_seq=args.prompt_len + args.gen, device=device,
+        serve_step=batcher_step(make_serve_step(model), memory))
 
     out = torch.tensor([batcher.done[i] for i in range(B)],
                        dtype=torch.int32)

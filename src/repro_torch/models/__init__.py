@@ -1,4 +1,5 @@
-"""Model definitions of the port (decoder-only, attention mixer)."""
+"""Model definitions of the port: the decoder-only stack (attention and
+recurrent mixers, stub frontends) and the encoder-decoder."""
 
 from .config import ModelConfig
 from .model_api import (build_model, make_loss_fn, make_prefill_fn,

@@ -190,6 +190,21 @@ def attention_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
     return _out_projection(out, p["wo"], cfg, lay.group)
 
 
+def cross_attention_block(p, x, memory, cfg: ModelConfig):
+    """Encoder-decoder cross attention: queries from x (B, Sq, D), keys
+    and values from memory (B, Skv, D), through the layer's ``wq`` /
+    ``wk`` / ``wv`` / ``wo``; non-causal, no RoPE, no window (the
+    reference passes neither).  Returns (B, Sq, D)."""
+    cd = cfg.cdtype
+    x, memory = x.to(cd), memory.to(cd)
+    q = _heads(dot(x, p["wq"].to(cd).flatten(1)), cfg.n_heads)
+    k, v = (_heads(dot(memory, p[w].to(cd).flatten(1)), cfg.n_kv_heads)
+            for w in ("wk", "wv"))
+    out = kops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=False)
+    return _out_projection(out, p["wo"], cfg, None)
+
+
 def _ulysses_block(p, x, cfg: ModelConfig, comm, causal, positions, mesh,
                    rules):
     """Sequence-parallel attention over ``comm`` (the ``model`` torus):

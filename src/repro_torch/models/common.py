@@ -216,6 +216,17 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.reshape(x.shape).to(x.dtype)
 
 
+def sinusoidal_positions(max_len: int, d_model: int, device=None):
+    """(max_len, d_model) f32 sinusoidal position table: built in float64
+    with numpy and cast to f32, as the reference builds it, so both
+    packages add the same bits."""
+    pos = np.arange(max_len)[:, None]
+    i = np.arange(d_model)[None, :]
+    angle = pos / np.power(10000, (2 * (i // 2)) / d_model)
+    table = np.where(i % 2 == 0, np.sin(angle), np.cos(angle))
+    return torch.as_tensor(table.astype(np.float32), device=device)
+
+
 def gelu(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x.float(), approximate="tanh").to(x.dtype)

@@ -2,8 +2,7 @@
 with torch dtypes.
 
 Every field of the reference is kept, so a config reads the same in both
-packages; fields of code paths not ported yet (the frontends and the
-encoder-decoder) are carried but unused.  ``attention_impl`` is kept
+packages.  ``attention_impl`` is kept
 for parity only: the port's ops choose the kernel by the tensor's device
 (``kernels.ops``), not by this string.
 """
@@ -60,7 +59,7 @@ class ModelConfig:
     xlstm_chunk: int = 0
     recurrent_step_remat: bool = False
 
-    # --- frontends / enc-dec (not ported yet) ---
+    # --- frontends / enc-dec ---
     frontend: str | None = None
     n_frontend_tokens: int = 0
     encoder_layers: int = 0

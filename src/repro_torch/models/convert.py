@@ -108,10 +108,11 @@ def caches_from_jax(caches, cfg: ModelConfig, device):
     """The reference's decode-state tree (``init_caches`` / ``decode_step``
     output, numpy leaves) -> the port's, each leaf checked against the
     shape and dtype of the port's ``init_caches`` for the same batch and
-    cache length (no mesh)."""
+    cache length (no mesh): per-position states (``Model``) or the
+    encoder-decoder's stacked ``k`` / ``v`` / ``slot_pos``."""
     B = np.shape(caches["pos"])[0]
-    slots = [np.shape(v["k"])[-2] for v in caches["states"].values()
-             if "k" in v]
+    slots = [np.shape(a)[-2] for path, a in tree_leaves(caches["states"])
+             if path.rsplit("/", 1)[-1] == "k"]
     model = build_model(cfg)
     like = model.init_caches(B, max(slots, default=1), "meta")
     specs = tree_map(lambda t: ParamSpec(tuple(t.shape), (), dtype=t.dtype),

@@ -12,7 +12,9 @@ gathers them before use), the norms and the router whole.
 ``make_train_step`` then reduces the gradients with
 :func:`reduce_grads` so that every rank steps with its shard of the
 one-device gradient of the global batch; ``make_prefill_fn`` and
-``make_serve_step`` return full-vocab logits.
+``make_serve_step`` return full-vocab logits.  ``build_model`` gives the
+encoder-decoder archs (``encoder_layers`` > 0: whisper-tiny) an
+``EncDecModel``, which runs without a mesh only.
 """
 
 from __future__ import annotations
@@ -23,13 +25,17 @@ import torch.distributed as dist
 from repro_torch.models.common import (param_shardings, tree_leaves,
                                        tree_with_leaves)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.transformer import Model
 from repro_torch.parallel.sharding import (batch_axes, batch_group,
                                            check_ep_within_batch)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    """The decoder-only Model (enc-dec archs are not ported yet)."""
+def build_model(cfg: ModelConfig) -> Model | EncDecModel:
+    """The ``EncDecModel`` (whisper) where ``cfg`` has encoder layers,
+    else the decoder-only ``Model``."""
+    if cfg.encoder_layers > 0:
+        return EncDecModel(cfg)
     return Model(cfg)
 
 
@@ -165,12 +171,18 @@ def make_train_step(model, optimizer, mesh=None, rules=None,
 
 
 def make_serve_step(model, mesh=None, rules=None):
-    """One greedy decode step: (params, caches, tokens_t) ->
-    (next_tokens, logits, caches)."""
+    """One greedy decode step: (params, caches, tokens_t[, memory]) ->
+    (next_tokens, logits, caches); ``memory`` is the encoder-decoder's
+    (``EncDecModel.encode``)."""
     @torch.no_grad()
-    def serve_step(params, caches, tokens_t):
-        logits, caches = model.decode_step(params, tokens_t, caches,
-                                           mesh=mesh, rules=rules)
+    def serve_step(params, caches, tokens_t, memory=None):
+        if memory is not None:
+            logits, caches = model.decode_step(params, tokens_t, caches,
+                                               memory, mesh=mesh,
+                                               rules=rules)
+        else:
+            logits, caches = model.decode_step(params, tokens_t, caches,
+                                               mesh=mesh, rules=rules)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt, logits, caches
 
@@ -179,11 +191,20 @@ def make_serve_step(model, mesh=None, rules=None):
 
 def make_prefill_fn(model, mesh=None, rules=None):
     """Full-sequence prefill returning last-position logits (B, V) f32
-    (gathered over ``model`` on a mesh that splits the vocab)."""
+    (gathered over ``model`` on a mesh that splits the vocab); a frontend
+    or encoder-decoder model takes its ``frontend_embeds``."""
     @torch.no_grad()
-    def prefill(params, tokens):
-        logits, _ = model.forward(params, tokens, mesh=mesh, rules=rules)
-        return model.full_logits(logits[:, -1].contiguous(), mesh=mesh,
-                                 rules=rules)
+    def prefill(params, tokens, frontend_embeds=None):
+        if frontend_embeds is not None:
+            logits, _ = model.forward(params, tokens, mesh=mesh,
+                                      rules=rules,
+                                      frontend_embeds=frontend_embeds)
+        else:
+            logits, _ = model.forward(params, tokens, mesh=mesh,
+                                      rules=rules)
+        last = logits[:, -1].contiguous()
+        if mesh is None:
+            return last
+        return model.full_logits(last, mesh=mesh, rules=rules)
 
     return prefill

@@ -77,7 +77,7 @@ def distributed_fft_causal_conv(comm, x, kernel, *, mesh=None):
     raise NotImplementedError(
         "distributed_fft_causal_conv needs workloads/fft.py's PencilFFT and "
         "TransposePlan, which are not ported yet: ROADMAP.md, queue 1, "
-        "slice 16 (the encoder-decoder, the frontends and the pencil FFT)")
+        "item 8b (slice 17, the pencil FFT)")
 
 
 def _recurrence_chunk(h, x, dA, dB, C):

@@ -5,8 +5,11 @@ Parameters of the repeating (mixer, ffn) superblock are stacked
 ``(n_superblocks, ...)`` as in the reference; where the reference scans
 over them, the port loops in Python.  The mixers are attention, mamba,
 mLSTM, sLSTM and the spectral long convolution (``models.mamba``,
-``models.xlstm``, ``models.spectral``); the encoder-decoder and the
-frontends wait for their slice.
+``models.xlstm``, ``models.spectral``).  A model with a stub frontend
+(``cfg.frontend``: internvl2-2b's ViT) takes precomputed
+``frontend_embeds`` (B, n_frontend_tokens, D) in ``forward`` / ``loss``,
+projects them through ``frontend_proj`` and puts them before the token
+embeddings; the encoder-decoder is ``models.encdec``.
 
 Modes:
   * ``forward``     — full-sequence (train / prefill), returns f32 logits.
@@ -27,8 +30,8 @@ to the attention, FFN and MoE layers.  On a ``DeviceMesh`` every rank
 calls them collectively with its row block of the batch and its
 parameter shard (``models.common.param_shardings``); the ranks issue the
 same collectives in the same order, the remat recompute's included.  A
-model with a recurrent mixer refuses a mesh (``check_mesh``): its leaves
-take no split yet.
+model with a recurrent mixer or a frontend refuses a mesh
+(``check_mesh``): those leaves take no split yet.
 
 Tensor parallelism over ``model`` (where the ``vocab`` rule splits the
 vocab, :func:`vocab_layout`): the embedding is vocab-parallel (each rank
@@ -250,24 +253,31 @@ class Model:
     def __post_init__(self):
         cfg = self.cfg
         missing = {m for m, _ in cfg.superblock} - set(PORTED_MIXERS)
-        if missing or cfg.frontend is not None or cfg.encoder_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: only decoder-only archs without a frontend "
-                f"are ported to repro_torch so far (needs {sorted(missing)}, "
-                f"frontend={cfg.frontend}, encoder_layers="
-                f"{cfg.encoder_layers}); ROADMAP.md lists the slices to come")
+        if missing or cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: Model is the decoder-only stack (mixers "
+                f"{PORTED_MIXERS}; got {sorted(missing)}, encoder_layers="
+                f"{cfg.encoder_layers}); build_model gives the "
+                f"encoder-decoder its EncDecModel")
 
     def check_mesh(self, mesh) -> None:
-        """Refuse a mesh where a recurrent mixer's leaves would need a
-        split (tensor parallelism over ``model``, FSDP) that is not
-        ported yet."""
+        """Refuse a mesh where a recurrent mixer's leaves or the frontend
+        would need a split (tensor parallelism over ``model``, FSDP) that
+        is not ported yet."""
+        if mesh is None:
+            return
         recurrent = sorted({m for m, _ in self.cfg.superblock
                             if m in RECURRENT})
-        if mesh is not None and recurrent:
+        if recurrent:
             raise NotImplementedError(
                 f"{self.cfg.name}: the recurrent mixers {recurrent} run "
                 f"without a mesh only; their split over a mesh is ROADMAP.md "
                 f"queue 1, 'the recurrent mixers on a mesh'")
+        if self.cfg.frontend is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: a model with a frontend runs without a "
+                f"mesh only; its split over a mesh is ROADMAP.md queue 1, "
+                f"'the frontend and encoder-decoder archs on a mesh'")
 
     # ---- parameter specs ----
     def specs(self):
@@ -283,6 +293,9 @@ class Model:
         if not cfg.tie_embeddings:
             out["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model),
                                        ("vocab", "embed_fsdp"))
+        if cfg.frontend is not None:
+            out["frontend_proj"] = ParamSpec(
+                (cfg.d_model, cfg.d_model), ("embed_fsdp", None))
         return out
 
     def init(self, generator: torch.Generator, device="cuda"):
@@ -340,13 +353,21 @@ class Model:
         return logits if vl is None else tp_gather(logits, vl[0], -1)
 
     # ---- full-sequence forward (train / prefill) ----
-    def forward(self, params, tokens, *, mesh=None, rules=None):
+    def forward(self, params, tokens, *, mesh=None, rules=None,
+                frontend_embeds=None):
         """tokens: (B, S) -> (logits (B, S, V) f32, aux loss); on a mesh
-        that splits the vocab, this rank's (B, S, V / |model|) columns."""
+        that splits the vocab, this rank's (B, S, V / |model|) columns.
+        ``frontend_embeds`` (B, F, D), projected through
+        ``frontend_proj``, go before the tokens (positions count over the
+        whole F + S sequence); the logits are the tokens' alone."""
         cfg = self.cfg
         fsdp = self.fsdp_layout(mesh, rules)
         params = self._whole_top(params, fsdp)
         x = self.embed(params, tokens, mesh=mesh, rules=rules)
+        if frontend_embeds is not None:
+            cd = cfg.cdtype
+            fe = frontend_embeds.to(cd) @ params["frontend_proj"].to(cd)
+            x = torch.cat([fe, x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
@@ -363,13 +384,16 @@ class Model:
                                          rules, fsdp)
             aux = aux + a
         x = _apply_norm(params["final_norm"], x, cfg)
+        if frontend_embeds is not None:
+            x = x[:, frontend_embeds.shape[1]:]
         return self.logits(params, x, mesh=mesh, rules=rules), aux
 
     # ---- loss ----
     def loss(self, params, batch, *, mesh=None, rules=None):
         """Masked mean cross-entropy (with ``cfg.z_loss``) plus
         ``router_aux_weight`` times the MoE aux loss; batch: ``tokens``,
-        ``labels`` (B, S) and an optional ``mask``.  Returns (total,
+        ``labels`` (B, S), an optional ``mask`` and, for a frontend,
+        ``frontend_embeds``.  Returns (total,
         metrics ``ce_loss`` / ``aux_loss`` / ``total_loss``).
 
         On a mesh ``batch`` is this rank's row block and the mean's
@@ -381,8 +405,9 @@ class Model:
         compute the same loss (a vocab-parallel cross-entropy where the
         vocab is split)."""
         cfg = self.cfg
-        logits, aux = self.forward(params, batch["tokens"], mesh=mesh,
-                                   rules=rules)
+        logits, aux = self.forward(
+            params, batch["tokens"], mesh=mesh, rules=rules,
+            frontend_embeds=batch.get("frontend_embeds"))
         vl = vocab_layout(cfg, mesh, rules)
         if vl is None:
             ce = softmax_cross_entropy(logits, batch["labels"], cfg.z_loss)
@@ -426,9 +451,11 @@ class Model:
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
-    def prefill(self, params, tokens, caches, *, mesh=None, rules=None):
+    def prefill(self, params, tokens, caches, *, mesh=None, rules=None,
+                frontend_embeds=None):
         """Sequential prefill through ``decode_step`` (correct though not
-        the fast path; full-sequence prefill uses ``forward``)."""
+        the fast path; full-sequence prefill uses ``forward``).  It
+        ignores ``frontend_embeds``, as the reference's does."""
         logits = None
         for t in range(tokens.shape[1]):
             logits, caches = self.decode_step(params, tokens[:, t:t + 1],

@@ -1,7 +1,11 @@
 """The archs of the port (deepseek-7b, internlm2-20b, qwen2.5-3b,
-h2o-danube-1.8b, grok-1-314b, and the recurrent jamba-v0.1-52b and
-xlstm-1.3b) against the JAX reference: their configs, forward logits,
-``make_prefill_fn`` and decode ticks.
+h2o-danube-1.8b, grok-1-314b, internvl2-2b with its stub frontend, and
+the recurrent jamba-v0.1-52b and xlstm-1.3b) against the JAX reference:
+their configs (whisper-tiny's too; its model is
+``test_torch_encdec.py``'s), forward logits, ``make_prefill_fn`` and
+decode ticks.  internvl2-2b's forward and prefill take patch
+embeddings from numpy (``torch_archs.frontend_embeds``); its decode,
+as the reference's, reads tokens alone.
 
 Each arch runs its ``SMOKE`` config (2 layers, d 64, f32) on the
 reference's random weights, carried over by ``params_from_jax``, with
@@ -38,7 +42,7 @@ from repro_torch.configs import (ARCH_NAMES, NOT_PORTED, get_config,
 from repro_torch.models import build_model, make_prefill_fn
 from repro_torch.models.common import tree_leaves
 from torch_archs import (ARCHS, CASES, RECURRENT_ARCHS, case_setup,
-                         fan_in_init)
+                         fan_in_init, frontend_embeds)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -55,7 +59,7 @@ def _jax(tree):
 
 
 @pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("whisper-tiny",))
 def test_config_matches_reference_field_for_field(arch, smoke):
     jcfg, cfg = jax_get_config(arch, smoke=smoke), get_config(arch, smoke)
     names = [f.name for f in dataclasses.fields(jcfg)]
@@ -67,14 +71,17 @@ def test_config_matches_reference_field_for_field(arch, smoke):
 
 
 def test_registry():
-    assert set(ARCH_NAMES) == set(ARCHS) | {"phi3.5-moe-42b"}
-    assert set(NOT_PORTED) == {"internvl2-2b", "whisper-tiny"}
-    assert set(ARCH_NAMES) | set(NOT_PORTED) == set(jax_list_configs())
+    # every reference arch is ported and builds
+    assert set(ARCH_NAMES) == set(ARCHS) | {"phi3.5-moe-42b", "whisper-tiny"}
+    assert NOT_PORTED == ()
+    assert ARCH_NAMES == tuple(jax_list_configs())
     assert {n: c.name for n, c in list_configs().items()} == \
         {n: n for n in ARCH_NAMES}
-    for name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
+    for name in ARCH_NAMES:
+        model = build_model(get_config(name, smoke=True))
+        assert type(model).__name__ == (
+            "EncDecModel" if name == "whisper-tiny" else "Model"), name
+    assert "frontend_proj" in build_model(get_config("internvl2-2b")).specs()
     assert get_config("h2o-danube-1.8b").hd == 80
     assert get_config("qwen2.5-3b").qkv_bias
     assert get_config("deepseek-7b").n_heads == \
@@ -115,15 +122,19 @@ def test_forward_and_prefill_match_reference(case):
             if path.rsplit("/", 1)[-1] in ("bq", "bk", "bv"):
                 assert t.abs().max() > 0, path
     tokens = np.random.default_rng(3).integers(0, cfg.vocab, (2, 16))
+    fe = frontend_embeds(cfg, 2)
+    front = {} if fe is None else {"frontend_embeds": fe}
     want, want_aux = jax_build_model(jcfg).forward(
-        _jax(jparams), jnp.asarray(tokens, jnp.int32))
+        _jax(jparams), jnp.asarray(tokens, jnp.int32), **_jax(front))
     model = build_model(cfg)
-    got, aux = model.forward(params, torch.from_numpy(tokens))
+    got, aux = model.forward(params, torch.from_numpy(tokens), **{
+        k: torch.from_numpy(v) for k, v in front.items()})
     assert got.dtype == torch.float32 and got.shape == (2, 16, cfg.vocab)
     _close(got.numpy(), np.asarray(want), 1e-4)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5,
                                atol=1e-7)
-    last = make_prefill_fn(model)(params, torch.from_numpy(tokens))
+    last = make_prefill_fn(model)(params, torch.from_numpy(tokens), *(
+        torch.from_numpy(v) for v in front.values()))
     _close(last.numpy(), np.asarray(want)[:, -1], 1e-4)
 
 

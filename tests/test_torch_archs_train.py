@@ -1,9 +1,10 @@
 """The archs' training path against the JAX reference: ``Model.loss``
 and every leaf's gradient against ``jax.value_and_grad`` of the
-reference loss, per case of ``torch_archs.CASES`` (the seven ``SMOKE``
+reference loss, per case of ``torch_archs.CASES`` (the eight ``SMOKE``
 configs, 12 / 2 heads, head dim 80, the chunkwise mLSTM), on the same
 weights (attention biases drawn from numpy; the recurrent archs at a
-fan-in init) and copy-task batches from numpy.  The recurrent archs'
+fan-in init) and copy-task batches from numpy, with internvl2-2b's
+patch embeddings (``torch_archs.frontend_embeds``) in its batch.  The recurrent archs'
 SMOKE configs keep ``recurrent_step_remat``, so their scans run
 checkpointed chunk by chunk, as the reference's steps do.
 
@@ -28,7 +29,7 @@ from repro.models import build_model as jax_build_model
 from repro_torch.data import CopyTaskConfig, make_copy_task_batch
 from repro_torch.models import build_model
 from repro_torch.models.common import tree_leaves, tree_map
-from torch_archs import CASES, case_setup
+from torch_archs import CASES, case_setup, frontend_embeds
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -46,6 +47,8 @@ def test_loss_and_grads_match_reference(case, impl):
     batch = {k: v.numpy() for k, v in make_copy_task_batch(
         CopyTaskConfig(vocab=cfg.vocab, seq_len=16, global_batch=2),
         0).items()}
+    if cfg.frontend is not None:
+        batch["frontend_embeds"] = frontend_embeds(cfg, 2)
     (want, wm), wg = jax.jit(jax.value_and_grad(
         jax_build_model(jcfg).loss, has_aux=True))(
             jax.tree.map(jnp.asarray, jparams),

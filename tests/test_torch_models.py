@@ -27,7 +27,8 @@ from repro.models import ffn as jax_ffn
 from repro.models import moe as jax_moe
 from repro_torch.configs import get_config
 from repro_torch.models import attention as attn
-from repro_torch.models import build_model, common, ffn, make_prefill_fn, moe
+from repro_torch.models import (build_model, common, ffn, make_prefill_fn,
+                                make_train_step, moe)
 from repro_torch.models.convert import params_from_jax
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,13 +87,28 @@ def test_capacity_matches_reference(n_tokens, n_slots):
 
 
 def test_unported_paths_raise():
-    # the encoder-decoder and the frontends are the slices still to come
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("whisper-tiny")
-    for changes in ({"frontend": "vit_stub", "n_frontend_tokens": 4},
-                    {"encoder_layers": 2}):
+    # the encoder-decoder and the frontends build; on a mesh they, and the
+    # sequence-sharded FFT convolution, are what stays to come
+    from repro_torch.configs import NOT_PORTED
+    from repro_torch.models import spectral
+    from repro_torch.models.encdec import EncDecModel
+    assert NOT_PORTED == ()
+    whisper = build_model(get_config("whisper-tiny"))
+    vlm = build_model(get_config("internvl2-2b"))
+    assert isinstance(whisper, EncDecModel)
+    assert "frontend_proj" in vlm.specs()
+    framed = build_model(get_config(ARCH, smoke=True).replace(
+        frontend="vit_stub", n_frontend_tokens=4))
+    assert isinstance(build_model(get_config(ARCH, smoke=True).replace(
+        encoder_layers=2)), EncDecModel)
+    mesh = object()          # refused before the mesh is read
+    for model in (whisper, vlm, framed):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(get_config(ARCH, smoke=True).replace(**changes))
+            model.check_mesh(mesh)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_train_step(model, None, mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spectral.distributed_fft_causal_conv(None, None, None)
 
 
 @pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "dense", "rope",

@@ -1,6 +1,6 @@
 """Shared set-up of the archs' parity tests (``test_torch_archs.py``,
-``test_torch_archs_train.py``): the cases, and each case's reference and
-port parameters on the same weights.
+``test_torch_archs_train.py``): the cases, each case's reference and
+port parameters on the same weights, and the stub frontend's inputs.
 
 The recurrent archs (jamba-v0.1-52b, xlstm-1.3b) run on the reference's
 init rescaled to fan-in (:func:`fan_in_init`).  Their SMOKE configs are
@@ -26,7 +26,7 @@ from repro_torch.models.convert import params_from_jax
 
 RECURRENT_ARCHS = ("jamba-v0.1-52b", "xlstm-1.3b")
 ARCHS = ("deepseek-7b", "internlm2-20b", "qwen2.5-3b", "h2o-danube-1.8b",
-         "grok-1-314b", *RECURRENT_ARCHS)
+         "grok-1-314b", "internvl2-2b", *RECURRENT_ARCHS)
 # case -> (arch, changes to its SMOKE config)
 CASES = {**{a: (a, {}) for a in ARCHS},
          "internlm2-20b-g6": ("internlm2-20b",
@@ -77,6 +77,16 @@ def with_random_biases(tree, seed: int):
                  if k in ("bq", "bk", "bv") else np.asarray(v))
                 for k, v in t.items()}
     return walk(tree)
+
+
+def frontend_embeds(cfg, batch: int, seed: int = 8):
+    """Stub frontend embeddings (batch, n_frontend_tokens, d_model) from
+    numpy for a config with a frontend (internvl2-2b's patches), else
+    None."""
+    if cfg.frontend is None:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
 
 
 def configs(case: str, impl: str):
