@@ -218,7 +218,37 @@ it fails:
              rows in 4 microbatches: the forward within 2e-2 of the
              largest |y| of the sequential run of all stages and each
              stage's gradients within 2e-2 relative norm of its.
-11b. elastic — last in the same world, as the reference's
+11b. fft   — in the same world, between [pipeline] and [elastic], on
+             (data, pod) = (2, 2): ``workloads.pencil_fft`` at a 512³
+             grid (1 GiB of complex64, 256 MiB a rank), every global
+             array drawn from the seed on the card by every rank.  (a)
+             The 3-D complex64 pencil, grid ((data,), (pod,)), under
+             ``tuned`` and ``factorized``; (b) the same array as a slab
+             over both axes (two factorized rounds, so the block reorder
+             runs on complex64 rows): ``direct``, ``factorized``
+             natural and paper, the factorized forwards equal to the
+             direct one bit for bit and their reorder launches not zero;
+             (c) the real (512, 512, 510) float32 pencil (256 rfft bins
+             split over pod); (d) the 2-D complex64 slab (8192, 8192).
+             Each rank's forward pencil must lie within 1e-5 of the
+             largest |coefficient| of the one-process ``torch.fft.fftn``
+             (``rfftn``) in complex128 on the card, the round trip
+             within 1e-5 of the largest |input|, and each call's
+             pack / repack / unpack launches must be those
+             ``round_schedule`` lists for its stage plans.  (e)
+             ``models.spectral.distributed_fft_causal_conv`` at jamba's
+             mixer width (E = ssm_expand x d_model = 8192, B 1, S 4096;
+             the kernel ``ssm_kernel`` of a spectral layer's parameters
+             from the seed): each rank's rows within 1e-4 of the largest
+             |output| of the one-process ``fft_causal_conv`` (the gap
+             printed).  Prints the median host ms of 3 forwards, inverses
+             and stage transposes after a warm-up, the bytes each
+             transpose moves a rank and the resolved backend of every
+             stage.  [tracing] gains one traced (b) factorized forward a
+             rank: bit for bit the untraced one, its span tree the CPU
+             test's (``tests/torch_fft.py``), its rounds' host µs and
+             measured / predicted ratio printed.
+11c. elastic — last in the same world, as the reference's
              ``check_rebuild.py``: (a) [moe_ep]'s layer loses ranks 2, 3
              on its plan's 3rd call (a ``FaultInjector``); the watchdog
              must say recover; the survivors ``TorusComm.rebuild`` the EP
@@ -449,7 +479,8 @@ phi3.5-moe serving, the paper's tori and odd sizes, every round and every
 ordered pair of rounds; it times the passes of a (2,2) call at the
 [moe_ep] overlap chunk (also the dropless data chunk), the whole [moe_ep]
 buffer, [train_ep]'s chunks and whole buffer, EP prefill and EP decode
-buffers against the bound, the plain
+buffers and [fft] (b)'s complex64 slab pencil (4 rows of 64 MiB) against
+the bound, the plain
 version and ``index_select`` with the same row map, with each decode-size
 call's host µs beside its kernel µs.
 
@@ -569,6 +600,13 @@ INTERNVL = "internvl2-2b"          # 256 stub patch tokens before the text
 ENCDEC_B, ENCDEC_S = 4, 448        # [encdec] / [train_encdec]: batch,
                                    # decoder tokens (whisper's text context)
 INTERNVL_TRAIN = (4, 1, 2048)      # [train_encdec]: layers, B, text tokens
+FFT_N = 512                        # [fft] (a), (b): the 512³ complex64 grid
+FFT_REAL = (512, 512, 510)         # [fft] (c): float32, 256 rfft bins
+FFT_2D = 8192                      # [fft] (d): the 2-D complex64 slab's edge
+FFT_CONV = (1, 4096)               # [fft] (e): B, S at jamba's mixer width
+FFT_TIMED = 3                      # [fft]: timed calls (median), after one
+FFT_TOL = 1e-5                     # [fft]: of the largest |coefficient|
+FFT_CONV_TOL = 1e-4                # [fft] (e): of the largest |output|
 
 
 def fail(msg: str):
@@ -1296,13 +1334,19 @@ def _flash_train_kernels(gen):
 
 
 def _abs_err(got, want) -> float:
-    """max |got - want| (in f64, exact for int32 and every float dtype)."""
-    return float((got.double() - want.double()).abs().max()) \
-        if got.numel() else 0.0
+    """max |got - want| (in f64, exact for int32 and every float dtype;
+    complex in complex128)."""
+    if not got.numel():
+        return 0.0
+    wide = torch.complex128 if got.is_complex() else torch.float64
+    return float((got.to(wide) - want.to(wide)).abs().max())
 
 
 def _reorder_input(gen, dims, B, dtype):
     p = math.prod(dims)
+    if dtype.is_complex:
+        return torch.randn((p, B), generator=gen, device=DEVICE,
+                           dtype=dtype)
     if dtype.is_floating_point:
         return _randn(gen, p, B, dtype=dtype)
     return torch.randint(-2**31, 2**31 - 1, (p, B), generator=gen,
@@ -1613,10 +1657,13 @@ def _reorder_kernels(gen):
             rows = _reorder_timed(gen, dims_, B_, dtype_, label_)
             main = main or rows
             cases += rows
-    for B_, label_ in ((4 * 640 * 4096, " (MoE EP prefill, C=640)"),
-                       (4 * 4 * 4096, " (MoE EP decode, C=4)")):
-        _reorder_case(gen, (2, 2), B_, torch.bfloat16, label_)
-        cases += _reorder_timed(gen, (2, 2), B_, torch.bfloat16, label_)
+    for B_, dtype_, label_ in (
+            (4 * 640 * 4096, torch.bfloat16, " (MoE EP prefill, C=640)"),
+            (4 * 4 * 4096, torch.bfloat16, " (MoE EP decode, C=4)"),
+            (FFT_N ** 3 // WORLD ** 2, torch.complex64,
+             " (fft (b): a rank's 512³ slab pencil, 4 x 64 MiB)")):
+        _reorder_case(gen, (2, 2), B_, dtype_, label_)
+        cases += _reorder_timed(gen, (2, 2), B_, dtype_, label_)
     for dims_ in ((5, 4), (2, 3, 4), (4, 3, 3, 4), (4, 4, 4)):
         for B_ in (16, 256, 4096, 65536):
             _reorder_case(gen, dims_, B_, torch.float32)
@@ -3827,6 +3874,223 @@ def _rank_pipeline(rank: int, n: int) -> dict:
             "gaps": gaps, "ms": ms, "bubble": bubble_fraction(n, M)}
 
 
+# ---------------------------------------------------------------------------
+# phase 11b: the pencil FFT
+# ---------------------------------------------------------------------------
+
+
+def _median_ms(fn, x) -> float:
+    """Median host ms of ``FFT_TIMED`` calls of ``fn(x)`` after one
+    warm-up, each ending in a synchronise."""
+    fn(x)
+    torch.cuda.synchronize()
+    return float(np.median([_host_ms(lambda: fn(x))[1]
+                            for _ in range(FFT_TIMED)]))
+
+
+def _fft_launches(fft, inverse: bool) -> dict:
+    """Block-reorder launches of one forward or inverse call: each stage
+    transpose's dense plan once (chunked under the overlap engine)."""
+    out = []
+    for plan in fft.plans:
+        n = 1
+        if plan.backend in ("overlap", "pipelined"):
+            n = _n_chunks(math.prod(plan.block_shape), plan.inner.n_chunks)
+        out.append(_dense_launches(plan.inner, inverse, n))
+    return _sum_launches(*out)
+
+
+def _moved_bytes(plan) -> float:
+    """Bytes a rank sends to other ranks in one transpose: (p-1)/p of its
+    pencil in the direct exchange, (D_k-1)/D_k of it in each round of
+    the dimension-wise ones."""
+    active = [d for d in plan.dims if d > 1]
+    share = 1 - 1 / plan.p if plan.backend == "direct" \
+        else sum((d - 1) / d for d in active)
+    return plan.pencil_bytes * share
+
+
+def _launch_diff(after: dict, before: dict) -> dict:
+    return {op: after[op] - before[op] for op in REORDER_OPS}
+
+
+def _fft_case(tag: str, fft, xg, ref, scale: float, ok: dict):
+    """One FFT on this rank's pencil of ``xg``: the forward pencil within
+    ``FFT_TOL`` of the largest |coefficient| ``scale`` of ``ref`` (the
+    one-process transform in complex128), the round trip within
+    ``FFT_TOL`` of the largest |input|, each call's reorder launches
+    those of its plans' ``round_schedule``; then the median host ms of a
+    forward, an inverse and each stage transpose.  Returns the numbers
+    and the forward pencil."""
+    fwd, inv = fft.forward_fn(), fft.inverse_fn()
+    x = xg[fft.in_index()].contiguous()
+    before = _reorder_launches()
+    y = fwd(x)
+    torch.cuda.synchronize()
+    mid = _reorder_launches()
+    back = inv(y)
+    torch.cuda.synchronize()
+    counts = [_launch_diff(mid, before),
+              _launch_diff(_reorder_launches(), mid)]
+    err = float((y.to(torch.complex128) - ref[fft.out_index()]).abs()
+                .max()) / scale
+    rt = float((back - x).abs().max()) / float(x.abs().max())
+    ok[f"{tag}: forward within {FFT_TOL} of the largest coefficient"] = \
+        err <= FFT_TOL
+    ok[f"{tag}: round trip within {FFT_TOL}"] = rt <= FFT_TOL \
+        and back.dtype == x.dtype
+    want = [_fft_launches(fft, False), _fft_launches(fft, True)]
+    ok[f"{tag}: reorder launches {counts} == round_schedule's {want}"] = \
+        counts == want
+    del back
+    res = {"err": err, "rt": rt, "launches": counts,
+           "backends": [p.backend for p in fft.plans],
+           "fwd_ms": _median_ms(fwd, x), "inv_ms": _median_ms(inv, y),
+           "transposes": []}
+    for k in range(fft.g - 1, -1, -1):
+        plan = fft.plans[k]
+        z = torch.zeros(plan.in_shape, dtype=y.dtype, device=DEVICE)
+        res["transposes"].append(
+            (k, plan.backend, plan.pencil_bytes, _moved_bytes(plan),
+             _median_ms(plan.apply, z)))
+        del z
+    return res, y
+
+
+def _fft_traced(fft, x, y, ok: dict) -> dict:
+    """[tracing] (fft): one traced forward of (b)'s factorized slab on
+    this rank's pencil ``x``, bit for bit its untraced forward ``y``, with
+    the CPU test's span tree; the per-round host µs and the call's
+    measured / predicted ratio."""
+    import torch_fft
+    from repro_torch.core import telemetry
+    telemetry.reset_telemetry()
+    tr = telemetry.enable_tracing()
+    try:
+        yt = fft.forward_fn()(x)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.disable_tracing()
+    spans = tr.spans()
+    telemetry.reset_telemetry()
+    ok["(b) traced forward equal to the untraced one"] = torch.equal(yt, y)
+    ok["(b) traced span tree as the CPU test's"] = \
+        torch_fft._span_shape(spans) == torch_fft.expected_span_tree(fft)
+    ex = next(sp for sp in spans if sp.name == "plan.execute")
+    return {"rounds": [(sp.attrs["axis"], sp.duration * 1e6)
+                       for sp in spans if sp.name == "plan.round"],
+            "ratio": ex.attrs["measured_seconds"]
+            / ex.attrs["predicted_seconds"]}
+
+
+def _rank_fft(rank: int, n: int, seed: int) -> dict:
+    """[fft] on one rank of the 4-rank world, (data, pod) = (2, 2): (a)
+    the 512³ complex64 pencil under tuned and factorized, (b) the same
+    array as a slab over both axes (direct, factorized natural and
+    paper, bit for bit; a traced forward), (c) the real (512, 512, 510)
+    pencil, (d) the 8192² slab, (e) the distributed convolution at
+    jamba's mixer width.  Every rank draws every global array from the
+    seed on the card and holds its pencils against the one-process
+    transform."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache import cart_create
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.models import spectral
+    from repro_torch.models.common import init_params
+    from repro_torch.workloads import pencil_fft
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    names = ("data", "pod")
+    mesh = cart_create(n, (2, 2), names, device_type=DEVICE)
+    comm = torus_comm(mesh, names)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ok, out = {}, {"cases": {}}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+
+    # (a), (b): the 512³ complex64 array
+    shape = (FFT_N,) * 3
+    xg = torch.randn(shape, generator=gen, device=DEVICE,
+                     dtype=torch.complex64)
+    ref = torch.fft.fftn(xg.to(torch.complex128))
+    scale = float(ref.abs().max())
+    for backend in ("tuned", "factorized"):
+        out["cases"][f"(a) pencil {backend}"], _ = _fft_case(
+            f"(a) {backend}", pencil_fft(comm, shape, backend=backend), xg,
+            ref, scale, ok)
+    ys = {}
+    for variant, backend in (("natural", "direct"),
+                             ("natural", "factorized"),
+                             ("paper", "factorized")):
+        fft = pencil_fft(torus_comm(mesh, names, variant=variant), shape,
+                         grid=(names,), backend=backend)
+        tag = f"(b) slab {backend} {variant}"
+        out["cases"][tag], ys[tag] = _fft_case(tag, fft, xg, ref, scale, ok)
+        if backend == "factorized":
+            ok[f"{tag}: reorder launches not zero"] = \
+                sum(out["cases"][tag]["launches"][0].values()) > 0
+        if variant == "natural" and backend == "factorized":
+            out["tracing"] = _fft_traced(
+                fft, xg[fft.in_index()].contiguous(), ys[tag], ok)
+    direct = ys.pop("(b) slab direct natural")
+    for tag, y in ys.items():
+        ok[f"{tag}: equal to direct bit for bit"] = torch.equal(y, direct)
+    del xg, ref, ys, direct
+    torch.cuda.empty_cache()
+
+    # (c): the real pencil, the rfft axis's bins split over pod
+    xr = torch.randn(FFT_REAL, generator=gen, device=DEVICE)
+    ref = torch.fft.rfftn(xr.double())
+    out["cases"]["(c) real pencil"], _ = _fft_case(
+        "(c) real", pencil_fft(comm, FFT_REAL, real=True), xr, ref,
+        float(ref.abs().max()), ok)
+    del xr, ref
+    torch.cuda.empty_cache()
+
+    # (d): the 2-D complex64 slab
+    x2 = torch.randn((FFT_2D, FFT_2D), generator=gen, device=DEVICE,
+                     dtype=torch.complex64)
+    ref = torch.fft.fftn(x2.to(torch.complex128))
+    out["cases"]["(d) 2-D slab"], _ = _fft_case(
+        "(d) 2-D slab", pencil_fft(comm, (FFT_2D, FFT_2D)), x2, ref,
+        float(ref.abs().max()), ok)
+    del x2, ref
+    torch.cuda.empty_cache()
+
+    # (e): the sequence-sharded convolution at jamba's mixer width
+    cfg = get_config(JAMBA)
+    B, S = FFT_CONV
+    E = cfg.ssm_expand * cfg.d_model
+    p = init_params(spectral.spectral_specs(cfg), gen, DEVICE, torch.float32)
+    kernel = spectral.ssm_kernel(p, S)
+    del p
+    x = torch.randn((B, S, E), generator=gen, device=DEVICE)
+    got, first_ms = _host_ms(
+        lambda: spectral.distributed_fft_causal_conv(comm, x, kernel))
+    want = spectral.fft_causal_conv(x, kernel)
+    rows = 2 * S // n
+    lo = comm.rank * rows
+    part = want[:, lo:lo + got.shape[1]]
+    gap = float((got - part).abs().max()) if got.numel() else 0.0
+    top = float(want.abs().max())
+    ok[f"(e) rows {tuple(got.shape)} of the one-process conv within "
+       f"{FFT_CONV_TOL} of the largest |output|"] = \
+        got.shape == part.shape and gap <= FFT_CONV_TOL * top
+    out["conv"] = {"E": E, "gap": gap, "max": top, "rows": got.shape[1],
+                   "ms": _median_ms(lambda a: spectral
+                                    .distributed_fft_causal_conv(comm, a,
+                                                                 kernel), x),
+                   "one_ms": _median_ms(lambda a: spectral.fft_causal_conv(
+                       a, kernel), x)}
+    del x, kernel, got, want, part
+    torch.cuda.empty_cache()
+    out["counts"] = _read_counts()
+    out["ok"] = {k: bool(v) for k, v in ok.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _timed(fn, *args) -> dict:
     """``fn(*args)``'s result with its host seconds under ``"seconds"``."""
     t0 = time.perf_counter()
@@ -3857,7 +4121,7 @@ def run_tp_world(seed: int, timeout: float = 900.0) -> list:
 
 
 def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
-    """One rank of the 4-rank gloo world: phases 6 to 11b (``tmp`` is the
+    """One rank of the 4-rank gloo world: phases 6 to 11c (``tmp`` is the
     world's shared directory, [train_ep]'s and [elastic]'s checkpoints go
     there).  [elastic] comes last: ranks 2 and 3 leave in it."""
     torch.cuda.set_device(0)
@@ -3870,6 +4134,7 @@ def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
             "train_ep": _rank_train_ep(rank, n, seed, tmp),
             "ring": _timed(_rank_ring, rank, n),
             "pipeline": _timed(_rank_pipeline, rank, n),
+            "fft": _rank_fft(rank, n, seed),
             "elastic": _rank_elastic(rank, n, seed, tmp)}
 
 
@@ -5035,6 +5300,57 @@ def phase_pipeline(results) -> float:
     return max(t["seconds"] for t in pipe)
 
 
+def phase_fft(results) -> dict:
+    """[fft]'s gates (each rank checked its pencils as it ran: ``ok``) and
+    its log: per case the stage backends, the errors on every rank, the
+    median host ms of a forward, an inverse and each transpose with the
+    bytes it moves, the reorder launches; (e)'s gap; the traced
+    forward's rounds.  Returns the launches over all ranks."""
+    bad = _bad(results, "fft")
+    if bad:
+        fail(f"[fft] failed: {bad}")
+    fr = [r["fft"] for r in results]
+    for tag, c in fr[0]["cases"].items():
+        per = [f["cases"][tag] for f in fr]
+        errs = [f"{p['err']:.3g}" for p in per]
+        rts = [f"{p['rt']:.3g}" for p in per]
+        steps = "; ".join(
+            f"transpose[{k}] {b} {pb / 2**20:g} MiB a rank, "
+            f"{mv / 2**20:g} MiB of it off-rank, {ms:.1f} ms"
+            for k, b, pb, mv, ms in c["transposes"])
+        log(f"[fft] {tag}: stage backends {c['backends']}; forward max "
+            f"|err| / max |coefficient| per rank {errs}, round trip {rts} "
+            f"(limits {FFT_TOL}); host ms "
+            f"(median of {FFT_TIMED} after a warm-up) per rank: forward "
+            f"{[round(p['fwd_ms'], 1) for p in per]}, inverse "
+            f"{[round(p['inv_ms'], 1) for p in per]}; rank 0 {steps}; "
+            f"reorder launches per rank forward / inverse "
+            f"{c['launches'][0]} / {c['launches'][1]}")
+    cv = [f["conv"] for f in fr]
+    gaps = [f"{c['gap']:.3g}" for c in cv]
+    B, S = FFT_CONV
+    log(f"[fft] (e) distributed_fft_causal_conv at jamba's mixer width "
+        f"(B {B}, S {S}, E {cv[0]['E']}; L {2 * S}, a rank's slab "
+        f"({2 * S // WORLD}, {B * cv[0]['E']}) complex64): rows per rank "
+        f"{[c['rows'] for c in cv]}, max |rows - one-process conv| "
+        f"{gaps} of {cv[0]['max']:.4g} (limit "
+        f"{FFT_CONV_TOL} of it); host ms per call (median of {FFT_TIMED}) "
+        f"{[round(c['ms'], 1) for c in cv]}, one process "
+        f"{[round(c['one_ms'], 1) for c in cv]}")
+    tr = [f["tracing"] for f in fr]
+    log(f"[tracing] (fft) one traced (b) factorized slab forward per rank, "
+        f"equal to the untraced one bit for bit, span tree as the CPU "
+        f"test's; plan.round host µs per rank "
+        f"{[[(a, round(us, 1)) for a, us in t['rounds']] for t in tr]}; "
+        f"measured / predicted {[round(t['ratio'], 4) for t in tr]} (one "
+        f"card, gloo: not the model's links)")
+    secs = max(f["seconds"] for f in fr)
+    log(f"[fft] peak memory per rank (GiB) "
+        f"{[round(f['peak_gib'], 2) for f in fr]}; {secs:.1f} s in the "
+        f"world; {_card()}")
+    return {k: sum(f["counts"][k] for f in fr) for k in fr[0]["counts"]}
+
+
 def _train_launches_per_step(cfg) -> dict:
     """Predicted launches of one training step with remat: per attention
     layer the flash forward twice (forward and remat recompute) and its
@@ -6178,6 +6494,7 @@ def main() -> int:
     phase_tracing(world)
     paths["train_ep"] = phase_train_ep(world)
     added = phase_ring(world) + phase_pipeline(world)
+    paths["fft"] = phase_fft(world)
     paths["elastic"] = phase_elastic(world, seed)
     del world
     # the one-process gates above (grok's 8 experts) leave this process's

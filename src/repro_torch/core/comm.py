@@ -19,7 +19,9 @@ exchanges.  :class:`TorusComm` makes it explicit over a ``DeviceMesh``:
   :class:`~repro_torch.core.plan.SparseA2APlan`); ``comm.all_gather`` /
   ``comm.reduce_scatter`` the dimension-wise gather family: one
   all-gather / reduce-scatter per torus dimension (``"factorized"``),
-  or one over the whole torus (``"direct"``).
+  or one over the whole torus (``"direct"``); ``comm.transpose`` the
+  pencil re-shard of the distributed FFT
+  (:class:`~repro_torch.core.plan.TransposePlan`, ``workloads.fft``).
 * ``comm.free()`` (or the context-manager form) is the delete callback;
   ``comm.stats()`` is the unified cache report.
 
@@ -36,7 +38,7 @@ same methods in the same order.  A mesh over a strict subset of the world
 alone (``core.cache``), so ``rebuild`` is collective over the survivors
 only and a lost rank makes no call.  A comm may be bound to a tuning DB
 (``db=``), which its ``backend="autotune"`` plans read.  The KV-migration
-and transpose factories wait for their slices (ROADMAP).
+factory waits for its slice (ROADMAP).
 """
 
 from __future__ import annotations
@@ -590,6 +592,29 @@ class TorusComm:
             max_count=max_count, avg_count=avg_count, density=density,
             variant=self.variant, round_order=round_order,
             reverse_round_order=reverse_round_order, links=links))
+
+    def transpose(self, local_shape, dtype="float32", *,
+                  split_axis: int, concat_axis: int, backend: str = "tuned",
+                  round_order=None, reverse_round_order=None,
+                  n_chunks: int = 0, max_chunks: int = 8, links=None,
+                  db=None):
+        """Build (or fetch) a :class:`~repro_torch.core.plan.TransposePlan`:
+        the pencil <-> pencil re-shard of a distributed FFT
+        (``workloads.fft``) as a tiled all-to-all over this comm's torus.
+        The local ``local_shape`` pencil is split into ``p`` chunks along
+        ``split_axis`` and the received chunks concatenate source-major
+        along ``concat_axis``.  Resolves through any dense backend
+        (``autotune`` against this comm's tuning DB); the inverse
+        transpose (axes swapped) shares the plan's inner dense plan, so a
+        forward / inverse pair costs one resolution."""
+        return self._note(_planmod._build_transpose_plan(
+            self._source, self.axis_names, local_shape, dtype,
+            split_axis=split_axis, concat_axis=concat_axis, backend=backend,
+            variant=self.variant, round_order=round_order,
+            reverse_round_order=reverse_round_order, n_chunks=n_chunks,
+            max_chunks=max_chunks, links=links,
+            db=self._db if db is None else db,
+            parent=self._parent_axes()))
 
     def all_gather(self, block_shape=None, dtype=None, *,
                    backend: str = "tuned", round_order=None,

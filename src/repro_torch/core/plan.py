@@ -1,6 +1,7 @@
 """The cached plan objects of every all-to-all the port runs (port of
 ``repro.core.plan``): :class:`A2APlan` (dense), :class:`RaggedA2APlan`
-and :class:`SparseA2APlan` (``MPI_Alltoallv`` semantics).
+and :class:`SparseA2APlan` (``MPI_Alltoallv`` semantics), and the
+pencil re-shard :class:`TransposePlan`.
 
 ``plan_all_to_all`` resolves, once per ``(ranks, axes, shape, dtype,
 knobs)`` key, the torus factorization (``core.cache``, with its process
@@ -18,7 +19,9 @@ and the chunked overlap engine (``pipelined``, ``overlap``:
 ``plan_ragged_all_to_all`` composes two dense plans over the same torus,
 the int32 counts plan and the bucket-padded data plan (``core.ragged``);
 ``plan_sparse_all_to_all`` keeps the counts plan and replaces the data
-rounds with skippable per-peer lanes (``core.sparse``).  All plans live
+rounds with skippable per-peer lanes (``core.sparse``);
+``plan_transpose`` wraps a dense plan over one pencil chunk into the
+distributed FFT's re-shard (:class:`TransposePlan`).  All plans live
 in one bounded LRU registry; evicting a composite plan drops its nested
 entries, and evicting the last plan over a factorization releases the
 descriptor (the paper's delete callback).
@@ -354,51 +357,61 @@ class A2APlan:
             key += ":overlap"
             predicted = None if predicted is None else predicted * directions
         telemetry.metrics().counter("plan.traced_executions").inc()
-        # An installed fault injector (core.faults) exposes a per-round
-        # guard, so injected slow rounds land inside the round spans.
-        check = getattr(self, "_round_fault_check", None)
         with tr.span("plan.execute", cat="plan", kind="dense",
                      backend=self.backend, axes=",".join(self.axis_names),
                      dims="x".join(str(s) for s in self.dims),
                      predicted_seconds=predicted, tuned_from=self.tuned_from,
                      drift_key=key) as ex:
             t0 = time.perf_counter()
-            if self.backend == "factorized" and pipeline is None:
-                names, sizes = _skip_trivial(self.axis_names, self.dims)
-
-                @contextlib.contextmanager
-                def round_span(i, k):
-                    pred_k = None if preds is None else preds.get(names[k])
-                    with tr.span("plan.round", cat="plan", axis=names[k],
-                                 round=k, dim=sizes[k],
-                                 predicted_seconds=pred_k):
-                        # the round's time holds an injected delay, so a
-                        # slow round reads as that axis's drift
-                        tr0 = time.perf_counter()
-                        if check is not None:
-                            check()
-                        yield
-                        _sync(x)
-                        if pred_k:
-                            det.observe(f"{key}:axis={names[k]}", pred_k,
-                                        time.perf_counter() - tr0)
-                y = self._execute(x, order, round_span)
-            else:
-                # direct = a single product-communicator round; overlap
-                # interleaves rounds across chunks — neither splits into
-                # host-steppable rounds, so one fused span covers them.
-                with tr.span("plan.round", cat="plan", axis="*",
-                             backend=self.backend, timing="fused",
-                             predicted_seconds=predicted):
-                    if check is not None:
-                        check()
-                    y = pipeline() if pipeline is not None \
-                        else self._execute(x, order)
-                    _sync(y)
+            y = self._traced_rounds(x, order, key, preds, predicted,
+                                    pipeline)
             measured = time.perf_counter() - t0
             ratio = det.observe(key, predicted, measured) \
                 if predicted else None
             ex.set(measured_seconds=measured, drift_ratio=ratio)
+        return y
+
+    def _traced_rounds(self, x, order, key, preds, predicted,
+                       pipeline=None):
+        """The rounds of one traced call inside its ``plan.execute`` span
+        (this plan's, or a :class:`TransposePlan`'s, whose drift ``key``
+        the per-round observations then carry)."""
+        tr = _TRACER
+        det = telemetry.drift_detector()
+        # An installed fault injector (core.faults) exposes a per-round
+        # guard, so injected slow rounds land inside the round spans.
+        check = getattr(self, "_round_fault_check", None)
+        if self.backend == "factorized" and pipeline is None:
+            names, sizes = _skip_trivial(self.axis_names, self.dims)
+
+            @contextlib.contextmanager
+            def round_span(i, k):
+                pred_k = None if preds is None else preds.get(names[k])
+                with tr.span("plan.round", cat="plan", axis=names[k],
+                             round=k, dim=sizes[k],
+                             predicted_seconds=pred_k):
+                    # the round's time holds an injected delay, so a
+                    # slow round reads as that axis's drift
+                    tr0 = time.perf_counter()
+                    if check is not None:
+                        check()
+                    yield
+                    _sync(x)
+                    if pred_k:
+                        det.observe(f"{key}:axis={names[k]}", pred_k,
+                                    time.perf_counter() - tr0)
+            return self._execute(x, order, round_span)
+        # direct = a single product-communicator round; overlap
+        # interleaves rounds across chunks — neither splits into
+        # host-steppable rounds, so one fused span covers them.
+        with tr.span("plan.round", cat="plan", axis="*",
+                     backend=self.backend, timing="fused",
+                     predicted_seconds=predicted):
+            if check is not None:
+                check()
+            y = pipeline() if pipeline is not None \
+                else self._execute(x, order)
+            _sync(y)
         return y
 
     # -- introspection -----------------------------------------------------
@@ -448,11 +461,14 @@ class A2APlan:
 
 def _sub_plans(plan) -> tuple:
     """Nested plans a composite plan owns (ragged: data + counts; sparse:
-    counts only, its data rounds are its own)."""
+    counts only, its data rounds are its own; transpose: its inner dense
+    plan)."""
     if isinstance(plan, RaggedA2APlan):
         return (plan.data, plan.counts_plan)
     if isinstance(plan, SparseA2APlan):
         return (plan.counts_plan,)
+    if isinstance(plan, TransposePlan):
+        return (plan.inner,)
     return ()
 
 
@@ -714,6 +730,302 @@ def _build_dense_plan(mesh_or_axis_dims, axis_names, block_shape=None,
                    n_chunks=n, block_shape=None if block_shape is None
                    else tuple(block_shape), dtype=dtype, links=link_models,
                    schedule=sched, tuned_from=tuned_from, measured=measured)
+    return _registry_store(key, plan)
+
+
+# ---------------------------------------------------------------------------
+# Pencil-transpose plans (distributed-FFT re-shard)
+# ---------------------------------------------------------------------------
+
+
+class TransposePlan:
+    """A resolved, reusable pencil <-> pencil transpose plan.
+
+    Construct via ``TorusComm.transpose`` (or :func:`plan_transpose`);
+    never directly.  The global transpose of a pencil-decomposed FFT
+    (``workloads.fft``) is an all-to-all of uniform contiguous chunks:
+    this rank's pencil ``in_shape`` is split into ``p`` chunks along
+    ``split_axis`` (chunk ``t`` -> torus rank ``t``) and the received
+    chunks are concatenated source-major along ``concat_axis``, the
+    tiled collective.  The plan wraps an inner dense :class:`A2APlan`
+    over the same torus whose per-peer block is one chunk, so the
+    transpose resolves through any dense backend and shares the
+    registry, the cost model, the tuning DB and the tracer; a stage and
+    its inverse (split and concat swapped) share that inner plan.
+
+    Each rank calls :meth:`apply` / :meth:`inverse_apply` on its own
+    pencil (the reference's jitted ``host_fn`` over the global array has
+    no SPMD counterpart here); :meth:`specs` describes the global
+    sharding on each side.  Correctness oracle:
+    ``core.simulator.simulate_pencil_transpose``.
+    """
+
+    kind = "transpose"
+
+    def __init__(self, inner: A2APlan, *, in_shape: tuple[int, ...],
+                 split_axis: int, concat_axis: int, parent=None):
+        self.inner = inner
+        self.in_shape = tuple(in_shape)
+        self.split_axis = int(split_axis)
+        self.concat_axis = int(concat_axis)
+        out = list(self.in_shape)
+        out[self.split_axis] //= inner.p
+        out[self.concat_axis] *= inner.p
+        self.out_shape = tuple(out)
+        self.parent = parent
+        self._from_cache = False
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def fact(self) -> TorusFactorization:
+        return self.inner.fact
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.inner.axis_names
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return self.inner.dims
+
+    @property
+    def p(self) -> int:
+        return self.inner.p
+
+    @property
+    def d(self) -> int:
+        return self.inner.d
+
+    @property
+    def variant(self) -> str:
+        return self.inner.variant
+
+    @property
+    def backend(self) -> str:
+        return self.inner.backend
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+    @property
+    def block_shape(self) -> tuple[int, ...]:
+        """One per-peer chunk: ``in_shape`` with ``split_axis`` divided by
+        ``p``, the inner dense plan's block."""
+        return self.inner.block_shape
+
+    @property
+    def block_bytes(self) -> int | None:
+        return self.inner.block_bytes
+
+    @property
+    def pencil_bytes(self) -> int | None:
+        bb = self.inner.block_bytes
+        return None if bb is None else bb * self.p
+
+    # -- execution surface (collective: every rank of the torus) ----------
+
+    def apply(self, x):
+        """The forward re-shard: ``x`` is this rank's ``in_shape`` pencil;
+        returns its ``out_shape`` pencil (``split_axis`` sharded,
+        ``concat_axis`` gathered)."""
+        if tuple(x.shape) != self.in_shape:
+            raise ValueError(f"pencil shape {tuple(x.shape)} != plan "
+                             f"in_shape {self.in_shape}")
+        return self._run(x, self.split_axis, self.concat_axis, False)
+
+    def inverse_apply(self, y):
+        """The exact inverse re-shard (split and concat swapped, rounds in
+        the drain order): bit-identical round trip with :meth:`apply` for
+        any backend."""
+        if tuple(y.shape) != self.out_shape:
+            raise ValueError(f"pencil shape {tuple(y.shape)} != plan "
+                             f"out_shape {self.out_shape}")
+        return self._run(y, self.concat_axis, self.split_axis, True)
+
+    def _run(self, x, split_axis, concat_axis, reverse):
+        if _TRACER.enabled:
+            return self._traced_execute(x, split_axis, concat_axis, reverse)
+        return self.inner.tiled(x, split_axis, concat_axis, reverse=reverse)
+
+    def specs(self) -> tuple[tuple, tuple]:
+        """The global sharding on each side, per array axis the tuple of
+        torus axis names that shards it (major to minor) or None: the
+        distributed pencil axis (``concat_axis`` in, ``split_axis`` out)
+        over the plan's torus axes.  Complete only when the plan spans
+        every torus axis; a sub-group transpose's pencil is also sharded
+        on the other groups' axes."""
+        axes = tuple(reversed(self.axis_names))
+        in_spec = [None] * len(self.in_shape)
+        in_spec[self.concat_axis] = axes
+        out_spec = [None] * len(self.in_shape)
+        out_spec[self.split_axis] = axes
+        return tuple(in_spec), tuple(out_spec)
+
+    # -- telemetry-traced execution ----------------------------------------
+
+    def _drift_key(self) -> str:
+        dims = "x".join(str(s) for s in self.dims)
+        shape = "x".join(str(s) for s in self.in_shape)
+        return (f"transpose[{','.join(self.axis_names)}]{dims}"
+                f":{self.backend}:{shape}:{self.split_axis}"
+                f"->{self.concat_axis}")
+
+    def _traced_execute(self, x, split_axis, concat_axis, reverse):
+        """One call under its own ``plan.execute`` span (``kind=
+        "transpose"``): the inner plan's rounds as its ``plan.round``
+        children (one per active round when factorized, else one fused),
+        without the inner plan's own ``plan.execute``.  Under autograd the
+        backward is the transpose the other way, traced alike: the inner
+        rounds in the adjoint order under a transpose span of its own.
+        Feeds the drift detector per round and per call under the
+        transpose's key."""
+        inner = self.inner
+        key = self._drift_key()
+        preds = inner._per_axis_predictions()
+        predicted = inner.schedule.predicted_seconds \
+            if inner.schedule is not None \
+            else (sum(preds.values()) if preds else None)
+        order, adjoint = (inner.rev_order, inner.order) if reverse \
+            else (inner.order, inner.rev_order)
+
+        def traced(fn):
+            telemetry.metrics().counter("plan.traced_executions").inc()
+            with _TRACER.span("plan.execute", cat="plan", kind="transpose",
+                              backend=self.backend,
+                              axes=",".join(self.axis_names),
+                              dims="x".join(str(n) for n in self.dims),
+                              pencil="x".join(str(n) for n in self.in_shape),
+                              predicted_seconds=predicted,
+                              tuned_from=inner.tuned_from,
+                              drift_key=key) as ex:
+                t0 = time.perf_counter()
+                y = fn()
+                _sync(y)
+                measured = time.perf_counter() - t0
+                ratio = telemetry.drift_detector().observe(
+                    key, predicted, measured) if predicted else None
+                ex.set(measured_seconds=measured, drift_ratio=ratio)
+            return y
+
+        def rounds(xb, o):
+            return inner._traced_rounds(xb, o, key, preds, predicted)
+
+        def backward(g):
+            if not _TRACER.enabled:
+                return inner._execute(g, adjoint)
+            return traced(lambda: rounds(g, adjoint))
+
+        def blockwise(xb):
+            if _trains(xb):
+                return _BlockwiseFn.apply(xb, lambda t: rounds(t, order),
+                                          backward)
+            return rounds(xb, order)
+
+        return traced(lambda: _tiled(x, inner.fact, split_axis, concat_axis,
+                                     blockwise))
+
+    # -- introspection -----------------------------------------------------
+
+    def describe(self) -> dict:
+        """Stable, JSON-serializable summary of the resolved plan (the
+        reference's keys and values)."""
+        inner = self.inner.describe()
+        return {
+            "kind": "transpose",
+            "axis_names": list(self.axis_names),
+            "dims": list(self.dims),
+            "p": self.p,
+            "d": self.d,
+            "backend": self.backend,
+            "requested_backend": self.inner.requested_backend,
+            "variant": self.variant,
+            "in_shape": list(self.in_shape),
+            "out_shape": list(self.out_shape),
+            "split_axis": self.split_axis,
+            "concat_axis": self.concat_axis,
+            "block_shape": None if self.block_shape is None
+            else list(self.block_shape),
+            "dtype": inner["dtype"],
+            "pencil_bytes": self.pencil_bytes,
+            "block_bytes": self.block_bytes,
+            "predicted_seconds": inner["predicted_seconds"],
+            "tuned_from": self.inner.tuned_from,
+            "parent": None if self.parent is None else list(self.parent),
+            "drift_ratio": telemetry.drift_detector()
+            .drift_ratio(self._drift_key()),
+            "cache": "hit" if self._from_cache else "miss",
+        }
+
+    def __repr__(self):
+        return (f"TransposePlan(dims={self.dims}, axes={self.axis_names}, "
+                f"in_shape={self.in_shape}, split={self.split_axis}, "
+                f"concat={self.concat_axis}, backend={self.backend!r})")
+
+
+def plan_transpose(mesh_or_axis_dims, axis_names, local_shape, dtype, *,
+                   split_axis: int, concat_axis: int,
+                   backend: str = "tuned", variant: str = "natural",
+                   round_order=None, reverse_round_order=None,
+                   n_chunks: int = 0, max_chunks: int = 8, links=None,
+                   db=None) -> TransposePlan:
+    """Build (or fetch) a :class:`TransposePlan` through the implicit
+    communicator ``torus_comm(mesh_or_axis_dims, axis_names)``; the knobs
+    are :func:`plan_all_to_all`'s."""
+    from .comm import torus_comm
+    return torus_comm(mesh_or_axis_dims, axis_names,
+                      variant=variant).transpose(
+        local_shape, dtype, split_axis=split_axis, concat_axis=concat_axis,
+        backend=backend, round_order=round_order,
+        reverse_round_order=reverse_round_order, n_chunks=n_chunks,
+        max_chunks=max_chunks, links=links, db=db)
+
+
+def _build_transpose_plan(mesh_or_axis_dims, axis_names, local_shape, dtype,
+                          *, split_axis: int, concat_axis: int,
+                          backend: str = "tuned", variant: str = "natural",
+                          round_order=None, reverse_round_order=None,
+                          n_chunks: int = 0, max_chunks: int = 8,
+                          links=None, db=None,
+                          parent=None) -> TransposePlan:
+    """The resolution behind ``TorusComm.transpose``: check the re-shard
+    geometry, resolve the inner dense plan over the per-peer chunk (any
+    backend, the tuning DB included), and key the composite on the
+    inner's registry key, so that a tuning-DB generation change
+    re-resolves it too."""
+    local_shape = tuple(int(n) for n in local_shape)
+    nd = len(local_shape)
+    if not 0 <= split_axis < nd or not 0 <= concat_axis < nd:
+        raise ValueError(f"split/concat axes ({split_axis}, {concat_axis}) "
+                         f"outside pencil rank {nd}")
+    if split_axis == concat_axis:
+        raise ValueError("split_axis and concat_axis must differ")
+    axis_names = _as_tuple(axis_names)
+    if isinstance(mesh_or_axis_dims, DeviceMesh):
+        dims = get_factorization(mesh_or_axis_dims, axis_names,
+                                 variant=variant).dims
+    else:
+        dims = tuple(int(s) for s in mesh_or_axis_dims)
+    p = math.prod(dims)
+    if local_shape[split_axis] % p:
+        raise ValueError(f"split axis size {local_shape[split_axis]} not "
+                         f"divisible by p={p} (dims {dims})")
+    block_shape = list(local_shape)
+    block_shape[split_axis] //= p
+    inner = _build_dense_plan(
+        mesh_or_axis_dims, axis_names, tuple(block_shape), dtype,
+        backend=backend, variant=variant, round_order=round_order,
+        reverse_round_order=reverse_round_order, n_chunks=n_chunks,
+        max_chunks=max_chunks, links=links, db=db)
+    key = ("transpose", inner._registry_key, local_shape, int(split_axis),
+           int(concat_axis), parent)
+    cached = _registry_fetch(key)
+    if cached is not None:
+        return cached
+    plan = TransposePlan(inner, in_shape=local_shape,
+                         split_axis=split_axis, concat_axis=concat_axis,
+                         parent=parent)
     return _registry_store(key, plan)
 
 

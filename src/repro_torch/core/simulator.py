@@ -20,9 +20,9 @@ the paper's three worked examples (5x4, 2x3x4, 4x3x3x4) and Theorem 1's
 communication-volume formula.
 
 This is ``repro.core.simulator`` (stdlib only) copied into the port: the
-dense oracle and the Alltoallv (ragged and sparse) oracles; the
-KV-migration and pencil oracles come with the slices that port those
-collectives.
+dense oracle, the Alltoallv (ragged and sparse) oracles and the pencil
+transpose oracle of the distributed FFT; the KV-migration oracle comes
+with the slice that ports that collective.
 """
 
 from __future__ import annotations
@@ -392,6 +392,195 @@ def check_correct_alltoallv(dims, counts, round_order=None) -> bool:
     want = simulate_direct_alltoallv(counts)
     p = math.prod(dims)
     return all(final[r] == want[r] for r in range(p))
+
+
+# ----------------------------------------------------------------------------
+# Pencil-transpose oracle (distributed-FFT re-shard).
+#
+# The global transpose of a pencil-decomposed FFT (Dalcin et al., arXiv
+# 1804.09536) is exactly an all-to-all of *uniform* blocks: each rank
+# splits its local pencil into p chunks along ``split_axis`` (chunk t
+# destined for torus rank t) and concatenates the p received chunks
+# source-major along ``concat_axis``.  The oracle below runs the paper's
+# d dimension-wise rounds on element-tagged chunks, so both the routing
+# (block t of rank r must land in slot r of rank t — Algorithm 1) and the
+# pencil *index math* (which global elements end up where) are checked.
+# ----------------------------------------------------------------------------
+
+
+def _c_strides(shape: tuple[int, ...]) -> tuple[int, ...]:
+    """Row-major (C-order) strides, matching the port's reshape."""
+    out = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        out[i] = out[i + 1] * shape[i + 1]
+    return tuple(out)
+
+
+def _pencil_flat(coords, shape) -> int:
+    return sum(c * s for c, s in zip(coords, _c_strides(shape)))
+
+
+def pencil_transpose_reference(p: int, in_pencil: tuple[int, ...],
+                               split_axis: int, concat_axis: int,
+                               rank: int) -> list[int]:
+    """Expected post-transpose local buffer of ``rank``: global flat ids
+    (C-order over the global in-shape, ``concat_axis`` scaled by ``p``) in
+    local out-pencil C-order.  Rank ``r`` starts with concat-block ``r``
+    and ends with split-chunk ``r`` of the full concat axis."""
+    in_pencil = tuple(in_pencil)
+    sp = in_pencil[split_axis] // p
+    global_shape = list(in_pencil)
+    global_shape[concat_axis] *= p
+    out_pencil = list(in_pencil)
+    out_pencil[split_axis] = sp
+    out_pencil[concat_axis] *= p
+    ids = []
+    for q in itertools.product(*[range(n) for n in out_pencil]):
+        g = list(q)
+        g[split_axis] += rank * sp
+        ids.append(_pencil_flat(tuple(g), tuple(global_shape)))
+    return ids
+
+
+def simulate_pencil_transpose(
+    dims: tuple[int, ...],
+    in_pencil: tuple[int, ...],
+    split_axis: int,
+    concat_axis: int,
+    round_order: tuple[int, ...] | None = None,
+    contents: dict[int, list] | None = None,
+) -> tuple[dict[int, list], VolumeCount]:
+    """Run the d-round pencil transpose for every rank.
+
+    Each rank holds a local pencil of shape ``in_pencil`` (rank ``r`` =
+    concat-block ``r`` of the global array); the transpose splits
+    ``split_axis`` into ``p`` chunks (chunk ``t`` -> torus rank ``t``) via
+    the dimension-wise rounds and concatenates received chunks
+    source-major along ``concat_axis`` — the tiled all-to-all semantics of
+    ``core.factorized._factorized_tiled_impl``.
+
+    ``contents`` optionally supplies each rank's local buffer (flat
+    C-order payload list, e.g. a previous transpose's output, enabling
+    round-trip composition); default is the identity labeling — global
+    flat ids — for which correctness is ``out[r] ==
+    pencil_transpose_reference(p, in_pencil, split_axis, concat_axis, r)``.
+
+    Volume: uniform blocks of ``prod(in_pencil)/p`` elements, so round
+    ``k`` sends ``(D[k]-1) * p/D[k]`` blocks per rank and the total obeys
+    Theorem 1 exactly (returned as block counts in ``VolumeCount``).
+    """
+    d = len(dims)
+    p = math.prod(dims)
+    in_pencil = tuple(int(n) for n in in_pencil)
+    if split_axis == concat_axis:
+        raise ValueError("split_axis and concat_axis must differ")
+    if in_pencil[split_axis] % p:
+        raise ValueError(f"split axis size {in_pencil[split_axis]} not "
+                         f"divisible by p={p}")
+    order = tuple(round_order) if round_order is not None else tuple(range(d))
+    assert sorted(order) == list(range(d))
+    sp = in_pencil[split_axis] // p
+    block_shape = list(in_pencil)
+    block_shape[split_axis] = sp
+    block_shape = tuple(block_shape)
+    global_shape = list(in_pencil)
+    global_shape[concat_axis] *= p
+    global_shape = tuple(global_shape)
+    c = in_pencil[concat_axis]
+
+    def identity_contents(r):
+        ids = []
+        for q in itertools.product(*[range(n) for n in in_pencil]):
+            g = list(q)
+            g[concat_axis] += r * c
+            ids.append(_pencil_flat(tuple(g), global_shape))
+        return ids
+
+    # buf[r]: flat buffer of p chunk slots (slot t = chunk destined for
+    # rank t), exactly the (p, *block) form of the tiled kernel.  The
+    # rounds below are simulate_factorized_alltoall's slot movement with
+    # chunk payloads, so final slot s = the chunk received from source s.
+    buf: dict[int, list] = {}
+    for r in range(p):
+        flat = contents[r] if contents is not None else identity_contents(r)
+        if len(flat) != math.prod(in_pencil):
+            raise ValueError(f"rank {r} contents length {len(flat)} != "
+                             f"prod(in_pencil)={math.prod(in_pencil)}")
+        chunks = [[] for _ in range(p)]
+        for q, payload in zip(
+                itertools.product(*[range(n) for n in in_pencil]), flat):
+            chunks[q[split_axis] // sp].append(payload)
+        buf[r] = chunks
+
+    coords = {r: rank_to_coords(r, dims) for r in range(p)}
+    vol = VolumeCount(dims)
+    for k in order:
+        positions, extent = round_datatype(dims, k)
+        Dk = dims[k]
+        groups: dict[tuple, list[int]] = {}
+        for r in range(p):
+            key = tuple(x for i, x in enumerate(coords[r]) if i != k)
+            groups.setdefault(key, []).append(r)
+        staged = {}
+        for members in groups.values():
+            members.sort(key=lambda r: coords[r][k])
+            assert len(members) == Dk
+            for g_r, r in enumerate(members):
+                new = [None] * p
+                for g_s, s in enumerate(members):
+                    for pos in positions:
+                        new[pos + g_s * extent] = buf[s][pos + g_r * extent]
+                staged[r] = new
+        buf = staged
+        vol.blocks_sent_per_round.append((Dk - 1) * (p // Dk))
+
+    # Assemble: the chunk in slot s fills concat positions [s*c, (s+1)*c)
+    # of the out pencil (source-major concatenation).
+    out_pencil = list(block_shape)
+    out_pencil[concat_axis] = c * p
+    out = {}
+    for r in range(p):
+        res = []
+        for q in itertools.product(*[range(n) for n in out_pencil]):
+            s, j = divmod(q[concat_axis], c)
+            b = list(q)
+            b[concat_axis] = j
+            res.append(buf[r][s][_pencil_flat(tuple(b), block_shape)])
+        out[r] = res
+    return out, vol
+
+
+def check_correct_pencil_transpose(dims, in_pencil, split_axis, concat_axis,
+                                   round_order=None) -> bool:
+    """True iff the d-round pencil transpose delivers exactly the expected
+    re-shard on every rank, the round-trip (transpose then inverse
+    transpose) is the identity, and the block volume obeys Theorem 1."""
+    p = math.prod(dims)
+    out, vol = simulate_pencil_transpose(dims, in_pencil, split_axis,
+                                         concat_axis, round_order)
+    ok = all(out[r] == pencil_transpose_reference(p, in_pencil, split_axis,
+                                                  concat_axis, r)
+             for r in range(p))
+    ok = ok and vol.total_blocks_sent == vol.theorem1_formula
+    sp = in_pencil[split_axis] // p
+    out_pencil = list(in_pencil)
+    out_pencil[split_axis] = sp
+    out_pencil[concat_axis] *= p
+    back, _ = simulate_pencil_transpose(dims, tuple(out_pencil), concat_axis,
+                                        split_axis, round_order,
+                                        contents=out)
+    c = in_pencil[concat_axis]
+    g_shape = list(in_pencil)
+    g_shape[concat_axis] *= p
+    for r in range(p):
+        ids = []
+        for q in itertools.product(*[range(n) for n in in_pencil]):
+            g = list(q)
+            g[concat_axis] += r * c
+            ids.append(_pencil_flat(tuple(g), tuple(g_shape)))
+        if back[r] != ids:
+            return False
+    return ok
 
 
 # ----------------------------------------------------------------------------

@@ -10,9 +10,8 @@ the same linear system.
 
 Opt-in via ``ModelConfig(spectral_long_conv=True)`` (substitutes the
 recurrent mixers in ``block_pattern``) or ``block_pattern=("spectral",)``.
-Only the local path is ported: the sequence-parallel convolution through
-the pencil FFT (:func:`distributed_fft_causal_conv`) waits for the FFT
-slice of ROADMAP.md.
+:func:`distributed_fft_causal_conv` is the sequence-sharded convolution
+through the pencil FFT (``workloads.fft``) over a torus communicator.
 """
 
 from __future__ import annotations
@@ -70,14 +69,47 @@ def fft_causal_conv(x, kernel):
     return torch.fft.irfft(X * Kf[None], n=L, dim=1)[:, :S]
 
 
-def distributed_fft_causal_conv(comm, x, kernel, *, mesh=None):
-    """The sequence-sharded causal convolution through the pencil FFT
-    (``repro.workloads.fft.PencilFFT`` and its transpose plans): not
-    ported yet."""
-    raise NotImplementedError(
-        "distributed_fft_causal_conv needs workloads/fft.py's PencilFFT and "
-        "TransposePlan, which are not ported yet: ROADMAP.md, queue 1, "
-        "item 8b (slice 17, the pencil FFT)")
+def distributed_fft_causal_conv(comm, x, kernel):
+    """Sequence-sharded causal convolution through the pencil FFT.
+
+    The transforms along the padded sequence axis run through
+    :class:`~repro_torch.workloads.fft.PencilFFT`, a slab over all of
+    ``comm``'s torus axes in complex64, so each of the four global
+    re-shards is a cached ``TransposePlan`` collective.  SPMD: every rank
+    of ``comm`` calls it, in the same order.
+
+    Input: every rank passes the global ``x``: (B, S, E) and ``kernel``:
+    (S, E) and cuts, with no exchange, its own ``(L/p, B*E)`` slab (rows
+    ``[r*L/p, (r+1)*L/p)``, ``r`` its torus rank, ``L = 2S``) of the
+    zero-padded, time-major array.  Output: this rank's rows of the
+    reference's output sharding, the sequence rows ``[r*L/p, (r+1)*L/p)
+    ∩ [0, S)`` as (B, rows, E) float32; the ranks past ``p/2`` hold
+    none.  Concatenated in torus-rank order, the ranks' rows are
+    :func:`fft_causal_conv` of the global input."""
+    from repro_torch.workloads.fft import PencilFFT
+
+    B, S, E = x.shape
+    L = 2 * S
+    p = comm.p
+    if L % p or (B * E) % p:
+        raise ValueError(f"padded seq {L} and B*E {B * E} must divide "
+                         f"p={p}")
+    fft = PencilFFT(comm, (L, B * E), axes=(0,),
+                    grid=(tuple(comm.axis_names),), dtype="complex64")
+    r = comm.rank
+    if r is None:
+        raise ValueError("the distributed convolution needs a mesh-backed "
+                         "comm")
+    rows, cols = L // p, B * E // p
+    lo, n = r * rows, max(0, min(rows, S - r * rows))
+    xl = torch.zeros(rows, B * E, dtype=torch.complex64, device=x.device)
+    if n:
+        xl[:n] = x[:, lo:lo + n].float().transpose(0, 1).reshape(n, B * E)
+    X = fft.forward_fn()(xl)                               # (L, B*E/p)
+    e_idx = (r * cols + torch.arange(cols, device=x.device)) % E
+    Kf = torch.fft.fft(kernel.to(torch.complex64), n=L, dim=0)   # (L, E)
+    y = fft.inverse_fn()(X * Kf[:, e_idx])                 # (L/p, B*E)
+    return y[:n].real.reshape(n, B, E).transpose(0, 1).contiguous()
 
 
 def _recurrence_chunk(h, x, dA, dB, C):

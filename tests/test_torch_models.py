@@ -87,10 +87,9 @@ def test_capacity_matches_reference(n_tokens, n_slots):
 
 
 def test_unported_paths_raise():
-    # the encoder-decoder and the frontends build; on a mesh they, and the
-    # sequence-sharded FFT convolution, are what stays to come
+    # the encoder-decoder and the frontends build; on a mesh they are
+    # what stays to come
     from repro_torch.configs import NOT_PORTED
-    from repro_torch.models import spectral
     from repro_torch.models.encdec import EncDecModel
     assert NOT_PORTED == ()
     whisper = build_model(get_config("whisper-tiny"))
@@ -107,8 +106,6 @@ def test_unported_paths_raise():
             model.check_mesh(mesh)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_train_step(model, None, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spectral.distributed_fft_causal_conv(None, None, None)
 
 
 @pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "dense", "rope",

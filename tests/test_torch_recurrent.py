@@ -42,7 +42,9 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import caches_from_jax, params_from_jax
 from repro_torch.runtime.serving import (ContinuousBatcher, Request,
                                          _reset_slot)
+import torch_fft
 from torch_archs import fan_in_init
+from torch_dist import run_world
 
 KEY = jax.random.PRNGKey(0)
 TOL = dict(rtol=2e-5, atol=2e-5)          # tests/test_kernels.py::_tol, f32
@@ -124,9 +126,16 @@ def test_spectral_conv_equals_recurrence():
                                atol=2e-4)
 
 
-def test_distributed_conv_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spectral.distributed_fft_causal_conv(None, None, None)
+@pytest.mark.parametrize("n", [1, 4])
+def test_distributed_conv_matches_local_conv(n, tmp_path):
+    # the sequence-sharded convolution on a one-axis torus of n ranks: the
+    # ranks' rows in torus-rank order are the one-process convolution
+    rows = run_world(torch_fft.conv_world, n, tmp_path)
+    assert all(r.shape[1] == 0 for r in rows[max(1, n // 2):])
+    x, k = torch_fft.conv_inputs(*torch_fft.CONV[n])
+    want = spectral.fft_causal_conv(torch.from_numpy(x), torch.from_numpy(k))
+    np.testing.assert_allclose(np.concatenate(rows, axis=1), want.numpy(),
+                               rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,9 @@ importable module, and its result picklable.
 Every world has a deadline of its own (``timeout``, 120 s by default):
 when it passes, the children are killed and the call fails, so a hung
 collective never runs the test session into its time limit.  A rank that
-raises fails the call with its traceback.
+raises fails the call with its traceback; a rank that dies without one (a
+signal, a crash in teardown) fails it with every rank's exit code or
+signal and whether the rank wrote its result.
 
 ``fsdp_layout`` reports, inside a rank, how it holds the FSDP leaves of a
 parameter tree, for the mesh training tests to hold against the global
@@ -21,6 +23,7 @@ from __future__ import annotations
 
 import datetime
 import pickle
+import signal
 import time
 import traceback
 from pathlib import Path
@@ -28,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.multiprocessing as mp
+from torch.multiprocessing.spawn import ProcessException
 
 
 def _child(rank, n, store_path, out_dir, timeout, fn, args):
@@ -61,10 +65,14 @@ def run_world(fn, n: int, tmp_path, *args, timeout: float = 120.0):
         _child, args=(n, str(root / "store"), str(root), timeout, fn, args),
         nprocs=n, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
-    done = False
+    done, died = False, None
     try:
         while not done and time.monotonic() < deadline:
-            done = ctx.join(timeout=0.5)
+            try:
+                done = ctx.join(timeout=0.5)
+            except ProcessException as e:    # a rank exited non-zero
+                died = e
+                break
             # a failed rank leaves the others waiting in a collective
             if any(r is not None and r[0] != "ok"
                    for r in (_read(root, k) for k in range(n))):
@@ -78,10 +86,25 @@ def run_world(fn, n: int, tmp_path, *args, timeout: float = 120.0):
     for rank, res in enumerate(results):
         if res is not None and res[0] != "ok":
             raise AssertionError(f"rank {rank} of {n} failed:\n{res[1]}")
+    if died is not None:
+        ranks = "; ".join(
+            f"rank {k}: {_exit(proc.exitcode)}, "
+            f"{'result written' if results[k] else 'no result'}"
+            for k, proc in enumerate(ctx.processes))
+        raise AssertionError(f"{n}-rank world: {died} ({ranks})")
     if not done or any(res is None for res in results):
         raise TimeoutError(f"{n}-rank world did not finish in "
                            f"{timeout:.0f} s")
     return [res[1] for res in results]
+
+
+def _exit(code) -> str:
+    if code is not None and code < 0:
+        try:
+            return f"signal {signal.Signals(-code).name}"
+        except ValueError:
+            return f"signal {-code}"
+    return f"exit code {code}"
 
 
 def _block(a, dim, i, n):
