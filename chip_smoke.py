@@ -248,6 +248,34 @@ it fails:
              rank: bit for bit the untraced one, its span tree the CPU
              test's (``tests/torch_fft.py``), its rounds' host µs and
              measured / predicted ratio printed.
+11b'. serve_disagg — in the same world, between [fft] and [elastic]:
+             disaggregated serving (``runtime.serving
+             .DisaggregatedServer`` through ``launch.serve
+             .serve_disaggregated``) on a torus comm over (data, pod) =
+             (2, 2), every rank calling the same ticks.  (a) phi3.5-moe
+             at full width, depth 2 (2.86 B parameters a rank, the same
+             seed on every rank), 2 prefill ranks of 4 slots, 2 decode
+             ranks of 4 slots (decode_batch 8), chunk 4: 8 requests in 2
+             tenants (quota 2), seeded prompts of 17-96 tokens, 16 new
+             tokens each, max_seq 112, under the KV plan backends
+             ``tuned``, ``factorized`` and ``sparse``, traced (the
+             ``serve.*`` spans).  Every ``decode_step`` runs at batch 4
+             with a colocated ``ContinuousBatcher(max_batch=4,
+             max_seq=112)``'s cache shapes, so every request's tokens on
+             every rank must equal that colocated run's on rank 0 bit
+             for bit; migrations must happen, the plan's kind be
+             ``kv_migrate``, the reorder launches be the handoffs times
+             ``round_schedule``'s passes of the plan's counts and data
+             phases, and the gmm launches 6 ``decode`` per
+             ``decode_step`` (``simt`` none).  (b) the tuned run again,
+             rank 3 lost at tick 8: ranks [0, 1, 2] rebuild with one
+             prefill rank and must still give the colocated tokens
+             (rank 3 waits at a barrier).  (c) one full-depth handoff at
+             phi's real row (32 layers x (2 x 8 x 128 + 1) = 65 568 f32
+             features): ranks 0 and 1 send 1024 and 700 seeded rows to
+             ranks 2 and 3 through each backend (bucket 1024: a (4, 1024,
+             65568) f32 send block, 1.07 GB a rank); the received rows
+             must equal the rows sent bit for bit.
 11c. elastic — last in the same world, as the reference's
              ``check_rebuild.py``: (a) [moe_ep]'s layer loses ranks 2, 3
              on its plan's 3rd call (a ``FaultInjector``); the watchdog
@@ -607,6 +635,15 @@ FFT_CONV = (1, 4096)               # [fft] (e): B, S at jamba's mixer width
 FFT_TIMED = 3                      # [fft]: timed calls (median), after one
 FFT_TOL = 1e-5                     # [fft]: of the largest |coefficient|
 FFT_CONV_TOL = 1e-4                # [fft] (e): of the largest |output|
+DISAGG_LAYERS = 2                  # [serve_disagg] (a), (b): phi's depth
+DISAGG_BATCH = (4, 8)              # prefill slots a worker, decode slots
+DISAGG_REQS = (8, 2, 2)            # requests, tenants, per-tenant quota
+DISAGG_PROMPT = (17, 96)           # seeded prompt lengths, inclusive
+DISAGG_GEN = 16                    # new tokens a request
+DISAGG_LOST = (8, [0, 1, 2], 1)    # (b): tick, survivors, their n_prefill
+DISAGG_BACKENDS = ("tuned", "factorized", "sparse")
+KV_HANDOFF = (1024, 700)           # (c): rows 0 -> 2 and 1 -> 3 (max_count
+                                   # the first: bucket 1024)
 
 
 def fail(msg: str):
@@ -4091,6 +4128,161 @@ def _rank_fft(rank: int, n: int, seed: int) -> dict:
     return out
 
 
+def _disagg_requests(vocab: int) -> list:
+    """[serve_disagg]'s requests, made anew for each run (a run appends
+    to them): seeded prompts in two tenants."""
+    from repro_torch.runtime.serving import Request
+    n, tenants, _ = DISAGG_REQS
+    rng = np.random.default_rng(5)
+    lo, hi = DISAGG_PROMPT
+    return [Request(i, [int(t) for t in rng.integers(
+        0, vocab, int(rng.integers(lo, hi + 1)))], DISAGG_GEN,
+        tenant=f"t{i % tenants}") for i in range(n)]
+
+
+def _disagg_run(model, params, cfg, comm, backend: str, rebuild_at=None):
+    """One traced [serve_disagg] (a) / (b) run on this rank: the server,
+    its ``done``, host ms, ``decode_step`` calls, launches, the
+    ``serve.kv_migrate`` spans that moved rows, and the predicted
+    reorder launches of one handoff."""
+    from repro_torch.core import telemetry
+    from repro_torch.launch.serve import batcher_step, serve_disaggregated
+    from repro_torch.models import make_serve_step
+    step = batcher_step(make_serve_step(model))
+    calls = [0]
+
+    def counted(params, toks, caches):
+        calls[0] += 1
+        return step(params, toks, caches)
+
+    telemetry.reset_telemetry()
+    telemetry.enable_tracing()
+    _reset_counts()
+    n_pre, n_dec = DISAGG_BATCH
+    srv, secs = serve_disaggregated(
+        model, params, _disagg_requests(cfg.vocab), comm,
+        max_seq=DISAGG_PROMPT[1] + DISAGG_GEN, decode_batch=n_dec,
+        device=DEVICE, serve_step=counted, rebuild_at=rebuild_at,
+        n_prefill=2, prefill_batch=n_pre, chunk=4,
+        default_quota=DISAGG_REQS[2], backend=backend)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    spans = [s for s in telemetry.get_tracer().spans()
+             if s.name == "serve.kv_migrate" and s.attrs.get("migrated")]
+    throttled = telemetry.metrics().counter(
+        "serving.admission_throttled").value
+    telemetry.reset_telemetry()
+    plan = srv.topology.plan
+    return {"srv": srv, "done": dict(srv.done), "ticks": srv.ticks,
+            "ms": secs * 1e3, "steps": calls[0], "counts": counts,
+            "handoff_ms": [s.duration * 1e3 for s in spans],
+            "throttled": throttled, "lost": srv.lost,
+            "per_handoff": _alltoallv_launches(plan.inner, False),
+            "describe": plan.describe(),
+            "migrations": srv.topology.migrations,
+            "migrated_rows": srv.topology.migrated_rows}
+
+
+def _rank_serve_disagg(rank: int, n: int, seed: int) -> dict:
+    """[serve_disagg] on one rank of the 4-rank world: (a) three traced
+    runs (one a backend), (b) the tuned run with rank 3 lost at tick 8,
+    (c) one full-depth handoff at phi's real row through each backend.
+    Rank 0 also serves the requests colocated, the reference of (a) and
+    (b)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache import cart_create
+    from repro_torch.core.comm import torus_comm
+    from repro_torch.launch.serve import serve_colocated
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("data", "pod")
+    mesh = cart_create(n, (2, 2), names, device_type=DEVICE)
+    comm = torus_comm(mesh, names)
+    full = get_config(ARCH)
+    cfg = full.replace(n_layers=DISAGG_LAYERS)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(seed),
+                        DEVICE)
+    out, ok = {"runs": {}}, {}
+    max_seq = DISAGG_PROMPT[1] + DISAGG_GEN
+    if rank == 0:
+        batcher, secs = serve_colocated(
+            model, params, _disagg_requests(cfg.vocab),
+            max_batch=DISAGG_BATCH[0], max_seq=max_seq, device=DEVICE)
+        out["colocated"] = {"done": dict(batcher.done),
+                            "ticks": batcher.ticks, "ms": secs * 1e3}
+    for backend in DISAGG_BACKENDS:
+        r = _disagg_run(model, params, cfg, comm, backend)
+        srv = r.pop("srv")
+        ok[f"(a) {backend}: migrations > 0"] = r["migrations"] > 0
+        ok[f"(a) {backend}: plan kind kv_migrate"] = \
+            r["describe"]["kind"] == "kv_migrate"
+        row_bytes = srv.topology.plan.row_bytes
+        r["block_bytes"] = srv.topology.plan.p * srv.topology.plan.bucket \
+            * row_bytes
+        r["row_bytes"] = row_bytes
+        r["rank_role"] = "prefill" if rank < srv.topology.n_prefill \
+            else "decode"
+        del srv
+        out["runs"][backend] = r
+    # (b): rank 3 leaves at tick 8; the survivors rebuild and finish
+    r = _disagg_run(model, params, cfg, comm, "tuned",
+                    rebuild_at=DISAGG_LOST)
+    r.pop("srv")
+    out["rebuild"] = r
+    dist.barrier()              # rank 3 waits here for the survivors
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (c): one handoff at phi's full-depth row
+    comm = torus_comm(mesh, names)
+    F = full.n_layers * (2 * full.n_kv_heads * full.hd + 1)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    sent = {(0, 2): torch.randn((KV_HANDOFF[0], F), generator=gen,
+                                device=DEVICE),
+            (1, 3): torch.randn((KV_HANDOFF[1], F), generator=gen,
+                                device=DEVICE)}
+    out["handoff"] = {"F": F, "ms": {}, "kinds": {}}
+    x = None
+    for backend in DISAGG_BACKENDS:
+        plan = comm.kv_migration((F,), max_count=max(KV_HANDOFF),
+                                 n_prefill=2, backend=backend)
+        counts = plan.pair_counts({k: v.shape[0] for k, v in sent.items()})
+        if x is None:
+            x = torch.zeros((plan.p, plan.bucket, F), device=DEVICE)
+            for (s, d), rows in sent.items():
+                if s == rank:
+                    x[d, :rows.shape[0]] = rows
+        _zero_reorder_launches()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t1 = time.perf_counter()
+        recv, rc = plan.forward(
+            x, torch.as_tensor(counts[rank], device=DEVICE))
+        torch.cuda.synchronize()
+        out["handoff"]["ms"][backend] = (time.perf_counter() - t1) * 1e3
+        out["handoff"]["kinds"][backend] = (plan.inner_kind, plan.backend)
+        ok[f"(c) {backend}: recv_counts the count matrix's column"] = \
+            rc.cpu().tolist() == counts[:, rank].tolist()
+        ok[f"(c) {backend}: reorder launches as round_schedule"] = \
+            _reorder_launches() == _alltoallv_launches(plan.inner, False)
+        for (s, d), rows in sent.items():
+            if d == rank:
+                ok[f"(c) {backend}: rows {s} -> {d} bit for bit"] = \
+                    torch.equal(recv[s, :rows.shape[0]], rows)
+        del recv
+    out["handoff"]["block_gb"] = x.numel() * 4 / 1e9
+    del x, sent
+    torch.cuda.empty_cache()
+    out["ok"] = {k: bool(v) for k, v in ok.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _timed(fn, *args) -> dict:
     """``fn(*args)``'s result with its host seconds under ``"seconds"``."""
     t0 = time.perf_counter()
@@ -4135,6 +4327,7 @@ def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
             "ring": _timed(_rank_ring, rank, n),
             "pipeline": _timed(_rank_pipeline, rank, n),
             "fft": _rank_fft(rank, n, seed),
+            "serve_disagg": _rank_serve_disagg(rank, n, seed),
             "elastic": _rank_elastic(rank, n, seed, tmp)}
 
 
@@ -5351,6 +5544,78 @@ def phase_fft(results) -> dict:
     return {k: sum(f["counts"][k] for f in fr) for k in fr[0]["counts"]}
 
 
+def phase_serve_disagg(results) -> dict:
+    """[serve_disagg]'s gates: every rank's tokens equal the colocated
+    run's bit for bit in (a) and, on the survivors, (b); the launches of
+    each run (gmm: 6 ``decode`` a ``decode_step``; reorder in (a): the
+    handoffs times the plan's passes; (b)'s rebuild changes the plan, so
+    only its gmm launches are predicted); (c)'s rows (checked by the
+    ranks).  Prints the times and bytes.  Returns the launches of (a) and
+    (b) over all ranks."""
+    bad = _bad(results, "serve_disagg")
+    if bad:
+        fail(f"[serve_disagg] failed: {bad}")
+    sd = [r["serve_disagg"] for r in results]
+    ref = sd[0]["colocated"]
+    total = dict.fromkeys(sd[0]["runs"]["tuned"]["counts"], 0)
+    gmm = 3 * DISAGG_LAYERS
+    runs = {f"(a) {b}": [s["runs"][b] for s in sd] for b in DISAGG_BACKENDS}
+    runs["(b)"] = [s["rebuild"] for s in sd]
+    for tag, per_rank in runs.items():
+        for rank, r in enumerate(per_rank):
+            for k, v in r["counts"].items():
+                total[k] += v
+            want = _expected(grouped_matmul=gmm * r["steps"],
+                             grouped_matmul_decode=gmm * r["steps"],
+                             **{k: r["migrations"] * v
+                                for k, v in r["per_handoff"].items()})
+            got = dict(r["counts"])
+            if tag == "(b)":
+                for k in REORDER_OPS:
+                    got[k] = want[k] = 0
+            if got != want:
+                fail(f"[serve_disagg] {tag}: rank {rank} launched "
+                     f"{r['counts']} in {r['steps']} decode_steps and "
+                     f"{r['migrations']} handoffs, expected {want}")
+            if r["lost"]:
+                continue
+            if r["done"] != ref["done"]:
+                diff = sorted(k for k in ref["done"]
+                              if r["done"].get(k) != ref["done"][k])
+                fail(f"[serve_disagg] {tag}: rank {rank}'s tokens differ "
+                     f"from the colocated run's for requests {diff}")
+        r0 = per_rank[0]
+        d = r0["describe"]
+        log(f"[serve_disagg] {tag}: every rank's tokens equal the colocated "
+            f"run's ({len(ref['done'])} requests); {r0['ticks']} ticks, "
+            f"host {r0['ms'] / r0['ticks']:.2f} ms a tick (colocated "
+            f"{ref['ms'] / ref['ticks']:.2f} over {ref['ticks']} ticks); "
+            f"{r0['migrations']} handoffs, {r0['migrated_rows']} rows; plan "
+            f"{d['inner_kind']} / {d['backend']} (bucket {d['bucket']}, "
+            f"row {d['row_bytes']} B); serve.kv_migrate ms (rank 0..3) "
+            f"{[[round(t, 2) for t in r['handoff_ms']] for r in per_rank]}; "
+            f"decode_steps per rank {[r['steps'] for r in per_rank]}; "
+            f"throttled admissions {r0['throttled']}; lost ranks "
+            f"{[k for k, r in enumerate(per_rank) if r['lost']]}")
+    r = sd[0]["runs"]["tuned"]
+    useful = r["migrated_rows"] * r["row_bytes"] / max(1, r["migrations"])
+    log(f"[serve_disagg] bytes per handoff a rank: the (p, bucket, row) "
+        f"send block {r['block_bytes'] / 2**20:.2f} MiB; the useful rows "
+        f"{useful / 2**20:.2f} MiB a handoff over all pairs")
+    h = [s["handoff"] for s in sd]
+    log(f"[serve_disagg] (c) one handoff at phi's full-depth row ({h[0]['F']}"
+        f" f32 features, {h[0]['F'] * 4 / 1024:.1f} KiB), rows "
+        f"{KV_HANDOFF} from ranks 0, 1 to 2, 3, send block "
+        f"{h[0]['block_gb']:.2f} GB a rank: rows bit for bit through "
+        f"{list(h[0]['kinds'].items())}; host ms a call per rank "
+        + "; ".join(f"{b} {[round(x['ms'][b], 1) for x in h]}"
+                    for b in DISAGG_BACKENDS))
+    log(f"[serve_disagg] peak memory per rank (GiB) "
+        f"{[round(s['peak_gib'], 2) for s in sd]}; "
+        f"{max(s['seconds'] for s in sd):.1f} s in the world; {_card()}")
+    return total
+
+
 def _train_launches_per_step(cfg) -> dict:
     """Predicted launches of one training step with remat: per attention
     layer the flash forward twice (forward and remat recompute) and its
@@ -6495,6 +6760,7 @@ def main() -> int:
     paths["train_ep"] = phase_train_ep(world)
     added = phase_ring(world) + phase_pipeline(world)
     paths["fft"] = phase_fft(world)
+    paths["serve_disagg"] = phase_serve_disagg(world)
     paths["elastic"] = phase_elastic(world, seed)
     del world
     # the one-process gates above (grok's 8 experts) leave this process's

@@ -21,7 +21,10 @@ exchanges.  :class:`TorusComm` makes it explicit over a ``DeviceMesh``:
   all-gather / reduce-scatter per torus dimension (``"factorized"``),
   or one over the whole torus (``"direct"``); ``comm.transpose`` the
   pencil re-shard of the distributed FFT
-  (:class:`~repro_torch.core.plan.TransposePlan`, ``workloads.fft``).
+  (:class:`~repro_torch.core.plan.TransposePlan`, ``workloads.fft``);
+  ``comm.kv_migration`` the prefill -> decode KV handoff of
+  disaggregated serving (:class:`~repro_torch.core.plan.KVMigrationPlan`,
+  ``runtime.serving``).
 * ``comm.free()`` (or the context-manager form) is the delete callback;
   ``comm.stats()`` is the unified cache report.
 
@@ -37,8 +40,7 @@ same methods in the same order.  A mesh over a strict subset of the world
 (a rebuilt comm's survivors, a partition's child) is built by its members
 alone (``core.cache``), so ``rebuild`` is collective over the survivors
 only and a lost rank makes no call.  A comm may be bound to a tuning DB
-(``db=``), which its ``backend="autotune"`` plans read.  The KV-migration
-factory waits for its slice (ROADMAP).
+(``db=``), which its ``backend="autotune"`` plans read.
 """
 
 from __future__ import annotations
@@ -592,6 +594,25 @@ class TorusComm:
             max_count=max_count, avg_count=avg_count, density=density,
             variant=self.variant, round_order=round_order,
             reverse_round_order=reverse_round_order, links=links))
+
+    def kv_migration(self, row_shape=(), dtype="float32", *,
+                     max_count: int, n_prefill: int,
+                     avg_count: float | None = None,
+                     migrations_per_tick: float = 1.0,
+                     backend: str = "tuned", round_order=None,
+                     reverse_round_order=None, links=None, db=None):
+        """Build (or fetch) the :class:`~repro_torch.core.plan
+        .KVMigrationPlan` for the prefill -> decode KV-cache handoff over
+        this comm: an Alltoallv whose count matrix is non-zero only in the
+        prefill -> decode block — see :func:`~repro_torch.core.plan
+        .plan_kv_migration` for the knobs."""
+        return self._note(_planmod._build_kv_plan(
+            self._source, self.axis_names, row_shape, dtype,
+            max_count=max_count, n_prefill=n_prefill, avg_count=avg_count,
+            migrations_per_tick=migrations_per_tick, backend=backend,
+            variant=self.variant, round_order=round_order,
+            reverse_round_order=reverse_round_order, links=links,
+            db=self._db if db is None else db))
 
     def transpose(self, local_shape, dtype="float32", *,
                   split_axis: int, concat_axis: int, backend: str = "tuned",

@@ -21,7 +21,10 @@ the int32 counts plan and the bucket-padded data plan (``core.ragged``);
 ``plan_sparse_all_to_all`` keeps the counts plan and replaces the data
 rounds with skippable per-peer lanes (``core.sparse``);
 ``plan_transpose`` wraps a dense plan over one pencil chunk into the
-distributed FFT's re-shard (:class:`TransposePlan`).  All plans live
+distributed FFT's re-shard (:class:`TransposePlan`);
+``plan_kv_migration`` wraps a ragged or sparse plan into the
+prefill -> decode KV handoff of disaggregated serving
+(:class:`KVMigrationPlan`).  All plans live
 in one bounded LRU registry; evicting a composite plan drops its nested
 entries, and evicting the last plan over a factorization releases the
 descriptor (the paper's delete callback).
@@ -49,7 +52,8 @@ Resolution is the reference's, line for line (same cost model, same
 keys), so ``describe()`` gives the reference's dict for every backend.
 The reference's ``host_fn`` (a jitted call on a global ``(p, p, *block)``
 array) has no SPMD counterpart here: each rank runs ``forward`` on its
-own ``(p, *block)`` buffer.
+own ``(p, *block)`` buffer (one process holding every rank's rows runs a
+plan's exact host path, ``exact``).
 """
 
 from __future__ import annotations
@@ -93,6 +97,7 @@ from .tuning import (
     per_axis_round_seconds,
     predict_direct,
     predict_factorized,
+    predict_kv_migration,
     predict_overlapped,
     predict_sparse,
     resolve_links,
@@ -462,12 +467,13 @@ class A2APlan:
 def _sub_plans(plan) -> tuple:
     """Nested plans a composite plan owns (ragged: data + counts; sparse:
     counts only, its data rounds are its own; transpose: its inner dense
-    plan)."""
+    plan; kv_migrate: the inner ragged / sparse plan, whose own nested
+    entries drop recursively when it does)."""
     if isinstance(plan, RaggedA2APlan):
         return (plan.data, plan.counts_plan)
     if isinstance(plan, SparseA2APlan):
         return (plan.counts_plan,)
-    if isinstance(plan, TransposePlan):
+    if isinstance(plan, (KVMigrationPlan, TransposePlan)):
         return (plan.inner,)
     return ()
 
@@ -1676,6 +1682,335 @@ def _build_sparse_plan(mesh_or_axis_dims, axis_names, row_shape=(),
                          dtype=dtype, order=order, rev_order=rev_order,
                          masks_fwd=masks_fwd, masks_rev=masks_rev,
                          links=link_models, predicted_seconds=predicted)
+    return _registry_store(key, plan)
+
+
+# ---------------------------------------------------------------------------
+# KV-migration (prefill -> decode handoff) plans
+# ---------------------------------------------------------------------------
+
+
+class KVMigrationPlan:
+    """A resolved, reusable prefill -> decode KV-cache migration plan.
+
+    Construct via :func:`plan_kv_migration` (or
+    ``TorusComm.kv_migration``); never directly.  The KV handoff of a
+    disaggregated serving topology is an Alltoallv over the *full*
+    serving comm whose count matrix is non-zero only in the
+    prefill -> decode block (rows ``< n_prefill``, columns ``>=
+    n_prefill``): per-sequence variable lengths are the send counts and
+    the scheduler's placement is the router.  The plan wraps the
+    matching exchange, a :class:`RaggedA2APlan` or, in the
+    few-migrations-per-tick regime the cost model prices via the block
+    density, a :class:`SparseA2APlan`, and adds the block-structure
+    validation (:meth:`pair_counts`), so that a misplaced sequence fails
+    at the datatype layer, not as silent corruption.
+
+    ``forward`` / ``reverse`` are the inner plan's SPMD calls (each rank
+    its own ``(p, m, *row)`` send block), traced under the inner plan's
+    ``plan.execute``; ``exact`` is the inner plan's host path over every
+    rank's rows in one process.  Cached in the shared LRU registry;
+    evicting it drops the inner plan with the same teardown.
+    """
+
+    kind = "kv_migrate"
+
+    def __init__(self, inner, *, requested_backend: str, n_prefill: int,
+                 migrations_per_tick: float, expected_density: float,
+                 predicted_seconds: float | None, tuned_from: str | None):
+        self.inner = inner
+        self.requested_backend = requested_backend
+        self.n_prefill = int(n_prefill)
+        self.migrations_per_tick = float(migrations_per_tick)
+        self.expected_density = float(expected_density)
+        self.predicted_seconds = predicted_seconds
+        self.tuned_from = tuned_from
+        self._from_cache = False
+
+    # -- identity ----------------------------------------------------------
+
+    @property
+    def fact(self) -> TorusFactorization:
+        return _plan_fact(self.inner)
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return self.inner.axis_names
+
+    @property
+    def dims(self) -> tuple[int, ...]:
+        return self.inner.dims
+
+    @property
+    def p(self) -> int:
+        return self.inner.p
+
+    @property
+    def d(self) -> int:
+        return self.inner.d
+
+    @property
+    def n_decode(self) -> int:
+        return self.p - self.n_prefill
+
+    @property
+    def inner_kind(self) -> str:
+        return "sparse" if isinstance(self.inner, SparseA2APlan) \
+            else "ragged"
+
+    @property
+    def backend(self) -> str:
+        return self.inner.backend
+
+    @property
+    def variant(self) -> str:
+        return self.inner.variant
+
+    @property
+    def bucket(self) -> int:
+        return self.inner.bucket
+
+    @property
+    def max_count(self) -> int:
+        return self.inner.max_count
+
+    @property
+    def avg_count(self) -> float:
+        return self.inner.avg_count
+
+    @property
+    def row_shape(self) -> tuple[int, ...]:
+        return self.inner.row_shape
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+    @property
+    def row_bytes(self) -> int:
+        return self.inner.row_bytes
+
+    @property
+    def expected_occupancy(self) -> float:
+        return self.inner.expected_occupancy
+
+    # -- the datatype layer ------------------------------------------------
+
+    def pair_counts(self, pairs) -> np.ndarray:
+        """Validate scheduler placements and build the ``(p, p)`` int32
+        count matrix: ``pairs`` maps ``(src, dst) -> row count``.  Every
+        source must be a prefill rank (``src < n_prefill``), every
+        destination a decode rank (``dst >= n_prefill``), and every
+        count within the plan's ``max_count`` bound, the fixed-shape
+        contract of the bucketed exchange."""
+        counts = np.zeros((self.p, self.p), np.int32)
+        for (src, dst), n in pairs.items():
+            src, dst, n = int(src), int(dst), int(n)
+            if not 0 <= src < self.n_prefill:
+                raise ValueError(f"migration source {src} is not a prefill "
+                                 f"rank (n_prefill={self.n_prefill})")
+            if not self.n_prefill <= dst < self.p:
+                raise ValueError(f"migration destination {dst} is not a "
+                                 f"decode rank (n_prefill="
+                                 f"{self.n_prefill}, p={self.p})")
+            if not 0 <= n <= self.max_count:
+                raise ValueError(f"migration count {n} for pair "
+                                 f"({src}, {dst}) outside [0, max_count="
+                                 f"{self.max_count}]")
+            counts[src, dst] = n
+        return counts
+
+    # -- execution surface (collective: every rank of the torus) ----------
+
+    def forward(self, x, send_counts):
+        """The bucketed exchange: this rank's ``(p, m, *row)`` send block
+        (``m <= bucket``) and ``(p,)`` int32 send counts in, ``(recv,
+        recv_counts)`` out, as the inner ragged / sparse plan's."""
+        return self.inner.forward(x, send_counts)
+
+    def reverse(self, x, send_counts):
+        return self.inner.reverse(x, send_counts)
+
+    def counts_matrix(self, send_counts):
+        return self.inner.counts_matrix(send_counts)
+
+    def occupancy(self, send_counts):
+        return self.inner.occupancy(send_counts)
+
+    def exact(self, rows):
+        """The exact host path: nested ``rows[s][d]`` in, ``(recv,
+        counts)`` out with ``recv[r][s]`` the rows rank ``r`` received
+        from ``s``; the sparse inner plan's volume accounting lands on
+        ``inner.last_stats``."""
+        out = self.inner.exact(rows)
+        if len(out) == 3:            # sparse: (recv, counts, vol)
+            recv, counts, _ = out
+            return recv, counts
+        return out
+
+    def _drift_key(self) -> str:
+        return self.inner._drift_key()
+
+    # -- introspection -----------------------------------------------------
+
+    def describe(self) -> dict:
+        """Stable, JSON-serializable summary of the resolved plan (the
+        reference's keys and values): ``kind="kv_migrate"``, occupancy and
+        ``tuned_from`` like every other plan, and the serving-topology
+        fields (``n_prefill`` / ``n_decode`` / ``expected_density`` /
+        ``inner_kind``)."""
+        return {
+            "kind": "kv_migrate",
+            "inner_kind": self.inner_kind,
+            "axis_names": list(self.axis_names),
+            "dims": list(self.dims),
+            "p": self.p,
+            "d": self.d,
+            "backend": self.backend,
+            "requested_backend": self.requested_backend,
+            "variant": self.variant,
+            "row_shape": list(self.row_shape),
+            "dtype": dtype_name(self.dtype),
+            "row_bytes": self.row_bytes,
+            "max_count": self.max_count,
+            "avg_count": self.avg_count,
+            "bucket": self.bucket,
+            "expected_occupancy": self.expected_occupancy,
+            "n_prefill": self.n_prefill,
+            "n_decode": self.n_decode,
+            "migrations_per_tick": self.migrations_per_tick,
+            "expected_density": self.expected_density,
+            "predicted_seconds": self.predicted_seconds,
+            "tuned_from": self.tuned_from,
+            "drift_ratio": telemetry.drift_detector()
+            .drift_ratio(self._drift_key()),
+            "cache": "hit" if self._from_cache else "miss",
+        }
+
+    def __repr__(self):
+        return (f"KVMigrationPlan(dims={self.dims}, "
+                f"axes={self.axis_names}, inner={self.inner_kind!r}, "
+                f"n_prefill={self.n_prefill}, bucket={self.bucket})")
+
+
+def plan_kv_migration(mesh_or_axis_dims, axis_names, row_shape=(),
+                      dtype="float32", *, max_count: int, n_prefill: int,
+                      avg_count: float | None = None,
+                      migrations_per_tick: float = 1.0,
+                      backend: str = "tuned", variant: str = "natural",
+                      round_order=None, reverse_round_order=None,
+                      links=None, db=None) -> KVMigrationPlan:
+    """Build (or fetch from the LRU registry) a :class:`KVMigrationPlan`,
+    through the implicit communicator.  The knobs are
+    :func:`plan_ragged_all_to_all`'s, plus:
+
+      n_prefill: ranks ``0..n_prefill-1`` are the prefill domain, the
+        rest the decode domain: the block structure
+        :meth:`KVMigrationPlan.pair_counts` enforces.
+      migrations_per_tick: expected concurrently migrating sequences per
+        serving tick; with ``backend="tuned"`` it sets the count-matrix
+        density the cost model prices (``tuning.predict_kv_migration``)
+        to pick the ragged or the sparse inner exchange.
+      backend: ``"tuned"`` (the cost model's choice between the
+        bucketed ragged exchange and the sparse one), ``"ragged"`` /
+        ``"sparse"`` (an explicit inner kind), or a dense data backend
+        (``"direct"`` | ``"factorized"`` | ``"overlap"`` |
+        ``"pipelined"`` | ``"autotune"``: a ragged plan with that data
+        phase).
+    """
+    from .comm import torus_comm
+    return torus_comm(mesh_or_axis_dims, axis_names,
+                      variant=variant).kv_migration(
+        row_shape, dtype, max_count=max_count, n_prefill=n_prefill,
+        avg_count=avg_count, migrations_per_tick=migrations_per_tick,
+        backend=backend, round_order=round_order,
+        reverse_round_order=reverse_round_order, links=links, db=db)
+
+
+def _build_kv_plan(mesh_or_axis_dims, axis_names, row_shape=(),
+                   dtype="float32", *, max_count: int, n_prefill: int,
+                   avg_count: float | None = None,
+                   migrations_per_tick: float = 1.0,
+                   backend: str = "tuned", variant: str = "natural",
+                   round_order=None, reverse_round_order=None,
+                   links=None, db=None) -> KVMigrationPlan:
+    """The resolution behind ``TorusComm.kv_migration``: the block-density
+    estimate, the ragged-vs-sparse inner choice, and the shared
+    registry."""
+    axis_names = _as_tuple(axis_names)
+    if isinstance(mesh_or_axis_dims, DeviceMesh):
+        shape = mesh_shape(mesh_or_axis_dims)
+        dims = tuple(shape[n] for n in axis_names)
+        dev_key = device_fingerprint(mesh_or_axis_dims)
+    else:
+        dims = tuple(int(s) for s in mesh_or_axis_dims)
+        if len(dims) != len(axis_names):
+            raise ValueError(f"{len(dims)} dims for {len(axis_names)} axes")
+        dev_key = None
+    p = math.prod(dims)
+    n_prefill = int(n_prefill)
+    if not 0 < n_prefill < p:
+        raise ValueError(f"n_prefill {n_prefill} outside (0, p={p}); a "
+                         "disaggregated topology needs at least one rank "
+                         "in each domain")
+    migrations = float(migrations_per_tick)
+    if migrations <= 0:
+        raise ValueError(f"migrations_per_tick must be > 0, got "
+                         f"{migrations}")
+    pairs = min(migrations, float(n_prefill * (p - n_prefill)))
+    density = max(pairs, 1.0) / float(p * p)
+
+    from .ragged import next_pow2
+    bucket = next_pow2(int(max_count))
+    row_shape = tuple(int(s) for s in row_shape)
+    links_key = None if links is None else resolve_links(links, dims)
+    key = ("kv_migrate", dev_key, dims, axis_names, row_shape,
+           dtype_name(dtype), int(max_count),
+           None if avg_count is None else float(avg_count), n_prefill,
+           migrations, backend, variant,
+           None if round_order is None else tuple(round_order),
+           None if reverse_round_order is None
+           else tuple(reverse_round_order), links_key)
+    cached = _registry_fetch(key)
+    if cached is not None:
+        return cached
+
+    link_models = resolve_links(links, dims, axis_names)
+    row_bytes = math.prod(row_shape) * itemsize(dtype)
+    sched = predict_kv_migration(dims, link_models, float(row_bytes),
+                                 bucket, n_prefill=n_prefill,
+                                 migrations_per_tick=migrations)
+
+    inner_kind = backend
+    tuned_from = None
+    if backend == "tuned":
+        inner_kind = "sparse" if sched.kind == "sparse" else "ragged"
+        tuned_from = "model"
+    if inner_kind == "sparse":
+        inner = _build_sparse_plan(
+            mesh_or_axis_dims, axis_names, row_shape, dtype,
+            max_count=max_count, avg_count=avg_count, density=density,
+            variant=variant, round_order=round_order,
+            reverse_round_order=reverse_round_order, links=links)
+    else:
+        # "ragged" resolves the data phase through the cost model; any
+        # other name is an explicit dense data backend, passed through.
+        data_backend = "tuned" if inner_kind == "ragged" else inner_kind
+        inner = _build_ragged_plan(
+            mesh_or_axis_dims, axis_names, row_shape, dtype,
+            max_count=max_count, avg_count=avg_count,
+            backend=data_backend, variant=variant,
+            round_order=round_order,
+            reverse_round_order=reverse_round_order, links=links, db=db)
+        if tuned_from is None:
+            tuned_from = inner.tuned_from
+
+    plan = KVMigrationPlan(inner, requested_backend=backend,
+                           n_prefill=n_prefill,
+                           migrations_per_tick=migrations,
+                           expected_density=density,
+                           predicted_seconds=sched.predicted_seconds,
+                           tuned_from=tuned_from)
     return _registry_store(key, plan)
 
 

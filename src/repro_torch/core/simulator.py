@@ -20,9 +20,9 @@ the paper's three worked examples (5x4, 2x3x4, 4x3x3x4) and Theorem 1's
 communication-volume formula.
 
 This is ``repro.core.simulator`` (stdlib only) copied into the port: the
-dense oracle, the Alltoallv (ragged and sparse) oracles and the pencil
-transpose oracle of the distributed FFT; the KV-migration oracle comes
-with the slice that ports that collective.
+dense oracle, the Alltoallv (ragged and sparse) oracles, the
+KV-migration oracle of disaggregated serving and the pencil transpose
+oracle of the distributed FFT.
 """
 
 from __future__ import annotations
@@ -285,6 +285,43 @@ def simulate_direct_alltoallv(counts) -> dict[int, list]:
     counts = _counts_matrix(counts, p)
     return {r: [[(i, r, j) for j in range(counts[i][r])] for i in range(p)]
             for r in range(p)}
+
+
+def simulate_kv_migration(
+    dims: tuple[int, ...],
+    n_prefill: int,
+    lengths,
+    round_order: tuple[int, ...] | None = None,
+) -> tuple[dict[int, list], RaggedVolumeCount]:
+    """The KV-cache handoff oracle: an Alltoallv whose count matrix is
+    non-zero only in the prefill->decode block.
+
+    ``lengths`` maps ``(src, dst) -> rows`` (per-sequence KV lengths
+    summed per placement pair); every source must be a prefill rank
+    (``src < n_prefill``) and every destination a decode rank
+    (``n_prefill <= dst < p``) — the block structure
+    ``KVMigrationPlan.pair_counts`` enforces on the live path.  Delegates
+    to :func:`simulate_factorized_alltoallv`, so correctness is the same
+    MPI contract: ``recv[r][s] == [(s, r, j) for j in range(counts[s][r])]``.
+    """
+    p = math.prod(dims)
+    n_prefill = int(n_prefill)
+    if not 0 < n_prefill < p:
+        raise ValueError(f"n_prefill {n_prefill} outside (0, p={p})")
+    counts = [[0] * p for _ in range(p)]
+    for (src, dst), n in lengths.items():
+        src, dst, n = int(src), int(dst), int(n)
+        if not 0 <= src < n_prefill:
+            raise ValueError(f"migration source {src} is not a prefill "
+                             f"rank (n_prefill={n_prefill})")
+        if not n_prefill <= dst < p:
+            raise ValueError(f"migration destination {dst} is not a decode "
+                             f"rank (n_prefill={n_prefill}, p={p})")
+        if n < 0:
+            raise ValueError(f"negative count {n} for pair ({src}, {dst})")
+        counts[src][dst] = n
+    return simulate_factorized_alltoallv(dims, counts,
+                                         round_order=round_order)
 
 
 @dataclass

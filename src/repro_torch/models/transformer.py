@@ -166,6 +166,37 @@ def _position_state(cfg: ModelConfig, mixer, batch, max_seq, device,
     raise ValueError(mixer)
 
 
+def _position_state_logical(cfg: ModelConfig, mixer):
+    """Logical axes mirroring :func:`_position_state`'s leaves (the
+    reference's, name for name)."""
+    if mixer == "attn":
+        kv = ("batch", "kv_heads", "seq_sp", None)
+        return {"k": kv, "v": kv, "slot_pos": ("batch", "seq_sp")}
+    if mixer == "mamba":
+        return {"ssm": ("batch", "mlp", None),
+                "conv": ("batch", None, "mlp")}
+    if mixer == "spectral":
+        return {"ssm": ("batch", "mlp", None)}
+    if mixer == "mlstm":
+        return {"C": ("batch", "heads", None, None),
+                "n": ("batch", "heads", None), "m": ("batch", "heads")}
+    if mixer == "slstm":
+        v = ("batch", None)
+        return {"c": v, "n": v, "m": v, "h": v}
+    raise ValueError(mixer)
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """Logical axes tree matching ``Model.init_caches`` (layer states get
+    a leading stacked superblock dim); the KV-row codec of disaggregated
+    serving reads it (``runtime.serving.KVRowCodec``)."""
+    per_sb = {f"pos{i}": _position_state_logical(cfg, mixer)
+              for i, (mixer, _) in enumerate(cfg.superblock)}
+    states = tree_map(lambda ax: (None,) + tuple(ax), per_sb,
+                      is_leaf=lambda x: isinstance(x, tuple))
+    return {"states": states, "pos": ("batch",)}
+
+
 # ---------------------------------------------------------------------------
 # Superblock application
 # ---------------------------------------------------------------------------

@@ -320,7 +320,8 @@ def test_serve_main_on_cpu_takes_no_kernel():
     assert tuple(out.shape) == (2, 3)
     assert ((0 <= out) & (out < get_config(ARCH, smoke=True).vocab)).all()
     assert flash_attention.launches == fa0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the reference's refusal: the encoder memory is not migrated
+    with pytest.raises(SystemExit, match="enc-dec"):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                     "--disaggregate"])
 

@@ -116,9 +116,14 @@ def test_default_device_refuses_cpu_fallback():
         serve.main(["--arch", ARCH, "--smoke"])
     with pytest.raises(RuntimeError, match="cuda"):
         build_model(get_config(ARCH, smoke=True)).init(torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--disaggregate"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", ARCH, "--smoke", "--disaggregate"])
+    # asked for the CPU, the disaggregated run answers every request
+    out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--disaggregate", "--batch", "2", "--prompt-len", "4",
+                      "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    assert ((0 <= out) & (out < get_config(ARCH, smoke=True).vocab)).all()
 
 
 def _run(args):
