@@ -363,6 +363,38 @@ it fails:
              all-gather path (4 / 1 heads, Hkv < sp) within 2e-2 of the
              flash kernel on the whole sequence.  The seconds of
              [ulysses], [ring] and [pipeline] are printed with their sum.
+12c. recurrent_mesh — in the same 8-rank world after [ulysses], the
+             recurrent mixers under tensor parallelism over model (each
+             mixer's channels or heads split, its [xs | z] projection
+             pairwise) and FSDP over (pod, data), at the fan-in init;
+             every rank draws each global leaf in turn from the seed and
+             keeps its slice, no rank the whole tree.  (b) xlstm-1.3b at
+             full width, one superblock (7 mLSTM, 1 sLSTM; 2 of 4 heads
+             a rank): rank 0 first runs the one-process reference and
+             frees it; one ``make_train_step`` step at B=1 S=1024 a row
+             block (chunkwise mLSTM), all in f32 (in bf16 the
+             roundings alone move xlstm's gradients by 50-100%): every
+             gathered gradient leaf and parameter after the step within
+             2e-2 relative norm of the one-process step's, the loss
+             within 1e-2, the grad norm within 2e-2, the model ranks'
+             whole leaves bit-identical, no kernel launched; prefill and
+             8 ticks within 1e-3 of the largest one-process logit; 25 TP
+             collectives a prefill.  (a) jamba-v0.1-52b at full width,
+             one superblock (EP of the 16 experts over (data, pod), mamba
+             on 4096 of 8192 channels a rank, attention on 16/4 heads,
+             the expert FFN on 7168 of F; capacity factor 2, no row block
+             routing over C): a mesh prefill at B=4 (a sequence a row block)
+             S=2048 and 8 ticks; after the world, the main process runs
+             the one-process port on the same parameters, prompts and
+             ticks replaying the mesh's routing, with the kernels in
+             bf16 and on the plain versions in f32: the mesh's logits no
+             farther from the f32 run than twice the bf16 one-process
+             run's (plus 1e-3 of the largest), as [recurrent]'s decode
+             gate; per rank the launches predicted (gmm
+             ``wgmma`` in the prefill, ``decode`` in the ticks, never
+             ``simt``; flash once; the EP exchanges' reorder passes),
+             the TP collectives a prefill and a tick predicted (2 a
+             mamba call), the mamba state this rank's channels.
 13. train  — after the worlds have ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
@@ -620,7 +652,13 @@ MLSTM_CHECK_S = (512, 256)         # [recurrent] / [train_recurrent]: one
                                    # full-width mLSTM, chunked vs per-step
 TRAIN_RECURRENT = (1, 1024)        # [train_recurrent]: B, S
 XLSTM_CUT_LAYERS = 8               # xlstm's depth in [recurrent]'s forward
-                                   # vs decode and in [train_recurrent]
+                                   # vs decode, [train_recurrent] and
+                                   # [recurrent_mesh]
+RM_JAMBA = (4, 2048, 8)            # [recurrent_mesh] (a): jamba's global B
+                                   # (a sequence a row block), S, ticks
+RM_JAMBA_CF = 2.0                  # (a): capacity factor (no row block may
+                                   # route over C: gated)
+RM_XLSTM_S = 1024                  # (b): xlstm's tokens a row block (B=1)
 F3_TOKENS = 65536                  # [kernels]: jamba's gmm at this prefill
                                    # (C = 10240): E*C*N past 2^31 (fault F3)
 WHISPER = "whisper-tiny"           # encoder-decoder, 1500 frames, hd 64
@@ -3839,6 +3877,321 @@ def _rank_ulysses(rank: int, n: int, seed: int) -> dict:
     return out
 
 
+def _drawn_shard(model, sharding, seed: int, rank: int, n: int):
+    """This rank's shard of ``_fan_in_init(model, model.cfg, seed)``
+    without the whole tree on the card: each global leaf drawn from the
+    seeded generator in the order ``model.init`` draws them, rescaled
+    (:func:`_fan_in_leaf`), cut to this rank's slice
+    (``ExpertSharding.local``) and the rest freed.  The ``n`` ranks of
+    the world draw one after another, a barrier between turns, so the
+    card holds one rank's transient leaf at a time.  Collective."""
+    import torch.distributed as dist
+    cfg = model.cfg
+
+    def walk(specs, prefix, gen):
+        tree = {}
+        for key, spec in specs.items():
+            path = f"{prefix}/{key}" if prefix else key
+            if isinstance(spec, dict):
+                tree[key] = walk(spec, path, gen)
+                continue
+            t = spec.initializer(gen, DEVICE, cfg.pdtype)
+            _fan_in_leaf(path, t, spec.shape, cfg)
+            tree[key] = sharding.local(path, t)
+            del t
+        return tree
+
+    out = None
+    for turn in range(n):
+        if turn == rank:
+            out = walk(model.specs(), "",
+                       torch.Generator(device=DEVICE).manual_seed(seed))
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+@contextlib.contextmanager
+def _tp_calls(mesh):
+    """Counts the tensor-parallel collectives (the all-reduces and
+    all-gathers over ``mesh``'s ``model`` group: what the span
+    repro_torch.tp.all_reduce wraps) run inside, with their host ms, in
+    the yielded ``[calls, ms]``; without the profiler's cost."""
+    import torch.distributed as dist
+    from repro_torch.parallel.sharding import tp_group
+    pg, seen = tp_group(mesh).pg, [0, 0.0]
+    real = {name: getattr(dist, name)
+            for name in ("all_reduce", "all_gather_into_tensor")}
+
+    def counted(fn):
+        def call(*args, group=None, **kwargs):
+            if group is not pg:
+                return fn(*args, group=group, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(*args, group=group, **kwargs)
+            seen[0] += 1
+            seen[1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+    for name, fn in real.items():
+        setattr(dist, name, counted(fn))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _rm_serve(model, params, prefill_toks, decode_toks, mesh=None,
+              record=None, replay=None) -> dict:
+    """Last-position prefill logits (``make_prefill_fn``) and each greedy
+    tick's (``make_serve_step``, teacher-forced from an empty cache of
+    ``decode_toks``' length), full-vocab, on the host, with the host ms
+    of the prefill and of each tick; the router's choices recorded into
+    ``record`` or replayed from ``replay`` (:func:`_routing`).  On a mesh
+    the TP collectives (calls, host ms: :func:`_tp_calls`) of the prefill
+    and of the ticks too.  Returns those and the decode state's
+    shapes."""
+    from repro_torch.models import make_prefill_fn, make_serve_step
+    from repro_torch.models.common import tree_leaves
+    T = decode_toks.shape[1]
+    prefill = make_prefill_fn(model, mesh)
+    serve = make_serve_step(model, mesh)
+
+    def run(fn):
+        if mesh is None:
+            return fn(), (0, 0.0)
+        with _tp_calls(mesh) as seen:
+            out = fn()
+        return out, tuple(seen)
+
+    def ticks_from(caches):
+        ticks, tick_ms = [], []
+        for t in range(T):
+            (_, logits, caches), ms = _host_ms(lambda: serve(
+                params, caches, decode_toks[:, t:t + 1]))
+            ticks.append(logits[:, 0].float().cpu())
+            tick_ms.append(ms)
+        return torch.stack(ticks, 1), tick_ms
+
+    with torch.no_grad(), _routing(record=record, replay=replay) if (
+            record is not None or replay is not None) \
+            else contextlib.nullcontext() as switched:
+        (pre, pre_ms), tp_pre = run(lambda: _host_ms(
+            lambda: prefill(params, prefill_toks)))
+        caches = model.init_caches(decode_toks.shape[0], T, DEVICE,
+                                   mesh=mesh)
+        shapes = {p: tuple(t.shape) for p, t in tree_leaves(
+            caches["states"])}
+        (ticks, tick_ms), tp_ticks = run(lambda: ticks_from(caches))
+    return {"pre": pre.float().cpu(), "ticks": ticks, "pre_ms": pre_ms,
+            "tick_ms": tick_ms, "shapes": shapes, "tp_prefill": tp_pre,
+            "tp_ticks": tp_ticks, "switched": dict(switched or {})}
+
+
+def _rm_jamba_config():
+    """[recurrent_mesh] (a)'s configuration: jamba at full width, one
+    superblock, capacity factor RM_JAMBA_CF."""
+    from repro_torch.configs import get_config
+    return get_config(JAMBA).replace(n_layers=JAMBA_LAYERS,
+                                     capacity_factor=RM_JAMBA_CF)
+
+
+def _rm_jamba_geometry(cfg, mesh) -> dict:
+    """Per rank in (a): each MoE call's capacity C, plan and chunks for
+    the prefill (S tokens) and a tick (1 token); the launches of the
+    prefill and of the ticks (one flash ``wgmma`` a prefill; 3 gmm a
+    chunk a MoE layer, ``wgmma`` in the prefill and ``decode`` in the
+    ticks, on the rank's slice of F; the reorder passes of each exchange
+    both ways); and the TP collectives (span repro_torch.tp.all_reduce)
+    a prefill and a tick: the embedding's sum, 2 a mamba layer (``x_proj``
+    and ``out_proj``), 1 an attention and a dense FFN layer, 1 a chunk a
+    MoE layer, and the logits' gather."""
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        moe_a2a_plan, moe_tp_group)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    fcfg = cfg.replace(d_ff=cfg.d_ff // moe_tp_group(cfg, mesh).size)
+    moe, attn = _moe_layers(cfg), _attn_layers(cfg)
+    mamba = sum(m == "mamba" for m, _ in cfg.superblock) * cfg.n_superblocks
+    dense = cfg.n_layers - moe
+    out = {}
+    for what, T, calls in (("prefill", RM_JAMBA[1], 1),
+                           ("ticks", 1, RM_JAMBA[2])):
+        C = _capacity(cfg, T, max(cfg.n_experts, G))
+        plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+        n = _n_chunks(C, plan.n_chunks) if plan.backend == "overlap" else 1
+        gmm = _gmm_launches(fcfg, E_loc, G * C // n, n)
+        passes = _sum_launches(_dense_launches(plan, False, n),
+                               _dense_launches(plan, True, n))
+        flash = attn if what == "prefill" else 0
+        out[what] = {
+            "C": C, "backend": plan.backend, "n_chunks": n,
+            "launches": _expected(
+                flash_attention=flash, flash_attention_wgmma=flash,
+                **{k: calls * moe * v for k, v in gmm.items()},
+                **{k: calls * moe * v for k, v in passes.items()}),
+            "tp_calls": 1 + 2 * mamba + attn + dense + moe * n + 1}
+    return out
+
+
+def _rank_rm_jamba(rank: int, n: int, seed: int, mesh) -> dict:
+    """[recurrent_mesh] (a) on one rank: jamba's shard drawn leaf by leaf
+    (:func:`_drawn_shard`), a mesh prefill of its row block's sequence
+    and RM_JAMBA ticks, the router's choices recorded, the launches
+    counted, and the TP collectives of the prefill and the ticks.  The
+    one-process runs are the main process's, after the world."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import param_shardings, tree_leaves
+    from repro_torch.parallel.sharding import batch_split, tp_group, tp_rank
+    cfg = _rm_jamba_config()
+    B, S, T = RM_JAMBA
+    model = build_model(cfg)
+    sh = param_shardings(model.specs(), mesh)
+    _, block = batch_split(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    clock = _Clock()
+    params, draw_ms = _host_ms(lambda: _drawn_shard(model, sh, seed, rank,
+                                                    n))
+    clock("draw")
+    tokens = prefill_tokens(cfg, B, S)[block:block + 1]
+    ticks = _tp_serve_tokens(cfg.vocab)[1][block:block + 1, :T]
+    geometry = _rm_jamba_geometry(cfg, mesh)
+    routes = []
+    _reset_counts()
+    served = _rm_serve(model, params, tokens, ticks, mesh, record=routes)
+    counts = _read_counts()
+    clock("prefill and ticks")
+    out = {"times": clock.laps, "block": block,
+           "model": tp_rank(tp_group(mesh)),
+           "n_params": sum(t.numel() for _, t in tree_leaves(params)),
+           "layout_params": _layout_params(model, sh),
+           "paired": sorted(sh.model_groups), "draw_ms": draw_ms,
+           "geometry": geometry, "counts": counts,
+           "routes": [r.cpu() for r in routes],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           **served}
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_rm_xlstm(rank: int, n: int, seed: int, mesh) -> dict:
+    """[recurrent_mesh] (b) on one rank, in f32 (in bf16 the roundings
+    alone move xlstm's gradients by 50-100% of their norm: PERF.md §6):
+    rank 0 first runs the one-process reference (prefill and ticks, then
+    one ``make_train_step`` step on the global batch) and frees it; then
+    the mesh's shard drawn leaf by leaf, prefill and ticks on the mesh
+    (their TP collectives counted), and one step on the rank's row
+    block, whose gradients and parameters, gathered to rank 0, are held
+    against the reference's there."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import CopyTaskConfig, make_copy_task_batch
+    from repro_torch.models import build_model, make_train_step
+    from repro_torch.models.common import (param_shardings, tree_leaves,
+                                           tree_map)
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.parallel.sharding import batch_split, tp_group, tp_rank
+    cfg = get_config(XLSTM).replace(n_layers=XLSTM_CUT_LAYERS,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+    model = build_model(cfg)
+    sh = param_shardings(model.specs(), mesh)
+    _, block = batch_split(mesh)
+    gbatch = make_copy_task_batch(CopyTaskConfig(
+        vocab=cfg.vocab, seq_len=RM_XLSTM_S, global_batch=TP_BLOCKS), 0,
+        DEVICE)
+    pre_toks, dec_toks = _tp_serve_tokens(cfg.vocab)
+    pre_toks = pre_toks[:, :RM_XLSTM_S]
+    out = {"block": block, "model": tp_rank(tp_group(mesh)),
+           "paired": sorted(sh.model_groups)}
+    clock = _Clock()
+
+    def step_of(params, batch, mesh=None):
+        tree_map(lambda t: t.requires_grad_(True), params)
+        opt = _Recorded(AdamW(AdamWConfig(lr=1e-3)))
+        state = opt.init(params)
+        params, state, m = make_train_step(model, opt, mesh)(params, state,
+                                                             batch)
+        return params, state, opt.grads, {k: float(v) for k, v in m.items()}
+
+    if rank == 0:
+        gp = _fan_in_init(model, cfg, seed)
+        one = {"serve": _rm_serve(model, gp, pre_toks, dec_toks)}
+        gp, state, grads, one["metrics"] = step_of(gp, gbatch)
+        one.update(grads={p: g.cpu() for p, g in tree_leaves(grads)},
+                   params={p: t.detach().cpu() for p, t in tree_leaves(gp)})
+        del gp, state, grads
+        torch.cuda.empty_cache()
+    dist.barrier()           # the reference is freed before the mesh state
+    clock("one-process reference")
+    torch.cuda.reset_peak_memory_stats()
+    params = _drawn_shard(model, sh, seed, rank, n)
+    out["n_params"] = sum(t.numel() for _, t in tree_leaves(params))
+    out["layout_params"] = _layout_params(model, sh)
+    clock("draw")
+    _reset_counts()
+    out["serve"] = _rm_serve(model, params, pre_toks[block:block + 1],
+                             dec_toks[block:block + 1], mesh)
+    clock("prefill and ticks")
+    batch = {k: v[block:block + 1] for k, v in gbatch.items()}
+    (params, state, grads, out["metrics"]), out["step_ms"] = _host_ms(
+        lambda: step_of(params, batch, mesh))
+    out["counts"] = _read_counts()
+    clock("step")
+    out["finite_nonzero"] = all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for _, g in tree_leaves(grads))
+    whole = [p for p, _ in tree_leaves(params) if p not in sh.model_axes]
+    out["digests"] = {what: {p: _digest(t) for p, t in tree_leaves(tree)
+                             if p in whole}
+                      for what, tree in (("grads", grads),
+                                         ("params", params))}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["state_gb"] = sum(t.numel() * t.element_size() for _, t in
+                          tree_leaves({"p": params, "o": state})) / 1e9
+    gap = lambda a, b: float((a - b).norm() / b.norm())
+    for what, tree in (("grads", grads), ("params", params)):
+        full = sh.gather_tree_to_writer(tree)
+        if rank == 0:
+            out[f"vs_one_{what}"] = {p: gap(t, one[what][p])
+                                     for p, t in tree_leaves(full)}
+        del full
+    clock("gathers")
+    if rank == 0:
+        out["one"] = {"metrics": one["metrics"], "serve": one["serve"]}
+    out["times"] = clock.laps
+    del params, state, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Clock:
+    """Host seconds between calls, by label (``laps``)."""
+
+    def __init__(self):
+        self.t, self.laps = time.perf_counter(), {}
+
+    def __call__(self, label: str) -> None:
+        now = time.perf_counter()
+        self.laps[label] = now - self.t
+        self.t = now
+
+
+def _rank_recurrent_mesh(rank: int, n: int, seed: int) -> dict:
+    """[recurrent_mesh] on one rank of [train_tp]'s world, after
+    [ulysses]: (b) xlstm's step and serving, then (a) jamba's serving."""
+    from repro_torch.core.cache import cart_create
+    torch.cuda.set_device(0)
+    mesh = cart_create(n, *TP_MESH, device_type=DEVICE)
+    t0 = time.perf_counter()
+    out = {"xlstm": _rank_rm_xlstm(rank, n, seed, mesh),
+           "jamba": _rank_rm_jamba(rank, n, seed, mesh)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _rank_ring(rank: int, n: int) -> dict:
     """[ring] on one rank of the 4-rank world: ring attention on a
     (model=4) mesh at phi3.5's attention shapes, bf16, causal and with a
@@ -4292,15 +4645,17 @@ def _timed(fn, *args) -> dict:
 
 
 def _tp_world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
-    """One rank of the 8-rank world on TP_MESH: [train_tp], then
-    [ulysses]."""
+    """One rank of the 8-rank world on TP_MESH: [train_tp], [ulysses],
+    then [recurrent_mesh]."""
     return {"train_tp": _rank_train_tp(rank, n, seed, tmp),
-            "ulysses": _timed(_rank_ulysses, rank, n, seed)}
+            "ulysses": _timed(_rank_ulysses, rank, n, seed),
+            "recurrent_mesh": _rank_recurrent_mesh(rank, n, seed)}
 
 
-def run_tp_world(seed: int, timeout: float = 900.0) -> list:
-    """Spawn the 8-rank world of [train_tp] and [ulysses] (as
-    :func:`run_world`) and return each rank's result."""
+def run_tp_world(seed: int, timeout: float = 1000.0) -> list:
+    """Spawn the 8-rank world of [train_tp], [ulysses] and
+    [recurrent_mesh] (as :func:`run_world`) and return each rank's
+    result."""
     import os
     import torch_dist
     with tempfile.TemporaryDirectory() as tmp:
@@ -5448,6 +5803,288 @@ def phase_ulysses(results) -> dict:
             for k in keys}
 
 
+def _rm_by_block(results, key: str, phase: str = "recurrent_mesh") -> dict:
+    """Each row block's ranks' results of ``key``, every block present
+    with |model| ranks; the model ranks of a block must agree bit for bit
+    on their serving logits."""
+    by_block = {}
+    for r in results:
+        t = r["recurrent_mesh"][key]
+        by_block.setdefault(t["block"], []).append(t)
+    if sorted(by_block) != list(range(TP_BLOCKS)) or any(
+            len(v) != TP_WORLD // TP_BLOCKS for v in by_block.values()):
+        fail(f"[{phase}] {key}: row blocks per rank "
+             f"{[r['recurrent_mesh'][key]['block'] for r in results]}")
+    for b, ranks in by_block.items():
+        serve = lambda t: t["serve"] if "serve" in t else t
+        for t in ranks[1:]:
+            for k in ("pre", "ticks"):
+                if not torch.equal(serve(t)[k], serve(ranks[0])[k]):
+                    fail(f"[{phase}] {key} row block {b}: model rank "
+                         f"{t['model']}'s {k} logits differ from model "
+                         f"rank {ranks[0]['model']}'s bits")
+    return by_block
+
+
+def _rm_gate_xlstm(results) -> dict:
+    """(b)'s gates: see :func:`phase_recurrent_mesh`.  Returns the
+    mesh's launches (none)."""
+    by_block = _rm_by_block(results, "xlstm")
+    r0 = results[0]["recurrent_mesh"]["xlstm"]
+    one = r0["one"]
+    for rank, r in enumerate(results):
+        t = r["recurrent_mesh"]["xlstm"]
+        if not t["paired"]:
+            fail(f"[recurrent_mesh] xlstm rank {rank}: no paired leaf")
+        if t["n_params"] != t["layout_params"]:
+            fail(f"[recurrent_mesh] xlstm rank {rank} holds {t['n_params']} "
+                 f"parameters, its layout {t['layout_params']}")
+        if not t["finite_nonzero"]:
+            fail(f"[recurrent_mesh] xlstm rank {rank}: a reduced gradient "
+                 f"leaf is not finite or is zero")
+        if t["counts"] != _expected():
+            fail(f"[recurrent_mesh] xlstm rank {rank} launched "
+                 f"{t['counts']}, expected no kernel")
+        for k, v in t["metrics"].items():
+            if v != r0["metrics"][k]:
+                fail(f"[recurrent_mesh] xlstm rank {rank}'s {k} {v} differs "
+                     f"from rank 0's {r0['metrics'][k]}")
+    for b, ranks in by_block.items():
+        for t in ranks[1:]:
+            if t["digests"] != ranks[0]["digests"]:
+                fail(f"[recurrent_mesh] xlstm row block {b}: model rank "
+                     f"{t['model']}'s whole leaves differ from model rank "
+                     f"{ranks[0]['model']}'s bits")
+    for what in ("grads", "params"):
+        worst = max(r0[f"vs_one_{what}"].items(), key=lambda kv: kv[1])
+        if not worst[1] <= TRAIN_GRAD_TOL:
+            fail(f"[recurrent_mesh] xlstm: the gathered mesh {what} of "
+                 f"{worst[0]} lie {worst[1]:.3g} from the one-process "
+                 f"step's (relative norm; limit {TRAIN_GRAD_TOL})")
+    m, w = r0["metrics"], one["metrics"]
+    if not abs(m["total_loss"] - w["total_loss"]) <= 1e-2 * abs(
+            w["total_loss"]) or not abs(m["grad_norm"] - w["grad_norm"]) \
+            <= TRAIN_GRAD_TOL * w["grad_norm"]:
+        fail(f"[recurrent_mesh] xlstm: mesh loss {m['total_loss']} / grad "
+             f"norm {m['grad_norm']} vs one process {w['total_loss']} / "
+             f"{w['grad_norm']} (limits 1e-2 / {TRAIN_GRAD_TOL} relative)")
+    pre = torch.cat([by_block[b][0]["serve"]["pre"]
+                     for b in range(TP_BLOCKS)])
+    ticks = torch.cat([by_block[b][0]["serve"]["ticks"]
+                       for b in range(TP_BLOCKS)])
+    scale = float(one["serve"]["pre"].abs().max())
+    gaps = (float((pre - one["serve"]["pre"]).abs().max()),
+            float((ticks - one["serve"]["ticks"]).abs().max()))
+    if not max(gaps) <= FVD_TOL * scale:
+        fail(f"[recurrent_mesh] xlstm mesh prefill / ticks differ from "
+             f"one process by {gaps} (largest logit {scale:.4g}; limit "
+             f"{FVD_TOL} of it)")
+    calls, tp_ms = r0["serve"]["tp_prefill"]
+    from repro_torch.configs import get_config
+    cfg = get_config(XLSTM).replace(n_layers=XLSTM_CUT_LAYERS)
+    mixers = [m for m, _ in cfg.superblock] * cfg.n_superblocks
+    want = 1 + 3 * mixers.count("mlstm") + 2 * mixers.count("slstm") + 1
+    if calls != want:
+        fail(f"[recurrent_mesh] xlstm's mesh prefill ran {calls} TP "
+             f"collectives, expected {want}")
+    cfg_s = (f"{cfg.name} x{cfg.n_layers} layers "
+             f"({mixers.count('mlstm')} mLSTM, {mixers.count('slstm')} sLSTM)")
+    worst_g = max(r0["vs_one_grads"].items(), key=lambda kv: kv[1])
+    worst_p = max(r0["vs_one_params"].items(), key=lambda kv: kv[1])
+    ranks = [r["recurrent_mesh"]["xlstm"] for r in results]
+    log(f"[recurrent_mesh] (b) {cfg_s} at full width, fan-in init, on "
+        f"(pod=2, data=2, model=2), {TP_WORLD} gloo ranks of one card: 2 of "
+        f"4 mLSTM heads a rank (its [xi | z] columns of up paired), the "
+        f"sLSTM cell whole on every rank, FSDP over (pod, data), all in "
+        f"f32; one make_train_step step at B=1 S={RM_XLSTM_S} a row block "
+        f"(chunkwise mLSTM): loss {m['total_loss']:.6g} (one process "
+        f"{w['total_loss']:.6g}), grad norm {m['grad_norm']:.6g} "
+        f"({w['grad_norm']:.6g}); every gathered gradient leaf within "
+        f"{worst_g[1]:.3g} relative norm of the one-process step's (worst "
+        f"{worst_g[0]}; limit {TRAIN_GRAD_TOL}), the parameters after it "
+        f"within {worst_p[1]:.3g} ({worst_p[0]}); the model ranks' whole "
+        f"leaves bit-identical; prefill (S={RM_XLSTM_S}) and "
+        f"{TP_TICKS} ticks against one process: max |diff| {gaps[0]:.4g} / "
+        f"{gaps[1]:.4g} (largest logit {scale:.4g}; limit {FVD_TOL} of it); "
+        f"TP collectives a prefill {calls} (1 a vocab sum, 3 a mLSTM call, "
+        f"2 an sLSTM call, 1 a logits gather), {tp_ms:.1f} ms of host time; "
+        f"no kernel launched")
+    log(f"[recurrent_mesh] (b) per rank on {_card()}: params (B) "
+        f"{[round(t['n_params'] / 1e9, 4) for t in ranks]}, params and "
+        f"AdamW state (GB) {[round(t['state_gb'], 3) for t in ranks]}, peak "
+        f"(GiB) {[round(t['peak_gib'], 2) for t in ranks]}; host ms: step "
+        f"{[round(t['step_ms'], 1) for t in ranks]}, prefill "
+        f"{[round(t['serve']['pre_ms'], 1) for t in ranks]}, median tick "
+        f"{[round(float(np.median(t['serve']['tick_ms'])), 1) for t in ranks]}"
+        )
+    return _expected()
+
+
+def _rm_jamba_one_process(results, seed: int) -> tuple[dict, dict, dict]:
+    """(a)'s one-process runs in the main process, after the world: the
+    same parameters (``_fan_in_init``, the leaves the ranks drew), the
+    global prompts and ticks, each router call replaying the mesh's
+    choices (its row blocks' in block order): with the kernels in bf16,
+    then in f32 on the plain versions (the parameters cast in place).
+    Returns both serving results and the mesh's row blocks."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    by_block = _rm_by_block(results, "jamba")
+    calls = len(by_block[0][0]["routes"])
+    replay = [torch.cat([by_block[b][0]["routes"][i]
+                         for b in range(TP_BLOCKS)]).to(DEVICE)
+              for i in range(calls)]
+    cfg = _rm_jamba_config()
+    B, S, T = RM_JAMBA
+    tokens = prefill_tokens(cfg, B, S)
+    ticks = _tp_serve_tokens(cfg.vocab)[1][:, :T]
+    model = build_model(cfg)
+    params = _fan_in_init(model, cfg, seed)
+    one = _rm_serve(model, params, tokens, ticks, replay=replay)
+    _cast_in_place(params, torch.float32)
+    torch.cuda.empty_cache()
+    with ops.plain_versions():
+        f32 = _rm_serve(build_model(cfg.replace(param_dtype="float32",
+                                                compute_dtype="float32")),
+                        params, tokens, ticks, replay=replay)
+    del params, model
+    torch.cuda.empty_cache()
+    return one, f32, by_block
+
+
+def phase_recurrent_mesh(results, seed: int) -> dict:
+    """[recurrent_mesh]'s gates.  (b) xlstm, in f32: every rank holds the
+    parameters its layout says, a paired leaf among them; its reduced
+    gradients finite and non-zero; no kernel launched; the metrics the
+    same on every rank; the model ranks of each row block bit-identical
+    (whole leaves' reduced gradients and parameters, serving logits);
+    every gathered gradient leaf and parameter after the step within
+    TRAIN_GRAD_TOL relative norm of the one-process step's, the loss
+    within 1e-2 and the grad norm within TRAIN_GRAD_TOL; the f32 prefill
+    and ticks within FVD_TOL of the largest one-process logit; the
+    prefill's TP collectives the prediction.  (a) jamba: each rank's
+    parameters its layout's; no row block routes more than C tokens to
+    an expert (no token dropped, so the one-process run, which replays
+    the routing, is a reference); the launches of the prefill and of the
+    ticks the prediction (:func:`_rm_jamba_geometry`; never ``simt``);
+    the TP collectives of a prefill and of a tick the prediction; the
+    decode state this rank's slice (mamba's ``ssm`` and ``conv`` over
+    ``mlp``); the model ranks' logits bit-identical; the prefill and tick
+    logits no farther from an f32 one-process run on the plain versions
+    than FVD_RATIO times the bf16 one-process run (plus FVD_TOL of the
+    largest logit), [recurrent]'s decode gate: in bf16 the roundings
+    alone move jamba's logits by percents, the TP sums' other order
+    among them.  Returns the launches over the ranks."""
+    for key in ("xlstm", "jamba"):
+        laps = [r["recurrent_mesh"][key]["times"] for r in results]
+        slowest = {k: round(max(t[k] for t in laps), 1) for k in laps[0]}
+        log(f"[recurrent_mesh] {key}: host seconds of each part, rank 0 "
+            f"{ {k: round(v, 1) for k, v in laps[0].items()} }, the slowest "
+            f"rank {slowest}")
+    counts = _rm_gate_xlstm(results)
+    t0 = time.perf_counter()
+    one, f32, by_block = _rm_jamba_one_process(results, seed)
+    one_s = time.perf_counter() - t0
+    cfg = _rm_jamba_config()
+    B, S, T = RM_JAMBA
+    r0 = results[0]["recurrent_mesh"]["jamba"]
+    geo = r0["geometry"]
+    for rank, r in enumerate(results):
+        t = r["recurrent_mesh"]["jamba"]
+        if t["n_params"] != t["layout_params"] or not t["paired"]:
+            fail(f"[recurrent_mesh] jamba rank {rank} holds {t['n_params']} "
+                 f"parameters, its layout {t['layout_params']}; paired "
+                 f"leaves {t['paired']}")
+        want = _sum_counts(geo["prefill"]["launches"],
+                           geo["ticks"]["launches"])
+        if t["counts"] != want or t["counts"]["grouped_matmul_simt"]:
+            fail(f"[recurrent_mesh] jamba rank {rank}'s prefill and "
+                 f"{T} ticks launched {t['counts']}, expected {want}")
+        for what, key, k in (("prefill", "tp_prefill", 1),
+                             ("ticks", "tp_ticks", T)):
+            if t[key][0] != k * geo[what]["tp_calls"]:
+                fail(f"[recurrent_mesh] jamba rank {rank}: {t[key][0]} TP "
+                     f"collectives in the {what}, expected "
+                     f"{k} x {geo[what]['tp_calls']}")
+        ssm = t["shapes"]["pos0/ssm"]
+        Ein = cfg.ssm_expand * cfg.d_model
+        if ssm != (cfg.n_superblocks, 1, Ein // 2, cfg.ssm_state) or \
+                t["shapes"]["pos0/conv"] != (cfg.n_superblocks, 1,
+                                             cfg.ssm_conv - 1, Ein // 2):
+            fail(f"[recurrent_mesh] jamba rank {rank}'s mamba state "
+                 f"{ssm} / {t['shapes']['pos0/conv']}: not this rank's "
+                 f"{Ein // 2} of {Ein} channels")
+    C = geo["prefill"]["C"]
+    for b, ranks in by_block.items():
+        for i, idx in enumerate(ranks[0]["routes"][:_moe_layers(cfg)]):
+            most = int(torch.bincount(idx.reshape(-1),
+                                      minlength=cfg.n_experts).max())
+            if most > C:
+                fail(f"[recurrent_mesh] jamba row block {b} routed {most} "
+                     f"tokens to one expert in MoE layer {i}, over C={C}: "
+                     f"tokens dropped, the one-process run is no reference")
+    gaps = {}
+    for k in ("pre", "ticks"):
+        mesh = torch.cat([by_block[b][0][k] for b in range(TP_BLOCKS)])
+        gap = lambda a, b: float((a - b).abs().max())
+        gaps[k] = dict(one=gap(mesh, one[k]), mesh_f32=gap(mesh, f32[k]),
+                       one_f32=gap(one[k], f32[k]),
+                       scale=float(f32[k].abs().max()))
+        g = gaps[k]
+        if not g["mesh_f32"] <= FVD_RATIO * g["one_f32"] \
+                + FVD_TOL * g["scale"]:
+            fail(f"[recurrent_mesh] jamba mesh {k} logits lie "
+                 f"{g['mesh_f32']:.4g} from the f32 one-process run, the "
+                 f"bf16 one-process run {g['one_f32']:.4g} (limit "
+                 f"{FVD_RATIO}x that, plus {FVD_TOL} of the largest logit "
+                 f"{g['scale']:.4g})")
+    ranks = [r["recurrent_mesh"]["jamba"] for r in results]
+    Ein = cfg.ssm_expand * cfg.d_model
+    log(f"[recurrent_mesh] (a) {cfg.name} d={cfg.d_model} "
+        f"Ein={Ein} heads {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} F={cfg.d_ff} E={cfg.n_experts} vocab={cfg.vocab} "
+        f"x{cfg.n_layers} layers at full width, fan-in init, capacity "
+        f"factor {cfg.capacity_factor}, on (pod=2, data=2, model=2): EP of "
+        f"the {cfg.n_experts} experts over (data, pod), "
+        f"{cfg.n_experts // TP_BLOCKS} a rank; mamba on {Ein // 2} of {Ein} "
+        f"channels a rank (in_proj's [xs | z] paired), attention on "
+        f"{cfg.n_heads // 2}/{cfg.n_kv_heads // 2} heads, the expert FFN on "
+        f"{cfg.d_ff // 2} of F; FSDP over (pod, data).  "
+        f"Prefill B={B} (one sequence a row block) S={S}: C={C}, plan "
+        f"{geo['prefill']['backend']} x{geo['prefill']['n_chunks']} chunks; "
+        f"{T} ticks: C={geo['ticks']['C']}, plan {geo['ticks']['backend']}. "
+        f"Full-vocab logits, prefill / ticks, against the one-process runs "
+        f"replaying the mesh's routing (the bf16 run's own would differ "
+        f"for {one['switched'].get('switched', 0)} of "
+        f"{one['switched'].get('tokens', 0)} (token, router call) pairs): "
+        f"from the f32 plain run (largest logit "
+        f"{gaps['pre']['scale']:.4g} / {gaps['ticks']['scale']:.4g}) the "
+        f"mesh lies {gaps['pre']['mesh_f32']:.4g} / "
+        f"{gaps['ticks']['mesh_f32']:.4g}, the bf16 one-process run "
+        f"{gaps['pre']['one_f32']:.4g} / {gaps['ticks']['one_f32']:.4g} "
+        f"(limit {FVD_RATIO}x that plus {FVD_TOL} of the largest); mesh vs "
+        f"the bf16 one-process run {gaps['pre']['one']:.4g} / "
+        f"{gaps['ticks']['one']:.4g}; "
+        f"launches per rank {r0['counts']}; TP collectives a prefill "
+        f"{r0['tp_prefill'][0]} ({r0['tp_prefill'][1]:.1f} host ms), a tick "
+        f"{r0['tp_ticks'][0] // T} ({r0['tp_ticks'][1] / T:.1f} host ms): 2 "
+        f"a mamba call, 1 an attention, dense FFN and MoE chunk call, 1 "
+        f"vocab sum, 1 logits gather")
+    log(f"[recurrent_mesh] (a) per rank on {_card()}: params (B) "
+        f"{[round(t['n_params'] / 1e9, 4) for t in ranks]}, peak (GiB) "
+        f"{[round(t['peak_gib'], 2) for t in ranks]}; host ms: draw "
+        f"{[round(t['draw_ms'], 1) for t in ranks]}, prefill "
+        f"{[round(t['pre_ms'], 1) for t in ranks]}, median tick "
+        f"{[round(float(np.median(t['tick_ms'])), 1) for t in ranks]}; "
+        f"one process (in {one_s:.1f} s, init and the f32 run "
+        f"included): prefill {one['pre_ms']:.1f} ms, median tick "
+        f"{float(np.median(one['tick_ms'])):.1f} ms")
+    world_s = max(r["recurrent_mesh"]["seconds"] for r in results)
+    log(f"[recurrent_mesh] {world_s:.1f} s in the world")
+    return {k: counts[k] + sum(r["recurrent_mesh"]["jamba"]["counts"][k]
+                               for r in results) for k in counts}
+
+
 def phase_ring(results) -> float:
     """[ring]'s log (each rank compared its shard with the flash kernel
     within 2e-2 as it ran); returns its seconds."""
@@ -5847,21 +6484,27 @@ def _fan_in_scale(params, specs, cfg) -> None:
     leaf's global spec, so a rank's shard scales as its global leaf."""
     from repro_torch.models.common import tree_leaves
     shapes = {path: spec.shape for path, spec in tree_leaves(specs)}
+    for path, t in tree_leaves(params):
+        _fan_in_leaf(path, t, shapes[path], cfg)
+
+
+def _fan_in_leaf(path: str, t, shape, cfg) -> None:
+    """One leaf of :func:`_fan_in_scale` (global shape ``shape``)."""
+    name = path.rsplit("/", 1)[-1]
+    if name in ("wq", "wk", "wv", "router"):
+        fan_in = shape[1]
+    elif name == "wo":                     # attention's (L, H, hd, D)
+        fan_in = math.prod(shape[1:-1])
+    elif name in _FAN_IN_PENULTIMATE:
+        fan_in = shape[-2]
+    elif name == "embed":
+        with torch.no_grad():
+            t.mul_(1.0 / math.sqrt(cfg.d_model))
+        return
+    else:
+        return
     with torch.no_grad():
-        for path, t in tree_leaves(params):
-            name, shape = path.rsplit("/", 1)[-1], shapes[path]
-            if name in ("wq", "wk", "wv", "router"):
-                fan_in = shape[1]
-            elif name == "wo":             # attention's (L, H, hd, D)
-                fan_in = math.prod(shape[1:-1])
-            elif name in _FAN_IN_PENULTIMATE:
-                fan_in = shape[-2]
-            elif name == "embed":
-                t.mul_(1.0 / math.sqrt(cfg.d_model))
-                continue
-            else:
-                continue
-            t.mul_(math.sqrt(shape[0] / fan_in))
+        t.mul_(math.sqrt(shape[0] / fan_in))
 
 
 def _dir_bytes(path) -> int:
@@ -6770,7 +7413,14 @@ def main() -> int:
     paths["train_tp"] = phase_train_tp(tp_world)
     paths["ulysses"] = phase_ulysses(tp_world)
     added += max(r["ulysses"]["seconds"] for r in tp_world)
+    t0 = time.perf_counter()
+    paths["recurrent_mesh"] = phase_recurrent_mesh(tp_world, seed)
+    secs = max(r["recurrent_mesh"]["seconds"] for r in tp_world) \
+        + time.perf_counter() - t0
+    log(f"[recurrent_mesh]: {secs:.1f} s of the run (the world's ranks and "
+        f"the main process's one-process runs)")
     del tp_world
+    torch.cuda.empty_cache()
     log(f"[ulysses] + [ring] + [pipeline]: {added:.1f} s of the run")
     paths["train"] = phase_train()
     paths["train_danube"], secs = phase_train_danube()

@@ -9,7 +9,8 @@ importing this module touches no device.  The port trains and serves on
 each of them: experts and the batch over ``pod`` / ``data``, tensor
 parallelism or, with ``use_ulysses``, sequence parallelism over
 ``model``.  :func:`check_trainable` refuses a configuration whose query
-heads Ulysses cannot share out over ``model``.
+heads Ulysses cannot share out over ``model``, or whose mLSTM heads
+tensor parallelism cannot (xlstm-1.3b's 4 heads on ``model`` = 8).
 :func:`survivor_mesh` is the elastic trainer's mesh after a device loss:
 the EP torus rebuilt over the survivors (``TorusComm.rebuild``), built by
 the survivors alone.
@@ -70,6 +71,9 @@ def check_trainable(mesh_or_shape, cfg=None) -> None:
             f"{cfg.name}: Ulysses over 'model' needs n_heads "
             f"({cfg.n_heads}) divisible by model ({sp}) on the mesh "
             f"{shape}")
+    if cfg is not None and any(m == "mlstm" for m, _ in cfg.superblock):
+        from repro_torch.models.xlstm import check_mlstm_heads
+        check_mlstm_heads(cfg, shape)
 
 
 def survivor_mesh(mesh, lost):

@@ -45,6 +45,11 @@ class ParamSpec:
     # read by a sequence-parallel block over ``model`` (Ulysses): held
     # whole over ``model``, each rank's gradient its sequence slice's part
     seq_parallel: bool = False
+    # the dim ``model`` splits holds this many equal column groups side by
+    # side (a fused ``[xs | z]`` product: 2); rank m holds the m-th slice
+    # of each group, so that its columns still pair up.  The global leaf
+    # is the reference's; only which columns a rank holds changes.
+    column_groups: int = 1
 
     def initializer(self, generator: torch.Generator, device,
                     param_dtype: torch.dtype) -> torch.Tensor:
@@ -103,7 +108,8 @@ def param_shardings(specs, mesh, rules=None):
     every leaf whose logical axes name ``"expert"`` over the EP group
     (``ep_axes(mesh)``), and the dim the resolver gives ``model`` under
     ``rules`` (``parallel.sharding.model_dim``: heads, kv heads, the
-    FFN's hidden dim, the vocab) over ``model``, and the dim an FSDP
+    FFN's hidden dim, the vocab, the recurrent mixers' channels) over
+    ``model``, and the dim an FSDP
     rule resolves to ``pod`` / ``data`` (``parallel.sharding.fsdp_dim``:
     the ``d_model`` dim of the embedding, attention and the dense FFN)
     over the axes the resolver kept.  Expert leaves take no FSDP split:
@@ -117,7 +123,7 @@ def param_shardings(specs, mesh, rules=None):
     from repro_torch.parallel.sharding import (ExpertSharding, ep_axes,
                                                fsdp_dim, model_dim)
     axes, model_axes, fsdp_axes, n_experts = {}, {}, {}, None
-    kept = set()
+    groups, kept = {}, set()
     leaves = tree_leaves(specs)
     for path, spec in leaves:
         if ep_axes(mesh) and "expert" in spec.logical:
@@ -131,6 +137,14 @@ def param_shardings(specs, mesh, rules=None):
             spec.shape, spec.logical, mesh, rules)
         if dim is not None:
             model_axes[path] = dim
+            k, t = spec.column_groups, mesh_shape(mesh)["model"]
+            if k > 1:
+                if spec.shape[dim] % (k * t):
+                    raise ValueError(
+                        f"{path}: {k} column groups of "
+                        f"{spec.shape[dim] // k} do not split over "
+                        f"model={t}")
+                groups[path] = k
         split = None if path in axes else fsdp_dim(spec.shape, spec.logical,
                                                    mesh, rules)
         if split is not None:
@@ -147,7 +161,8 @@ def param_shardings(specs, mesh, rules=None):
     if mesh_shape(mesh).get("model", 1) > 1:
         partial |= {p for p, spec in leaves if spec.seq_parallel}
     return ExpertSharding(axes, n_experts or 1, mesh, model_axes, partial,
-                          fsdp_axes, kept.pop() if kept else (), rules)
+                          fsdp_axes, kept.pop() if kept else (), rules,
+                          groups)
 
 
 def init_params(specs, generator: torch.Generator, device,

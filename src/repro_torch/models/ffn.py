@@ -11,8 +11,7 @@ from __future__ import annotations
 
 from repro_torch.models.common import ParamSpec, gelu, silu
 from repro_torch.models.remat import dot
-from repro_torch.parallel.sharding import (model_dim, tp_copy, tp_group,
-                                           tp_reduce)
+from repro_torch.parallel.sharding import split_group, tp_copy, tp_reduce
 from .config import ModelConfig
 
 
@@ -36,20 +35,19 @@ def ffn_block(p, x, cfg: ModelConfig, mesh=None, rules=None):
     """x: (B, S, D) -> (B, S, D); on a mesh that splits the hidden dim,
     over this rank's slice of it, summed over ``model``."""
     cd = cfg.cdtype
-    spec = ffn_specs(cfg)["w1"]
-    group = None if model_dim(spec.shape, spec.logical, mesh, rules) is None \
-        else tp_group(mesh)
+    group = split_group(ffn_specs(cfg)["w1"], mesh, rules)
     x = tp_copy(x.to(cd), group)
     if cfg.act == "swiglu":
         h = silu(dot(x, p["w1"].to(cd))) * dot(x, p["w3"].to(cd))
-        return _down(h, p["w2"], cd, group)
+        return row_parallel(h, p["w2"], cd, group)
     h = gelu(dot(x, p["w1"].to(cd)) + p["b1"].to(cd))
-    return _down(h, p["w2"], cd, group) + p["b2"].to(cd)
+    return row_parallel(h, p["w2"], cd, group) + p["b2"].to(cd)
 
 
-def _down(h, w2, cd, group):
-    """``h @ w2``; under tensor parallelism the partial sums stay f32
-    until they are summed over ``model`` (one rounding, as on one
+def row_parallel(h, w2, cd, group):
+    """``h @ w2`` in ``cd``; under tensor parallelism (``group``: the
+    ``model`` group ``w2``'s rows are split over) the partial sums stay
+    f32 until they are summed over ``model`` (one rounding, as on one
     device)."""
     if group is None:
         return dot(h, w2.to(cd))

@@ -11,6 +11,16 @@ reference's arithmetic), then the steps run in a Python loop, two ops
 each.  Under autograd with
 ``cfg.recurrent_step_remat`` each chunk is checkpointed, so
 backpropagation through time keeps only the carried state.
+
+On a mesh whose ``model`` dim splits the ``mlp`` channels (the resolver,
+as ``models.ffn``; where it does not divide, the block runs whole), each
+rank runs ``Ein / |model|`` of the ``Ein`` channels: ``in_proj`` is
+column-parallel with its ``[xs | z]`` halves split pairwise
+(``ParamSpec.column_groups``), the conv, ``dt_proj``, ``A_log`` and
+``D_skip`` are the rank's channels, ``x_proj`` is row-split so its
+``(dt, B, C)`` product is summed over ``model`` (``tp_sum``, both
+passes), the scan runs on the local channels with no collective, and
+``out_proj`` is row-parallel: two all-reduces a call.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec, silu
+from repro_torch.models.ffn import row_parallel
 from repro_torch.models.remat import chunked_scan, dot
+from repro_torch.parallel.sharding import split_group, tp_copy, tp_sum
 from .config import ModelConfig
 
 
@@ -35,7 +47,8 @@ def mamba_specs(cfg: ModelConfig) -> dict:
     n = cfg.ssm_state
     r = _dt_rank(cfg)
     return {
-        "in_proj": ParamSpec((D, 2 * Ein), ("embed_fsdp", "mlp")),
+        "in_proj": ParamSpec((D, 2 * Ein), ("embed_fsdp", "mlp"),
+                             column_groups=2),
         "conv_w": ParamSpec((cfg.ssm_conv, Ein), (None, "mlp")),
         "conv_b": ParamSpec((Ein,), ("mlp",), init="zeros"),
         "x_proj": ParamSpec((Ein, r + 2 * n), ("mlp", None)),
@@ -47,10 +60,18 @@ def mamba_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _ssm_params(p, xc, cfg):
-    """Input-dependent (dt, B, C) from the conv branch xc: (B, S, Ein)."""
+def mixer_group(cfg: ModelConfig, mesh=None, rules=None):
+    """The ``model`` group the block's channels are split over (the
+    resolver's split of ``in_proj``), or None where it runs whole."""
+    return split_group(mamba_specs(cfg)["in_proj"], mesh, rules)
+
+
+def _ssm_params(p, xc, cfg, group=None):
+    """Input-dependent (dt, B, C) from the conv branch xc: (B, S, Ein)
+    (this rank's channels; the ``x_proj`` product summed over
+    ``group``)."""
     n, r = cfg.ssm_state, _dt_rank(cfg)
-    proj = dot(xc.float(), p["x_proj"].float())
+    proj = tp_sum(dot(xc.float(), p["x_proj"].float()), group)
     dt_in, Bm, Cm = torch.split(proj, [r, n, n], dim=-1)
     dt = F.softplus(dot(dt_in, p["dt_proj"].float())
                     + p["dt_bias"].float())                # (B, S, Ein)
@@ -77,17 +98,20 @@ def _selective_chunk(h, xc, dt, Bm, Cm, A):
     return h, torch.einsum("bten,btn->bte", torch.stack(hs, 1), Cm)
 
 
-def mamba_block(p, x, cfg: ModelConfig, state=None):
+def mamba_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
     """x: (B, S, D).  state: None (train / prefill from scratch) or a dict
     with 'ssm' (B, Ein, n) f32 and 'conv' (B, K-1, Ein) for incremental
-    decode.  Returns (y, new_state)."""
+    decode (on a mesh, Ein this rank's channels).  Returns (y,
+    new_state)."""
     B, S, D = x.shape
-    Ein = cfg.ssm_expand * D
+    group = mixer_group(cfg, mesh, rules)
+    Ein = cfg.ssm_expand * D // (1 if group is None else group.size)
     K = cfg.ssm_conv
     n = cfg.ssm_state
     cd = cfg.cdtype
 
-    xz = dot(x.to(cd), p["in_proj"].to(cd))                # (B, S, 2Ein)
+    x = tp_copy(x.to(cd), group)
+    xz = dot(x, p["in_proj"].to(cd))                       # (B, S, 2Ein)
     xs, z = xz.chunk(2, dim=-1)
 
     if state is None:
@@ -110,11 +134,11 @@ def mamba_block(p, x, cfg: ModelConfig, state=None):
         xc = xc + p["conv_b"].float()
     xc = silu(xc)                                          # (B, S, Ein) f32
 
-    dt, Bm, Cm = _ssm_params(p, xc, cfg)
+    dt, Bm, Cm = _ssm_params(p, xc, cfg, group)
     A = -torch.exp(p["A_log"].float())                     # (Ein, n)
     h_final, y = chunked_scan(_selective_chunk, ssm0, (xc, dt, Bm, Cm),
                               (A,), remat=cfg.recurrent_step_remat)
     y = y + xc * p["D_skip"].float()
     y = y.to(cd) * silu(z)
-    out = dot(y, p["out_proj"].to(cd))
+    out = row_parallel(y, p["out_proj"], cd, group)
     return out, {"ssm": h_final, "conv": xs_pad[:, -(K - 1):].to(cd)}

@@ -5,9 +5,10 @@
 Each step function takes the reference's ``mesh=None, rules=None``.  On a
 ``DeviceMesh`` every rank calls it collectively with its row block of
 the batch and its parameter shard (``common.param_shardings``): the
-experts split over the EP group, heads, the FFN's hidden dim and the
-vocab over ``model``, the ``d_model`` dim of the embedding, attention
-and the dense FFN over the FSDP axes (``pod`` / ``data``; the model
+experts split over the EP group, heads, the FFN's hidden dim, the
+recurrent mixers' channels and the vocab over ``model``, the
+``d_model`` dim of the embedding, attention, the dense FFN and the
+mixers' projections over the FSDP axes (``pod`` / ``data``; the model
 gathers them before use), the norms and the router whole.
 ``make_train_step`` then reduces the gradients with
 :func:`reduce_grads` so that every rank steps with its shard of the

@@ -12,6 +12,13 @@ Opt-in via ``ModelConfig(spectral_long_conv=True)`` (substitutes the
 recurrent mixers in ``block_pattern``) or ``block_pattern=("spectral",)``.
 :func:`distributed_fft_causal_conv` is the sequence-sharded convolution
 through the pencil FFT (``workloads.fft``) over a torus communicator.
+
+On a mesh whose ``model`` dim splits the ``mlp`` channels, each rank runs
+``Ein / |model|`` of them, as mamba does: ``in_proj`` column-parallel
+with its ``[xs | z]`` halves split pairwise (``ParamSpec
+.column_groups``), ``A_log``, ``B``, ``C``, ``dt_log`` and ``D_skip``
+the rank's channels (so the kernel covers them alone), ``out_proj``
+row-parallel: one all-reduce a call.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec, silu
+from repro_torch.models.ffn import row_parallel
 from repro_torch.models.remat import chunked_scan, dot
+from repro_torch.parallel.sharding import split_group, tp_copy
 from .config import ModelConfig
 
 
@@ -29,7 +38,8 @@ def spectral_specs(cfg: ModelConfig) -> dict:
     Ein = cfg.ssm_expand * D
     n = cfg.ssm_state
     return {
-        "in_proj": ParamSpec((D, 2 * Ein), ("embed_fsdp", "mlp")),
+        "in_proj": ParamSpec((D, 2 * Ein), ("embed_fsdp", "mlp"),
+                             column_groups=2),
         "A_log": ParamSpec((Ein, n), ("mlp", None), init="ones"),
         "B": ParamSpec((Ein, n), ("mlp", None)),
         "C": ParamSpec((Ein, n), ("mlp", None)),
@@ -37,6 +47,12 @@ def spectral_specs(cfg: ModelConfig) -> dict:
         "D_skip": ParamSpec((Ein,), ("mlp",), init="ones"),
         "out_proj": ParamSpec((Ein, D), ("mlp", "embed_fsdp")),
     }
+
+
+def mixer_group(cfg: ModelConfig, mesh=None, rules=None):
+    """The ``model`` group the block's channels are split over (the
+    resolver's split of ``in_proj``), or None where it runs whole."""
+    return split_group(spectral_specs(cfg)["in_proj"], mesh, rules)
 
 
 def _discretize(p):
@@ -122,15 +138,18 @@ def _recurrence_chunk(h, x, dA, dB, C):
     return h, torch.stack(ys, 1)
 
 
-def spectral_block(p, x, cfg: ModelConfig, state=None):
+def spectral_block(p, x, cfg: ModelConfig, state=None, mesh=None,
+                   rules=None):
     """x: (B, S, D).  ``state=None`` (train / prefill from scratch) runs
     the FFT convolution and returns the final recurrent state for the
-    decode hand-off; with a state dict (``{'ssm': (B, Ein, n)}``) it runs
-    the step recurrence, the same linear system.  Returns (y,
-    new_state)."""
+    decode hand-off; with a state dict (``{'ssm': (B, Ein, n)}``, on a
+    mesh Ein this rank's channels) it runs the step recurrence, the same
+    linear system.  Returns (y, new_state)."""
     B, S, D = x.shape
     cd = cfg.cdtype
-    xz = dot(x.to(cd), p["in_proj"].to(cd))                # (B, S, 2Ein)
+    group = mixer_group(cfg, mesh, rules)
+    x = tp_copy(x.to(cd), group)
+    xz = dot(x, p["in_proj"].to(cd))                       # (B, S, 2Ein)
     xs, z = xz.chunk(2, dim=-1)
     xs_f = xs.float()
     dA, dB, C, dtA = _discretize(p)
@@ -148,5 +167,4 @@ def spectral_block(p, x, cfg: ModelConfig, state=None):
 
     y = y + xs_f * p["D_skip"].float()
     y = y.to(cd) * silu(z)
-    out = dot(y, p["out_proj"].to(cd))
-    return out, {"ssm": h_final}
+    return row_parallel(y, p["out_proj"], cd, group), {"ssm": h_final}

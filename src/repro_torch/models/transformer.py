@@ -26,12 +26,14 @@ Modes:
     and recurrent states, which it updates in place.
 
 Each takes ``mesh=None, rules=None`` as the reference does and hands them
-to the attention, FFN and MoE layers.  On a ``DeviceMesh`` every rank
-calls them collectively with its row block of the batch and its
-parameter shard (``models.common.param_shardings``); the ranks issue the
-same collectives in the same order, the remat recompute's included.  A
-model with a recurrent mixer or a frontend refuses a mesh
-(``check_mesh``): those leaves take no split yet.
+to the attention, recurrent, FFN and MoE layers.  On a ``DeviceMesh``
+every rank calls them collectively with its row block of the batch and
+its parameter shard (``models.common.param_shardings``); the ranks issue
+the same collectives in the same order, the remat recompute's included.
+The recurrent mixers split their channels or heads over ``model`` as
+their modules say (their decode states too: ``init_caches``); a model
+with a frontend refuses a mesh, and so does a recurrent mixer under
+``use_ulysses`` (``check_mesh``): those splits are not ported yet.
 
 Tensor parallelism over ``model`` (where the ``vocab`` rule splits the
 vocab, :func:`vocab_layout`): the embedding is vocab-parallel (each rank
@@ -75,12 +77,14 @@ from repro_torch.models.common import (ParamSpec, init_params, layer_norm,
                                        softmax_cross_entropy, stack_specs,
                                        tree_map,
                                        vocab_parallel_cross_entropy)
+from repro_torch.core.cache import mesh_shape
 from repro_torch.parallel.sharding import (batch_group, model_dim, tp_copy,
                                            tp_gather, tp_group, tp_rank,
                                            tp_reduce)
 from .config import ModelConfig
 
-# the recurrent mixers' blocks: (p, x, cfg, state) -> (y, new_state)
+# the recurrent mixers' blocks: (p, x, cfg, state, mesh, rules) -> (y,
+# new_state)
 RECURRENT = {"mamba": mamba_mod.mamba_block, "mlstm": xlstm_mod.mlstm_block,
              "slstm": xlstm_mod.slstm_block,
              "spectral": spectral_mod.spectral_block}
@@ -132,11 +136,27 @@ def superblock_specs(cfg: ModelConfig):
 # Decode state (the reference's ``_position_state``)
 # ---------------------------------------------------------------------------
 
+# the group a recurrent mixer's channels (mamba, spectral) or heads (mLSTM)
+# are split over; the sLSTM's cell runs whole
+_MIXER_GROUP = {"mamba": mamba_mod.mixer_group,
+                "spectral": spectral_mod.mixer_group,
+                "mlstm": xlstm_mod.mlstm_group}
+
+
+def _mixer_split(cfg: ModelConfig, mixer, mesh=None, rules=None) -> int:
+    """Over how many ``model`` ranks a recurrent mixer splits its
+    channels or heads (1: it runs whole)."""
+    group = _MIXER_GROUP[mixer](cfg, mesh, rules) \
+        if mixer in _MIXER_GROUP else None
+    return 1 if group is None else group.size
+
+
 def _position_state(cfg: ModelConfig, mixer, batch, max_seq, device,
-                    n_kv: int):
+                    n_kv: int, split: int = 1):
     """One position's decode state: the attention's KV cache (``n_kv``
     heads; sliding-window attention needs only ``window`` slots, a ring
-    buffer), or the recurrent mixer's state at its start values."""
+    buffer), or the recurrent mixer's state at its start values (its
+    channels or heads over ``split`` ranks: this rank's part)."""
     if mixer == "attn":
         slots = min(max_seq, cfg.window) if cfg.window else max_seq
         return attn.init_cache(attn.CacheSpec(batch, n_kv, slots, cfg.hd,
@@ -144,17 +164,16 @@ def _position_state(cfg: ModelConfig, mixer, batch, max_seq, device,
     D = cfg.d_model
     f32 = dict(dtype=torch.float32, device=device)
     if mixer == "mamba":
-        Ein = cfg.ssm_expand * D
+        Ein = cfg.ssm_expand * D // split
         return {"ssm": torch.zeros((batch, Ein, cfg.ssm_state), **f32),
                 "conv": torch.zeros((batch, cfg.ssm_conv - 1, Ein),
                                     dtype=cfg.cdtype, device=device)}
     if mixer == "spectral":
-        Ein = cfg.ssm_expand * D
+        Ein = cfg.ssm_expand * D // split
         return {"ssm": torch.zeros((batch, Ein, cfg.ssm_state), **f32)}
     if mixer == "mlstm":
-        Din = 2 * D
-        H = cfg.n_heads
-        hd = Din // H
+        hd = 2 * D // cfg.n_heads
+        H = cfg.n_heads // split
         return {"C": torch.zeros((batch, H, hd, hd), **f32),
                 "n": torch.zeros((batch, H, hd), **f32),
                 "m": torch.full((batch, H), -1e30, **f32)}
@@ -217,7 +236,8 @@ def _apply_position(pp, x, cfg, mixer, ffn, positions, state=None,
     else:
         # forward throws the final state away, as the reference does
         y, new_state = RECURRENT[mixer](pp["mixer"], h, cfg,
-                                        state=state if decode else None)
+                                        state=state if decode else None,
+                                        mesh=mesh, rules=rules)
         if decode:
             for key, value in new_state.items():
                 state[key].copy_(value)
@@ -292,23 +312,29 @@ class Model:
                 f"encoder-decoder its EncDecModel")
 
     def check_mesh(self, mesh) -> None:
-        """Refuse a mesh where a recurrent mixer's leaves or the frontend
-        would need a split (tensor parallelism over ``model``, FSDP) that
-        is not ported yet."""
+        """Refuse a mesh (a ``DeviceMesh`` or ``{dim: size}``) where the
+        frontend, or a recurrent mixer under ``use_ulysses``, would need a
+        split that is not ported yet, or where the mLSTM's leaves split
+        over ``model`` and its heads do not."""
         if mesh is None:
             return
-        recurrent = sorted({m for m, _ in self.cfg.superblock
-                            if m in RECURRENT})
-        if recurrent:
+        cfg = self.cfg
+        if cfg.frontend is not None:
             raise NotImplementedError(
-                f"{self.cfg.name}: the recurrent mixers {recurrent} run "
-                f"without a mesh only; their split over a mesh is ROADMAP.md "
-                f"queue 1, 'the recurrent mixers on a mesh'")
-        if self.cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: a model with a frontend runs without a "
+                f"{cfg.name}: a model with a frontend runs without a "
                 f"mesh only; its split over a mesh is ROADMAP.md queue 1, "
                 f"'the frontend and encoder-decoder archs on a mesh'")
+        recurrent = sorted({m for m, _ in cfg.superblock if m in RECURRENT})
+        if not recurrent:
+            return
+        shape = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
+        if cfg.use_ulysses and shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the recurrent mixers {recurrent} under "
+                f"use_ulysses (sequence parallelism over 'model') are not "
+                f"ported; ROADMAP.md lists the path among the unported ones")
+        if "mlstm" in recurrent:
+            xlstm_mod.check_mlstm_heads(cfg, shape)
 
     # ---- parameter specs ----
     def specs(self):
@@ -467,7 +493,10 @@ class Model:
                     mesh=None, rules=None):
         """Stacked (n_superblocks, ...) decode states (KV caches, recurrent
         states) plus per-slot positions; on a mesh the kv heads this
-        rank's attention uses (``attention.head_layout``)."""
+        rank's attention uses (``attention.head_layout``) and this rank's
+        part of each recurrent state (:func:`_mixer_split`: the ``mlp``
+        channels of mamba's and spectral's, the heads of the mLSTM's, as
+        :func:`_position_state_logical` names them; the sLSTM's whole)."""
         cfg = self.cfg
         self.check_mesh(mesh)
         device = resolve_device(device)
@@ -475,7 +504,8 @@ class Model:
         n = cfg.n_superblocks
         states = {}
         for i, (mixer, _) in enumerate(cfg.superblock):
-            one = _position_state(cfg, mixer, batch, max_seq, device, n_kv)
+            one = _position_state(cfg, mixer, batch, max_seq, device, n_kv,
+                                  _mixer_split(cfg, mixer, mesh, rules))
             states[f"pos{i}"] = tree_map(
                 lambda a: a[None].repeat((n,) + (1,) * a.dim()), one)
         return {"states": states,

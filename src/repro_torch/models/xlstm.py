@@ -14,6 +14,23 @@ backpropagation through time keeps only the carried state.
 Block structure: mLSTM = up-projection (2x) -> q/k/v -> mLSTM cell ->
 group norm -> gated (SiLU) down-projection.  sLSTM = sLSTM cell (4 gates)
 -> group norm -> GLU-style projection (4/3 factor).
+
+On a mesh whose ``model`` dim splits the ``mlp`` dims (the resolver;
+where it does not divide, the blocks run whole):
+
+* mLSTM: ``up`` is column-parallel with its ``[xi | z]`` halves split
+  pairwise (``ParamSpec.column_groups``); ``wq``, ``wk``, ``wv``,
+  ``wif`` and ``wo`` are split on their input dim, so their five f32
+  products are partial sums, summed over ``model`` in one all-reduce
+  (``tp_sum``), after which the rank keeps its ``H / |model|`` heads of
+  q, k, v and the gates and its ``Din / |model|`` columns of the output
+  gate; the cell runs on those heads (its state split over heads); the
+  group norm's mean square is summed over ``model``; ``down`` is
+  row-parallel.  Three all-reduces a call.
+* sLSTM: ``w_gates`` is column-split and its product gathered over
+  ``model`` (``sp_gather``), so the cell runs whole on every rank (its
+  state whole); ``up1`` / ``up2`` are column-parallel and ``down``
+  row-parallel.  One all-gather and one all-reduce a call.
 """
 
 from __future__ import annotations
@@ -24,7 +41,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ParamSpec, rms_norm, silu
+from repro_torch.models.ffn import row_parallel
 from repro_torch.models.remat import chunked_scan, dot
+from repro_torch.parallel.sharding import (model_dim, sp_gather,
+                                           split_group, tp_copy, tp_rank,
+                                           tp_sum)
 from .config import ModelConfig
 
 
@@ -41,7 +62,8 @@ def mlstm_specs(cfg: ModelConfig) -> dict:
     Din = 2 * D                      # up-projection factor 2
     H = cfg.n_heads
     return {
-        "up": ParamSpec((D, 2 * Din), ("embed_fsdp", "mlp")),
+        "up": ParamSpec((D, 2 * Din), ("embed_fsdp", "mlp"),
+                        column_groups=2),
         "wq": ParamSpec((Din, Din), ("mlp", None)),
         "wk": ParamSpec((Din, Din), ("mlp", None)),
         "wv": ParamSpec((Din, Din), ("mlp", None)),
@@ -76,26 +98,66 @@ def _mlstm_steps(carry, q, k, v, i_pre, f_pre):
     return (C, n, m), torch.stack(hs, 1)
 
 
-def mlstm_block(p, x, cfg: ModelConfig, state=None):
+def mlstm_group(cfg: ModelConfig, mesh=None, rules=None):
+    """The ``model`` group the mLSTM's heads are split over (the
+    resolver's split of ``up``), or None where it runs whole."""
+    return split_group(mlstm_specs(cfg)["up"], mesh, rules)
+
+
+def check_mlstm_heads(cfg: ModelConfig, shape: dict, rules=None) -> None:
+    """Raise where the mesh shape ``shape`` (``{dim: size}``) splits the
+    mLSTM's leaves over ``model`` but not its heads."""
+    t = shape.get("model", 1)
+    spec = mlstm_specs(cfg)["up"]
+    if cfg.n_heads % t and model_dim(spec.shape, spec.logical, shape,
+                                     rules) is not None:
+        raise ValueError(
+            f"{cfg.name}: the mLSTM splits its heads over 'model', so it "
+            f"needs n_heads ({cfg.n_heads}) divisible by model ({t}) on the "
+            f"mesh {shape}")
+
+
+def _group_rms_norm(h, gamma, group, width: int, eps: float = 1e-6):
+    """:func:`common.rms_norm` of ``h`` over ``width`` channels of which
+    this rank holds ``h``'s last dim: the sum of squares is summed over
+    ``group`` in f32 (both passes: every rank's output reads it)."""
+    if group is None:
+        return rms_norm(h, gamma, eps)
+    x = h.float()
+    var = tp_sum(torch.sum(x * x, dim=-1, keepdim=True), group) / width
+    return (x * torch.rsqrt(var + eps) * gamma.float()).to(h.dtype)
+
+
+def mlstm_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
     """x: (B, S, D) -> (y, state).  state: {C: (B,H,hd,hd), n: (B,H,hd),
-    m: (B,H)}, f32."""
+    m: (B,H)}, f32 (on a mesh, H this rank's heads)."""
     B, S, D = x.shape
     cd = cfg.cdtype
-    H = cfg.n_heads
     Din = 2 * D
-    hd = Din // H
+    hd = Din // cfg.n_heads
+    group = mlstm_group(cfg, mesh, rules)
+    t, r = (1, 0) if group is None else (group.size, tp_rank(group))
+    H, Dl = cfg.n_heads // t, Din // t            # this rank's heads
 
-    up = dot(x.to(cd), p["up"].to(cd))
-    xi, z = up.chunk(2, dim=-1)                           # (B,S,Din) each
+    x = tp_copy(x.to(cd), group)
+    up = dot(x, p["up"].to(cd))
+    xi, z = up.chunk(2, dim=-1)                           # (B,S,Dl) each
     xf = xi.float()
 
-    def heads(w):
-        return dot(xf, w.float()).reshape(B, S, H, hd)
-    q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
+    names = ("wq", "wk", "wv", "wo", "wif")
+    if group is None:
+        q, k, v, o, g = (dot(xf, p[w].float()) for w in names)
+    else:
+        # the five partial sums, summed over model in one all-reduce
+        q, k, v, o, g = tp_sum(torch.cat(
+            [dot(xf, p[w].float()) for w in names], -1), group).split(
+            [Din] * 4 + [2 * cfg.n_heads], -1)
+    own = slice(r * Dl, (r + 1) * Dl)             # this rank's heads' columns
+    q, k, v = (a[..., own].reshape(B, S, H, hd) for a in (q, k, v))
     k = k / math.sqrt(hd)
-    gates = dot(xf, p["wif"].float()).reshape(B, S, 2, H)
+    gates = g.reshape(B, S, 2, cfg.n_heads)[..., r * H:(r + 1) * H]
     i_pre, f_pre = gates[:, :, 0], gates[:, :, 1]         # (B, S, H)
-    o_gate = torch.sigmoid(dot(xf, p["wo"].float()))
+    o_gate = torch.sigmoid(o[..., own])
 
     if state is None:
         C0 = torch.zeros((B, H, hd, hd), dtype=torch.float32,
@@ -114,8 +176,8 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None):
         (Cf, nf, mf), h = chunked_scan(
             _mlstm_steps, (C0, n0, m0), (q, k, v, i_pre, f_pre),
             remat=cfg.recurrent_step_remat)
-    h = rms_norm(h.reshape(B, S, Din), p["gn"]) * o_gate
-    y = dot(h.to(cd) * silu(z), p["down"].to(cd))
+    h = _group_rms_norm(h.reshape(B, S, Dl), p["gn"], group, Din) * o_gate
+    y = row_parallel(h.to(cd) * silu(z), p["down"], cd, group)
     return y, {"C": Cf, "n": nf, "m": mf}
 
 
@@ -221,10 +283,14 @@ def _slstm_steps(carry, wx, r):
     return (c, n, m, h), torch.stack(hs, 1)
 
 
-def slstm_block(p, x, cfg: ModelConfig, state=None):
-    """x: (B, S, D) -> (y, state).  state: {c, n, m, h}: (B, D) each, f32."""
+def slstm_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
+    """x: (B, S, D) -> (y, state).  state: {c, n, m, h}: (B, D) each, f32
+    (whole on every rank of a mesh)."""
     B, S, D = x.shape
     cd = cfg.cdtype
+    specs = slstm_specs(cfg)
+    gates_group = split_group(specs["w_gates"], mesh, rules)
+    ffn_group = split_group(specs["up1"], mesh, rules)
 
     if state is None:
         z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
@@ -233,11 +299,13 @@ def slstm_block(p, x, cfg: ModelConfig, state=None):
     else:
         c0, n0, m0, h0 = state["c"], state["n"], state["m"], state["h"]
 
-    wx = dot(x.float(), p["w_gates"].float())
+    # this rank's gate columns, gathered: [z | i | f | o] whole
+    wx = sp_gather(dot(tp_copy(x, gates_group).float(),
+                       p["w_gates"].float()), gates_group, -1)
     (cf, nf, mf, hf), h = chunked_scan(
         _slstm_steps, (c0, n0, m0, h0), (wx,), (p["r_gates"].float(),),
         remat=cfg.recurrent_step_remat)
-    h = rms_norm(h, p["gn"]).to(cd)
-    y = dot(silu(dot(h, p["up1"].to(cd))) * dot(h, p["up2"].to(cd)),
-            p["down"].to(cd))
+    h = tp_copy(rms_norm(h, p["gn"]).to(cd), ffn_group)
+    y = row_parallel(silu(dot(h, p["up1"].to(cd))) * dot(h, p["up2"].to(cd)),
+                     p["down"], cd, ffn_group)
     return y, {"c": cf, "n": nf, "m": mf, "h": hf}

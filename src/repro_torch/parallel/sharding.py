@@ -28,7 +28,10 @@ mapping and the collectives GSPMD would insert:
   two conjugate tensor-parallel Functions, :func:`tp_copy` (identity
   forward, sum backward: the input of a column-parallel product) and
   :func:`tp_reduce` (sum forward, identity backward: the output of a
-  row-parallel product), and :func:`fsdp_gather` (FSDP's gather before
+  row-parallel product), :func:`tp_sum` (the sum in both passes: a
+  row-parallel product of which each rank reads its own part, as the
+  recurrent mixers' projections into the cell are), and
+  :func:`fsdp_gather` (FSDP's gather before
   use: an all-gather forward, a reduce-scatter in f32 backward, both
   through ``TorusComm``, so factorized over the torus);
 * the exchanges of sequence and pipeline parallelism, both autograd
@@ -153,8 +156,10 @@ def model_dim(shape, logical, mesh, rules: ShardingRules | None = None
               ) -> int | None:
     """The dim of a leaf of ``shape`` with ``logical`` axes that the
     resolver splits over ``model``, or None (no mesh, ``model`` absent or
-    1, or no dim of the leaf divides)."""
-    if mesh is None or mesh_shape(mesh).get("model", 1) <= 1:
+    1, or no dim of the leaf divides; ``mesh`` a ``DeviceMesh`` or
+    ``{dim: size}``)."""
+    if mesh is None or (mesh if isinstance(mesh, dict) else mesh_shape(
+            mesh)).get("model", 1) <= 1:
         return None
     for i, part in enumerate(resolve_spec(shape, logical, mesh, rules)):
         if part == "model" or (isinstance(part, tuple) and "model" in part):
@@ -388,6 +393,23 @@ def tp_reduce(x, group):
     return x if group is None else _TPReduce.apply(x, group.pg)
 
 
+def tp_sum(x, group):
+    """The sum of ``x`` over ``group`` (in f32, cast back) where the ranks
+    go on to read different parts of it (a row-parallel product feeding
+    per-rank channels or heads): :func:`tp_copy` of :func:`tp_reduce`,
+    whose backward sums the cotangent over ``group`` too, since every
+    rank's part of the loss reaches the sum.  ``group=None``: ``x``."""
+    return tp_copy(tp_reduce(x, group), group)
+
+
+def split_group(spec, mesh, rules: ShardingRules | None = None):
+    """The ``model`` group a leaf of ``spec`` (a ``ParamSpec``) is split
+    over by the resolver on ``mesh``, or None where it is whole."""
+    if model_dim(spec.shape, spec.logical, mesh, rules) is None:
+        return None
+    return tp_group(mesh)
+
+
 # the profiler span of FSDP's gather and of its gradient's reduce-scatter
 FSDP_SPAN = "repro_torch.fsdp"
 
@@ -531,6 +553,27 @@ def ppermute(x, group, perm):
 # ---------------------------------------------------------------------------
 
 
+def model_block(t, dim: int, k: int, m: int, n: int):
+    """Rank ``m`` of ``n``'s block of ``dim`` of the global ``t`` whose
+    ``dim`` holds ``k`` equal column groups side by side: a view with
+    ``dim`` unflattened to ``(k, c)``, the m-th ``c`` columns of each
+    group (``k`` = 1: the contiguous m-th block)."""
+    g = t.unflatten(dim, (k, -1))
+    c = g.shape[dim + 1] // n
+    return g.narrow(dim + 1, m * c, c)
+
+
+def model_join(t, dim: int, k: int, n: int):
+    """The global leaf from ``t``, the ``n`` ranks' blocks (each
+    :func:`model_block` flattened) concatenated along ``dim`` in
+    ``model`` order: ``(rank, group, c)`` regrouped as ``(group, rank,
+    c)``."""
+    if k == 1:
+        return t
+    return t.unflatten(dim, (n, k, -1)).transpose(dim, dim + 1) \
+        .flatten(dim, dim + 2)
+
+
 class ExpertSharding:
     """How this rank holds a tree on ``mesh`` (the layout of the sharded
     training state).  ``axes`` maps the path of each leaf split over the
@@ -547,7 +590,11 @@ class ExpertSharding:
     ``partial`` names leaves whose gradient on each ``model`` rank is
     that rank's part only (a kv projection kept whole over ``model``
     while the query heads are split), which :meth:`sum_partial` sums
-    over ``model``.  Every other leaf is whole on every rank.  Built by
+    over ``model``.  ``model_groups`` maps a leaf split over ``model``
+    whose dim holds k > 1 equal column groups (a fused ``[xs | z]``
+    product) to k: its rank ``m`` holds the m-th slice of each group
+    (:func:`model_block`), and the global leaf keeps the groups side by
+    side as they are.  Every other leaf is whole on every rank.  Built by
     ``models.common.param_shardings``; :meth:`prefixed` and
     :meth:`merged` carry it to trees that hold the parameters' shapes
     (the AdamW moments, a trainer's state)."""
@@ -555,9 +602,11 @@ class ExpertSharding:
     def __init__(self, axes: dict, n_experts: int, mesh,
                  model_axes: dict | None = None, partial=(),
                  fsdp_axes: dict | None = None, fsdp_kept=(),
-                 rules: ShardingRules | None = None):
+                 rules: ShardingRules | None = None,
+                 model_groups: dict | None = None):
         self.axes = dict(axes)
         self.model_axes = dict(model_axes or {})
+        self.model_groups = dict(model_groups or {})
         self.fsdp_axes = dict(fsdp_axes or {})
         self.fsdp_kept = tuple(fsdp_kept) if self.fsdp_axes else ()
         self.partial = frozenset(partial)
@@ -584,29 +633,29 @@ class ExpertSharding:
         mesh coordinate 0)."""
         return self.group is None or dist.get_rank() == self.group.members[0]
 
-    def _with(self, axes, model_axes, partial, fsdp_axes
+    def _with(self, axes, model_axes, partial, fsdp_axes, model_groups
               ) -> "ExpertSharding":
         return ExpertSharding(axes, self.n_experts, self.mesh, model_axes,
                               partial, fsdp_axes, self.fsdp_kept,
-                              self.rules)
+                              self.rules, model_groups)
 
     def prefixed(self, prefix: str) -> "ExpertSharding":
-        return self._with({f"{prefix}/{p}": a for p, a in self.axes.items()},
-                          {f"{prefix}/{p}": a
-                           for p, a in self.model_axes.items()},
+        pre = lambda d: {f"{prefix}/{p}": a for p, a in d.items()}
+        return self._with(pre(self.axes), pre(self.model_axes),
                           {f"{prefix}/{p}" for p in self.partial},
-                          {f"{prefix}/{p}": a
-                           for p, a in self.fsdp_axes.items()})
+                          pre(self.fsdp_axes), pre(self.model_groups))
 
     def merged(self, *others) -> "ExpertSharding":
         axes, model_axes = dict(self.axes), dict(self.model_axes)
         fsdp_axes, partial = dict(self.fsdp_axes), set(self.partial)
+        groups = dict(self.model_groups)
         for o in others:
             axes.update(o.axes)
             model_axes.update(o.model_axes)
             fsdp_axes.update(o.fsdp_axes)
+            groups.update(o.model_groups)
             partial |= o.partial
-        return self._with(axes, model_axes, partial, fsdp_axes)
+        return self._with(axes, model_axes, partial, fsdp_axes, groups)
 
     def split(self, path: str) -> bool:
         """Whether this rank holds a slice of the leaf at ``path``."""
@@ -704,21 +753,22 @@ class ExpertSharding:
             return None
         out = torch.empty(self.global_shape(path, t.shape), dtype=t.dtype)
         for v, m, f, rank in slices:
-            piece = out
+            piece, src = out, t.detach()
             if v is not None:
                 piece = piece.narrow(self.axes[path], v * self.E_loc,
                                      self.E_loc)
-            for k, dim in ((m, self.model_axes.get(path)),
-                           (f, self.fsdp_axes.get(path))):
-                if k is not None:
-                    piece = piece.narrow(dim, k * t.shape[dim],
-                                         t.shape[dim])
-            if rank == me:
-                piece.copy_(t.detach())
-                continue
-            buf = torch.empty(t.shape, dtype=t.dtype, device=dev)
-            dist.recv(buf, src=rank, group=self.group.pg)
-            piece.copy_(buf)
+            if f is not None:
+                dim = self.fsdp_axes[path]
+                piece = piece.narrow(dim, f * t.shape[dim], t.shape[dim])
+            if rank != me:
+                src = torch.empty(t.shape, dtype=t.dtype, device=dev)
+                dist.recv(src, src=rank, group=self.group.pg)
+            if m is not None:
+                dim = self.model_axes[path]
+                k = self.model_groups.get(path, 1)
+                piece = model_block(piece, dim, k, m, self.tp.size)
+                src = src.unflatten(dim, (k, -1))
+            piece.copy_(src)
         return out
 
     def local(self, path: str, t):
@@ -731,14 +781,15 @@ class ExpertSharding:
         if axis is not None:
             lo, n = expert_range(self.n_experts, self.mesh)
             t = t.narrow(axis, lo, n)
-        dim = self.model_axes.get(path)
-        if dim is not None:
-            n = t.shape[dim] // self.tp.size
-            t = t.narrow(dim, tp_rank(self.tp) * n, n)
         dim = self.fsdp_axes.get(path)
         if dim is not None:
             n = t.shape[dim] // self.fsdp.p
             t = t.narrow(dim, self.fsdp.rank * n, n)
+        dim = self.model_axes.get(path)
+        if dim is not None:
+            t = model_block(t, dim, self.model_groups.get(path, 1),
+                            tp_rank(self.tp), self.tp.size) \
+                .flatten(dim, dim + 1)
         return t.clone()
 
     def global_shape(self, path: str, shape) -> tuple[int, ...]:
@@ -770,7 +821,8 @@ class ExpertSharding:
             t = torch.cat(list(parts.unbind(0)), dim=axis)
         dim = self.model_axes.get(path)
         if dim is not None:
-            t = tp_gather(t, self.tp, dim)
+            t = model_join(tp_gather(t, self.tp, dim), dim,
+                           self.model_groups.get(path, 1), self.tp.size)
         return t
 
     def sum_replicas(self, path: str, g):

@@ -117,7 +117,8 @@ def fsdp_layout(mesh, sh, params, opt_state, global_params):
     """This rank's FSDP split: the leaves and dims, the axes kept, the
     expert leaves, and for each FSDP leaf whether it is block ``pod *
     |data| + data`` (row-major over the kept axes) of the global leaf
-    (of this rank's ``model`` slice where ``model`` splits it too), with
+    (of this rank's ``model`` slice where ``model`` splits it too: of
+    each column group of a paired leaf, side by side), with
     AdamW moments of its shape.  ``sh`` is the parameters'
     ``ExpertSharding`` and ``global_params`` the global tree (numpy)."""
     from repro_torch.core.cache import mesh_shape
@@ -134,9 +135,12 @@ def fsdp_layout(mesh, sh, params, opt_state, global_params):
         if p not in sh.fsdp_axes:
             continue
         want = np.asarray(glob[p])
-        if p in sh.model_axes:
-            want = _block(want, sh.model_axes[p], coord["model"],
-                          shape["model"])
+        if p in sh.model_axes:      # each column group's block, side by side
+            dim = sh.model_axes[p]
+            want = np.concatenate(
+                [_block(g, dim, coord["model"], shape["model"]) for g in
+                 np.split(want, sh.model_groups.get(p, 1), axis=dim)],
+                axis=dim)
         want = _block(want, sh.fsdp_axes[p], f, size)
         blocks[p] = (np.array_equal(t.detach().numpy(), want)
                      and tuple(mu[p].shape) == tuple(t.shape))
