@@ -395,6 +395,33 @@ it fails:
              ``simt``; flash once; the EP exchanges' reorder passes),
              the TP collectives a prefill and a tick predicted (2 a
              mamba call), the mamba state this rank's channels.
+12d. encdec_mesh — in the same 8-rank world after [recurrent_mesh],
+             bf16 at the fan-in init, every rank drawing its shard from
+             the seed: (a) whisper-tiny at its full config (4 + 4 layers,
+             d 384, 3 of 6 heads a rank, 768 of F, the 51865 vocab whole
+             over model, FSDP over (pod, data)); rank 0 first runs the
+             one-process reference on the global batch of 8 (S=448, 1500
+             frames) and frees it; on the mesh a prefill, the encoder's
+             memory of the rank's 2 rows, 8 ticks reading it and one
+             ``make_train_step`` AdamW step; (a') the same whisper under
+             use_ulysses (750 frames and 224 tokens a rank in each
+             attention call): a prefill and one loss + backward against
+             (a)'s reference; (b) internvl2-2b at full width cut to 4
+             layers (8/4 heads a rank, the 92553 vocab whole,
+             frontend_proj FSDP-split), B=4 (one a row block) with 256
+             patch embeddings before 2048 tokens: a prefill and one loss
+             + backward.  Gates: each rank holds its layout's
+             parameters; every gathered reduced gradient leaf within
+             2e-2 relative norm of the one-process one, the loss within
+             1e-2; prefill and tick logits within 2e-2 of the largest
+             one-process logit; the model ranks of each row block
+             bit-identical (loss, whole leaves' gradients and
+             parameters, logits); the flash launches per rank (12
+             ``wgmma`` a whisper prefill, 4 an encode, 4 a tick, 24 / 12
+             a step; internvl2 4, 8 / 4), never ``simt``; the TP
+             collectives and FSDP gathers of a prefill, an encode and a
+             tick as predicted; whisper's KV cache on 3 kv heads.  Logs
+             host seconds, peak memory and collectives per call.
 13. train  — after the worlds have ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
@@ -666,6 +693,10 @@ INTERNVL = "internvl2-2b"          # 256 stub patch tokens before the text
 ENCDEC_B, ENCDEC_S = 4, 448        # [encdec] / [train_encdec]: batch,
                                    # decoder tokens (whisper's text context)
 INTERNVL_TRAIN = (4, 1, 2048)      # [train_encdec]: layers, B, text tokens
+EM_WHISPER = (8, 448, 8)           # [encdec_mesh] (a): whisper's global B
+                                   # (2 a row block), decoder tokens, ticks
+EM_INTERNVL = (4, 4, 2048)         # [encdec_mesh] (b): internvl2's layers,
+                                   # global B (1 a row block), text tokens
 FFT_N = 512                        # [fft] (a), (b): the 512³ complex64 grid
 FFT_REAL = (512, 512, 510)         # [fft] (c): float32, 256 rfft bins
 FFT_2D = 8192                      # [fft] (d): the 2-D complex64 slab's edge
@@ -4192,6 +4223,237 @@ def _rank_recurrent_mesh(rank: int, n: int, seed: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _em_calls(mesh):
+    """The TP collectives (:func:`_tp_calls`) and FSDP's gathers and
+    gradient reduce-scatters (``parallel.sharding._FSDPGather``'s forward
+    and backward) run inside, each with its host ms, in the yielded
+    ``{"tp": [calls, ms], "fsdp_gather": [...], "fsdp_reduce": [...]}``;
+    zeros without a mesh."""
+    from repro_torch.parallel import sharding
+    seen = {"tp": [0, 0.0], "fsdp_gather": [0, 0.0],
+            "fsdp_reduce": [0, 0.0]}
+    if mesh is None:
+        yield seen
+        return
+    cls = sharding._FSDPGather
+    real = {"forward": cls.forward, "backward": cls.backward}
+
+    def counted(fn, key):
+        def call(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            seen[key][0] += 1
+            seen[key][1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return staticmethod(call)
+    cls.forward = counted(real["forward"], "fsdp_gather")
+    cls.backward = counted(real["backward"], "fsdp_reduce")
+    try:
+        with _tp_calls(mesh) as tp:
+            yield seen
+            seen["tp"] = list(tp)
+    finally:
+        cls.forward, cls.backward = (staticmethod(real["forward"]),
+                                     staticmethod(real["backward"]))
+
+
+def _em_counted(fn, mesh):
+    """``fn()`` with its launches, collectives (:func:`_em_calls`) and
+    host ms: ``(out, {"counts", "calls", "ms"})``."""
+    _reset_counts()
+    with _em_calls(mesh) as calls:
+        out, ms = _host_ms(fn)
+    return out, {"counts": _read_counts(), "calls": calls, "ms": ms}
+
+
+def _em_batch(cfg, B: int, S: int, seed: int = 4) -> dict:
+    """[encdec_mesh]'s global training batch: the copy task at (B, S) and
+    ``frontend_embeds`` from a seed."""
+    from repro_torch.data import CopyTaskConfig, make_copy_task_batch
+    batch = make_copy_task_batch(CopyTaskConfig(
+        vocab=cfg.vocab, seq_len=S, global_batch=B), 0, DEVICE)
+    batch["frontend_embeds"] = frontend_embeds(cfg, B, seed)
+    return batch
+
+
+def _em_serve(model, params, tokens, frames, ticks=None, mesh=None) -> dict:
+    """``make_prefill_fn``'s full-vocab last-position logits over
+    ``tokens`` after ``frames``, and, for the encoder-decoder, the
+    encoder's memory of ``frames`` and a greedy tick a column of
+    ``ticks`` (``make_serve_step``, teacher-forced from an empty cache)
+    reading it: logits on the host, launches, collectives and host ms of
+    the prefill, the encode and the ticks."""
+    from repro_torch.models import make_prefill_fn, make_serve_step
+    prefill = make_prefill_fn(model, mesh)
+    out = {}
+    with torch.no_grad():
+        pre, out["prefill"] = _em_counted(
+            lambda: prefill(params, tokens, frames), mesh)
+        out["pre"] = pre.float().cpu()
+        if ticks is None:
+            return out
+        memory, out["encode"] = _em_counted(
+            lambda: model.encode(params, frames, mesh=mesh), mesh)
+        B, T = ticks.shape
+        caches = model.init_caches(B, T, DEVICE, mesh=mesh)
+        out["cache_k"] = tuple(caches["states"]["k"].shape)
+        serve = make_serve_step(model, mesh)
+
+        def run():
+            nonlocal caches
+            got, ms = [], []
+            for t in range(T):
+                (_, logits, caches), dt = _host_ms(lambda: serve(
+                    params, caches, ticks[:, t:t + 1], memory))
+                got.append(logits[:, 0].float().cpu())
+                ms.append(dt)
+            return torch.stack(got, 1), ms
+        (out["ticks"], out["tick_ms"]), out["tick_calls"] = _em_counted(
+            run, mesh)
+    return out
+
+
+def _em_grads(model, params, batch, opt=None, mesh=None, sh=None) -> dict:
+    """One ``make_train_step`` AdamW step (``opt`` given) or one loss +
+    backward, its gradients reduced over the mesh (``reduce_grads``):
+    the gradients and parameters, the loss, launches, collectives and
+    host ms."""
+    from repro_torch.models import make_loss_fn, make_train_step, reduce_grads
+    from repro_torch.models.common import tree_leaves, tree_with_leaves
+    from repro_torch.parallel.sharding import batch_group
+
+    def step():
+        if opt is not None:
+            rec = _Recorded(opt)
+            new, _, m = make_train_step(model, rec, mesh)(
+                params, rec.init(params), batch)
+            return rec.grads, new, float(m["total_loss"])
+        leaves = tree_leaves(params)
+        total, _ = make_loss_fn(model, mesh)(params, batch)
+        got = torch.autograd.grad(total, [t for _, t in leaves])
+        grads = tree_with_leaves(params, {p: g for (p, _), g in
+                                          zip(leaves, got)})
+        if mesh is not None:
+            grads = reduce_grads(grads, sh, batch_group(mesh))
+        return grads, params, float(total.detach())
+    (grads, new, loss), info = _em_counted(step, mesh)
+    return {"grads": grads, "params": new, "loss": loss, **info}
+
+
+def _em_case(rank: int, n: int, seed: int, mesh, cfg, B: int, S: int,
+             T: int | None, opt_lr: float | None, one: dict | None,
+             keep: dict | None = None) -> dict:
+    """One [encdec_mesh] case on one rank of TP_MESH at bf16, the fan-in
+    init from ``seed``: unless ``one`` (an earlier case's one-process
+    results for the same parameters and inputs, kept by that case in
+    ``keep["one"]``) is given, rank 0 first
+    runs the one-process reference on the global batch (prefill, the
+    ticks where ``T``, the gradients) and frees it; then every rank
+    draws its shard, serves its row block and takes one training step
+    (AdamW at ``opt_lr``, else a loss + backward) on it; rank 0 holds
+    the gathered reduced gradients against the reference's (relative
+    norm per leaf).  Returns what the gates read, the one-process
+    results on rank 0."""
+    import torch.distributed as dist
+    from repro_torch.models import build_model
+    from repro_torch.models.common import (param_shardings, tree_leaves,
+                                           tree_map)
+    from repro_torch.optim import AdamW, AdamWConfig
+    from repro_torch.parallel.sharding import batch_split, tp_group, tp_rank
+    model = build_model(cfg)
+    sh = param_shardings(model.specs(), mesh)
+    _, block = batch_split(mesh)
+    rows = slice(block * (B // TP_BLOCKS), (block + 1) * (B // TP_BLOCKS))
+    gbatch = _em_batch(cfg, B, S)
+    tokens = prefill_tokens(cfg, B, S)
+    ticks = None if T is None else torch.from_numpy(
+        np.random.default_rng(7).integers(0, cfg.vocab, (B, T))).to(DEVICE)
+    opt = lambda: None if opt_lr is None else AdamW(AdamWConfig(lr=opt_lr))
+    clock = _Clock()
+    if rank == 0 and one is None:
+        gp = _fan_in_init(model, cfg, seed)
+        one = {"serve": _em_serve(model, gp, tokens,
+                                  gbatch["frontend_embeds"], ticks)}
+        tree_map(lambda t: t.requires_grad_(True), gp)
+        g = _em_grads(model, gp, gbatch, opt())
+        one.update(grads={p: t.float().cpu() for p, t in
+                          tree_leaves(g["grads"])},
+                   loss=g["loss"], step_counts=g["counts"],
+                   step_ms=g["ms"])
+        del gp, g
+        torch.cuda.empty_cache()
+        if keep is not None:
+            keep["one"] = one
+    dist.barrier()           # the reference is freed before the mesh state
+    clock("one-process reference")
+    torch.cuda.reset_peak_memory_stats()
+    params = _drawn_shard(model, sh, seed, rank, n)
+    tree_map(lambda t: t.requires_grad_(True), params)
+    clock("draw")
+    out = {"block": block, "model": tp_rank(tp_group(mesh)),
+           "want": _em_expected(cfg, sh),
+           "n_params": sum(t.numel() for _, t in tree_leaves(params)),
+           "layout_params": _layout_params(model, sh),
+           "fsdp_leaves": len(sh.fsdp_axes),
+           "serve": _em_serve(model, params, tokens[rows],
+                              gbatch["frontend_embeds"][rows],
+                              None if ticks is None else ticks[rows], mesh)}
+    clock("serve")
+    g = _em_grads(model, params, {k: v[rows] for k, v in gbatch.items()},
+                  opt(), mesh, sh)
+    clock("step")
+    whole = [p for p, _ in tree_leaves(params) if p not in sh.model_axes]
+    out.update(loss=g["loss"], step={k: g[k] for k in ("counts", "calls",
+                                                       "ms")},
+               finite_nonzero=all(
+                   bool(torch.isfinite(t).all()) and float(t.abs().sum()) > 0
+                   for _, t in tree_leaves(g["grads"])),
+               digests={what: {p: _digest(t) for p, t in tree_leaves(tree)
+                               if p in whole}
+                        for what, tree in (("grads", g["grads"]),
+                                           ("params", g["params"]))})
+    full = sh.gather_tree_to_writer(g["grads"])
+    if rank == 0:
+        out["vs_one"] = {p: float((t.float().cpu() - one["grads"][p]).norm()
+                                  / one["grads"][p].norm())
+                         for p, t in tree_leaves(full)}
+        out["one"] = {k: v for k, v in one.items() if k != "grads"}
+    del full, g, params
+    clock("gathers")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["times"] = clock.laps
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_encdec_mesh(rank: int, n: int, seed: int) -> dict:
+    """[encdec_mesh] on one rank of the 8-rank world, after
+    [recurrent_mesh]: (a) whisper-tiny trained (one AdamW step) and
+    served; (a') the same under Ulysses, held against (a)'s one-process
+    run; (b) internvl2-2b cut to EM_INTERNVL[0] layers, one loss +
+    backward and a prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cache import cart_create
+    torch.cuda.set_device(0)
+    mesh = cart_create(n, *TP_MESH, device_type=DEVICE)
+    t0 = time.perf_counter()
+    B, S, T = EM_WHISPER
+    cfg = get_config(WHISPER)
+    keep = {}
+    out = {"whisper": _em_case(rank, n, seed, mesh, cfg, B, S, T, 1e-3,
+                               None, keep)}
+    one = keep.get("one", {})
+    out["ulysses"] = _em_case(rank, n, seed, mesh,
+                              cfg.replace(use_ulysses=True), B, S, None,
+                              None, one)
+    layers, B, S = EM_INTERNVL
+    out["internvl"] = _em_case(rank, n, seed, mesh, get_config(
+        INTERNVL).replace(n_layers=layers), B, S, None, None, None)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _rank_ring(rank: int, n: int) -> dict:
     """[ring] on one rank of the 4-rank world: ring attention on a
     (model=4) mesh at phi3.5's attention shapes, bf16, causal and with a
@@ -4646,15 +4908,16 @@ def _timed(fn, *args) -> dict:
 
 def _tp_world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
     """One rank of the 8-rank world on TP_MESH: [train_tp], [ulysses],
-    then [recurrent_mesh]."""
+    [recurrent_mesh], then [encdec_mesh]."""
     return {"train_tp": _rank_train_tp(rank, n, seed, tmp),
             "ulysses": _timed(_rank_ulysses, rank, n, seed),
-            "recurrent_mesh": _rank_recurrent_mesh(rank, n, seed)}
+            "recurrent_mesh": _rank_recurrent_mesh(rank, n, seed),
+            "encdec_mesh": _rank_encdec_mesh(rank, n, seed)}
 
 
 def run_tp_world(seed: int, timeout: float = 1000.0) -> list:
-    """Spawn the 8-rank world of [train_tp], [ulysses] and
-    [recurrent_mesh] (as :func:`run_world`) and return each rank's
+    """Spawn the 8-rank world of [train_tp], [ulysses], [recurrent_mesh]
+    and [encdec_mesh] (as :func:`run_world`) and return each rank's
     result."""
     import os
     import torch_dist
@@ -6085,6 +6348,197 @@ def phase_recurrent_mesh(results, seed: int) -> dict:
                                for r in results) for k in counts}
 
 
+def _em_expected(cfg, sh) -> dict:
+    """[encdec_mesh]'s predicted launches and collectives per rank: the
+    flash forward once an attention call in a prefill (``wgmma``), the
+    encoder's calls in an encode, one cross call a decoder layer in a
+    tick, and a training step's as :func:`_train_launches_per_step`; TP
+    collectives one a row-parallel product or a Ulysses row gather (each
+    attention call and each FFN), and where the vocab is split over
+    ``model`` (not at whisper's 51865 or internvl2's 92553, both odd) the
+    embedding's sum and the logits' gather; FSDP gathers one an FSDP
+    leaf a use (the top-level leaves once a call, each layer's in it)."""
+    A = _attn_layers(cfg)
+    v = 2 if "embed" in sh.model_axes else 0
+    per = lambda prefix: sum(p.startswith(prefix) for p in sh.fsdp_axes)
+    flash = lambda k: _expected(flash_attention=k, flash_attention_wgmma=k)
+    if cfg.encoder_layers:
+        E, L = cfg.encoder_layers, cfg.n_layers
+        enc = dict(counts=flash(E), tp=2 * E, fsdp=1 + E * per("encoder/"))
+        tick = dict(counts=flash(L), tp=3 * L + v,
+                    fsdp=1 + L * per("decoder/"))
+        prefill = dict(counts=flash(A), tp=enc["tp"] + tick["tp"],
+                       fsdp=enc["fsdp"] + tick["fsdp"])
+        return {"prefill": prefill, "encode": enc, "tick": tick,
+                "step": _train_launches_per_step(cfg)}
+    top = sum("/" not in p for p in sh.fsdp_axes)
+    return {"prefill": dict(counts=flash(A), tp=2 * cfg.n_layers + v,
+                            fsdp=top + cfg.n_superblocks * per("blocks/")),
+            "step": _train_launches_per_step(cfg)}
+
+
+def phase_encdec_mesh(results) -> dict:
+    """[encdec_mesh]'s gates, for (a) whisper-tiny, (a') the same under
+    Ulysses and (b) internvl2-2b, all bf16 at the fan-in init on
+    (pod=2, data=2, model=2): every rank holds the parameters its layout
+    says (FSDP leaves among them), its reduced gradients finite and
+    non-zero; the model ranks of each row block bit-identical (loss,
+    whole leaves' reduced gradients and parameters after the step,
+    prefill and tick logits); every gathered gradient leaf within
+    TRAIN_GRAD_TOL relative norm of the one-process gradients of the
+    global batch; the prefill's (and whisper's ticks') full-vocab logits
+    within 2e-2 of the largest one-process logit; the flash launches of
+    the prefill, the encode, the ticks and the step as
+    :func:`_em_expected` predicts, never ``simt``; the TP collectives
+    and FSDP gathers of the prefill, the encode and a tick as predicted;
+    whisper's KV cache on the rank's kv heads.  Returns the launches
+    over the ranks and the phase's seconds in the world."""
+    from repro_torch.configs import get_config
+    total = None
+    B_w, S_w, T = EM_WHISPER
+    layers, B_v, S_v = EM_INTERNVL
+    cfgs = {"whisper": get_config(WHISPER),
+            "ulysses": get_config(WHISPER).replace(use_ulysses=True),
+            "internvl": get_config(INTERNVL).replace(n_layers=layers)}
+    for key, cfg in cfgs.items():
+        tag = f"[encdec_mesh] {key}"
+        ranks = [r["encdec_mesh"][key] for r in results]
+        r0 = ranks[0]
+        one = r0["one"]
+        want = r0["want"]
+        by_block = {}
+        for rank, t in enumerate(ranks):
+            by_block.setdefault(t["block"], []).append(t)
+            if t["n_params"] != t["layout_params"] or not t["fsdp_leaves"]:
+                fail(f"{tag} rank {rank} holds {t['n_params']} parameters, "
+                     f"its layout {t['layout_params']}; FSDP leaves "
+                     f"{t['fsdp_leaves']}")
+            if not t["finite_nonzero"]:
+                fail(f"{tag} rank {rank}: a reduced gradient leaf is not "
+                     f"finite or is zero")
+            got = {"prefill": t["serve"]["prefill"], "step": t["step"]}
+            if "encode" in t["serve"]:
+                got.update(encode=t["serve"]["encode"],
+                           tick=t["serve"]["tick_calls"])
+            for what, info in got.items():
+                w = want[what]
+                counts = w["counts"] if isinstance(w, dict) and \
+                    "counts" in w else w
+                if what == "tick":
+                    counts = {k: T * v for k, v in counts.items()}
+                if info["counts"] != counts:
+                    fail(f"{tag} rank {rank}'s {what} launched "
+                         f"{info['counts']}, expected {counts}")
+                if what == "step":
+                    continue
+                k = T if what == "tick" else 1
+                calls = (info["calls"]["tp"][0],
+                         info["calls"]["fsdp_gather"][0])
+                if calls != (k * w["tp"], k * w["fsdp"]):
+                    fail(f"{tag} rank {rank}'s {what}: {calls} TP "
+                         f"collectives / FSDP gathers, expected "
+                         f"{(k * w['tp'], k * w['fsdp'])}")
+            if "cache_k" in t["serve"]:
+                lay = (cfg.n_layers, B_w // TP_BLOCKS,
+                       cfg.n_kv_heads // TP_MESH[0][0], T, cfg.hd)
+                if t["serve"]["cache_k"] != lay:
+                    fail(f"{tag} rank {rank}'s KV cache "
+                         f"{t['serve']['cache_k']}, expected {lay}")
+        if sorted(by_block) != list(range(TP_BLOCKS)) or any(
+                len(v) != TP_WORLD // TP_BLOCKS for v in by_block.values()):
+            fail(f"{tag}: row blocks per rank {[t['block'] for t in ranks]}")
+        for b, rs in by_block.items():
+            for t in rs[1:]:
+                same = t["loss"] == rs[0]["loss"] and \
+                    t["digests"] == rs[0]["digests"] and all(
+                        torch.equal(t["serve"][k], rs[0]["serve"][k])
+                        for k in ("pre", "ticks") if k in t["serve"])
+                if not same:
+                    fail(f"{tag} row block {b}: model rank {t['model']}'s "
+                         f"loss, whole leaves or logits differ from model "
+                         f"rank {rs[0]['model']}'s bits")
+        worst = max(r0["vs_one"].items(), key=lambda kv: kv[1])
+        if not worst[1] <= TRAIN_GRAD_TOL:
+            fail(f"{tag}: the gathered mesh gradient of {worst[0]} lies "
+                 f"{worst[1]:.3g} from the one-process one (relative norm; "
+                 f"limit {TRAIN_GRAD_TOL})")
+        gaps = {}
+        for k in ("pre", "ticks"):
+            if k not in r0["serve"]:
+                continue
+            mesh = torch.cat([by_block[b][0]["serve"][k]
+                              for b in range(TP_BLOCKS)])
+            ref = one["serve"][k]
+            gaps[k] = (float((mesh - ref).abs().max()),
+                       float(ref.abs().max()))
+            if not gaps[k][0] <= 2e-2 * gaps[k][1]:
+                fail(f"{tag}: the mesh's {k} logits lie {gaps[k][0]:.4g} "
+                     f"from the one-process run's (largest logit "
+                     f"{gaps[k][1]:.4g}; limit 2e-2 of it)")
+        # each rank's loss is its row block's share times the blocks (a
+        # make_train_step metric: already their mean)
+        loss = float(np.mean([by_block[b][0]["loss"]
+                              for b in range(TP_BLOCKS)]))
+        if not abs(loss - one["loss"]) <= 1e-2 * abs(one["loss"]):
+            fail(f"{tag}: the mesh's loss {loss:.6g} against the one "
+                 f"process's {one['loss']:.6g} (limit 1e-2 relative)")
+        log(f"{tag}: {cfg.name} x{cfg.n_layers} layers"
+            f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+            f" d={cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"(a rank {cfg.n_heads // 2}"
+            f"{' over the whole sequence, Ulysses' if cfg.use_ulysses else ''}"
+            f") F={cfg.d_ff} vocab={cfg.vocab}"
+            f"{' (odd: whole over model)' if cfg.vocab % 2 else ''}, "
+            f"{cfg.n_frontend_tokens} frontend tokens; bf16, fan-in init, "
+            f"(pod=2, data=2, model=2), {TP_WORLD} gloo ranks of one card; "
+            f"{'one AdamW step' if key == 'whisper' else 'one loss + backward'}"
+            f": loss {loss:.6g} over the row blocks (one process "
+            f"{one['loss']:.6g}; limit 1e-2 relative); every gathered "
+            f"gradient leaf within "
+            f"{worst[1]:.3g} relative norm of the one-process gradients "
+            f"(worst {worst[0]}; limit {TRAIN_GRAD_TOL}); logits vs one "
+            f"process (max |diff|, largest logit; limit 2e-2 of it) "
+            f"{ {k: tuple(round(x, 5) for x in v) for k, v in gaps.items()} }"
+            f"; model ranks bit-identical; launches a rank: prefill "
+            f"{_nonzero(r0['serve']['prefill']['counts'])}, step "
+            f"{_nonzero(r0['step']['counts'])}"
+            + (f", encode {_nonzero(r0['serve']['encode']['counts'])}, "
+               f"{T} ticks {_nonzero(r0['serve']['tick_calls']['counts'])}"
+               if "encode" in r0["serve"] else ""))
+        calls = lambda info: {k: (v[0], round(v[1], 1))
+                              for k, v in info["calls"].items()}
+        log(f"{tag} per rank on {_card()}: params (M) "
+            f"{[round(t['n_params'] / 1e6, 2) for t in ranks]}, peak (GiB) "
+            f"{[round(t['peak_gib'], 2) for t in ranks]}; host ms: prefill "
+            f"{[round(t['serve']['prefill']['ms'], 1) for t in ranks]}, "
+            f"step {[round(t['step']['ms'], 1) for t in ranks]}"
+            + (f", median tick "
+               f"{[round(float(np.median(t['serve']['tick_ms'])), 1) for t in ranks]}"
+               if "tick_ms" in r0["serve"] else "")
+            + f"; rank 0's collectives (calls, host ms): prefill "
+            f"{calls(r0['serve']['prefill'])}, step {calls(r0['step'])}"
+            + (f", {T} ticks {calls(r0['serve']['tick_calls'])}"
+               if "tick_calls" in r0["serve"] else "")
+            + f"; one process: prefill {one['serve']['prefill']['ms']:.1f} "
+            f"ms, step {one['step_ms']:.1f} ms; host seconds of each part, "
+            f"rank 0 { {k: round(v, 1) for k, v in r0['times'].items()} }")
+        for t in ranks:
+            parts = [t["serve"]["prefill"]["counts"], t["step"]["counts"]]
+            if "encode" in t["serve"]:
+                parts += [t["serve"]["encode"]["counts"],
+                          t["serve"]["tick_calls"]["counts"]]
+            for c in parts:
+                total = c if total is None else _sum_counts(total, c)
+    world_s = max(r["encdec_mesh"]["seconds"] for r in results)
+    log(f"[encdec_mesh] {world_s:.1f} s in the world")
+    return total, world_s
+
+
+def _nonzero(counts: dict) -> dict:
+    """The non-zero entries of a launch count."""
+    return {k: v for k, v in counts.items() if v}
+
+
 def phase_ring(results) -> float:
     """[ring]'s log (each rank compared its shard with the flash kernel
     within 2e-2 as it ran); returns its seconds."""
@@ -7419,6 +7873,8 @@ def main() -> int:
         + time.perf_counter() - t0
     log(f"[recurrent_mesh]: {secs:.1f} s of the run (the world's ranks and "
         f"the main process's one-process runs)")
+    paths["encdec_mesh"], secs = phase_encdec_mesh(tp_world)
+    log(f"[encdec_mesh]: {secs:.1f} s of the run")
     del tp_world
     torch.cuda.empty_cache()
     log(f"[ulysses] + [ring] + [pipeline]: {added:.1f} s of the run")

@@ -9,8 +9,9 @@ importing this module touches no device.  The port trains and serves on
 each of them: experts and the batch over ``pod`` / ``data``, tensor
 parallelism or, with ``use_ulysses``, sequence parallelism over
 ``model``.  :func:`check_trainable` refuses a configuration whose query
-heads Ulysses cannot share out over ``model``, or whose mLSTM heads
-tensor parallelism cannot (xlstm-1.3b's 4 heads on ``model`` = 8).
+heads or sequences Ulysses cannot share out over ``model``, or whose
+mLSTM heads tensor parallelism cannot (xlstm-1.3b's 4 heads on ``model``
+= 8).
 :func:`survivor_mesh` is the elastic trainer's mesh after a device loss:
 the EP torus rebuilt over the survivors (``TorusComm.rebuild``), built by
 the survivors alone.
@@ -22,6 +23,7 @@ import math
 
 from repro_torch.core.cache import cart_create, mesh_shape
 from repro_torch.parallel.sharding import ep_axes, ep_comm
+from repro_torch.parallel.ulysses import check_lengths
 
 
 def production_shape(*, multi_pod: bool = False) -> dict[str, int]:
@@ -56,22 +58,31 @@ def make_debug_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
                      device_type=device_type)
 
 
-def check_trainable(mesh_or_shape, cfg=None) -> None:
+def check_trainable(mesh_or_shape, cfg=None, seq: int | None = None) -> None:
     """Raise before anything is built unless the port trains ``cfg`` on
-    this mesh (or ``{dim: size}``): Ulysses sequence parallelism
+    this mesh (or ``{dim: size}``) at ``seq`` text tokens a row (None:
+    the checks that need no length): Ulysses sequence parallelism
     (``cfg.use_ulysses``) gives each ``model`` rank ``n_heads / |model|``
-    query heads over the whole sequence, so the query heads must divide
-    ``model`` (the reference's ``ulysses_attention`` raises the same at
-    its first call)."""
+    query heads over the whole sequence and ``1 / |model|`` of its
+    positions, so the query heads must divide ``model`` (the reference's
+    ``ulysses_attention`` raises the same at its first call), and so
+    must each sequence it splits: the text, after a frontend's F tokens
+    (F + S), and the encoder-decoder's frames and decoder tokens apart.
+    The mLSTM's heads must divide ``model`` too."""
     shape = mesh_or_shape if isinstance(mesh_or_shape, dict) \
         else mesh_shape(mesh_or_shape)
-    sp = shape.get("model", 1)
-    if cfg is not None and cfg.use_ulysses and cfg.n_heads % sp:
-        raise ValueError(
-            f"{cfg.name}: Ulysses over 'model' needs n_heads "
-            f"({cfg.n_heads}) divisible by model ({sp}) on the mesh "
-            f"{shape}")
-    if cfg is not None and any(m == "mlstm" for m, _ in cfg.superblock):
+    if cfg is None:
+        return
+    F = cfg.n_frontend_tokens if cfg.frontend is not None else 0
+    lengths = {}
+    if cfg.encoder_layers:
+        lengths["the frame count"] = F
+        if seq is not None:
+            lengths["the decoder tokens S"] = seq
+    elif seq is not None:
+        lengths[f"F + S = {F} + {seq}" if F else "the sequence S"] = F + seq
+    check_lengths(cfg, shape, lengths)
+    if any(m == "mlstm" for m, _ in cfg.superblock):
         from repro_torch.models.xlstm import check_mlstm_heads
         check_mlstm_heads(cfg, shape)
 

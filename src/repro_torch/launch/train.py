@@ -122,7 +122,7 @@ def main(argv=None):
     mesh, started = None, False
     if args.mesh != "none":
         shape = debug_shape(multi_pod=args.mesh == "debug_multi")
-        check_trainable(shape, cfg)
+        check_trainable(shape, cfg, args.seq)
         started = _join_world(shape, device)
         mesh = make_mesh(shape, device_type=device.type)
     model, opt, params, opt_state, step_fn = build_training(

@@ -32,6 +32,11 @@ runs on the rank's rows, and the rows are gathered over ``model``
 that the layers after attention take.  Decode runs whole attention on
 every rank with a cache of every kv head, as the reference's decode
 ignores ``use_ulysses``.
+
+The encoder-decoder's cross-attention (:func:`cross_attention_block`)
+splits as self-attention does: under tensor parallelism over the rank's
+heads, its query input and the encoder's memory through ``tp_copy``;
+under Ulysses over the rank's query rows against the whole memory.
 """
 
 from __future__ import annotations
@@ -190,19 +195,43 @@ def attention_block(p, x, cfg: ModelConfig, *, causal=True, positions=None,
     return _out_projection(out, p["wo"], cfg, lay.group)
 
 
-def cross_attention_block(p, x, memory, cfg: ModelConfig):
+def cross_attention_block(p, x, memory, cfg: ModelConfig, mesh=None,
+                          rules=None, *, decode: bool = False):
     """Encoder-decoder cross attention: queries from x (B, Sq, D), keys
     and values from memory (B, Skv, D), through the layer's ``wq`` /
     ``wk`` / ``wv`` / ``wo``; non-causal, no RoPE, no window (the
-    reference passes neither).  Returns (B, Sq, D)."""
+    reference passes neither).  Returns (B, Sq, D).
+
+    On a mesh with ``model`` > 1 over this rank's heads
+    (:func:`head_layout`, as :func:`attention_block`): ``x`` and
+    ``memory`` through ``tp_copy``, the ``wo`` product summed over
+    ``model`` in f32.  Under ``cfg.use_ulysses`` (not in ``decode``,
+    whose one query row runs whole, as decode attention does) the leaves
+    are whole and each rank attends its ``1 / |model|`` of the query
+    rows to the whole memory, the rows gathered over ``model`` after
+    ``wo``."""
+    comm = sp_comm(mesh, cfg) if cfg.use_ulysses and not decode else None
+    if comm is not None:
+        group = comm.fact.group
+        x = tp_copy(x, group)[:, _sp_rows(comm, x.shape[1])]
+        y = _cross(p, x, tp_copy(memory, group), cfg, None)
+        return sp_gather(y, group, 1)
+    lay = head_layout(cfg, mesh, rules)
+    return _cross(_local_heads(p, lay), tp_copy(x, lay.group),
+                  tp_copy(memory, lay.group), cfg, lay.group)
+
+
+def _cross(p, x, memory, cfg: ModelConfig, group):
+    """Cross attention over the heads of ``p``; the ``wo`` product summed
+    over ``group`` (None: not summed)."""
     cd = cfg.cdtype
     x, memory = x.to(cd), memory.to(cd)
-    q = _heads(dot(x, p["wq"].to(cd).flatten(1)), cfg.n_heads)
-    k, v = (_heads(dot(memory, p[w].to(cd).flatten(1)), cfg.n_kv_heads)
+    q = _heads(dot(x, p["wq"].to(cd).flatten(1)), p["wq"].shape[1])
+    k, v = (_heads(dot(memory, p[w].to(cd).flatten(1)), p[w].shape[1])
             for w in ("wk", "wv"))
     out = kops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          causal=False)
-    return _out_projection(out, p["wo"], cfg, None)
+    return _out_projection(out, p["wo"], cfg, group)
 
 
 def _ulysses_block(p, x, cfg: ModelConfig, comm, causal, positions, mesh,
@@ -212,18 +241,23 @@ def _ulysses_block(p, x, cfg: ModelConfig, comm, causal, positions, mesh,
     rank) projected with the whole weights and rotated at their absolute
     positions, attention through the tiled all-to-all, ``wo`` on the
     rows, and every rank's rows gathered back in sequence order."""
-    B, S, _ = x.shape
-    if S % comm.p:
-        raise ValueError(f"Ulysses needs the sequence ({S}) divisible by "
-                         f"sp ({comm.p})")
-    n = S // comm.p
-    rows = slice(comm.rank * n, (comm.rank + 1) * n)
+    rows = _sp_rows(comm, x.shape[1])
     x = tp_copy(x, comm.fact.group)
     q, k, v = _project_qkv(p, x[:, rows], cfg, positions[:, rows])
     out = ulysses_attention(q, k, v, cfg, causal=causal, mesh=mesh,
                             rules=rules)
     y = _out_projection(out, p["wo"], cfg, None)       # (B, S / sp, D)
     return sp_gather(y, comm.fact.group, 1)
+
+
+def _sp_rows(comm, S: int) -> slice:
+    """This rank's rows of an S-long sequence split over the SP comm
+    ``comm`` (the block of its torus rank)."""
+    if S % comm.p:
+        raise ValueError(f"Ulysses needs the sequence ({S}) divisible by "
+                         f"sp ({comm.p})")
+    n = S // comm.p
+    return slice(comm.rank * n, (comm.rank + 1) * n)
 
 
 def _out_projection(out, wo, cfg: ModelConfig, group):

@@ -15,7 +15,9 @@ gathers them before use), the norms and the router whole.
 one-device gradient of the global batch; ``make_prefill_fn`` and
 ``make_serve_step`` return full-vocab logits.  ``build_model`` gives the
 encoder-decoder archs (``encoder_layers`` > 0: whisper-tiny) an
-``EncDecModel``, which runs without a mesh only.
+``EncDecModel``, which splits over a mesh as ``Model`` does (its
+``frontend_embeds`` and, in ``make_serve_step``, its ``memory`` are the
+rank's rows).
 """
 
 from __future__ import annotations

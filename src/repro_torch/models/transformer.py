@@ -31,9 +31,15 @@ every rank calls them collectively with its row block of the batch and
 its parameter shard (``models.common.param_shardings``); the ranks issue
 the same collectives in the same order, the remat recompute's included.
 The recurrent mixers split their channels or heads over ``model`` as
-their modules say (their decode states too: ``init_caches``); a model
-with a frontend refuses a mesh, and so does a recurrent mixer under
-``use_ulysses`` (``check_mesh``): those splits are not ported yet.
+their modules say (their decode states too: ``init_caches``); a
+recurrent mixer under ``use_ulysses`` refuses a mesh (``check_mesh``):
+that split is not ported yet.  A frontend's patch embeddings are split
+by batch as the tokens are, ``frontend_proj`` is an FSDP leaf gathered
+with the embedding, and under Ulysses the whole F + S sequence is split
+over ``model`` (``forward`` refuses an F + S that ``model`` does not
+divide, naming both).  :class:`ModelBase` holds what this stack shares
+with the encoder-decoder (``models.encdec``): the FSDP layout, the
+embedding, the head and the loss's mean.
 
 Tensor parallelism over ``model`` (where the ``vocab`` rule splits the
 vocab, :func:`vocab_layout`): the embedding is vocab-parallel (each rank
@@ -52,9 +58,10 @@ gathers the leaf whole right before use (``parallel.sharding
 reduce-scatters the gradient).  A superblock's leaves are gathered at
 the top of :func:`_apply_superblock`, inside what ``checkpoint`` wraps,
 so the remat recompute gathers them again and the forward keeps no
-gathered copy; the tied embedding is gathered once per ``forward`` /
-``decode_step`` and that copy serves both the lookup and the head, so
-one reduce-scatter carries both uses' gradients.
+gathered copy; the tied embedding (and ``frontend_proj``) is gathered
+once per ``forward`` / ``decode_step`` and that copy serves both the
+lookup and the head, so one reduce-scatter carries both uses'
+gradients.
 """
 
 from __future__ import annotations
@@ -81,6 +88,7 @@ from repro_torch.core.cache import mesh_shape
 from repro_torch.parallel.sharding import (batch_group, model_dim, tp_copy,
                                            tp_gather, tp_group, tp_rank,
                                            tp_reduce)
+from repro_torch.parallel.ulysses import check_lengths
 from .config import ModelConfig
 
 # the recurrent mixers' blocks: (p, x, cfg, state, mesh, rules) -> (y,
@@ -294,71 +302,13 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-@dataclass
-class Model:
-    cfg: ModelConfig
-    # the parameters' layout per (mesh, rules) where FSDP splits a leaf
-    _fsdp_layouts: dict = field(default_factory=dict, init=False,
-                                repr=False, compare=False)
-
-    def __post_init__(self):
-        cfg = self.cfg
-        missing = {m for m, _ in cfg.superblock} - set(PORTED_MIXERS)
-        if missing or cfg.encoder_layers:
-            raise ValueError(
-                f"{cfg.name}: Model is the decoder-only stack (mixers "
-                f"{PORTED_MIXERS}; got {sorted(missing)}, encoder_layers="
-                f"{cfg.encoder_layers}); build_model gives the "
-                f"encoder-decoder its EncDecModel")
-
-    def check_mesh(self, mesh) -> None:
-        """Refuse a mesh (a ``DeviceMesh`` or ``{dim: size}``) where the
-        frontend, or a recurrent mixer under ``use_ulysses``, would need a
-        split that is not ported yet, or where the mLSTM's leaves split
-        over ``model`` and its heads do not."""
-        if mesh is None:
-            return
-        cfg = self.cfg
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: a model with a frontend runs without a "
-                f"mesh only; its split over a mesh is ROADMAP.md queue 1, "
-                f"'the frontend and encoder-decoder archs on a mesh'")
-        recurrent = sorted({m for m, _ in cfg.superblock if m in RECURRENT})
-        if not recurrent:
-            return
-        shape = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
-        if cfg.use_ulysses and shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the recurrent mixers {recurrent} under "
-                f"use_ulysses (sequence parallelism over 'model') are not "
-                f"ported; ROADMAP.md lists the path among the unported ones")
-        if "mlstm" in recurrent:
-            xlstm_mod.check_mlstm_heads(cfg, shape)
-
-    # ---- parameter specs ----
-    def specs(self):
-        cfg = self.cfg
-        out = {
-            "embed": ParamSpec((cfg.vocab, cfg.d_model),
-                               ("vocab", "embed_fsdp"), init="embed",
-                               scale=1.0),
-            "blocks": stack_specs(superblock_specs(cfg), cfg.n_superblocks,
-                                  None),
-            "final_norm": _norm_specs(cfg),
-        }
-        if not cfg.tie_embeddings:
-            out["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model),
-                                       ("vocab", "embed_fsdp"))
-        if cfg.frontend is not None:
-            out["frontend_proj"] = ParamSpec(
-                (cfg.d_model, cfg.d_model), ("embed_fsdp", None))
-        return out
-
-    def init(self, generator: torch.Generator, device="cuda"):
-        """Random parameters drawn from ``generator`` (on ``device``)."""
-        return init_params(self.specs(), generator, resolve_device(device),
-                           self.cfg.pdtype)
+class ModelBase:
+    """What the decoder-only stack and the encoder-decoder share, on one
+    device and on a mesh: the FSDP layout and its gathers of the
+    top-level leaves, the vocab-parallel embedding and head, the
+    full-vocab gather, and the loss's mean over the global batch.  A
+    subclass is a dataclass with ``cfg``, ``_fsdp_layouts``,
+    ``check_mesh`` and ``specs``."""
 
     # ---- FSDP ----
     def fsdp_layout(self, mesh=None, rules=None):
@@ -373,13 +323,15 @@ class Model:
             self._fsdp_layouts[key] = sh if sh.fsdp_axes else None
         return self._fsdp_layouts[key]
 
-    def _whole_top(self, params, fsdp):
-        """``params`` with the embedding (and an untied head) gathered
-        whole over FSDP; the stacked blocks stay shards."""
+    @staticmethod
+    def _whole(params, fsdp, keys):
+        """``params`` with the top-level leaves ``keys`` gathered whole
+        over FSDP (the embedding, ``frontend_proj``, an untied head); the
+        stacked layers stay shards."""
         if fsdp is None:
             return params
-        top = {k: v for k, v in params.items() if k != "blocks"}
-        return dict(params, **fsdp.gather_params(top))
+        return dict(params, **fsdp.gather_params({k: params[k]
+                                                  for k in keys}))
 
     # ---- embedding / head ----
     def embed(self, params, tokens, *, mesh=None, rules=None):
@@ -409,6 +361,93 @@ class Model:
         vl = vocab_layout(self.cfg, mesh, rules)
         return logits if vl is None else tp_gather(logits, vl[0], -1)
 
+    # ---- loss ----
+    def _mean_ce(self, logits, labels, mask=None, *, mesh=None, rules=None):
+        """The cross-entropy (with ``cfg.z_loss``; vocab-parallel where the
+        vocab is split) averaged over the positions ``mask`` keeps (all
+        where it is None).  On a mesh the denominator is the global count
+        over the batch group, times ``1 / n`` for its ``n`` ranks: each
+        rank's loss is its share of the global mean times ``n``."""
+        cfg = self.cfg
+        vl = vocab_layout(cfg, mesh, rules)
+        if vl is None:
+            ce = softmax_cross_entropy(logits, labels, cfg.z_loss)
+        else:
+            ce = vocab_parallel_cross_entropy(logits, labels, cfg.z_loss,
+                                              vl[0], vl[1])
+        mask = torch.ones_like(ce) if mask is None else mask.float()
+        count = torch.sum(mask)
+        group = None if mesh is None else batch_group(mesh, rules)
+        if group is not None:
+            count = count.detach().clone()
+            dist.all_reduce(count, group=group.pg)
+            count = torch.clamp(count, min=1.0) / group.size
+        else:
+            count = torch.clamp(count, min=1.0)
+        return torch.sum(ce * mask) / count
+
+
+@dataclass
+class Model(ModelBase):
+    cfg: ModelConfig
+    # the parameters' layout per (mesh, rules) where FSDP splits a leaf
+    _fsdp_layouts: dict = field(default_factory=dict, init=False,
+                                repr=False, compare=False)
+
+    def __post_init__(self):
+        cfg = self.cfg
+        missing = {m for m, _ in cfg.superblock} - set(PORTED_MIXERS)
+        if missing or cfg.encoder_layers:
+            raise ValueError(
+                f"{cfg.name}: Model is the decoder-only stack (mixers "
+                f"{PORTED_MIXERS}; got {sorted(missing)}, encoder_layers="
+                f"{cfg.encoder_layers}); build_model gives the "
+                f"encoder-decoder its EncDecModel")
+
+    def check_mesh(self, mesh) -> None:
+        """Refuse a mesh (a ``DeviceMesh`` or ``{dim: size}``) where a
+        recurrent mixer under ``use_ulysses`` would need a split that is
+        not ported yet, where the mLSTM's leaves split over ``model`` and
+        its heads do not, or where Ulysses over ``model`` cannot share out
+        the query heads."""
+        if mesh is None:
+            return
+        cfg = self.cfg
+        shape = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
+        recurrent = sorted({m for m, _ in cfg.superblock if m in RECURRENT})
+        if recurrent and cfg.use_ulysses and shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the recurrent mixers {recurrent} under "
+                f"use_ulysses (sequence parallelism over 'model') are not "
+                f"ported; ROADMAP.md lists the path among the unported ones")
+        check_lengths(cfg, shape)
+        if "mlstm" in recurrent:
+            xlstm_mod.check_mlstm_heads(cfg, shape)
+
+    # ---- parameter specs ----
+    def specs(self):
+        cfg = self.cfg
+        out = {
+            "embed": ParamSpec((cfg.vocab, cfg.d_model),
+                               ("vocab", "embed_fsdp"), init="embed",
+                               scale=1.0),
+            "blocks": stack_specs(superblock_specs(cfg), cfg.n_superblocks,
+                                  None),
+            "final_norm": _norm_specs(cfg),
+        }
+        if not cfg.tie_embeddings:
+            out["lm_head"] = ParamSpec((cfg.vocab, cfg.d_model),
+                                       ("vocab", "embed_fsdp"))
+        if cfg.frontend is not None:
+            out["frontend_proj"] = ParamSpec(
+                (cfg.d_model, cfg.d_model), ("embed_fsdp", None))
+        return out
+
+    def init(self, generator: torch.Generator, device="cuda"):
+        """Random parameters drawn from ``generator`` (on ``device``)."""
+        return init_params(self.specs(), generator, resolve_device(device),
+                           self.cfg.pdtype)
+
     # ---- full-sequence forward (train / prefill) ----
     def forward(self, params, tokens, *, mesh=None, rules=None,
                 frontend_embeds=None):
@@ -418,8 +457,16 @@ class Model:
         ``frontend_proj``, go before the tokens (positions count over the
         whole F + S sequence); the logits are the tokens' alone."""
         cfg = self.cfg
+        if mesh is not None:
+            S = tokens.shape[1]
+            F = 0 if frontend_embeds is None else frontend_embeds.shape[1]
+            what = f"F + S = {F} + {S}" if F else "the sequence S"
+            check_lengths(cfg, mesh_shape(mesh), {what: F + S})
         fsdp = self.fsdp_layout(mesh, rules)
-        params = self._whole_top(params, fsdp)
+        skip = ("blocks",) if frontend_embeds is not None \
+            else ("blocks", "frontend_proj")
+        params = self._whole(params, fsdp, [k for k in params
+                                            if k not in skip])
         x = self.embed(params, tokens, mesh=mesh, rules=rules)
         if frontend_embeds is not None:
             cd = cfg.cdtype
@@ -465,25 +512,8 @@ class Model:
         logits, aux = self.forward(
             params, batch["tokens"], mesh=mesh, rules=rules,
             frontend_embeds=batch.get("frontend_embeds"))
-        vl = vocab_layout(cfg, mesh, rules)
-        if vl is None:
-            ce = softmax_cross_entropy(logits, batch["labels"], cfg.z_loss)
-        else:
-            ce = vocab_parallel_cross_entropy(logits, batch["labels"],
-                                              cfg.z_loss, vl[0], vl[1])
-        mask = batch.get("mask")
-        if mask is None:
-            mask = torch.ones_like(ce)
-        mask = mask.float()
-        count = torch.sum(mask)
-        group = None if mesh is None else batch_group(mesh, rules)
-        if group is not None:
-            count = count.detach().clone()
-            dist.all_reduce(count, group=group.pg)
-            count = torch.clamp(count, min=1.0) / group.size
-        else:
-            count = torch.clamp(count, min=1.0)
-        loss = torch.sum(ce * mask) / count
+        loss = self._mean_ce(logits, batch["labels"], batch.get("mask"),
+                             mesh=mesh, rules=rules)
         total = loss + cfg.router_aux_weight * aux   # aux == 0 if no MoE
         return total, {"ce_loss": loss, "aux_loss": aux,
                        "total_loss": total}
@@ -530,7 +560,9 @@ class Model:
         updated in place, ``pos`` is a new tensor."""
         cfg = self.cfg
         fsdp = self.fsdp_layout(mesh, rules)
-        params = self._whole_top(params, fsdp)
+        params = self._whole(params, fsdp, [k for k in params
+                                            if k not in ("blocks",
+                                                         "frontend_proj")])
         x = self.embed(params, tokens_t, mesh=mesh, rules=rules)
         pos = caches["pos"]
         for i in range(cfg.n_superblocks):

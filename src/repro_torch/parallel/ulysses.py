@@ -48,6 +48,22 @@ def _overlap_chunks(cfg, Hkv: int, sp: int) -> int:
     return n
 
 
+def check_lengths(cfg, shape: dict, lengths: dict | None = None) -> None:
+    """Raise ``ValueError`` before anything runs unless Ulysses over
+    ``model`` (``cfg.use_ulysses`` on a mesh of ``shape``, ``{dim:
+    size}``, whose ``model`` is over 1) can share out ``cfg``'s query
+    heads and each sequence length in ``lengths`` (``{what: n}``) over
+    ``model``; the message names the length and ``model``."""
+    sp = shape.get("model", 1)
+    if not cfg.use_ulysses or sp <= 1:
+        return
+    for what, n in {"n_heads": cfg.n_heads, **(lengths or {})}.items():
+        if n % sp:
+            raise ValueError(
+                f"{cfg.name}: Ulysses over 'model' needs {what} ({n}) "
+                f"divisible by model ({sp}) on the mesh {shape}")
+
+
 def sp_comm(mesh, cfg, axes=None):
     """The SP group's communicator (``torus_comm`` over ``axes``, by
     default ``model`` where it is over 1, in ``cfg.a2a_variant``), or

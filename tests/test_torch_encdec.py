@@ -29,6 +29,7 @@ numbers.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -326,15 +327,47 @@ def test_serve_main_on_cpu_takes_no_kernel():
                     "--disaggregate"])
 
 
-def test_mesh_is_refused_naming_roadmap():
-    _, jparams, cfg, params = _setup("f32")
-    model = build_model(cfg)
-    mesh = object()          # refused before the mesh is read
-    frames = torch.from_numpy(_frames(cfg))
-    for call in (lambda: model.encode(params, frames, mesh=mesh),
-                 lambda: model.forward(params, torch.zeros(B, 4).long(),
-                                       frontend_embeds=frames, mesh=mesh),
-                 lambda: model.init_caches(B, 8, "cpu", mesh=mesh),
-                 lambda: params_from_jax(jparams, cfg, "cpu", mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+MESHES = ({"data": 2, "model": 4}, {"pod": 2, "data": 2, "model": 2})
+
+
+@pytest.mark.parametrize("ulysses", [False, True])
+@pytest.mark.parametrize("shape", MESHES)
+def test_mesh_is_accepted(shape, ulysses):
+    """The encoder-decoder on the reference's debug meshes: ``check_mesh``
+    and the launcher's ``check_trainable`` accept them, with and without
+    Ulysses (4 heads and 16 frames divide ``model``), and a mesh whose
+    ``model`` is 1 takes any length; the runs on these meshes are
+    ``test_torch_tp.py``'s."""
+    from repro_torch.launch.mesh import check_trainable
+    cfg = get_config(ARCH, smoke=True).replace(use_ulysses=ulysses)
+    build_model(cfg).check_mesh(shape)
+    check_trainable(shape, cfg, S + 4)
+    odd = cfg.replace(n_frontend_tokens=15, n_heads=3, n_kv_heads=3)
+    build_model(odd).check_mesh({"data": 8, "model": 1})
+    check_trainable({"data": 8, "model": 1}, odd, 15)
+
+
+@pytest.mark.parametrize("what,changes,seq,numbers", [
+    ("frame count", dict(n_frontend_tokens=15), 16, "(15) divisible by "
+     "model (4)"),
+    ("n_heads", dict(n_heads=6, n_kv_heads=6), 16, "(6) divisible by model "
+     "(4)"),
+    ("decoder tokens", {}, 18, "(18) divisible by model (4)")])
+def test_ulysses_mesh_that_does_not_divide_is_refused(what, changes, seq,
+                                                      numbers):
+    """Under Ulysses over ``model`` = 4, a frame count, a query head count
+    or a decoder length ``model`` does not divide is refused before
+    anything is built, naming the number and ``model``: by ``check_mesh``
+    (what the config fixes) and by ``check_trainable`` (the launcher's,
+    with the batch's decoder length)."""
+    from repro_torch.launch.mesh import check_trainable
+    shape = MESHES[0]
+    cfg = get_config(ARCH, smoke=True).replace(use_ulysses=True, **changes)
+    with pytest.raises(ValueError, match=re.escape(numbers)) as err:
+        check_trainable(shape, cfg, seq)
+    assert what in str(err.value)
+    if seq == 16:
+        with pytest.raises(ValueError, match=re.escape(numbers)):
+            build_model(cfg).check_mesh(shape)
+    else:
+        build_model(cfg).check_mesh(shape)

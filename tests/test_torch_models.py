@@ -87,8 +87,8 @@ def test_capacity_matches_reference(n_tokens, n_slots):
 
 
 def test_unported_paths_raise():
-    # the encoder-decoder and the frontends build; on a mesh they are
-    # what stays to come
+    # the encoder-decoder and the frontends build and take a mesh; a
+    # recurrent mixer under Ulysses is what stays to come
     from repro_torch.configs import NOT_PORTED
     from repro_torch.models.encdec import EncDecModel
     assert NOT_PORTED == ()
@@ -100,12 +100,33 @@ def test_unported_paths_raise():
         frontend="vit_stub", n_frontend_tokens=4))
     assert isinstance(build_model(get_config(ARCH, smoke=True).replace(
         encoder_layers=2)), EncDecModel)
-    mesh = object()          # refused before the mesh is read
+    shape = {"pod": 2, "data": 2, "model": 2}
     for model in (whisper, vlm, framed):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.check_mesh(mesh)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(model, None, mesh)
+        model.check_mesh(shape)
+    jamba = build_model(get_config("jamba-v0.1-52b", smoke=True).replace(
+        use_ulysses=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        jamba.check_mesh(shape)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_train_step(jamba, None, shape)   # refused before it is read
+
+
+@pytest.mark.parametrize("seq,ok", [(16, True), (18, False)])
+def test_frontend_ulysses_needs_model_to_divide_f_plus_s(seq, ok):
+    """Under Ulysses the frontend's F tokens and the text are one sequence
+    split over ``model``: internvl2-2b's SMOKE F = 8 plus S = 16 divides
+    ``model`` = 4, plus 18 does not, and the launcher's check names F + S
+    and ``model``."""
+    from repro_torch.launch.mesh import check_trainable
+    cfg = get_config("internvl2-2b", smoke=True).replace(use_ulysses=True)
+    shape = {"data": 2, "model": 4}
+    build_model(cfg).check_mesh(shape)
+    if ok:
+        check_trainable(shape, cfg, seq)
+        return
+    with pytest.raises(ValueError, match=r"F \+ S = 8 \+ 18 \(26\) "
+                       r"divisible by model \(4\)"):
+        check_trainable(shape, cfg, seq)
 
 
 @pytest.mark.parametrize("name", ["rms_norm", "layer_norm", "dense", "rope",
