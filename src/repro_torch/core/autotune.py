@@ -20,6 +20,9 @@ Search space (bounded by ``budget_seconds``):
   (``tuning.candidate_factorizations``), timed on auxiliary Cartesian
   meshes and recorded as rows that can never win (``eligible: False``):
   they steer how a mesh is built and never replace the caller's axes.
+  Where the tuned axes do not span the mesh, each subgroup of them (the
+  other axes pinned) builds its own auxiliary mesh over its members and
+  all subgroups time the candidate side by side.
 
 The search is SPMD: every rank of the world runs it, since every plan it
 times is a collective.  The ranks agree on everything that decides what
@@ -631,11 +634,14 @@ def _fit_axis_links(mesh, axis_names, dims, dtype, *, warmup, repeats,
 
 
 def _subgroup_ranks(mesh: DeviceMesh, axes) -> list[int]:
-    """Global ranks of one communication subgroup: the tuned axes swept,
-    every other mesh axis pinned at index 0, in torus-rank order (the
-    first axis the fastest digit: the order ``cart_create`` takes)."""
+    """Global ranks of this rank's communication subgroup: the tuned axes
+    swept, every other mesh axis pinned at this rank's index, in
+    torus-rank order (the first axis the fastest digit: the order
+    ``cart_create`` takes)."""
     names = mesh.mesh_dim_names
-    sub = mesh.mesh[tuple(slice(None) if n in axes else 0 for n in names)]
+    coord = mesh.get_coordinate()
+    sub = mesh.mesh[tuple(slice(None) if n in axes else c
+                          for n, c in zip(names, coord))]
     sel = [n for n in names if n in axes]
     sub = sub.permute([sel.index(a) for a in reversed(axes)])
     return [int(r) for r in sub.flatten().tolist()]
@@ -731,20 +737,18 @@ def _autotune_impl(mesh: DeviceMesh, axis_names, block_shape, dtype, *,
     rank = get_factorization(mesh, axes, variant=variant).rank
     x = _operand(p, block_shape, dtype, rank, device)
 
-    # Alternative factorizations need auxiliary meshes over the ranks of
-    # one subgroup; every rank must take part in building their groups,
-    # so they are measured only where that subgroup is the whole world.
+    # Alternative factorizations run on auxiliary Cartesian meshes over
+    # the ranks of one subgroup.  The reference measures one
+    # representative subgroup; here every rank runs the search, so every
+    # subgroup builds its own auxiliary mesh over its own members (a
+    # mesh over a strict subset of the world is built by its members
+    # alone, ``core.cache``) and times the same candidates beside the
+    # others, and ``_timed`` keeps the slowest rank's median.
     alt = [tuple(reversed(f)) for f in
            candidate_factorizations(p, max_d=min(4, max_dims(p)))]
     alt = [f for f in alt if f != dims and len(f) > 1] \
         if include_factorizations and p > 1 else []
     group_ranks = _subgroup_ranks(mesh, axes)
-    if alt and len(group_ranks) != dist.get_world_size():
-        raise NotImplementedError(
-            f"measuring other factorizations of the {p} ranks of axes "
-            f"{axes} needs them to span the world "
-            f"({dist.get_world_size()} ranks); pass "
-            "include_factorizations=False")
 
     links_fitted = None
     if fit_links:

@@ -18,8 +18,9 @@ exchanges.  :class:`TorusComm` makes it explicit over a ``DeviceMesh``:
   the Alltoallv plans (:class:`~repro_torch.core.plan.RaggedA2APlan`,
   :class:`~repro_torch.core.plan.SparseA2APlan`); ``comm.all_gather`` /
   ``comm.reduce_scatter`` the dimension-wise gather family: one
-  all-gather / reduce-scatter per torus dimension (``"factorized"``),
-  or one over the whole torus (``"direct"``); ``comm.transpose`` the
+  all-gather / reduce-scatter per torus dimension (``"factorized"``,
+  its ``n_chunks`` chunks pipelined with async collectives), or one
+  over the whole torus (``"direct"``); ``comm.transpose`` the
   pencil re-shard of the distributed FFT
   (:class:`~repro_torch.core.plan.TransposePlan`, ``workloads.fft``);
   ``comm.kv_migration`` the prefill -> decode KV handoff of
@@ -66,6 +67,7 @@ from .cache import (
 )
 from .factorized import _as_tuple, _check_order, _require_groups, \
     _skip_trivial
+from .overlap import _Chunk, _split_chunks, run_pipelined
 from .plan import dtype_name, itemsize
 from .tuning import (
     choose_dimwise_algorithm,
@@ -84,32 +86,58 @@ GATHER_BACKENDS = ("tuned", "direct", "factorized")
 # ---------------------------------------------------------------------------
 
 
-def _allgather_impl(x, fact: TorusFactorization, *, round_order=None):
+def _allgather_stages(sizes, groups, order):
+    """One stage per round of ``order`` on a chunk's block view (axes
+    ``[dim d-1, ..., dim 0, *chunk]``): stage ``k`` issues the
+    all-gather over dimension ``k``'s group asynchronously and leaves the
+    growth of dimension ``k``'s axis from 1 to ``D[k]`` as the chunk's
+    ``tail``, which the next stage (or the join) runs after ``wait()``."""
+    d = len(sizes)
+
+    def stage(k):
+        pos = d - 1 - k
+
+        def run(st, _c):
+            src = st.settle().contiguous()
+            st.buf = torch.empty((sizes[k], src.numel()), dtype=src.dtype,
+                                 device=src.device)
+            st.send = src.reshape(1, -1)
+            st.work = dist.all_gather_into_tensor(
+                st.buf, st.send, group=groups[k].pg, async_op=True)
+            st.tail = lambda out: to_torus_order(out, groups[k].order) \
+                .reshape((sizes[k],) + tuple(src.shape)) \
+                .squeeze(pos + 1).movedim(0, pos)
+            return st
+        return run
+    return [stage(k) for k in order]
+
+
+def _allgather_impl(x, fact: TorusFactorization, *, round_order=None,
+                    n_chunks: int = 1):
     """d-stage dimension-wise all-gather: ``x`` is this rank's
     ``(*block)`` contribution; returns ``(p, *block)`` with ``out[i]`` =
     the block contributed by torus rank ``i``.
 
-    The block view has axes ``[dim d-1, ..., dim 0, *block]``; stage
-    ``k`` grows dimension ``k``'s axis from 1 to ``D[k]`` with one
-    all-gather over that dimension's group."""
+    The flattened block is cut into ``n_chunks`` chunks on dim 0
+    (``core.overlap._split_chunks``: the count shrinks to a divisor of
+    the block's size) and every chunk's d stages run in the overlap
+    engine's program order (``run_pipelined``), each stage's gather
+    issued with ``async_op=True`` and waited for right before the stage
+    that consumes it, so one chunk's gather is in flight while the host
+    issues the next one's.  Data movement only: bit for bit the
+    unchunked gather."""
     _, sizes = _skip_trivial(fact.axis_names, fact.dims)
     d = len(sizes)
     if d == 0:
         return x[None]
     order = _check_order(round_order, d)
     groups = [g for g in fact.dim_groups if g is not None]
-    view = x.reshape((1,) * d + tuple(x.shape))
-    for k in order:
-        pos = d - 1 - k
-        src = view.contiguous()
-        out = torch.empty((sizes[k], src.numel()), dtype=x.dtype,
-                          device=x.device)
-        dist.all_gather_into_tensor(out, src.reshape(1, -1),
-                                    group=groups[k].pg)
-        out = to_torus_order(out, groups[k].order).reshape(
-            (sizes[k],) + src.shape)
-        view = out.squeeze(pos + 1).movedim(0, pos)
-    return view.reshape((fact.p,) + tuple(x.shape))
+    chunks = _split_chunks(x.reshape(-1), 0, max(1, n_chunks))
+    states = [_Chunk(c.reshape((1,) * d + tuple(c.shape))) for c in chunks]
+    outs = [st.settle().reshape(fact.p, -1) for st in
+            run_pipelined(states, _allgather_stages(sizes, groups, order))]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape((fact.p,) + tuple(x.shape))
 
 
 def _direct_allgather_impl(x, fact: TorusFactorization):
@@ -123,13 +151,40 @@ def _direct_allgather_impl(x, fact: TorusFactorization):
         (fact.p,) + tuple(x.shape))
 
 
-def _reduce_scatter_impl(x, fact: TorusFactorization, *, round_order=None):
+def _reduce_scatter_stages(sizes, groups, order):
+    """The mirror of :func:`_allgather_stages`: stage ``k`` issues the
+    reduce-scatter over dimension ``k``'s group asynchronously and leaves
+    the shrinking of dimension ``k``'s axis from ``D[k]`` to 1 as the
+    chunk's ``tail``."""
+    d = len(sizes)
+
+    def stage(k):
+        pos = d - 1 - k
+
+        def run(st, _c):
+            src = to_group_order(st.settle().movedim(pos, 0),
+                                 groups[k].order)
+            st.buf = torch.empty((1, src[0].numel()), dtype=src.dtype,
+                                 device=src.device)
+            st.send = src.reshape(src.shape[0], -1).contiguous()
+            st.work = dist.reduce_scatter_tensor(
+                st.buf, st.send, group=groups[k].pg, async_op=True)
+            st.tail = lambda out: out.reshape(
+                (1,) + tuple(src.shape[1:])).movedim(0, pos)
+            return st
+        return run
+    return [stage(k) for k in order]
+
+
+def _reduce_scatter_impl(x, fact: TorusFactorization, *, round_order=None,
+                         n_chunks: int = 1):
     """d-stage dimension-wise reduce-scatter: ``x`` is ``(p, *block)``,
     block ``i`` this rank's term for torus rank ``i``'s sum; returns
     ``(*block)``, the full sum for this rank.  Stage ``k`` shrinks
-    dimension ``k``'s axis from ``D[k]`` to 1.  The summation order
-    differs from the direct form: exact dtypes agree bit for bit, floats
-    to rounding."""
+    dimension ``k``'s axis from ``D[k]`` to 1.  Chunks are cut on dim 1
+    of the ``(p, -1)`` view and pipelined as in :func:`_allgather_impl`.
+    The summation order differs from the direct form: exact dtypes agree
+    bit for bit, floats to rounding."""
     p = fact.p
     if x.shape[0] != p:
         raise ValueError(f"leading dim {x.shape[0]} != prod(dims)={p} "
@@ -140,19 +195,14 @@ def _reduce_scatter_impl(x, fact: TorusFactorization, *, round_order=None):
         return x[0]
     order = _check_order(round_order, d)
     groups = [g for g in fact.dim_groups if g is not None]
-    block = tuple(x.shape[1:])
-    view = x.reshape(tuple(reversed(sizes)) + block)
-    for k in order:
-        pos = d - 1 - k
-        src = view.movedim(pos, 0)
-        src = to_group_order(src, groups[k].order)
-        out = torch.empty((1, src[0].numel()), dtype=x.dtype,
-                          device=x.device)
-        dist.reduce_scatter_tensor(
-            out, src.reshape(src.shape[0], -1).contiguous(),
-            group=groups[k].pg)
-        view = out.reshape((1,) + tuple(src.shape[1:])).movedim(0, pos)
-    return view.reshape(block)
+    chunks = _split_chunks(x.reshape(p, -1), 1, max(1, n_chunks))
+    prefix = tuple(reversed(sizes))
+    states = [_Chunk(c.reshape(prefix + (c.shape[1],))) for c in chunks]
+    outs = [st.settle().reshape(-1) for st in
+            run_pipelined(states,
+                          _reduce_scatter_stages(sizes, groups, order))]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape(x.shape[1:])
 
 
 def _direct_reduce_scatter_impl(x, fact: TorusFactorization):
@@ -224,12 +274,6 @@ class _DimwisePlan:
         return math.prod(self.block_shape) * itemsize(self.dtype)
 
     def _executable(self) -> None:
-        if self.n_chunks > 1:
-            # a gather's collectives are synchronous: in eager torch its
-            # chunks would overlap nothing, only multiply the calls
-            raise NotImplementedError(
-                f"{type(self).__name__} with n_chunks={self.n_chunks} is "
-                "not supported; use n_chunks=1")
         _require_groups(self.fact)
 
     def describe(self) -> dict:
@@ -281,14 +325,16 @@ class AllGatherPlan(_DimwisePlan):
     def _run(self, x):
         if self.backend == "direct":
             return _direct_allgather_impl(x, self.fact)
-        return _allgather_impl(x, self.fact, round_order=self.order)
+        return _allgather_impl(x, self.fact, round_order=self.order,
+                               n_chunks=self.n_chunks)
 
     def _adjoint(self, g):
         """The reduce-scatter of ``g``, stages in the reverse order."""
         if self.backend == "direct":
             return _direct_reduce_scatter_impl(g, self.fact)
         return _reduce_scatter_impl(g, self.fact,
-                                    round_order=self.order[::-1])
+                                    round_order=self.order[::-1],
+                                    n_chunks=self.n_chunks)
 
 
 class ReduceScatterPlan(_DimwisePlan):
@@ -310,13 +356,15 @@ class ReduceScatterPlan(_DimwisePlan):
     def _run(self, x):
         if self.backend == "direct":
             return _direct_reduce_scatter_impl(x, self.fact)
-        return _reduce_scatter_impl(x, self.fact, round_order=self.order)
+        return _reduce_scatter_impl(x, self.fact, round_order=self.order,
+                                    n_chunks=self.n_chunks)
 
     def _adjoint(self, g):
         """The all-gather of ``g``, stages in the reverse order."""
         if self.backend == "direct":
             return _direct_allgather_impl(g, self.fact)
-        return _allgather_impl(g, self.fact, round_order=self.order[::-1])
+        return _allgather_impl(g, self.fact, round_order=self.order[::-1],
+                               n_chunks=self.n_chunks)
 
 
 def _build_dimwise_plan(cls, source, axis_names, block_shape, dtype, *,

@@ -2035,4 +2035,10 @@ def plan_cache_stats() -> dict[str, int]:
     return out
 
 
+def plan_cache_entries() -> list:
+    """Snapshot of the live plans, LRU-oldest first (for logging and the
+    dry run's records; does not touch recency or stats)."""
+    return _PLANS.values()
+
+
 telemetry.register_stats_provider("plan_cache", plan_cache_stats)

@@ -21,8 +21,9 @@ communication-volume formula.
 
 This is ``repro.core.simulator`` (stdlib only) copied into the port: the
 dense oracle, the Alltoallv (ragged and sparse) oracles, the
-KV-migration oracle of disaggregated serving and the pencil transpose
-oracle of the distributed FFT.
+KV-migration oracle of disaggregated serving, the dimension-wise
+gather-family oracles and the pencil transpose oracle of the
+distributed FFT.
 """
 
 from __future__ import annotations
@@ -429,6 +430,143 @@ def check_correct_alltoallv(dims, counts, round_order=None) -> bool:
     want = simulate_direct_alltoallv(counts)
     p = math.prod(dims)
     return all(final[r] == want[r] for r in range(p))
+
+
+# ----------------------------------------------------------------------------
+# Dimension-wise gather-collective oracles (the TorusComm family).
+#
+# Once the per-dimension sub-communicators are explicit, a whole family of
+# collectives falls out of the same d-stage machinery (Mortensen et al.'s
+# advanced-MPI transposes, Träff et al.'s isomorphic collectives): an
+# all-gather is d concatenating stages, a reduce-scatter d reducing/
+# scattering stages.  The oracles below model both with MPI group
+# semantics — group membership from torus coordinates, per-stage digit
+# assignment from group rank, final placement from the package's fixed
+# fastest-digit-first linearization — and are the correctness reference
+# for ``core.comm``'s chunked and unchunked gather plans and the
+# paper's worked tori (5x4, 2x3x4).
+# ----------------------------------------------------------------------------
+
+
+def simulate_factorized_allgather(
+    dims: tuple[int, ...],
+    round_order: tuple[int, ...] | None = None,
+) -> tuple[dict[int, list], VolumeCount]:
+    """Run the d-stage dimension-wise all-gather for every rank.
+
+    Each rank starts with one block (payload = its own rank id); stage
+    ``k`` is an MPI_Allgather on the dimension-``k`` communicator — the
+    contribution of group member ``j`` lands at digit-``k`` coordinate
+    ``j`` of every member's buffer.  The final buffer is linearized by
+    torus rank (digit 0 fastest).  Correct iff ``out[r] == list(range(p))``
+    for every rank ``r``.
+
+    Volume: stage ``k`` sends the ``prod(D_j, earlier j)`` blocks held so
+    far to each of ``D[k]-1`` peers; the total telescopes to ``p - 1``
+    blocks for *any* round order — all-gather has no combining win to
+    factorize (unlike Theorem 1), the d-stage form wins on message count.
+    """
+    d = len(dims)
+    p = math.prod(dims)
+    order = tuple(round_order) if round_order is not None else tuple(range(d))
+    assert sorted(order) == list(range(d))
+
+    coords = {r: rank_to_coords(r, dims) for r in range(p)}
+    # buf[r]: {partial source coords (digit or None per dim) -> payload}
+    buf: dict[int, dict] = {r: {(None,) * d: r} for r in range(p)}
+    vol = VolumeCount(dims)
+
+    for k in order:
+        Dk = dims[k]
+        groups: dict[tuple, list[int]] = {}
+        for r in range(p):
+            key = tuple(c for i, c in enumerate(coords[r]) if i != k)
+            groups.setdefault(key, []).append(r)
+        held = len(buf[0])
+        staged = {}
+        for members in groups.values():
+            members.sort(key=lambda r: coords[r][k])
+            assert len(members) == Dk
+            merged = {}
+            for g_s, s in enumerate(members):
+                for key, payload in buf[s].items():
+                    assert key[k] is None
+                    merged[key[:k] + (g_s,) + key[k + 1:]] = payload
+            for r in members:
+                staged[r] = dict(merged)
+        buf = staged
+        vol.blocks_sent_per_round.append((Dk - 1) * held)
+
+    out = {}
+    for r in range(p):
+        slots = [None] * p
+        for key, payload in buf[r].items():
+            slots[coords_to_rank(key, dims)] = payload
+        out[r] = slots
+    return out, vol
+
+
+def simulate_factorized_reduce_scatter(
+    dims: tuple[int, ...],
+    round_order: tuple[int, ...] | None = None,
+) -> tuple[dict[int, list], VolumeCount]:
+    """Run the d-stage dimension-wise reduce-scatter for every rank.
+
+    Rank ``s`` contributes one block per destination ``t`` with payload
+    term ``(s, t)``; reduction is modeled as term concatenation (sorted at
+    the end) so dropped, duplicated, or misrouted contributions are all
+    visible.  Stage ``k`` is an MPI_Reduce_scatter on the dimension-``k``
+    communicator: each member keeps (and reduces) the destinations whose
+    digit ``k`` matches its own coordinate.  Correct iff ``out[r] ==
+    [(s, r) for s in range(p)]`` for every rank ``r``.
+
+    Volume: stage ``k`` ships the ``(D[k]-1)/D[k]`` fraction of the
+    destination blocks still held (the held set shrinks ``D[k]``-fold per
+    stage), so the per-rank total telescopes to ``p - 1`` blocks for any
+    round order — the exact dual of the all-gather.  Like it, the d-stage
+    form wins on the message count, not the volume.
+    """
+    d = len(dims)
+    p = math.prod(dims)
+    order = tuple(round_order) if round_order is not None else tuple(range(d))
+    assert sorted(order) == list(range(d))
+
+    coords = {r: rank_to_coords(r, dims) for r in range(p)}
+    # buf[r]: {destination rank -> list of (source, dest) payload terms}
+    buf = {r: {t: [(r, t)] for t in range(p)} for r in range(p)}
+    vol = VolumeCount(dims)
+
+    for k in order:
+        Dk = dims[k]
+        groups: dict[tuple, list[int]] = {}
+        for r in range(p):
+            key = tuple(c for i, c in enumerate(coords[r]) if i != k)
+            groups.setdefault(key, []).append(r)
+        sent = 0
+        staged = {}
+        for members in groups.values():
+            members.sort(key=lambda r: coords[r][k])
+            assert len(members) == Dk
+            for g_r, r in enumerate(members):
+                new = {}
+                for g_s, s in enumerate(members):
+                    for t, terms in buf[s].items():
+                        if coords[t][k] != g_r:
+                            continue
+                        new.setdefault(t, []).extend(terms)
+                        if g_s != g_r:     # kept-by-owner blocks are free
+                            sent += 1
+                staged[r] = new
+        buf = staged
+        # `sent` sums over all ranks; VolumeCount is per rank (the stage
+        # is symmetric, so the division is exact)
+        vol.blocks_sent_per_round.append(sent // p)
+
+    out = {}
+    for r in range(p):
+        assert set(buf[r]) == {r}, f"rank {r} kept foreign destinations"
+        out[r] = sorted(buf[r][r])
+    return out, vol
 
 
 # ----------------------------------------------------------------------------

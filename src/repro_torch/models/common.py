@@ -173,6 +173,19 @@ def init_params(specs, generator: torch.Generator, device,
                     specs)
 
 
+def abstract_params(specs, param_dtype: torch.dtype = torch.bfloat16):
+    """The parameter tree on the ``meta`` device: every leaf's shape and
+    dtype, no storage (the dry run's path; the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype
+                                          or param_dtype, device="meta"),
+                    specs)
+
+
+def param_count(specs) -> int:
+    return sum(math.prod(s.shape) for _, s in tree_leaves(specs))
+
+
 def stack_specs(specs, n: int, axis_name: str | None = None):
     """Prepend a layer dimension to every spec (stacked layer params)."""
     return tree_map(lambda s: replace(

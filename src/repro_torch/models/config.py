@@ -134,3 +134,46 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # ---- parameter count (for MODEL_FLOPS = 6*N*D) ----
+    def param_count_estimate(self, active_only: bool = False) -> int:
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        hd, Hq, Hkv = self.hd, self.n_heads, self.n_kv_heads
+        n_attn = 0
+        n_mixer_other = 0
+        n_ffn_dense = 0
+        n_ffn_moe = 0
+        attn_p = D * hd * Hq * 2 + D * hd * Hkv * 2     # q,o + k,v
+        Ein = self.ssm_expand * D
+        mamba_p = D * Ein * 2 + Ein * self.ssm_conv + \
+            Ein * (self.ssm_state * 2 + 1) + Ein * D + Ein * self.ssm_state
+        mlstm_p = D * (2 * D) * 2 + (2 * D) * 3 * (2 * D) // 4 + 2 * D * D
+        slstm_p = D * D * 4 + D * 4 * D // 4
+        spectral_p = D * 2 * Ein + Ein * (3 * self.ssm_state + 2) + Ein * D
+        ffn_dense = 3 * D * F if self.act == "swiglu" else 2 * D * F
+        per_expert = 3 * D * F if self.act == "swiglu" else 2 * D * F
+        for i in range(self.n_layers):
+            mixer, ffn = self.superblock[i % len(self.superblock)]
+            if mixer == "attn":
+                n_attn += 1
+            elif mixer == "mamba":
+                n_mixer_other += mamba_p
+            elif mixer == "mlstm":
+                n_mixer_other += mlstm_p
+            elif mixer == "slstm":
+                n_mixer_other += slstm_p
+            elif mixer == "spectral":
+                n_mixer_other += spectral_p
+            if ffn == "dense":
+                n_ffn_dense += 1
+            elif ffn == "moe":
+                n_ffn_moe += 1
+        total = n_attn * attn_p + n_mixer_other
+        total += n_ffn_dense * ffn_dense
+        k_active = min(self.top_k, max(1, self.n_experts))
+        experts_counted = k_active if active_only else self.n_experts
+        total += n_ffn_moe * (per_expert * experts_counted + D * self.n_experts)
+        total += V * D * (1 if self.tie_embeddings else 2)
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn_p + ffn_dense)
+        return total

@@ -31,9 +31,11 @@ every rank calls them collectively with its row block of the batch and
 its parameter shard (``models.common.param_shardings``); the ranks issue
 the same collectives in the same order, the remat recompute's included.
 The recurrent mixers split their channels or heads over ``model`` as
-their modules say (their decode states too: ``init_caches``); a
-recurrent mixer under ``use_ulysses`` refuses a mesh (``check_mesh``):
-that split is not ported yet.  A frontend's patch embeddings are split
+their modules say (their decode states too: ``init_caches``), with or
+without ``use_ulysses``: the residual stream is whole between blocks,
+each Ulysses attention cuts its own rows and gathers them back
+(``attention._ulysses_block``), so a mixer beside it runs its tensor
+parallel split unchanged.  A frontend's patch embeddings are split
 by batch as the tokens are, ``frontend_proj`` is an FSDP leaf gathered
 with the embedding, and under Ulysses the whole F + S sequence is split
 over ``model`` (``forward`` refuses an F + S that ``model`` does not
@@ -405,24 +407,15 @@ class Model(ModelBase):
                 f"encoder-decoder its EncDecModel")
 
     def check_mesh(self, mesh) -> None:
-        """Refuse a mesh (a ``DeviceMesh`` or ``{dim: size}``) where a
-        recurrent mixer under ``use_ulysses`` would need a split that is
-        not ported yet, where the mLSTM's leaves split over ``model`` and
-        its heads do not, or where Ulysses over ``model`` cannot share out
-        the query heads."""
+        """Refuse a mesh (a ``DeviceMesh`` or ``{dim: size}``) where the
+        mLSTM's leaves split over ``model`` and its heads do not, or where
+        Ulysses over ``model`` cannot share out the query heads."""
         if mesh is None:
             return
-        cfg = self.cfg
         shape = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
-        recurrent = sorted({m for m, _ in cfg.superblock if m in RECURRENT})
-        if recurrent and cfg.use_ulysses and shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the recurrent mixers {recurrent} under "
-                f"use_ulysses (sequence parallelism over 'model') are not "
-                f"ported; ROADMAP.md lists the path among the unported ones")
-        check_lengths(cfg, shape)
-        if "mlstm" in recurrent:
-            xlstm_mod.check_mlstm_heads(cfg, shape)
+        check_lengths(self.cfg, shape)
+        if any(m == "mlstm" for m, _ in self.cfg.superblock):
+            xlstm_mod.check_mlstm_heads(self.cfg, shape)
 
     # ---- parameter specs ----
     def specs(self):

@@ -20,9 +20,30 @@ gradient is each rank's block of every rank's cotangent, summed; the
 reduce-scatter's is every rank's cotangent, gathered); on the (2,2)
 torus also against ``jax.grad`` of the reference's plans on 4 forced
 host devices.
+
+The chunked gathers (``chunked_*``, ``n_chunks`` 2 and 3 on blocks of 10
+and 9 elements, so ``_split_chunks`` shrinks some counts to a divisor,
+as the reference's does): the all-gather and the int64 reduce-scatter
+bit for bit against the definition and the unchunked plan, every round
+order; the f32 reduce-scatter within the bound of a p-term f32 sum in any
+order (``p * 2**-23`` times the sum of the terms' magnitudes, the
+reference's "floats agree to rounding"); the gradients (integer f64) bit
+for bit; the ported simulator oracle's placement; every chunk collective
+issued with ``async_op=True`` and all chunks in flight before the first
+join.  Their int32 outputs equal the reference's ``host_fn`` of the same
+chunked plans on 4, 6 and 12 forced host devices.
+
+Before its rebuild leg the 12-rank world autotunes the axes of extents
+(2,3) over their two 6-rank subgroups (``subgroup_autotune``): each
+subgroup times the other factorization (1,2,3) on its own auxiliary
+mesh; every rank returns the same plan, a DB hit times nothing, a zero
+budget skips the same rows everywhere, the autotuned ``forward`` equals
+the definition, and the record's rows have the reference's structure
+(its record for the same dims on 12 forced host devices).
 """
 
 import itertools
+import json
 import math
 import os
 import subprocess
@@ -40,8 +61,13 @@ WORLDS = {4: ((2, 2), ("a", "b")), 6: ((3, 2), ("a", "b")),
 CHECKS = ("rank_order", "direct", "factorized_natural", "factorized_paper",
           "reverse", "tiled", "sub", "all_gather", "reduce_scatter",
           "registry", "passes", "group_order", "allgather_grad",
-          "reduce_scatter_grad")
+          "reduce_scatter_grad", "chunked_all_gather",
+          "chunked_reduce_scatter", "chunked_grad", "chunked_async")
 B = 3
+CHUNK_BLOCKS = ((5, 2), (3, 3))
+CHUNKS = (2, 3)
+AUTOTUNE_AXES = ("a", "b")
+AUTOTUNE_KW = dict(fit_links=False, warmup=0, repeats=1, max_chunks=4)
 
 
 def _inputs(p: int) -> np.ndarray:
@@ -61,6 +87,22 @@ def _grad_inputs(p: int):
             "WR": rng.integers(-9, 10, (p, B)).astype(np.float64)}
 
 
+def _chunk_inputs(p: int) -> dict:
+    """Per chunk-test block: every rank's gather block ``G[r]``, int terms
+    ``X[r]`` and f32 terms ``F[r]`` (integers in +-1000, exact in the
+    reference's int32), and integer f64 loss weights ``WG`` / ``WR``."""
+    rng = np.random.default_rng(13)
+    out = {}
+    for blk in CHUNK_BLOCKS:
+        out[blk] = {
+            "G": rng.integers(-1000, 1000, (p,) + blk),
+            "X": rng.integers(-1000, 1000, (p, p) + blk),
+            "F": rng.standard_normal((p, p) + blk).astype(np.float32),
+            "WG": rng.integers(-9, 10, (p, p) + blk).astype(np.float64),
+            "WR": rng.integers(-9, 10, (p,) + blk).astype(np.float64)}
+    return out
+
+
 def _coset(rank, dims, names, axes):
     """Global ranks of ``rank``'s coset over ``axes``, in torus order."""
     from repro_torch.core.simulator import rank_to_coords
@@ -78,7 +120,7 @@ def _coset(rank, dims, names, axes):
     return sorted(members, key=sub_rank)
 
 
-def _world_checks(rank, n, dims, names):
+def _world_checks(rank, n, dims, names, tmp):
     """Runs on every rank; returns ``{check: bool}`` and this rank's
     factorized outputs for the JAX comparison."""
     import torch.distributed as dist
@@ -167,6 +209,9 @@ def _world_checks(rank, n, dims, names):
                 g_rs, D["WR"])
             grads[backend] = (g_ag, g_rs)
 
+    chunk_ok, outs["chunked"] = _chunked_checks(comm, rank, p, active)
+    ok.update(chunk_ok)
+
     # registry: a refetch hits; a freed comm rebuilds on the same groups
     plan = comm.all_to_all((B,), torch.int64, backend="factorized")
     ok["registry"] = (comm.all_to_all((B,), torch.int64,
@@ -182,9 +227,149 @@ def _world_checks(rank, n, dims, names):
 
     ok["passes"] = _passes_follow_the_schedule(mesh, names, x, want)
     ok["group_order"] = _group_order_checks(n, dims, names, X)
-    if n == 12:                    # last: ranks 8-11 leave the world
-        ok.update(_rebuild_leg())
+    if n == 12:
+        outs["autotune"] = _subgroup_autotune_leg(mesh, names, X, tmp)
+        ok.update(_rebuild_leg())  # last: ranks 8-11 leave the world
     return {k: bool(v) for k, v in ok.items()}, outs, grads
+
+
+def _chunked_checks(comm, rank, p, active):
+    """The chunked all-gather and reduce-scatter on this rank (module
+    docstring); returns ``({check: bool}, outputs)``, the outputs keyed
+    by ``(block, n_chunks, order)`` for the JAX comparison."""
+    from repro_torch.core.overlap import _split_chunks
+    from repro_torch.core.simulator import (
+        simulate_factorized_allgather, simulate_factorized_reduce_scatter)
+
+    ok = {c: True for c in ("chunked_all_gather", "chunked_reduce_scatter",
+                            "chunked_grad", "chunked_async")}
+    outs = {}
+    dims = tuple(s for s in comm.dims if s > 1)
+    for blk, D in _chunk_inputs(p).items():
+        D = {k: torch.from_numpy(v) for k, v in D.items()}
+        G, X, F = D["G"], D["X"], D["F"]
+        want_f = F[:, rank].double().sum(0)
+        bound = p * 2.0 ** -23 * F[:, rank].double().abs().sum(0)
+        tag = torch.full(blk, rank, dtype=torch.int64)
+        for order in itertools.permutations(range(active)):
+            def plans(dtype, n):
+                kw = dict(backend="factorized", round_order=order,
+                          n_chunks=n)
+                return (comm.all_gather(blk, dtype, **kw),
+                        comm.reduce_scatter(blk, dtype, **kw))
+            ag1, rs1 = plans(torch.int64, 1)
+            rf1 = plans(torch.float32, 1)[1]
+            gag1, grs1 = plans(torch.float64, 1)
+            g1 = (_input_grad(gag1, D["G"][rank].double(), D["WG"][rank],
+                              G.double()),
+                  _input_grad(grs1, X[rank].double(), D["WR"][rank],
+                              X[:, rank].sum(0).double()))
+            sim_ag = simulate_factorized_allgather(dims, order)[0][rank]
+            sim_rs = simulate_factorized_reduce_scatter(dims, order)[0][rank]
+            for n in CHUNKS:
+                ag, rs = plans(torch.int64, n)
+                y = ag.forward(G[rank])
+                ok["chunked_all_gather"] &= (
+                    torch.equal(y, G) and torch.equal(y, ag1.forward(G[rank]))
+                    and ag.forward(tag).reshape(p, -1)[:, 0].tolist() == sim_ag)
+                z = rs.forward(X[rank])
+                zf = plans(torch.float32, n)[1].forward(F[rank])
+                ok["chunked_reduce_scatter"] &= (
+                    torch.equal(z, X[:, rank].sum(0))
+                    and torch.equal(z, rs1.forward(X[rank]))
+                    and bool(((zf.double() - want_f).abs() <= bound).all())
+                    and bool(((zf - rf1.forward(F[rank])).double().abs()
+                              <= 2 * bound).all())
+                    and sim_rs == [(s, rank) for s in range(p)])
+                gag, grs = plans(torch.float64, n)
+                g = (_input_grad(gag, D["G"][rank].double(), D["WG"][rank],
+                                 G.double()),
+                     _input_grad(grs, X[rank].double(), D["WR"][rank],
+                                 X[:, rank].sum(0).double()))
+                ok["chunked_grad"] &= None not in g + g1 and all(
+                    torch.equal(a, b) for a, b in zip(g, g1)) \
+                    and torch.equal(g[0], D["WG"][:, rank].sum(0)) \
+                    and torch.equal(g[1], D["WR"])
+                outs[(blk, n, order)] = (y.numpy(), z.numpy(), zf.numpy())
+                n_eff = len(_split_chunks(torch.empty(math.prod(blk)), 0, n))
+                for plan, x in ((ag, G[rank]), (rs, X[rank])):
+                    calls, peak = _count_async(plan, x)
+                    ok["chunked_async"] &= (
+                        calls == [True] * (n_eff * len(dims))
+                        and peak == n_eff)
+    return ok, outs
+
+
+def _count_async(plan, x):
+    """Run ``plan.forward(x)`` with the gather family's two collectives
+    wrapped: returns each call's ``async_op`` and the most exchanges in
+    flight at once (issued and not yet waited for)."""
+    import torch.distributed as dist
+    saved = {k: getattr(dist, k) for k in ("all_gather_into_tensor",
+                                           "reduce_scatter_tensor")}
+    calls, live = [], [0, 0]
+
+    class Tracked:
+        def __init__(self, work):
+            self.work = work
+
+        def wait(self):
+            live[0] -= 1
+            return self.work.wait()
+
+    def wrap(fn):
+        def run(*args, async_op=False, **kwargs):
+            calls.append(async_op)
+            work = fn(*args, async_op=async_op, **kwargs)
+            if not async_op:
+                return work
+            live[0] += 1
+            live[1] = max(live)
+            return Tracked(work)
+        return run
+
+    for k, fn in saved.items():
+        setattr(dist, k, wrap(fn))
+    try:
+        plan.forward(x)
+    finally:
+        for k, fn in saved.items():
+            setattr(dist, k, fn)
+    return calls, live[1]
+
+
+def _subgroup_autotune_leg(mesh, names, X, tmp):
+    """``autotune`` over the axes of extents (2,3) of the (2,3,2) torus:
+    two 6-rank subgroups, each timing the other factorization on its own
+    auxiliary mesh.  Returns this rank's plan, record, DB-hit timings,
+    zero-budget rows and whether the autotuned forward is the
+    definition."""
+    import torch.distributed as dist
+    from repro_torch.core.autotune import TuningDB, autotune, \
+        autotune_stats
+    from repro_torch.core.plan import plan_all_to_all
+
+    db = TuningDB(Path(tmp) / "subgroup.json")
+    plan = autotune(mesh, AUTOTUNE_AXES, (B,), torch.float32, db=db,
+                    budget_seconds=600, **AUTOTUNE_KW)
+    members = _coset(dist.get_rank(), WORLDS[12][0], names, AUTOTUNE_AXES)
+    q, me = len(members), members.index(dist.get_rank())
+    x = X[dist.get_rank(), :q].float()
+    want = torch.stack([X[m, me] for m in members]).float()
+    timed = autotune_stats()["timing_executions"]
+    again = plan_all_to_all(mesh, AUTOTUNE_AXES, (B,), torch.float32,
+                            backend="autotune", db=db)
+    out = {"plan": plan.describe(), "record": next(iter(db.load().values())),
+           "hit_is_plan": again is plan,
+           "hit_timed": autotune_stats()["timing_executions"] - timed,
+           "forward": torch.equal(plan.forward(x), want)}
+    zero_db = TuningDB(Path(tmp) / "subgroup_zero.json")
+    zero = autotune(mesh, AUTOTUNE_AXES, (B,), torch.float32, db=zero_db,
+                    budget_seconds=0, **AUTOTUNE_KW)
+    rec = next(iter(zero_db.load().values()))
+    out["zero"] = (zero.describe()["backend"], rec["table"],
+                   rec["skipped"])
+    return out
 
 
 REBUILD_LOST = (8, 9, 10, 11)
@@ -383,8 +568,8 @@ _RESULTS: dict = {}
 def _results(n, tmp_path_factory):
     """Each world runs once per session, whichever test asks first."""
     if n not in _RESULTS:
-        _RESULTS[n] = run_world(_world_checks, n,
-                                tmp_path_factory.mktemp("gloo"), *WORLDS[n])
+        tmp = tmp_path_factory.mktemp("gloo")
+        _RESULTS[n] = run_world(_world_checks, n, tmp, *WORLDS[n], str(tmp))
     return _RESULTS[n]
 
 
@@ -412,12 +597,18 @@ def test_rebuild_on_the_survivors_of_12(tmp_path_factory, check):
 
 
 _JAX_SCRIPT = r"""
+import json
 import sys
+import tempfile
 import numpy as np
 import jax
+import jax.numpy as jnp
+from repro.core.autotune import TuningDB, autotune
 from repro.core.cache import cart_create
+from repro.core.comm import torus_comm
 from repro.core.plan import plan_all_to_all
 
+spec = json.loads(sys.argv[3])
 dims, names = (2, 3, 2), ("a", "b", "c")
 X = np.load(sys.argv[1])["X"]
 mesh = cart_create(12, dims, names)
@@ -427,33 +618,161 @@ for backend, variant in (("direct", "natural"), ("factorized", "natural"),
     plan = plan_all_to_all(mesh, names, X.shape[2:], X.dtype,
                            backend=backend, variant=variant)
     out[f"{backend}_{variant}"] = np.asarray(plan.host_fn(mesh)(X))
+
+# the chunked gathers on every torus of the gloo worlds
+C = np.load(sys.argv[4])
+for p, (tdims, tnames) in spec["worlds"].items():
+    tmesh = cart_create(int(p), tuple(tdims), tuple(tnames))
+    comm = torus_comm(tmesh, tuple(tnames))
+    for blk in spec["blocks"]:
+        b = "x".join(map(str, blk))
+        G, T, F = (C[f"{p}_{b}_{k}"] for k in "GXF")
+        for order in spec["orders"][p]:
+            for n in spec["chunks"]:
+                kw = dict(backend="factorized", round_order=tuple(order),
+                          n_chunks=n)
+                key = f"{p}_{b}_{n}_{''.join(map(str, order))}"
+                out["ag_" + key] = np.asarray(comm.all_gather(
+                    tuple(blk), jnp.int32, **kw).host_fn(tmesh)(G))
+                out["rs_" + key] = np.asarray(comm.reduce_scatter(
+                    tuple(blk), jnp.int32, **kw).host_fn(tmesh)(T))
+                out["rf_" + key] = np.asarray(comm.reduce_scatter(
+                    tuple(blk), jnp.float32, **kw).host_fn(tmesh)(F))
 np.savez(sys.argv[2], **out)
+
+# the search over the axes of extents (2,3): its record's rows
+with tempfile.TemporaryDirectory() as tmp:
+    db = TuningDB(f"{tmp}/tuning.json")
+    autotune(mesh, tuple(spec["axes"]), (spec["B"],), jnp.float32, db=db,
+             budget_seconds=600, **spec["kw"])
+    record = next(iter(db.load().values()))
+with open(sys.argv[5], "w") as f:
+    json.dump(record, f)
 """
 
+_JAX_REF: dict = {}
 
-def test_factorized_matches_jax_host_fn(tmp_path, tmp_path_factory):
+
+def _jax_reference(tmp_path_factory):
+    """The JAX package on 12 forced host devices, run once a session: the
+    all-to-all host_fns of the (2,3,2) torus, the chunked gathers of
+    every world's torus and the subgroup autotune's record."""
+    if not _JAX_REF:
+        tmp = tmp_path_factory.mktemp("jax_ref")
+        X = _inputs(12).astype(np.int32)          # JAX runs without x64
+        np.savez(tmp / "in.npz", X=X)
+        chunk = {}
+        for n, (dims, _) in WORLDS.items():
+            for blk, D in _chunk_inputs(n).items():
+                b = "x".join(map(str, blk))
+                chunk[f"{n}_{b}_G"] = D["G"].astype(np.int32)
+                chunk[f"{n}_{b}_X"] = D["X"].astype(np.int32)
+                chunk[f"{n}_{b}_F"] = D["F"]
+        np.savez(tmp / "chunk.npz", **chunk)
+        spec = {"worlds": {str(n): [list(d), list(m)]
+                           for n, (d, m) in WORLDS.items()},
+                "orders": {str(n): [list(o) for o in itertools.permutations(
+                    range(len(d)))] for n, (d, _) in WORLDS.items()},
+                "blocks": [list(b) for b in CHUNK_BLOCKS],
+                "chunks": list(CHUNKS), "axes": list(AUTOTUNE_AXES),
+                "B": B, "kw": AUTOTUNE_KW}
+        env = dict(os.environ)
+        env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=12"
+        env["JAX_PLATFORMS"] = "cpu"
+        env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1]
+                                / "src") + os.pathsep \
+            + env.get("PYTHONPATH", "")
+        proc = subprocess.run(
+            [sys.executable, "-c", _JAX_SCRIPT, str(tmp / "in.npz"),
+             str(tmp / "out.npz"), json.dumps(spec), str(tmp / "chunk.npz"),
+             str(tmp / "record.json")],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr
+        _JAX_REF.update(X=X, out=dict(np.load(tmp / "out.npz")),
+                        record=json.loads((tmp / "record.json").read_text()))
+    return _JAX_REF
+
+
+def test_factorized_matches_jax_host_fn(tmp_path_factory):
     """(2,3,2): the port's rank outputs == the JAX package's host_fn."""
     results = _results(12, tmp_path_factory)
-    X = _inputs(12).astype(np.int32)          # JAX runs without x64
-    np.savez(tmp_path / "in.npz", X=X)
-    env = dict(os.environ)
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=12"
-    env["JAX_PLATFORMS"] = "cpu"
-    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
-        + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", _JAX_SCRIPT,
-                           str(tmp_path / "in.npz"),
-                           str(tmp_path / "out.npz")],
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    jax_out = np.load(tmp_path / "out.npz")
-    for key in jax_out.files:
+    ref = _jax_reference(tmp_path_factory)
+    X, jax_out = ref["X"], ref["out"]
+    for key in ("direct_natural", "factorized_natural", "factorized_paper"):
         np.testing.assert_array_equal(jax_out[key], X.transpose(1, 0, 2))
     for rank, (_, outs, _) in enumerate(results):
-        for (variant, order), y in outs.items():
+        for key, y in outs.items():
+            if key in ("chunked", "autotune"):
+                continue
+            variant, order = key
             np.testing.assert_array_equal(
                 y.astype(np.int32), jax_out[f"factorized_{variant}"][rank])
+
+
+@pytest.mark.parametrize("n", sorted(WORLDS))
+def test_chunked_gathers_match_jax_host_fn(tmp_path_factory, n):
+    """Every rank's chunked all-gather and int reduce-scatter == the
+    reference's chunked plans' ``host_fn`` bit for bit; the f32
+    reduce-scatter within twice the bound of a p-term f32 sum."""
+    results = _results(n, tmp_path_factory)
+    jax_out = _jax_reference(tmp_path_factory)["out"]
+    F = {blk: D["F"].astype(np.float64) for blk, D in
+         _chunk_inputs(n).items()}
+    for rank, (_, outs, _) in enumerate(results):
+        assert len(outs["chunked"]) == len(CHUNK_BLOCKS) * len(CHUNKS) \
+            * math.factorial(len(WORLDS[n][0]))
+        for (blk, k, order), (y, z, zf) in outs["chunked"].items():
+            key = f"{n}_{'x'.join(map(str, blk))}_{k}_" \
+                f"{''.join(map(str, order))}"
+            np.testing.assert_array_equal(y.astype(np.int32),
+                                          jax_out["ag_" + key][rank])
+            np.testing.assert_array_equal(z.astype(np.int32),
+                                          jax_out["rs_" + key][rank])
+            bound = 2 * n * 2.0 ** -23 * np.abs(F[blk][:, rank]).sum(0)
+            assert (np.abs(zf - jax_out["rf_" + key][rank]) <= bound).all()
+
+
+AUTOTUNE_CHECKS = ("same_plan", "db_hit", "forward", "zero_budget",
+                   "reference_rows")
+
+
+@pytest.mark.parametrize("check", AUTOTUNE_CHECKS)
+def test_subgroup_autotune_on_12(tmp_path_factory, check):
+    """``autotune`` over the axes of extents (2,3) of the (2,3,2) torus,
+    with the other factorization measured on both 6-rank subgroups."""
+    legs = [outs["autotune"] for _, outs, _ in _results(12,
+                                                        tmp_path_factory)]
+    rows = lambda rec: [(r["backend"], r["dims"], r["eligible"],
+                         r["round_order"], r["n_chunks"])
+                        for r in rec["table"]]
+    if check == "same_plan":
+        assert all(leg["plan"] == legs[0]["plan"] for leg in legs)
+        assert all(leg["record"] == legs[0]["record"] for leg in legs)
+        assert legs[0]["plan"]["tuned_from"] == "measured"
+    elif check == "db_hit":
+        assert all(leg["hit_is_plan"] and leg["hit_timed"] == 0
+                   for leg in legs)
+    elif check == "forward":
+        assert all(leg["forward"] for leg in legs)
+    elif check == "zero_budget":
+        assert all(leg["zero"] == legs[0]["zero"] for leg in legs)
+        backend, table, skipped = legs[0]["zero"]
+        assert [(r["backend"], r["round_order"]) for r in table] == \
+            [("direct", [0, 1]), ("factorized", [0, 1])]
+        assert {"backend": "factorized", "dims": [1, 2, 3],
+                "n_chunks": 1} in skipped
+    else:
+        ref = _jax_reference(tmp_path_factory)["record"]
+        rec = legs[0]["record"]
+        assert rows(rec) == rows(ref)
+        assert [r for r in rows(rec) if not r[2]] == \
+            [("factorized", [1, 2, 3], False, [0, 1, 2], 1)]
+        assert set(rec) == set(ref) and rec["skipped"] == ref["skipped"]
+        assert set(rec["best_factorization"]) == \
+            set(ref["best_factorization"])
+        assert (rec["p"], rec["dims"], rec["axis_names"]) == \
+            (ref["p"], ref["dims"], ref["axis_names"]) == \
+            (6, [2, 3], list(AUTOTUNE_AXES))
 
 
 _JAX_GRAD_SCRIPT = r"""

@@ -384,9 +384,53 @@ def test_comm_describe_sub_and_free_match_reference():
 
 @pytest.mark.parametrize("family", ["all_gather", "reduce_scatter"])
 def test_gather_plans_refuse_chunks_and_dims_only_execution(family):
+    """A dims-only gather plan has no process groups to run on, chunked
+    or not; chunked plans run on a mesh (test_torch_collective.py) and
+    keep ``n_chunks`` in their key and ``describe()``."""
     c = comm.torus_comm((2, 2), ("i", "j"))
     x = torch.zeros(4) if family == "all_gather" else torch.zeros(4, 4)
-    with pytest.raises(NotImplementedError, match="n_chunks=2"):
-        getattr(c, family)((4,), "int32", n_chunks=2).forward(x)
-    with pytest.raises(ValueError, match="DeviceMesh"):
-        getattr(c, family)((4,), "int32").forward(x)
+    for n in (1, 2, 3):
+        plan = getattr(c, family)((4,), "int32", n_chunks=n)
+        assert plan.describe()["n_chunks"] == n
+        assert getattr(c, family)((4,), "int32", n_chunks=n) is plan
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            plan.forward(x)
+    jc = jax_comm.torus_comm((2, 2), ("i", "j"))
+    for plan in (getattr(jc, family)((4,), "int32", n_chunks=3),
+                 getattr(jc, family)((4,), "int32", n_chunks=3)):
+        assert getattr(c, family)((4,), "int32", n_chunks=3).describe() \
+            == plan.describe()
+
+
+@pytest.mark.parametrize("dims", [(5, 4), (2, 3, 4), (2, 2), (3, 2),
+                                  (2, 3, 2)])
+def test_gather_oracles_match_reference(dims):
+    """The ported gather-family oracles == the reference's, every round
+    order of the paper's tori and the gloo worlds' tori."""
+    import itertools
+    for order in itertools.permutations(range(len(dims))):
+        for name in ("simulate_factorized_allgather",
+                     "simulate_factorized_reduce_scatter"):
+            out, vol = getattr(simulator, name)(dims, order)
+            ref, ref_vol = getattr(jax_sim, name)(dims, order)
+            assert out == ref
+            assert vol.blocks_sent_per_round == ref_vol.blocks_sent_per_round
+            assert vol.total_blocks_sent == math.prod(dims) - 1
+
+
+def test_plan_cache_entries_match_reference():
+    """``plan_cache_entries``: the live plans LRU-oldest first, as the
+    reference lists them, without touching recency or the stats."""
+    shapes = [(4,), (8,), (2, 3)]
+    for mod in (plan, jax_plan):
+        for shape in shapes:
+            mod.plan_all_to_all((2, 2), ("i", "j"), shape, "float32",
+                                backend="factorized")
+        mod.plan_all_to_all((2, 2), ("i", "j"), (4,), "float32",
+                            backend="factorized")       # (4,) most recent
+    stats = plan_cache_stats()
+    got = [p.describe()["block_shape"] for p in plan.plan_cache_entries()]
+    want = [p.describe()["block_shape"] for p in
+            jax_plan.plan_cache_entries()]
+    assert got == want == [[8], [2, 3], [4]]
+    assert plan_cache_stats() == stats

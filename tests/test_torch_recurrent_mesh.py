@@ -100,19 +100,32 @@ def test_one_fsdp_group_at_full_and_smoke_width(arch, smoke):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_recurrent_mixer_under_ulysses_is_refused(arch):
-    """Sequence parallelism over ``model`` for the recurrent mixers is not
-    ported: every mesh entry point refuses it (``check_mesh``), naming
-    ROADMAP.md, before anything is built."""
+def test_recurrent_mixer_under_ulysses_is_refused(arch, monkeypatch):
+    """No longer refused: a recurrent mixer beside Ulysses attention runs
+    its tensor-parallel split over ``model`` unchanged, as the reference
+    computes it.  ``check_mesh``, the launcher's ``check_trainable`` and
+    ``make_train_step``'s mesh checks accept jamba / xlstm under
+    ``use_ulysses`` on ``{"data": 2, "model": 4}`` (the steps themselves
+    run in test_torch_tp.py's ``jamba-u`` / ``xlstm-u`` cases)."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model, make_train_step
+    from repro_torch.launch.mesh import check_trainable
+    from repro_torch.models import build_model, make_train_step, model_api
     from repro_torch.optim import AdamW
-    model = build_model(get_config(arch, smoke=True).replace(
-        use_ulysses=True))
+    cfg = get_config(arch, smoke=True).replace(use_ulysses=True)
+    model = build_model(cfg)
     shape = {"data": 2, "model": 4}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model.check_mesh(shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    assert model.check_mesh(shape) is None
+    check_trainable(shape, cfg, 16)
+
+    class Accepted(Exception):
+        pass
+
+    def past_the_model_checks(mesh, rules):
+        raise Accepted(mesh)
+    # the step's first look at the mesh after the model's own check
+    monkeypatch.setattr(model_api, "check_ep_within_batch",
+                        past_the_model_checks)
+    with pytest.raises(Accepted):
         make_train_step(model, AdamW(), shape)
     model.check_mesh({"data": 2, "model": 1})      # no split over model
 

@@ -39,7 +39,9 @@ coordinate.  Cases:
   8 (the 16-token batch takes the chunkwise mLSTM, decode the per-step
   cell) at vocab 512.  Each mixer's channels or heads split over
   ``model``, its ``[xs | z]`` projection pairwise; on ``(data=2,
-  model=4)`` one mLSTM head and 32 mamba channels a rank.
+  model=4)`` one mLSTM head and 32 mamba channels a rank.  On that mesh
+  also under ``use_ulysses`` (``jamba-u``, served too; ``xlstm-u``):
+  jamba's attention layer sequence-parallel beside the mixers' split.
 * the frontend and encoder-decoder archs, their SMOKE fields in f32 at
   remat, each batch with numpy ``frontend_embeds``: whisper-tiny (2 + 2
   layers, heads 4/4, 16 frames, vocab 256 split over ``model``) on both
@@ -115,7 +117,14 @@ RECURRENT = {"jamba": _JAMBA, "spectral": dict(_JAMBA,
              "xlstm": _XLSTM}
 CASES.update({f"{name}-{key}": (key, fields)
               for name, fields in RECURRENT.items() for key in ("dm", "pdm")})
+# the recurrent mixers beside Ulysses attention on (data=2, model=4):
+# jamba's attention layer sequence-parallel, its mixers split over model
+# as without Ulysses; xlstm has no attention layer, so use_ulysses must
+# change nothing
+CASES.update({f"{name}-u": ("dm", dict(RECURRENT[name], use_ulysses=True))
+              for name in ("jamba", "xlstm")})
 RECURRENT_CASES = tuple(c for c, (_, f) in CASES.items() if "arch" in f)
+UNSERVED = ("xlstm-u",)             # xlstm-dm's model: nothing reads Ulysses
 # the frontend and encoder-decoder cases: their SMOKE fields under remat,
 # each batch with numpy frontend_embeds (whisper's frames, internvl2's
 # patch embeddings)
@@ -403,10 +412,11 @@ def _launch(tmp):
 
 def _served(key):
     """The cases served on mesh ``key``: ``SERVE``'s and the Ulysses,
-    recurrent and frontend cases on it."""
+    recurrent and frontend cases on it (not ``xlstm-u``, whose model is
+    ``xlstm-dm``'s: no attention layer reads ``use_ulysses``)."""
     return (SERVE[key],) + tuple(
         c for c in ULYSSES + RECURRENT_CASES + FRONTEND_CASES
-        if CASES[c][0] == key)
+        if CASES[c][0] == key and c not in UNSERVED)
 
 
 # Ulysses over model = 4 with a length it does not divide: (case, its
@@ -924,7 +934,8 @@ def test_ulysses_prefill_and_decode_logits_match(runs, case):
     _check_served(runs, CASES[case][0], case)
 
 
-@pytest.mark.parametrize("case", RECURRENT_CASES)
+@pytest.mark.parametrize("case", [c for c in RECURRENT_CASES
+                                  if c not in UNSERVED])
 def test_recurrent_prefill_and_decode_logits_match(runs, case):
     """As above for the recurrent cases: the prefill's scans and the
     decode ticks' state updates on this rank's channels or heads, the
