@@ -448,6 +448,29 @@ it fails:
              collectives and FSDP gathers of a prefill, an encode and a
              tick as predicted; whisper's KV cache on 3 kv heads.  Logs
              host seconds, peak memory and collectives per call.
+12e. rules_mesh — last in the same 8-rank world, the sharding rules the
+             port once refused.  (a) [train_tp]'s model, cuts, seed,
+             fan-in init, global batch and replayed one-process routing
+             under batch=("data",) (EP over (data, pod) and FSDP over
+             (pod, data) outside the batch rule: each row block held by
+             2 pod ranks), embed_fsdp=("model",) (wq / wk / wv FSDP over
+             model and gathered whole, wo's heads and the experts' F
+             split over model) and vocab=("data",) (the embedding FSDP
+             over pod alone, the other leaves over (pod, data)): one
+             loss + backward each; every gathered reduced gradient leaf
+             within 2e-2 relative norm of [train_tp]'s default-rules
+             step, the loss within 1e-2, the model ranks of a (pod,
+             data) coordinate bit-identical on every leaf none of them
+             splits, the launches as predicted (SIMT 0).  (b) after it,
+             [elastic] (b)'s Trainer at its cut width on (pod 2, data 2,
+             model 2): ranks 5 and 6 lost at step 5, their partners 4
+             and 7 leave too, ranks 0-3 recover onto (data 2, model 2)
+             and equal the direct restore plus the same steps bit for
+             bit.  (c) runs in the 4-rank world after [moe_ep]:
+             ``overlap(x, 2 sin(x), reverse=False)`` under autograd on
+             [moe_ep]'s plan and block, output and input gradient bit
+             for bit those of ``2 sin(forward(x))``, each direction's
+             reorder launches n_chunks x round_schedule's passes.
 13. train  — after the worlds have ended: ``launch/train.py``'s
              ``build_training`` on phi3.5-moe-42b at full width cut to 2
              layers (bf16 parameters, f32 AdamW moments: 2.73 B
@@ -675,6 +698,13 @@ TP_TICKS = 8                       # [train_tp]: decode ticks on the mesh
 TP_SWEEP_F = (3200, 1600)          # [kernels]: F / |model| at model 2, 4
 TP_INITS = ("reference", "fan-in")  # [train_tp]: the gradient runs' inits
 TP_GATED = ("fan-in",)             # [train_tp]: inits gated at TRAIN_GRAD_TOL
+# [rules_mesh] (a): the rule sets run at [train_tp]'s width, cuts, weights
+# and batch; (b): the ranks a device loss takes on TP_MESH and the ranks
+# that leave with them (their (pod, data) partners)
+RULES_MESH = {"batch=data": {"batch": ("data",)},
+              "embed_fsdp=model": {"embed_fsdp": ("model",)},
+              "vocab=data": {"vocab": ("data",)}}
+RULES_LOST, RULES_PARTNERS = (5, 6), (4, 7)
 ULYSSES_GQA = (4, 1)               # [ulysses]: query / kv heads, Hkv < sp
 RING_MESH = ((4,), ("model",))     # [ring]: the SP axis over the 4 ranks
 RING_SHAPE = (1, 32, 8, 2048, 128)  # [ring]: B, Hq, Hkv, S, hd (phi3.5's)
@@ -1968,7 +1998,7 @@ def _layout_params(model, sharding) -> int:
         if path in sharding.model_axes:
             n //= sharding.tp.size
         if path in sharding.fsdp_axes:
-            n //= sharding.fsdp.p
+            n //= sharding.fsdp_comm(path).p
         total += n
     return total
 
@@ -3324,21 +3354,22 @@ def _train_ep_launches(cfg, plan, C: int) -> dict:
                      **{op: (3 - kept) * L * v for op, v in passes.items()})
 
 
-def _ep_loss_grads(model, params, batch, mesh, sharding):
-    """One loss + backward on the mesh: (this rank's reduced gradients as
-    a tree, the total loss averaged over the ranks, its launches)."""
+def _ep_loss_grads(model, params, batch, mesh, sharding, rules=None):
+    """One loss + backward on the mesh under ``rules``: (this rank's
+    reduced gradients as a tree, the total loss averaged over the ranks,
+    its launches)."""
     import torch.distributed as dist
     from repro_torch.models import make_loss_fn, reduce_grads
     from repro_torch.models.common import tree_leaves, tree_with_leaves
     from repro_torch.parallel.sharding import batch_group
     leaves = tree_leaves(params)
     _reset_counts()
-    total, _ = make_loss_fn(model, mesh)(params, batch)
+    total, _ = make_loss_fn(model, mesh, rules)(params, batch)
     got = torch.autograd.grad(total, [t for _, t in leaves])
     counts = _read_counts()
     grads = reduce_grads(tree_with_leaves(
         params, {p: g for (p, _), g in zip(leaves, got)}), sharding,
-        batch_group(mesh))
+        batch_group(mesh, rules))
     loss = total.detach().float().reshape(1).clone()
     dist.all_reduce(loss)
     return grads, float(loss[0]) / dist.get_world_size(), counts
@@ -3740,11 +3771,17 @@ def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
         del gparams, gbatch
         torch.cuda.empty_cache()
     dist.broadcast(fill, src=0)
+    # what [rules_mesh] (a) reads in this rank's process: the one-process
+    # routing and the fill tokens at the gated init, and on rank 0 the
+    # gathered reduced gradients of this step (popped by _tp_world_rank)
+    kept = out["kept"] = {}
     for init in TP_INITS:
         dist.broadcast(routes[init], src=0)
+        if init == TP_GATED[0]:
+            kept["routes"] = routes[init]
         routes[init] = list(routes[init][:, block * TRAIN_EP_S:
                                          (block + 1) * TRAIN_EP_S].unbind(0))
-    out["fill"] = fill = fill.tolist()
+    out["fill"] = fill = kept["fill"] = fill.tolist()
     if min(fill) < 0:
         fail(f"[train_tp] no one of the first {TRAIN_EP_CANDIDATES} tokens "
              f"routes first to every EP rank: {fill}")
@@ -3797,6 +3834,8 @@ def _rank_train_tp(rank: int, n: int, seed: int, tmp: str) -> dict:
             p: _digest(g) for p, g in tree_leaves(grads) if p in whole}
         full = sharding.gather_tree_to_writer(grads)
         del grads
+        if rank == 0 and init == TP_GATED[0]:
+            kept["grads"] = full
         if rank == 0:
             out["vs_one"][init] = {
                 path: (float((g.float() - one_grads[init][path].float())
@@ -5108,17 +5147,22 @@ def _timed(fn, *args) -> dict:
 
 def _tp_world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
     """One rank of the 8-rank world on TP_MESH: [train_tp], [ulysses],
-    [recurrent_mesh], then [encdec_mesh]."""
-    return {"train_tp": _rank_train_tp(rank, n, seed, tmp),
+    [recurrent_mesh], [encdec_mesh], then [rules_mesh] (a) and (b), in
+    which ranks 4-7 leave."""
+    train_tp = _rank_train_tp(rank, n, seed, tmp)
+    kept = train_tp.pop("kept")
+    return {"train_tp": train_tp,
             "ulysses": _timed(_rank_ulysses, rank, n, seed),
             "recurrent_mesh": _rank_recurrent_mesh(rank, n, seed),
-            "encdec_mesh": _rank_encdec_mesh(rank, n, seed)}
+            "encdec_mesh": _rank_encdec_mesh(rank, n, seed),
+            "rules_mesh": _timed(_rank_rules_mesh, rank, n, seed, tmp,
+                                 kept)}
 
 
 def run_tp_world(seed: int, timeout: float = 1000.0) -> list:
-    """Spawn the 8-rank world of [train_tp], [ulysses], [recurrent_mesh]
-    and [encdec_mesh] (as :func:`run_world`) and return each rank's
-    result."""
+    """Spawn the 8-rank world of [train_tp], [ulysses], [recurrent_mesh],
+    [encdec_mesh] and [rules_mesh] (as :func:`run_world`) and return each
+    rank's result."""
     import os
     import torch_dist
     with tempfile.TemporaryDirectory() as tmp:
@@ -5138,6 +5182,7 @@ def _world_rank(rank: int, n: int, seed: int, tmp: str) -> dict:
     return {"collective": _rank_collective(rank, n),
             "autotune": _rank_autotune(rank, n),
             "moe_ep": _rank_moe_ep(rank, n, seed),
+            "overlap_grad": _rank_overlap_grad(rank, n),
             "moe_ep_grok": _rank_moe_ep_grok(rank, n, seed),
             "moe_dropless": _rank_moe_dropless(rank, n, seed),
             "tracing": _rank_tracing(rank, n, seed),
@@ -5276,13 +5321,18 @@ def _elastic_comm(rank: int, n: int, seed: int) -> dict:
     return out
 
 
-def _elastic_trainer(rank: int, n: int, seed: int, tmp: str) -> dict:
+def _elastic_trainer(rank: int, n: int, seed: int, tmp: str,
+                     dims=((2, 2), ("data", "pod")), lost=ELASTIC_LOST,
+                     name: str = "elastic") -> dict:
     """[elastic] (b): ``Trainer(elastic=True)`` on the (data=2, pod=2) mesh
     at [train_ep]'s Trainer cut width, ELASTIC_STEPS steps, a synchronous
     checkpoint every ELASTIC_EVERY, ranks 2, 3 lost at ELASTIC_LOSS_AT;
     the survivors recover onto ``launch.mesh.survivor_mesh`` and finish.
     Then their state against a direct restore of the step-3 checkpoint
-    onto the survivor mesh followed by the same steps."""
+    onto the survivor mesh followed by the same steps.  [rules_mesh] (b)
+    runs the same on TP_MESH (``dims``) with ranks 5, 6 lost
+    (``lost``), a row block of the copy task per ``(pod, data)``
+    coordinate."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import telemetry
     from repro_torch.core.cache import cart_create
@@ -5295,20 +5345,21 @@ def _elastic_trainer(rank: int, n: int, seed: int, tmp: str) -> dict:
                                            tree_map)
     from repro_torch.runtime import Trainer, TrainerConfig
     from repro_torch.runtime.watchdog import StragglerWatchdog
-    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    from repro_torch.parallel.sharding import batch_split
+    mesh = cart_create(n, *dims, device_type=DEVICE)
     scfg = _train_ep_config(**TRAIN_EP_CUT)
     model, opt, sp, so, sstep = build_training(
         scfg, mesh, lr=1e-4, warmup=2, total=ELASTIC_STEPS, seed=seed,
         device=DEVICE)
     sdcfg = CopyTaskConfig(vocab=scfg.vocab, seq_len=TRAIN_EP_S,
-                           global_batch=WORLD)
+                           global_batch=batch_split(mesh)[0])
     inj = FaultInjector((FaultSpec("device_loss", at_call=ELASTIC_LOSS_AT,
-                                   devices=ELASTIC_LOST),))
+                                   devices=lost),))
     built = {}
 
     def rebuild_fn(trainer, err):
         t0 = time.perf_counter()
-        mesh_b = survivor_mesh(mesh, err.devices)
+        mesh_b = survivor_mesh(mesh, err.devices, scfg.n_experts)
         trainer.train_step = make_train_step(model, opt, mesh_b)
         trainer.data = SyntheticLM(sdcfg, mesh=mesh_b, task="copy",
                                    device=DEVICE)
@@ -5317,7 +5368,7 @@ def _elastic_trainer(rank: int, n: int, seed: int, tmp: str) -> dict:
         built["rebuild_s"] = time.perf_counter() - t0
         return sharding
 
-    ckdir = Path(tmp) / "elastic_ckpt"
+    ckdir = Path(tmp) / f"{name}_ckpt"
     # the reference's check_rebuild.py watchdog: no timing verdict fires
     tr = Trainer(TrainerConfig(total_steps=ELASTIC_STEPS,
                                checkpoint_dir=str(ckdir),
@@ -5350,6 +5401,8 @@ def _elastic_trainer(rank: int, n: int, seed: int, tmp: str) -> dict:
         losses=[r["total_loss"] for r in tr.metrics_log],
         seconds=[r["seconds"] for r in tr.metrics_log],
         mesh=[int(r) for r in built["mesh"].mesh.flatten().tolist()],
+        dims=dict(zip(built["mesh"].mesh_dim_names,
+                      built["mesh"].mesh.shape)),
         writer=tr.sharding.writer,
         written=_dir_bytes(ckdir) if tr.sharding.writer else 0)
     telemetry.reset_telemetry()
@@ -5369,6 +5422,152 @@ def _elastic_trainer(rank: int, n: int, seed: int, tmp: str) -> dict:
             tree_leaves(tr._state_tree()),
             tree_leaves({"params": params, "opt_state": opt_state})))
     del tr, params, opt_state, tree, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rank_rules_mesh(rank: int, n: int, seed: int, tmp: str,
+                     kept: dict) -> dict:
+    """[rules_mesh] (a) and (b) on one rank of the 8-rank world on
+    TP_MESH, after every other phase of it.  (a): for each rule set of
+    RULES_MESH, ``build_training`` at [train_tp]'s width and cuts from
+    the same seed, rescaled to the fan-in init, one loss + backward on
+    [train_tp]'s global batch (this rank's row block under the rules)
+    replaying [train_tp]'s one-process routing (``kept``: what
+    :func:`_rank_train_tp` kept); the launches, the digests of the
+    leaves no ``model`` rank splits, and on rank 0 each gathered reduced
+    gradient against [train_tp]'s default-rules step.
+    (b): the elastic Trainer of [elastic] (b) on TP_MESH, ranks 5 and 6
+    lost; ranks 4 and 7 leave with them."""
+    import torch.distributed as dist
+    from repro_torch.core.cache import cart_create
+    from repro_torch.data import CopyTaskConfig, make_copy_task_batch
+    from repro_torch.launch.train import build_training
+    from repro_torch.models.common import param_shardings, tree_leaves
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        moe_a2a_plan)
+    from repro_torch.parallel.sharding import ShardingRules, batch_split
+    torch.cuda.set_device(0)
+    mesh = cart_create(n, *TP_MESH, device_type=DEVICE)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    cfg = _train_ep_config()
+    dcfg = CopyTaskConfig(vocab=cfg.vocab, seq_len=TRAIN_EP_S,
+                          global_batch=TP_BLOCKS)
+    gbatch = make_copy_task_batch(dcfg, 0, DEVICE)
+    for v, t in enumerate(kept["fill"]):        # [train_tp]'s batch
+        gbatch["tokens"][v, :TRAIN_EP_FILL] = t
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    out = {"coord": (coord["pod"], coord["data"]), "model": coord["model"],
+           "cases": {}}
+    for tag, kw in RULES_MESH.items():
+        rules = ShardingRules().override(**kw)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, _, params, opt_state, _ = build_training(
+            cfg, mesh, rules, lr=1e-4, warmup=2, total=TRAIN_EP_STEPS,
+            seed=seed, device=DEVICE)
+        del opt_state
+        _fan_in_scale(params, model.specs(), cfg)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sharding = param_shardings(model.specs(), mesh, rules)
+        blocks, block = batch_split(mesh, rules)
+        rows = TP_BLOCKS // blocks
+        tokens = slice(block * rows * TRAIN_EP_S,
+                       (block + 1) * rows * TRAIN_EP_S)
+        batch = {k: v[block * rows:(block + 1) * rows]
+                 for k, v in gbatch.items()}
+        C = _capacity(cfg, rows * TRAIN_EP_S, max(cfg.n_experts, G))
+        plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+        dist.barrier()          # rank 0 compared the last case's gradients
+        with _routing(replay=list(kept["routes"][:, tokens]
+                                  .unbind(0))) as switched:
+            (grads, loss, counts), ms = _host_ms(lambda: _ep_loss_grads(
+                model, params, batch, mesh, sharding, rules))
+        same = [p for p, _ in tree_leaves(grads)
+                if p not in sharding.model_axes
+                and "model" not in sharding.fsdp_kept.get(p, ())]
+        res = {"block": block, "rows": rows, "loss": loss, "ms": ms,
+               "build_s": build_s, "counts": counts, "C": C,
+               "backend": plan.backend,
+               "per_step": _train_ep_launches(cfg, plan, C),
+               "switched": dict(switched),
+               "kept": sorted(set(sharding.fsdp_kept.values())),
+               "repeats": sorted({sharding.repeats(p)
+                                  for p, _ in tree_leaves(grads)}),
+               "n_params": sum(t.numel() for _, t in tree_leaves(params)),
+               "layout_params": _layout_params(model, sharding),
+               "digests": {p: _digest(g) for p, g in tree_leaves(grads)
+                           if p in same},
+               "finite_nonzero": all(
+                   bool(torch.isfinite(g).all())
+                   and float(g.float().abs().sum()) > 0
+                   for _, g in tree_leaves(grads))}
+        full = sharding.gather_tree_to_writer(grads)
+        del grads
+        if rank == 0:           # leaf by leaf on the card
+            want = dict(tree_leaves(kept["grads"]))
+            res["vs_tp"] = {}
+            for path, g in tree_leaves(full):
+                g, w = g.to(DEVICE).float(), want[path].to(DEVICE).float()
+                res["vs_tp"][path] = float((g - w).norm() / w.norm())
+                del g, w
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del full, params, model
+        torch.cuda.empty_cache()
+        out["cases"][tag] = res
+    kept.clear()
+    dist.barrier()
+    # (b) last: ranks 4-7 leave here
+    out["elastic"] = _elastic_trainer(rank, n, seed, tmp, dims=TP_MESH,
+                                      lost=RULES_LOST, name="rules_mesh")
+    return out
+
+
+def _rank_overlap_grad(rank: int, n: int) -> dict:
+    """[rules_mesh] (c) on one rank of the 4-rank world: [moe_ep]'s plan
+    (the tuned overlap engine on the (data=2, pod=2) torus, at its
+    dispatch block) with a compute stage and no reverse rounds under
+    autograd, ``plan.overlap(x, 2 sin(x), reverse=False, params=())``,
+    against the autograd of ``2 sin(plan.forward(x))``: output and input
+    gradient bit for bit; each direction's reorder launches, and the
+    host ms of both (the second of two calls)."""
+    from repro_torch.core.cache import cart_create
+    from repro_torch.models.moe import (_capacity, _group_geometry,
+                                        moe_a2a_plan)
+    cfg = _ep_config()
+    mesh = cart_create(n, (2, 2), ("data", "pod"), device_type=DEVICE)
+    axes, G, E_loc, _ = _group_geometry(cfg, mesh)
+    C = _capacity(cfg, EP_TOKENS, max(cfg.n_experts, G))
+    plan = moe_a2a_plan(cfg, mesh, axes, E_loc, C)
+    shape = (G, E_loc, C, cfg.d_model)
+    x = _shard_input(7000 + rank, shape)
+    ct = _shard_input(7100 + rank, shape)
+    stage = lambda c, _i=0: (torch.sin(c.float()) * 2.0).to(c.dtype)
+    for _ in range(2):                 # the second call warm, and counted
+        xg = x.clone().requires_grad_(True)
+        torch.cuda.synchronize()
+        _reset_counts()
+        y, fwd_ms = _host_ms(lambda: plan.overlap(
+            xg, stage, reverse=False, chunk_axis=2, params=()))
+        fwd = _read_counts()
+        _reset_counts()
+        (g,), bwd_ms = _host_ms(lambda: torch.autograd.grad(y, xg, ct))
+        bwd = _read_counts()
+    xr = x.clone().requires_grad_(True)
+    y_ref = stage(plan.forward(xr))
+    (g_ref,) = torch.autograd.grad(y_ref, xr, ct)
+    n_chunks = _n_chunks(C, plan.n_chunks)
+    out = {"backend": plan.backend, "n_chunks": n_chunks, "C": C,
+           "mib": x.numel() * x.element_size() / 2**20,
+           "y_equal": torch.equal(y, y_ref), "g_equal": torch.equal(g, g_ref),
+           "forward": fwd, "backward": bwd,
+           "predicted_forward": _expected(**_dense_launches(plan, False,
+                                                            n_chunks)),
+           "predicted_backward": _expected(**_dense_launches(plan, True,
+                                                             n_chunks)),
+           "forward_ms": fwd_ms, "backward_ms": bwd_ms}
+    del x, ct, xg, y, g, xr, y_ref, g_ref
     torch.cuda.empty_cache()
     return out
 
@@ -6851,6 +7050,156 @@ def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
+def phase_overlap_grad(results) -> dict:
+    """[rules_mesh] (c)'s gates: the plan is the overlap engine over more
+    than one chunk; on every rank the output and the input gradient of
+    ``overlap(x, f, reverse=False)`` under autograd are those of
+    ``f(forward(x))`` bit for bit, and its forward and backward each
+    launched n_chunks x ``round_schedule``'s passes (the backward in the
+    reverse round order).  Returns the launches over the ranks."""
+    r0 = results[0]["overlap_grad"]
+    if r0["backend"] != "overlap" or r0["n_chunks"] < 2:
+        fail(f"[rules_mesh] (c) the plan is {r0['backend']} over "
+             f"{r0['n_chunks']} chunk(s), expected the overlap engine over "
+             f"more than one")
+    for rank, r in enumerate(results):
+        t = r["overlap_grad"]
+        if not (t["y_equal"] and t["g_equal"]):
+            fail(f"[rules_mesh] (c) rank {rank}: overlap(reverse=False) "
+                 f"under autograd differs from f(forward(x)): output equal "
+                 f"{t['y_equal']}, gradient equal {t['g_equal']}")
+        for d in ("forward", "backward"):
+            if t[d] != t[f"predicted_{d}"]:
+                fail(f"[rules_mesh] (c) rank {rank}'s {d} launched {t[d]}, "
+                     f"expected {t[f'predicted_{d}']}")
+    log(f"[rules_mesh] (c) on {_card()}: overlap(x, 2 sin(x), "
+        f"reverse=False) under autograd on the (data=2, pod=2) torus, "
+        f"[moe_ep]'s block ({r0['mib']:.1f} MiB bf16 a rank, C={r0['C']}, "
+        f"{r0['n_chunks']} chunks): output and input gradient equal to "
+        f"2 sin(forward(x))'s bit for bit on {WORLD} ranks; reorder "
+        f"launches per rank forward "
+        f"{ {k: v for k, v in r0['forward'].items() if v} }, backward "
+        f"{ {k: v for k, v in r0['backward'].items() if v} } (as "
+        f"predicted); host ms per rank forward "
+        f"{[round(r['overlap_grad']['forward_ms'], 1) for r in results]}, "
+        f"backward "
+        f"{[round(r['overlap_grad']['backward_ms'], 1) for r in results]}")
+    keys = r0["forward"]
+    return {k: sum(r["overlap_grad"]["forward"][k]
+                   + r["overlap_grad"]["backward"][k] for r in results)
+            for k in keys}
+
+
+def phase_rules_mesh(results) -> dict:
+    """[rules_mesh] (a) and (b)'s gates.  (a), per rule set: every rank
+    holds what its layout says, its reduced gradient is finite and
+    non-zero, its loss + backward launched the prediction (SIMT 0), and
+    the ``model`` ranks of each ``(pod, data)`` coordinate end with the
+    same bits of every leaf none of them splits; gathered to rank 0,
+    every leaf within TRAIN_GRAD_TOL of [train_tp]'s default-rules step
+    on the same weights, batch and routing, and the loss within 1e-2.
+    (b): ranks 5, 6 lost at step 5 and their partners 4, 7 leave at step
+    4; ranks 0-3 recover once onto (data 2, model 2), finish at step 6
+    and equal the direct restore of the step-3 checkpoint plus the same
+    steps bit for bit.  Returns the launches of both legs over the
+    ranks."""
+    ranks = [r["rules_mesh"] for r in results]
+    r0 = ranks[0]
+    tp_loss = results[0]["train_tp"]["loss"][TP_GATED[0]]
+    out = {}
+    for tag in RULES_MESH:
+        by_coord = {}
+        for rank, r in enumerate(ranks):
+            t = r["cases"][tag]
+            by_coord.setdefault(r["coord"], []).append(t)
+            if t["n_params"] != t["layout_params"]:
+                fail(f"[rules_mesh] {tag} rank {rank} holds {t['n_params']} "
+                     f"parameters, its layout {t['layout_params']}")
+            if not t["finite_nonzero"]:
+                fail(f"[rules_mesh] {tag} rank {rank}: a reduced gradient "
+                     f"leaf is not finite or is zero")
+            if t["counts"] != t["per_step"]:
+                fail(f"[rules_mesh] {tag} rank {rank}'s loss + backward "
+                     f"launched {t['counts']}, expected {t['per_step']}")
+            for k, v in t["counts"].items():
+                out[k] = out.get(k, 0) + v
+        for coord, ts in by_coord.items():
+            if any(t["digests"] != ts[0]["digests"] for t in ts[1:]):
+                fail(f"[rules_mesh] {tag}: the model ranks of (pod, data) "
+                     f"{coord} differ in the bits of a leaf none splits")
+        t0 = r0["cases"][tag]
+        worst = max(t0["vs_tp"].items(), key=lambda kv: kv[1])
+        if not worst[1] <= TRAIN_GRAD_TOL:
+            fail(f"[rules_mesh] {tag}: the gathered gradient of {worst[0]} "
+                 f"lies {worst[1]:.3g} from [train_tp]'s default-rules "
+                 f"step (limit {TRAIN_GRAD_TOL})")
+        if not abs(t0["loss"] - tp_loss) <= 1e-2 * abs(tp_loss):
+            fail(f"[rules_mesh] {tag}: loss {t0['loss']} vs [train_tp]'s "
+                 f"{tp_loss} (limit 1e-2 relative)")
+        log(f"[rules_mesh] (a) {tag} on {_card()}: FSDP axes {t0['kept']}, "
+            f"row blocks of {t0['rows']} row(s) (C={t0['C']}, plan "
+            f"{t0['backend']}), copies per row block divided out "
+            f"{t0['repeats']}; loss {t0['loss']:.6g} ([train_tp] "
+            f"{tp_loss:.6g}); worst leaf gap to [train_tp]'s step "
+            f"{worst[1]:.3e} ({worst[0]}, limit {TRAIN_GRAD_TOL}); the "
+            f"router would have switched "
+            f"{sum(r['cases'][tag]['switched']['switched'] for r in ranks)} "
+            f"of {sum(r['cases'][tag]['switched']['tokens'] for r in ranks)}"
+            f" (token, call) pairs without the replay; loss + backward host "
+            f"ms per rank {[round(r['cases'][tag]['ms'], 1) for r in ranks]}"
+            f", build s {t0['build_s']:.1f}, peak GiB per rank "
+            f"{[round(r['cases'][tag]['peak_gib'], 2) for r in ranks]}; "
+            f"launches per rank {t0['counts']} (as predicted)")
+        log(f"[rules_mesh] (a) {tag}: leaf gaps " + ", ".join(
+            f"{p} {v:.2e}" for p, v in t0["vs_tp"].items()))
+    survivors = [r for r in range(TP_WORLD)
+                 if r not in RULES_LOST + RULES_PARTNERS]
+    for rank, r in enumerate(ranks):
+        b = r["elastic"]
+        if b["fired"] != [("device_loss", "train_step", ELASTIC_LOSS_AT)]:
+            fail(f"[rules_mesh] (b) rank {rank}: the loss fired {b['fired']}")
+        if rank not in survivors:
+            if b["status"] != "lost" or b["step"] != ELASTIC_LOSS_AT - 1:
+                fail(f"[rules_mesh] (b) rank {rank} did not leave: "
+                     f"{b['status']} at step {b['step']}")
+            continue
+        checks = {
+            "done": b["status"] == "done" and b["step"] == ELASTIC_STEPS,
+            "one recovery": b["recoveries"] == 1 and b["rebuilds"] == 1,
+            "survivor mesh": b["mesh"] == survivors
+            and b["dims"] == {"pod": 1, "data": 2, "model": 2},
+            "direct restore": b["direct_equal"]}
+        bad = [k for k, v in checks.items() if not v]
+        if bad:
+            fail(f"[rules_mesh] (b) survivor {rank}: {bad} wrong: {b}")
+        for k, v in b["counts"].items():
+            out[k] = out.get(k, 0) + v
+    if [ranks[r]["elastic"]["writer"] for r in survivors] \
+            != [True] + [False] * (len(survivors) - 1):
+        fail("[rules_mesh] (b) the checkpoint writer is not the survivor at "
+             "mesh coordinate 0")
+    b0 = r0["elastic"]
+    WRITTEN["rules_mesh"] = b0["written"]
+    if sum(WRITTEN.values()) > DISK_WRITE_BUDGET:
+        fail(f"[rules_mesh] the checkpoints wrote {b0['written'] / 2**30:.2f}"
+             f" GiB, over the run's disk budget")
+    log(f"[rules_mesh] (b) on {_card()}: Trainer(elastic=True) at the cut "
+        f"width {TRAIN_EP_CUT} on (pod=2, data=2, model=2), device loss of "
+        f"ranks {list(RULES_LOST)} at step {ELASTIC_LOSS_AT}: ranks "
+        f"{sorted(RULES_LOST + RULES_PARTNERS)} left at step "
+        f"{ELASTIC_LOSS_AT - 1}; survivors {survivors} recovered onto "
+        f"{b0['dims']} (rebuild_fn {b0['rebuild_s']:.2f} s), done at step "
+        f"{b0['step']} in {b0['run_s']:.1f} s; total_loss "
+        f"{[round(v, 4) for v in b0['losses']]}, step s "
+        f"{[round(v, 3) for v in b0['seconds']]}; final state equal to the "
+        f"direct restore of step {ELASTIC_EVERY} plus the same steps bit "
+        f"for bit; {b0['written'] / 2**30:.3f} GiB of checkpoints")
+    log(f"[rules_mesh] (a) + (b): "
+        f"{max(r['rules_mesh']['seconds'] for r in results):.1f} s of the "
+        f"run (the slowest rank)")
+    return out
+
+
 def phase_ring(results) -> float:
     """[ring]'s log (each rank compared its shard with the flash kernel
     within 2e-2 as it ran); returns its seconds."""
@@ -8166,6 +8515,7 @@ def main() -> int:
              "moe_ep_grok": phase_moe_ep_grok(world, seed),
              "moe_dropless": phase_moe_dropless(world, seed)}
     new_secs += max(r["moe_ep_grok"]["seconds"] for r in world)
+    rules_c = phase_overlap_grad(world)
     phase_tracing(world)
     paths["train_ep"] = phase_train_ep(world)
     added = phase_ring(world) + phase_pipeline(world)
@@ -8188,6 +8538,9 @@ def main() -> int:
         f"the main process's one-process runs)")
     paths["encdec_mesh"], secs = phase_encdec_mesh(tp_world)
     log(f"[encdec_mesh]: {secs:.1f} s of the run")
+    rules_ab = phase_rules_mesh(tp_world)
+    paths["rules_mesh"] = {k: rules_ab.get(k, 0) + rules_c.get(k, 0)
+                           for k in rules_ab.keys() | rules_c.keys()}
     del tp_world
     torch.cuda.empty_cache()
     log(f"[ulysses] + [ring] + [pipeline]: {added:.1f} s of the run")

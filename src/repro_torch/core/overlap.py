@@ -34,14 +34,16 @@ result is a second full-buffer copy, counted in ``overlap.concat_copies``.
 Under autograd a call is one :class:`OverlapFn` (``overlap_autograd``).
 Its forward is the pipeline above, keeping each chunk as it arrives for
 the compute stage (the reference's ``checkpoint_name(chunk,
-"moe_recv")``).  Its backward runs the same pipeline on the cotangent
-(a compute stage under autograd needs the reverse rounds after it):
-per chunk the forward-direction rounds (the adjoint of the reverse
-rounds: a blockwise all-to-all is its own transpose), then the vjp of
+"moe_recv")``).  Its backward runs a pipeline of the same kind on the
+cotangent.  With reverse rounds it is the same pipeline: per chunk the
+forward-direction rounds (the adjoint of the reverse rounds: a
+blockwise all-to-all is its own transpose), then the vjp of
 ``compute_fn`` on the kept chunk, recomputed under ``enable_grad`` with
 the parameters' gradients summed over the chunks, then the reverse
-rounds.  So the backward overlaps as the forward does and launches the
-same passes.
+rounds.  Without them (``reverse=False``: rounds, then compute) a chunk
+starts at the vjp and ends with the rounds in the reverse order
+(``forward_rounds=False``).  So the backward overlaps as the forward
+does and launches the same passes.
 """
 
 from __future__ import annotations
@@ -169,7 +171,8 @@ def _overlapped_impl(x, fact, *, n_chunks: int = 2,
                      variant: str = "natural", round_order=None,
                      compute_fn: Callable | None = None,
                      reverse: bool = False, reverse_round_order=None,
-                     chunk_axis: int | None = None):
+                     chunk_axis: int | None = None,
+                     forward_rounds: bool = True):
     """Chunked, software-pipelined factorized all-to-all with an optional
     per-chunk compute stage and reverse (combine) all-to-all.
 
@@ -190,6 +193,10 @@ def _overlapped_impl(x, fact, *, n_chunks: int = 2,
         reversed).
       chunk_axis: which axis of ``x`` (>= 1) to chunk.  Default: the
         trailing payload, flattened.
+      forward_rounds: False drops the forward rounds, so that a chunk
+        starts at the compute stage: the stage order of the backward of
+        ``reverse=False`` with a compute stage (the compute's vjp, then
+        the reverse rounds).
 
     Returns ``(p, *block)``, bit for bit the composition of the
     factorized all-to-all, ``compute_fn`` and the reverse all-to-all on
@@ -212,7 +219,8 @@ def _overlapped_impl(x, fact, *, n_chunks: int = 2,
                              f"rank-{x.dim()} operand")
         chunks = _split_chunks(x, chunk_axis, n_chunks)
 
-    stages = _round_stages(sizes, groups, variant, order)
+    stages = _round_stages(sizes, groups, variant, order) \
+        if forward_rounds else []
     if compute_fn is not None:
         def compute_stage(st, c):
             shape = (p,) + chunks[c].shape[1:]
@@ -264,7 +272,7 @@ class OverlapFn(torch.autograd.Function):
     non-reentrant checkpointing they are recomputed, not held."""
 
     @staticmethod
-    def forward(ctx, x, run, compute_fn, *params):
+    def forward(ctx, x, run, compute_fn, reverse, *params):
         kept = {}
         keep = None
         if compute_fn is not None:
@@ -273,6 +281,7 @@ class OverlapFn(torch.autograd.Function):
                 return compute_fn(chunk, c)
         y = run(x, keep)
         ctx.run, ctx.compute_fn, ctx.n_kept = run, compute_fn, len(kept)
+        ctx.reverse = reverse
         ctx.save_for_backward(*(kept[c] for c in range(len(kept))),
                               *params)
         return y
@@ -295,20 +304,20 @@ class OverlapFn(torch.autograd.Function):
                     pgrads[i] = gp if pgrads[i] is None else pgrads[i] + gp
             return torch.zeros_like(xc) if got[0] is None else got[0]
 
-        # the pipeline's own shape on the cotangent: rounds, vjp, rounds
-        gx = ctx.run(g.contiguous(), None if fn is None else vjp)
-        return (gx, None, None, *pgrads)
+        # on the cotangent: with reverse rounds the pipeline's own shape
+        # (rounds, vjp, rounds); without, the vjp, then the rounds
+        gx = ctx.run(g.contiguous(), None if fn is None else vjp,
+                     backward=fn is not None and not ctx.reverse)
+        return (gx, None, None, None, *pgrads)
 
 
 def overlap_autograd(x, run, compute_fn, *, reverse: bool, params=()):
     """``run(x, compute_fn)`` (an overlap plan's pipeline) as one
     :class:`OverlapFn`, whose backward gives ``x`` and ``params`` (the
-    tensors ``compute_fn`` reads that need gradients) theirs.  A compute
-    stage needs the reverse rounds after it: the backward runs the
-    pipeline itself on the cotangent."""
-    if compute_fn is not None and not reverse:
-        raise NotImplementedError(
-            "overlap(compute_fn=..., reverse=False) under autograd: its "
-            "backward would run the compute stage before the rounds, "
-            "which the pipeline does not; pass reverse=True")
-    return OverlapFn.apply(x, run, compute_fn, *params)
+    tensors ``compute_fn`` reads that need gradients) theirs.  With
+    ``reverse`` the backward runs the pipeline itself on the cotangent;
+    without it, and with a compute stage (forward: rounds, then
+    compute), ``run(g, vjp, backward=True)`` runs per chunk the
+    compute's vjp, then the rounds in the reverse order, pipelined as
+    the forward is."""
+    return OverlapFn.apply(x, run, compute_fn, reverse, *params)

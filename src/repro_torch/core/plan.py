@@ -300,19 +300,22 @@ class A2APlan:
         ``compute_fn`` reads that need gradients (``()`` if none; with a
         ``compute_fn`` they must be given, so that no gradient is lost
         silently), and the backward runs the same pipeline on the
-        cotangent."""
-        def run(t, fn):
+        cotangent; with ``reverse=False`` and a ``compute_fn``, per chunk
+        the compute's vjp, then the rounds in the reverse order."""
+        def run(t, fn, backward=False):
+            # backward: the vjp of reverse=False's compute stage, then its
+            # rounds in the reverse order (core.overlap.overlap_autograd)
             def pipeline():
                 return _overlapped_impl(
                     t, self.fact, n_chunks=self.n_chunks,
                     variant=self.variant, round_order=self.order,
-                    compute_fn=fn, reverse=reverse,
+                    compute_fn=fn, reverse=reverse or backward,
                     reverse_round_order=self.rev_order,
-                    chunk_axis=chunk_axis)
+                    chunk_axis=chunk_axis, forward_rounds=not backward)
             if _TRACER.enabled:
-                return self._traced_execute(t, self.order,
-                                            pipeline=pipeline,
-                                            directions=1 + bool(reverse))
+                return self._traced_execute(
+                    t, self.rev_order if backward else self.order,
+                    pipeline=pipeline, directions=1 + bool(reverse))
             return pipeline()
         params = tuple(params) if params is not None else None
         if _trains(x, *(params or ())):

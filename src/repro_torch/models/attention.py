@@ -83,13 +83,14 @@ class HeadLayout:
     """This rank's heads under tensor parallelism: ``q`` the query heads
     (a slice of ``range(Hq)``), ``kv`` the kv heads they read (a slice
     of ``range(Hkv)``, or a list with one kv head per query head where
-    the query heads' groups are uneven), whether ``wq`` and ``wk`` are
-    held as slices (else whole), and ``group`` the ``model`` group to
-    sum the ``wo`` product over (None: attention runs whole)."""
+    the query heads' groups are uneven), which of the head leaves the
+    rank holds whole and slices here (``whole``: the kv leaves in case
+    (b); under ``embed_fsdp=("model",)`` also ``wq``, gathered whole
+    over ``model``), and ``group`` the ``model`` group to sum the ``wo``
+    product over (None: attention runs whole)."""
     q: slice
     kv: slice | list
-    q_split: bool
-    kv_split: bool
+    whole: frozenset = frozenset()
     group: object = None
 
     @property
@@ -105,25 +106,29 @@ class HeadLayout:
 def head_layout(cfg: ModelConfig, mesh=None, rules=None) -> HeadLayout:
     """The resolver's split of ``attn_specs(cfg)`` on ``mesh``: cases (a),
     (b) and (c) of the module docstring; every head where the leaves are
-    whole over ``model`` (no mesh, or Ulysses)."""
+    whole over ``model`` (no mesh, or Ulysses).  The rank's query heads
+    are those of its slice of ``wo``, the projection that consumes them:
+    where an FSDP rule gives ``model`` to the ``d_model`` dim of ``wq`` /
+    ``wk`` / ``wv`` (``embed_fsdp=("model",)``), those are gathered
+    whole and each rank uses its heads' columns of them, as case (b)
+    uses the kv leaves."""
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-    whole = HeadLayout(slice(0, Hq), slice(0, Hkv), False, False)
+    whole = HeadLayout(slice(0, Hq), slice(0, Hkv))
     if mesh is None or cfg.use_ulysses:
         return whole
     specs = attn_specs(cfg)
-    q_split = model_dim(specs["wq"].shape, specs["wq"].logical, mesh,
-                        rules) is not None
-    kv_split = model_dim(specs["wk"].shape, specs["wk"].logical, mesh,
-                         rules) is not None
-    if not q_split:                                       # case (c)
+    held = {k for k, spec in specs.items()
+            if model_dim(spec.shape, spec.logical, mesh, rules) is not None}
+    if "wo" not in held:                                  # case (c)
         return whole
     group = tp_group(mesh)
     m, M = tp_rank(group), group.size
     nq, g = Hq // M, Hq // Hkv
     q = slice(m * nq, (m + 1) * nq)
-    if kv_split:                                          # case (a)
-        return HeadLayout(q, slice(m * Hkv // M, (m + 1) * Hkv // M), True,
-                          True, group)
+    sliced = frozenset(k for k in specs if k not in held and k != "wo")
+    if "wk" in held:                                      # case (a)
+        return HeadLayout(q, slice(m * Hkv // M, (m + 1) * Hkv // M),
+                          sliced, group)
     idx = [h // g for h in range(q.start, q.stop)]        # case (b)
     used = sorted(set(idx))
     if nq % len(used) == 0 and idx == [used[0] + j // (nq // len(used))
@@ -131,21 +136,26 @@ def head_layout(cfg: ModelConfig, mesh=None, rules=None) -> HeadLayout:
         kv = slice(used[0], used[-1] + 1)
     else:
         kv = idx
-    return HeadLayout(q, kv, True, False, group)
+    return HeadLayout(q, kv, sliced, group)
+
+
+# the heads dim of each head leaf, and whether it reads the query heads
+_HEAD_DIM = {"wq": (1, True), "bq": (0, True), "wk": (1, False),
+             "wv": (1, False), "bk": (0, False), "bv": (0, False)}
 
 
 def _local_heads(p, lay: HeadLayout) -> dict:
     """The projections of this rank's heads: ``p`` as it is where a leaf
-    is held as its slice, else the slice of the whole leaf (the kv leaves
-    in case (b)), so each projection's output is contiguous."""
-    if lay.kv_split or not lay.q_split:
+    is held as its slice, else the slice of the whole leaf (``lay
+    .whole``), so each projection's output is contiguous."""
+    if not lay.whole:
         return p
     out = dict(p)
-    for k in ("wk", "wv"):
-        out[k] = p[k][:, lay.kv]
-    for k in ("bk", "bv"):
+    for k in lay.whole:
         if k in p:
-            out[k] = p[k][lay.kv]
+            dim, query = _HEAD_DIM[k]
+            idx = lay.q if query else lay.kv
+            out[k] = p[k][(slice(None),) * dim + (idx,)]
     return out
 
 

@@ -103,41 +103,67 @@ def tree_with_leaves(like, values: dict, prefix: str = ""):
 
 def param_shardings(specs, mesh, rules=None):
     """The counterpart of the reference's ``param_shardings`` for a tree
-    shaped like ``specs`` on ``mesh``: a
-    ``parallel.sharding.ExpertSharding`` that splits the expert dim of
+    shaped like ``specs`` on ``mesh``: the
+    ``parallel.sharding.ExpertSharding`` of :func:`param_layout`
+    (collective: it builds the layout's communicators)."""
+    from repro_torch.parallel.sharding import ExpertSharding
+    lay = param_layout(specs, mesh, rules)
+    return ExpertSharding(lay["axes"], lay["n_experts"], mesh,
+                          lay["model_axes"], lay["partial"],
+                          lay["fsdp_axes"], lay["fsdp_kept"], rules,
+                          lay["model_groups"], lay["fsdp_whole"])
+
+
+def param_layout(specs, mesh, rules=None) -> dict:
+    """Where each leaf of a tree shaped like ``specs`` is split on
+    ``mesh`` (a ``DeviceMesh`` or ``{dim: size}``; no collective), as the
+    keyword fields of a ``parallel.sharding.ExpertSharding``: it splits
+    the expert dim of
     every leaf whose logical axes name ``"expert"`` over the EP group
     (``ep_axes(mesh)``), and the dim the resolver gives ``model`` under
-    ``rules`` (``parallel.sharding.model_dim``: heads, kv heads, the
-    FFN's hidden dim, the vocab, the recurrent mixers' channels) over
-    ``model``, and the dim an FSDP
-    rule resolves to ``pod`` / ``data`` (``parallel.sharding.fsdp_dim``:
-    the ``d_model`` dim of the embedding, attention and the dense FFN)
-    over the axes the resolver kept.  Expert leaves take no FSDP split:
-    the EP split already spans both FSDP axes.  A ``"kv_heads"`` leaf
-    kept whole beside a sibling ``"heads"`` leaf that is split is
-    ``partial``: each ``model`` rank projects only the kv heads its query
-    heads read.  A ``seq_parallel`` leaf (Ulysses attention) is held
-    whole over ``model`` and is ``partial`` where ``model`` > 1: each
-    ``model`` rank projects only its slice of the sequence."""
+    ``rules`` through a rule other than an FSDP rule
+    (``parallel.sharding.model_dim``: heads, kv heads, the FFN's hidden
+    dim, the vocab, the recurrent mixers' channels) over ``model``, and
+    the dim an FSDP rule resolves (``parallel.sharding.fsdp_dim``: the
+    ``d_model`` dim of the embedding, attention and the dense FFN) over
+    the axes the resolver kept for that leaf (``pod`` / ``data`` by
+    default; ``model`` under ``embed_fsdp=("model",)``; leaves may keep
+    different ones).  Expert leaves take no FSDP split and split their
+    hidden dim over ``model`` whatever their FSDP rule says, as the
+    reference's MoE re-constrains them to ``("expert_virtual", None,
+    None, "mlp")``.  A ``"kv_heads"`` leaf kept whole beside a sibling
+    ``"heads"`` leaf that is split is ``partial``: each ``model`` rank
+    projects only the kv heads its query heads read.  A ``seq_parallel``
+    leaf (Ulysses attention) is held whole over ``model`` and is
+    ``partial`` where ``model`` > 1: each ``model`` rank projects only
+    its slice of the sequence.  An FSDP leaf over ``model`` is summed
+    over ``model`` by its reduce-scatter instead of ``partial``; it is
+    ``fsdp_whole`` where every ``model`` rank uses it whole: no sibling
+    is split over ``model`` along a logical axis it has (``heads`` also
+    covers ``kv_heads``) and it is not ``seq_parallel``."""
     from repro_torch.core.cache import mesh_shape
-    from repro_torch.parallel.sharding import (ExpertSharding, ep_axes,
+    from repro_torch.parallel.sharding import (FSDP_RULES, ep_axes,
                                                fsdp_dim, model_dim)
+    shape = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
     axes, model_axes, fsdp_axes, n_experts = {}, {}, {}, None
-    groups, kept = {}, set()
+    groups, kept = {}, {}
     leaves = tree_leaves(specs)
     for path, spec in leaves:
-        if ep_axes(mesh) and "expert" in spec.logical:
-            axis = spec.logical.index("expert")
+        logical = spec.logical
+        if ep_axes(mesh) and "expert" in logical:
+            axis = logical.index("expert")
             axes[path] = axis
             if n_experts not in (None, spec.shape[axis]):
                 raise ValueError(f"{path}: {spec.shape[axis]} experts, "
                                  f"other leaves {n_experts}")
             n_experts = spec.shape[axis]
+        if "expert" in logical:
+            logical = tuple(None if n in FSDP_RULES else n for n in logical)
         dim = None if spec.seq_parallel else model_dim(
-            spec.shape, spec.logical, mesh, rules)
+            spec.shape, logical, mesh, rules)
         if dim is not None:
             model_axes[path] = dim
-            k, t = spec.column_groups, mesh_shape(mesh)["model"]
+            k, t = spec.column_groups, shape["model"]
             if k > 1:
                 if spec.shape[dim] % (k * t):
                     raise ValueError(
@@ -148,21 +174,36 @@ def param_shardings(specs, mesh, rules=None):
         split = None if path in axes else fsdp_dim(spec.shape, spec.logical,
                                                    mesh, rules)
         if split is not None:
-            fsdp_axes[path] = split[0]
-            kept.add(split[1])
-    if len(kept) > 1:
-        raise NotImplementedError(f"FSDP leaves split over different axes "
-                                  f"{sorted(kept)}: one FSDP group only")
+            fsdp_axes[path], kept[path] = split
     parent = lambda path: path.rpartition("/")[0]
+    over_model = {p for p, axes_ in kept.items() if "model" in axes_}
     split_heads = {parent(p) for p, spec in leaves
                    if "heads" in spec.logical and p in model_axes}
     partial = {p for p, spec in leaves if "kv_heads" in spec.logical
-               and p not in model_axes and parent(p) in split_heads}
-    if mesh_shape(mesh).get("model", 1) > 1:
-        partial |= {p for p, spec in leaves if spec.seq_parallel}
-    return ExpertSharding(axes, n_experts or 1, mesh, model_axes, partial,
-                          fsdp_axes, kept.pop() if kept else (), rules,
-                          groups)
+               and p not in model_axes and p not in over_model
+               and parent(p) in split_heads}
+    if shape.get("model", 1) > 1:
+        partial |= {p for p, spec in leaves
+                    if spec.seq_parallel and p not in over_model}
+    # the logical axes each parent's leaves split over model
+    split_names = {}
+    for p, spec in leaves:
+        if p in model_axes:
+            split_names.setdefault(parent(p), set()).add(
+                spec.logical[model_axes[p]])
+    specs_of = dict(leaves)
+
+    def used_whole(p):
+        names = set(specs_of[p].logical)
+        if "kv_heads" in names:
+            names.add("heads")
+        return not specs_of[p].seq_parallel and not (
+            names & split_names.get(parent(p), set()))
+    return {"axes": axes, "n_experts": n_experts or 1,
+            "model_axes": model_axes, "partial": partial,
+            "fsdp_axes": fsdp_axes, "fsdp_kept": kept,
+            "model_groups": groups,
+            "fsdp_whole": {p for p in over_model if used_whole(p)}}
 
 
 def init_params(specs, generator: torch.Generator, device,

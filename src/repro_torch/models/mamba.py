@@ -33,7 +33,8 @@ import torch.nn.functional as F
 from repro_torch.models.common import ParamSpec, silu
 from repro_torch.models.ffn import row_parallel
 from repro_torch.models.remat import chunked_scan, dot
-from repro_torch.parallel.sharding import split_group, tp_copy, tp_sum
+from repro_torch.parallel.sharding import (split_group, tp_copy, tp_sum,
+                                           used_columns)
 from .config import ModelConfig
 
 
@@ -62,8 +63,10 @@ def mamba_specs(cfg: ModelConfig) -> dict:
 
 def mixer_group(cfg: ModelConfig, mesh=None, rules=None):
     """The ``model`` group the block's channels are split over (the
-    resolver's split of ``in_proj``), or None where it runs whole."""
-    return split_group(mamba_specs(cfg)["in_proj"], mesh, rules)
+    resolver's split of ``out_proj``, which consumes them; ``in_proj``
+    follows it, :func:`parallel.sharding.used_columns`), or None where
+    it runs whole."""
+    return split_group(mamba_specs(cfg)["out_proj"], mesh, rules)
 
 
 def _ssm_params(p, xc, cfg, group=None):
@@ -111,7 +114,9 @@ def mamba_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
     cd = cfg.cdtype
 
     x = tp_copy(x.to(cd), group)
-    xz = dot(x, p["in_proj"].to(cd))                       # (B, S, 2Ein)
+    w_in = used_columns(p["in_proj"], mamba_specs(cfg)["in_proj"], group,
+                        mesh, rules)
+    xz = dot(x, w_in.to(cd))                               # (B, S, 2Ein)
     xs, z = xz.chunk(2, dim=-1)
 
     if state is None:

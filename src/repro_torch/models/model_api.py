@@ -8,8 +8,11 @@ the batch and its parameter shard (``common.param_shardings``): the
 experts split over the EP group, heads, the FFN's hidden dim, the
 recurrent mixers' channels and the vocab over ``model``, the
 ``d_model`` dim of the embedding, attention, the dense FFN and the
-mixers' projections over the FSDP axes (``pod`` / ``data``; the model
-gathers them before use), the norms and the router whole.
+mixers' projections over the FSDP axes (``pod`` / ``data`` by default,
+``model`` under ``embed_fsdp=("model",)``; the model gathers them
+before use), the norms and the router whole.  The "batch" rule may
+leave EP or FSDP axes out: the ranks that differ only there hold the
+same rows (:func:`reduce_grads` counts them).
 ``make_train_step`` then reduces the gradients with
 :func:`reduce_grads` so that every rank steps with its shard of the
 one-device gradient of the global batch; ``make_prefill_fn`` and
@@ -30,8 +33,7 @@ from repro_torch.models.common import (param_shardings, tree_leaves,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.transformer import Model
-from repro_torch.parallel.sharding import (batch_axes, batch_group,
-                                           check_ep_within_batch)
+from repro_torch.parallel.sharding import batch_group
 
 
 def build_model(cfg: ModelConfig) -> Model | EncDecModel:
@@ -58,24 +60,27 @@ def reduce_grads(grads, sharding, group):
     the gradients are returned as they are.
 
     Each rank's loss is its share of the global mean times the ``n``
-    ranks of the batch group (``Model.loss``), so:
-
-    * a whole leaf is averaged over the batch group (an all-reduce, then
-      ``1 / n``): every rank ends with the same bits;
-    * an FSDP leaf's gradient already holds the sum over the FSDP group
-      (``parallel.sharding.fsdp_gather``'s reduce-scatter brought it), so
-      it is summed only over the batch axes the split did not keep
-      (``ExpertSharding.sum_fsdp_rest``), then scaled by ``1 / n``;
-    * an expert leaf already holds the sum over the ranks whose tokens
-      its experts served (the dispatch's backward brought it), so it is
-      scaled by ``1 / n``; with replicas (``n_experts`` < G) the copies
-      of an expert are summed first (``ExpertSharding.sum_replicas``);
-    * a leaf split over ``model`` is this rank's slice of the gradient
-      (the tensor-parallel Functions brought the full cotangent to it),
-      averaged over the batch group like a whole leaf;
-    * a ``partial`` whole leaf (a kv projection whose heads the ``model``
-      ranks share out) is first summed over ``model``
-      (``ExpertSharding.sum_partial``).
+    ranks of the batch group (``Model.loss``).  Every leaf's gradient is
+    summed over the data-parallel axes (``pod``, ``data``): an expert
+    leaf's by the dispatch's backward over the EP group (with replicas,
+    ``n_experts`` < G, the copies of an expert are summed first:
+    ``ExpertSharding.sum_replicas``), an FSDP leaf's by
+    ``parallel.sharding.fsdp_gather``'s reduce-scatter over its kept
+    axes and then over the ones they leave out, any other leaf's by an
+    all-reduce (``ExpertSharding.sum_dp``).  A ``partial`` leaf (a kv
+    projection whose heads the ``model`` ranks share out) is first
+    summed over ``model`` (``ExpertSharding.sum_partial``).  The sum is
+    then divided by ``n`` times the copies it holds of each row block
+    (``ExpertSharding.repeats``): ranks that differ only on axes outside
+    the batch rule hold the same rows, so where such an axis is in the
+    group (``pod`` under ``batch=("data",)``; ``model`` for an FSDP leaf
+    over ``model`` that every ``model`` rank uses whole) each block's
+    contribution came once from each of them.  A leaf split over
+    ``model`` is this rank's slice (the tensor-parallel Functions
+    brought the full cotangent to it); an FSDP leaf over ``model`` whose
+    heads or columns the ``model`` ranks share out was summed over parts
+    and is not divided for ``model``.  Every rank of a leaf's group ends
+    with the same bits.
     """
     if sharding is None:
         return grads
@@ -83,14 +88,8 @@ def reduce_grads(grads, sharding, group):
     out = {}
     for path, g in tree_leaves(grads):
         g32 = sharding.sum_partial(path, g.float())
-        if path in sharding.axes:
-            g32 = sharding.sum_replicas(path, g32)
-        elif path in sharding.fsdp_axes:
-            g32 = sharding.sum_fsdp_rest(path, g32)
-        elif group is not None:
-            g32 = g32.clone()
-            dist.all_reduce(g32, group=group.pg)
-        out[path] = (g32 / n).to(g.dtype)
+        g32 = sharding.sum_dp(path, sharding.sum_replicas(path, g32))
+        out[path] = (g32 / (n * sharding.repeats(path))).to(g.dtype)
     return tree_with_leaves(grads, out)
 
 
@@ -128,13 +127,7 @@ def make_train_step(model, optimizer, mesh=None, rules=None,
     sharding = group = None
     if mesh is not None:
         model.check_mesh(mesh)
-        check_ep_within_batch(mesh, rules)
         sharding = param_shardings(model.specs(), mesh, rules)
-        extra = set(sharding.fsdp_kept) - set(batch_axes(mesh, rules))
-        if extra:
-            raise NotImplementedError(
-                f"training with FSDP over {sorted(extra)} outside the batch "
-                f"rule is not supported: the FSDP axes must split the batch")
         group = batch_group(mesh, rules)
 
     def grads_of(params, batch):

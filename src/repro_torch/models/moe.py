@@ -181,9 +181,12 @@ def expert_shard(p: dict, cfg: ModelConfig, mesh, rules=None) -> dict:
 
 def moe_tp_group(cfg: ModelConfig, mesh, rules=None):
     """The ``model`` group the expert FFN's partial output is summed over,
-    or None where the ``mlp`` rule does not split F on ``mesh``."""
+    or None where the ``mlp`` rule does not split F on ``mesh``.  The
+    expert leaves' FSDP rule is read as None, as the reference's
+    ``moe_block`` re-constrains them to ``("expert_virtual", None, None,
+    "mlp")`` whatever that rule says."""
     spec = moe_specs(cfg)["w1"]
-    if model_dim(spec.shape, spec.logical, mesh, rules) is None:
+    if model_dim(spec.shape, ("expert", None, "mlp"), mesh, rules) is None:
         return None
     return tp_group(mesh)
 

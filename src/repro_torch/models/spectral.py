@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import ParamSpec, silu
 from repro_torch.models.ffn import row_parallel
 from repro_torch.models.remat import chunked_scan, dot
-from repro_torch.parallel.sharding import split_group, tp_copy
+from repro_torch.parallel.sharding import split_group, tp_copy, used_columns
 from .config import ModelConfig
 
 
@@ -52,7 +52,7 @@ def spectral_specs(cfg: ModelConfig) -> dict:
 def mixer_group(cfg: ModelConfig, mesh=None, rules=None):
     """The ``model`` group the block's channels are split over (the
     resolver's split of ``in_proj``), or None where it runs whole."""
-    return split_group(spectral_specs(cfg)["in_proj"], mesh, rules)
+    return split_group(spectral_specs(cfg)["out_proj"], mesh, rules)
 
 
 def _discretize(p):
@@ -149,7 +149,9 @@ def spectral_block(p, x, cfg: ModelConfig, state=None, mesh=None,
     cd = cfg.cdtype
     group = mixer_group(cfg, mesh, rules)
     x = tp_copy(x.to(cd), group)
-    xz = dot(x, p["in_proj"].to(cd))                       # (B, S, 2Ein)
+    w_in = used_columns(p["in_proj"], spectral_specs(cfg)["in_proj"],
+                        group, mesh, rules)
+    xz = dot(x, w_in.to(cd))                               # (B, S, 2Ein)
     xs, z = xz.chunk(2, dim=-1)
     xs_f = xs.float()
     dA, dB, C, dtA = _discretize(p)

@@ -53,8 +53,9 @@ loss is ``common.vocab_parallel_cross_entropy``; ``decode_step`` and
 ``model`` ranks of a row block hold the same rows and compute the same
 loss, so the loss's denominator is the batch group's alone.
 
-FSDP (where an FSDP rule splits a leaf's ``d_model`` dim over ``pod`` /
-``data``: ``ExpertSharding.fsdp_axes``): each rank holds its shard and
+FSDP (where an FSDP rule splits a leaf's ``d_model`` dim over the axes
+it keeps, ``pod`` / ``data`` or ``model``: ``ExpertSharding.fsdp_axes``,
+each leaf over its own): each rank holds its shard and
 gathers the leaf whole right before use (``parallel.sharding
 .fsdp_gather``, through ``TorusComm.all_gather``; the backward
 reduce-scatters the gradient).  A superblock's leaves are gathered at

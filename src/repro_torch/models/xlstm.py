@@ -36,6 +36,7 @@ where it does not divide, the blocks run whole):
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +46,7 @@ from repro_torch.models.ffn import row_parallel
 from repro_torch.models.remat import chunked_scan, dot
 from repro_torch.parallel.sharding import (model_dim, sp_gather,
                                            split_group, tp_copy, tp_rank,
-                                           tp_sum)
+                                           tp_sum, used_columns)
 from .config import ModelConfig
 
 
@@ -101,14 +102,14 @@ def _mlstm_steps(carry, q, k, v, i_pre, f_pre):
 def mlstm_group(cfg: ModelConfig, mesh=None, rules=None):
     """The ``model`` group the mLSTM's heads are split over (the
     resolver's split of ``up``), or None where it runs whole."""
-    return split_group(mlstm_specs(cfg)["up"], mesh, rules)
+    return split_group(mlstm_specs(cfg)["down"], mesh, rules)
 
 
 def check_mlstm_heads(cfg: ModelConfig, shape: dict, rules=None) -> None:
     """Raise where the mesh shape ``shape`` (``{dim: size}``) splits the
     mLSTM's leaves over ``model`` but not its heads."""
     t = shape.get("model", 1)
-    spec = mlstm_specs(cfg)["up"]
+    spec = mlstm_specs(cfg)["down"]
     if cfg.n_heads % t and model_dim(spec.shape, spec.logical, shape,
                                      rules) is not None:
         raise ValueError(
@@ -140,7 +141,8 @@ def mlstm_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
     H, Dl = cfg.n_heads // t, Din // t            # this rank's heads
 
     x = tp_copy(x.to(cd), group)
-    up = dot(x, p["up"].to(cd))
+    up = dot(x, used_columns(p["up"], mlstm_specs(cfg)["up"], group, mesh,
+                             rules).to(cd))
     xi, z = up.chunk(2, dim=-1)                           # (B,S,Dl) each
     xf = xi.float()
 
@@ -289,8 +291,17 @@ def slstm_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
     B, S, D = x.shape
     cd = cfg.cdtype
     specs = slstm_specs(cfg)
-    gates_group = split_group(specs["w_gates"], mesh, rules)
-    ffn_group = split_group(specs["up1"], mesh, rules)
+    # the gate columns split as the "mlp" rule splits them, the FFN's as
+    # its consumer down is; under embed_fsdp=("model",) w_gates, up1 and
+    # up2 are gathered whole and each rank uses those columns
+    # (parallel.sharding.used_columns)
+    gates_group = split_group(replace(specs["w_gates"],
+                                      logical=(None, "mlp")), mesh, rules)
+    ffn_group = split_group(specs["down"], mesh, rules)
+    w_gates = used_columns(p["w_gates"], specs["w_gates"], gates_group,
+                           mesh, rules)
+    up1, up2 = (used_columns(p[k], specs[k], ffn_group, mesh, rules)
+                for k in ("up1", "up2"))
 
     if state is None:
         z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
@@ -301,11 +312,11 @@ def slstm_block(p, x, cfg: ModelConfig, state=None, mesh=None, rules=None):
 
     # this rank's gate columns, gathered: [z | i | f | o] whole
     wx = sp_gather(dot(tp_copy(x, gates_group).float(),
-                       p["w_gates"].float()), gates_group, -1)
+                       w_gates.float()), gates_group, -1)
     (cf, nf, mf, hf), h = chunked_scan(
         _slstm_steps, (c0, n0, m0, h0), (wx,), (p["r_gates"].float(),),
         remat=cfg.recurrent_step_remat)
     h = tp_copy(rms_norm(h, p["gn"]).to(cd), ffn_group)
-    y = row_parallel(silu(dot(h, p["up1"].to(cd))) * dot(h, p["up2"].to(cd)),
+    y = row_parallel(silu(dot(h, up1.to(cd))) * dot(h, up2.to(cd)),
                      p["down"], cd, ffn_group)
     return y, {"c": cf, "n": nf, "m": mf, "h": hf}

@@ -8,8 +8,11 @@ mapping and the collectives GSPMD would insert:
 
 * :func:`resolve_spec`, the reference's resolver with its divisibility
   fallback, :func:`model_dim`, the dim of a leaf it splits over
-  ``model``, and :func:`fsdp_dim`, the dim it splits over ``pod`` /
-  ``data`` through the FSDP rules (``fsdp``, ``embed_fsdp``);
+  ``model`` for tensor parallelism, and :func:`fsdp_dim`, the dim it
+  splits through the FSDP rules (``fsdp``, ``embed_fsdp``: over ``pod``
+  / ``data`` by default, over ``model`` where a rule says so), with
+  :func:`dp_axes`, the data-parallel dims every gradient is summed
+  over;
 * the "batch" rule's split (:func:`batch_axes`, :func:`batch_split`,
   :func:`batch_group`): rank order ``P(("pod", "data"))``, row block
   ``pod * |data| + data``, which is also the EP virtual rank;
@@ -20,9 +23,11 @@ mapping and the collectives GSPMD would insert:
   over the EP group), which as its slice of a dim the resolver splits
   over ``model`` (heads, kv heads, the FFN's hidden dim, the vocab),
   which as its FSDP shard (the ``d_model`` dim of the embedding,
-  attention and the dense FFN, over ``pod`` / ``data``), and which
+  attention and the dense FFN, over the axes its rule kept), and which
   whole leaves get only a partial gradient on each ``model`` rank; and
-  the collectives that move between the shards and the global tree;
+  the collectives that move between the shards and the global tree
+  (:func:`used_columns`: the columns of a leaf gathered whole that a
+  rank uses where its consumer is split over ``model``);
 * :func:`all_reduce_sum`, an all-reduce autograd differentiates (the
   reference's ``pmean`` inside a differentiated ``shard_map``), and the
   two conjugate tensor-parallel Functions, :func:`tp_copy` (identity
@@ -81,13 +86,14 @@ DEFAULT_RULES: tuple[tuple[str, tuple[str, ...]], ...] = (
 
 
 def ep_axes(mesh) -> tuple[str, ...]:
-    """EP all-to-all axes, fastest digit first (owner axis, then replicas).
+    """EP all-to-all axes, fastest digit first (owner axis, then replicas;
+    ``mesh`` a ``DeviceMesh`` or ``{dim: size}``).
 
     The virtual-expert rank is ``data_coord + |data| * pod_coord``: experts
     are owned along "data" and replicated across "pod", so the multi-pod
     dispatch is a d=2 factorized all-to-all (the "data" round, then the
     "pod" round)."""
-    names = mesh.mesh_dim_names or ()
+    names = mesh if isinstance(mesh, dict) else (mesh.mesh_dim_names or ())
     return tuple(a for a in ("data", "pod") if a in names)
 
 
@@ -155,13 +161,19 @@ FSDP_RULES = ("fsdp", "embed_fsdp")
 def model_dim(shape, logical, mesh, rules: ShardingRules | None = None
               ) -> int | None:
     """The dim of a leaf of ``shape`` with ``logical`` axes that the
-    resolver splits over ``model``, or None (no mesh, ``model`` absent or
-    1, or no dim of the leaf divides; ``mesh`` a ``DeviceMesh`` or
-    ``{dim: size}``)."""
+    resolver splits over ``model`` through a rule other than an FSDP
+    rule (a tensor-parallel split), or None (no mesh, ``model`` absent or
+    1, or no such dim divides; ``mesh`` a ``DeviceMesh`` or ``{dim:
+    size}``).  A dim an FSDP rule gives ``model`` (``embed_fsdp=
+    ("model",)``) is :func:`fsdp_dim`'s: the leaf is gathered whole
+    before use."""
     if mesh is None or (mesh if isinstance(mesh, dict) else mesh_shape(
             mesh)).get("model", 1) <= 1:
         return None
-    for i, part in enumerate(resolve_spec(shape, logical, mesh, rules)):
+    for i, (name, part) in enumerate(zip(
+            logical, resolve_spec(shape, logical, mesh, rules))):
+        if name in FSDP_RULES:
+            continue
         if part == "model" or (isinstance(part, tuple) and "model" in part):
             return i
     return None
@@ -174,9 +186,9 @@ def fsdp_dim(shape, logical, mesh, rules: ShardingRules | None = None
     ``{dim: size}``) through an FSDP rule (``fsdp``,
     ``embed_fsdp``), and the mesh axes it kept there after the
     divisibility fallback, most significant first (``("pod", "data")``
-    under the default rules); None where no such dim is split over more
-    than one rank (no mesh, the axes absent, of size 1 or not
-    dividing)."""
+    under the default rules, ``("model",)`` under ``embed_fsdp=
+    ("model",)``); None where no such dim is split over more than one
+    rank (no mesh, the axes absent, of size 1 or not dividing)."""
     if mesh is None:
         return None
     shape_of = mesh if isinstance(mesh, dict) else mesh_shape(mesh)
@@ -185,13 +197,20 @@ def fsdp_dim(shape, logical, mesh, rules: ShardingRules | None = None
         if name not in FSDP_RULES or part is None:
             continue
         axes = (part,) if isinstance(part, str) else tuple(part)
-        if "model" in axes:
-            raise NotImplementedError(
-                f"an FSDP rule over 'model' ({name} -> {axes}) is not "
-                f"supported: 'model' splits by model_dim")
         if math.prod(shape_of[a] for a in axes) > 1:
             return i, axes
     return None
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel dims of ``mesh`` (a ``DeviceMesh`` or ``{dim:
+    size}``), most significant first: ``pod`` and ``data``, the EP
+    group's.  Every leaf's gradient ends summed over them (through the
+    EP dispatch, an FSDP reduce-scatter or an all-reduce); the ranks
+    that differ only on one the "batch" rule leaves out hold the same
+    rows."""
+    names = mesh if isinstance(mesh, dict) else (mesh.mesh_dim_names or ())
+    return tuple(a for a in ("pod", "data") if a in names)
 
 
 # ---------------------------------------------------------------------------
@@ -281,20 +300,6 @@ def collective_device(pg) -> torch.device:
     if dist.get_backend(pg) == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
-
-
-def check_ep_within_batch(mesh, rules: ShardingRules | None = None) -> None:
-    """Training needs every EP axis to split the batch: over an axis that
-    did not, each expert would see one token from several ranks and count
-    its gradient more than once."""
-    shape = mesh_shape(mesh)
-    extra = [a for a in ep_axes(mesh)
-             if shape[a] > 1 and a not in batch_axes(mesh, rules)]
-    if extra:
-        raise NotImplementedError(
-            f"training with the EP axes {extra} outside the batch rule "
-            f"{batch_axes(mesh, rules)} is not supported: every EP axis "
-            f"must split the batch")
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -408,6 +413,21 @@ def split_group(spec, mesh, rules: ShardingRules | None = None):
     if model_dim(spec.shape, spec.logical, mesh, rules) is None:
         return None
     return tp_group(mesh)
+
+
+def used_columns(w, spec, group, mesh, rules: ShardingRules | None = None):
+    """The columns (last dim) of the leaf ``w`` of ``spec`` that this rank
+    uses where its consumer is split over the ``model`` group ``group``:
+    ``w`` as it is where the resolver splits it over ``model`` too (it is
+    held as those columns) or ``group`` is None, else, ``w`` whole on
+    the rank (gathered by FSDP over ``model``), the rank's slice of each
+    of its ``spec.column_groups`` column groups (:func:`model_block`),
+    side by side: the columns it would hold."""
+    if group is None or model_dim(spec.shape, spec.logical, mesh,
+                                  rules) is not None:
+        return w
+    return model_block(w, w.dim() - 1, spec.column_groups, tp_rank(group),
+                       group.size).flatten(-2, -1)
 
 
 # the profiler span of FSDP's gather and of its gradient's reduce-scatter
@@ -581,16 +601,23 @@ class ExpertSharding:
     ``E_loc`` here); ``model_axes`` maps the path of each leaf split over
     ``model`` to that dim (``|model|`` times this rank's length
     globally); ``fsdp_axes`` maps the path of each leaf split by FSDP to
-    that dim, split over the mesh axes ``fsdp_kept`` (most significant
-    first: shard ``i`` is block ``pod * |data| + data`` under the default
-    rules, the torus rank of :attr:`fsdp`, the communicator over them).
+    that dim and ``fsdp_kept`` to the mesh axes it is split over (most
+    significant first: shard ``i`` is block ``pod * |data| + data`` under
+    the default rules, the torus rank of :meth:`fsdp_comm`, the
+    communicator over them; leaves may keep different axes, as the
+    embedding keeps ``pod`` alone under ``vocab=("data",)``).
     A leaf may be in two: an expert ``w1`` ``(E, D, F)`` holds its EP
     rank's experts and its ``model`` rank's slice of F, a ``wq`` ``(L, D,
     H, hd)`` its FSDP shard of D and its ``model`` rank's heads.
     ``partial`` names leaves whose gradient on each ``model`` rank is
     that rank's part only (a kv projection kept whole over ``model``
     while the query heads are split), which :meth:`sum_partial` sums
-    over ``model``.  ``model_groups`` maps a leaf split over ``model``
+    over ``model``.  An FSDP leaf split over ``model`` (``embed_fsdp=
+    ("model",)``) is gathered whole and each ``model`` rank uses the
+    heads or columns of its split consumer, so the reduce-scatter sums
+    parts; ``fsdp_whole`` names those every ``model`` rank uses whole
+    instead, whose summed gradient holds ``|model|`` full copies
+    (:meth:`repeats`).  ``model_groups`` maps a leaf split over ``model``
     whose dim holds k > 1 equal column groups (a fused ``[xs | z]``
     product) to k: its rank ``m`` holds the m-th slice of each group
     (:func:`model_block`), and the global leaf keeps the groups side by
@@ -601,14 +628,16 @@ class ExpertSharding:
 
     def __init__(self, axes: dict, n_experts: int, mesh,
                  model_axes: dict | None = None, partial=(),
-                 fsdp_axes: dict | None = None, fsdp_kept=(),
+                 fsdp_axes: dict | None = None, fsdp_kept: dict | None = None,
                  rules: ShardingRules | None = None,
-                 model_groups: dict | None = None):
+                 model_groups: dict | None = None, fsdp_whole=()):
         self.axes = dict(axes)
         self.model_axes = dict(model_axes or {})
         self.model_groups = dict(model_groups or {})
         self.fsdp_axes = dict(fsdp_axes or {})
-        self.fsdp_kept = tuple(fsdp_kept) if self.fsdp_axes else ()
+        self.fsdp_kept = {p: tuple((fsdp_kept or {})[p])
+                          for p in self.fsdp_axes}
+        self.fsdp_whole = frozenset(fsdp_whole)
         self.partial = frozenset(partial)
         self.n_experts = n_experts
         self.mesh = mesh
@@ -617,14 +646,19 @@ class ExpertSharding:
         self.comm = ep_comm(mesh) if self.axes else None
         self.tp = tp_group(mesh) if self.model_axes or self.partial \
             else None
-        self.fsdp = torus_comm(mesh, self.fsdp_kept[::-1]) \
-            if self.fsdp_kept else None
-        # the batch axes the FSDP split does not cover: an FSDP leaf's
-        # gradient is summed over them after the reduce-scatter
-        rest = tuple(a for a in batch_axes(mesh, rules)
-                     if a not in self.fsdp_kept) if self.fsdp else ()
-        self.fsdp_rest = torus_comm(mesh, rest[::-1]).fact.group \
-            if rest else None
+        # one communicator per distinct kept-axes tuple, and the group of
+        # the data-parallel axes it leaves out (an FSDP leaf's gradient is
+        # summed over them after the reduce-scatter), built in the same
+        # order on every rank
+        self.dp = dp_axes(mesh)
+        self._fsdp, self._rest = {}, {}
+        for kept in sorted(set(self.fsdp_kept.values())):
+            self._fsdp[kept] = torus_comm(mesh, kept[::-1])
+            rest = tuple(a for a in self.dp if a not in kept)
+            self._rest[kept] = torus_comm(mesh, rest[::-1]).fact.group \
+                if rest else None
+        self.dp_group = torus_comm(mesh, self.dp[::-1]).fact.group \
+            if self.dp else None
         self.group = mesh_group(mesh)
 
     @property
@@ -633,47 +667,78 @@ class ExpertSharding:
         mesh coordinate 0)."""
         return self.group is None or dist.get_rank() == self.group.members[0]
 
-    def _with(self, axes, model_axes, partial, fsdp_axes, model_groups
-              ) -> "ExpertSharding":
+    def fsdp_comm(self, path: str):
+        """The ``TorusComm`` over the axes the FSDP leaf at ``path`` is
+        split over (its torus rank is this rank's shard)."""
+        return self._fsdp[self.fsdp_kept[path]]
+
+    def _with(self, axes, model_axes, partial, fsdp_axes, model_groups,
+              fsdp_kept, fsdp_whole) -> "ExpertSharding":
         return ExpertSharding(axes, self.n_experts, self.mesh, model_axes,
-                              partial, fsdp_axes, self.fsdp_kept,
-                              self.rules, model_groups)
+                              partial, fsdp_axes, fsdp_kept, self.rules,
+                              model_groups, fsdp_whole)
 
     def prefixed(self, prefix: str) -> "ExpertSharding":
         pre = lambda d: {f"{prefix}/{p}": a for p, a in d.items()}
+        add = lambda s: {f"{prefix}/{p}" for p in s}
         return self._with(pre(self.axes), pre(self.model_axes),
-                          {f"{prefix}/{p}" for p in self.partial},
-                          pre(self.fsdp_axes), pre(self.model_groups))
+                          add(self.partial), pre(self.fsdp_axes),
+                          pre(self.model_groups), pre(self.fsdp_kept),
+                          add(self.fsdp_whole))
 
     def merged(self, *others) -> "ExpertSharding":
         axes, model_axes = dict(self.axes), dict(self.model_axes)
         fsdp_axes, partial = dict(self.fsdp_axes), set(self.partial)
-        groups = dict(self.model_groups)
+        groups, kept = dict(self.model_groups), dict(self.fsdp_kept)
+        whole = set(self.fsdp_whole)
         for o in others:
             axes.update(o.axes)
             model_axes.update(o.model_axes)
             fsdp_axes.update(o.fsdp_axes)
             groups.update(o.model_groups)
+            kept.update(o.fsdp_kept)
             partial |= o.partial
-        return self._with(axes, model_axes, partial, fsdp_axes, groups)
+            whole |= o.fsdp_whole
+        return self._with(axes, model_axes, partial, fsdp_axes, groups,
+                          kept, whole)
 
     def split(self, path: str) -> bool:
         """Whether this rank holds a slice of the leaf at ``path``."""
         return (path in self.axes or path in self.model_axes
                 or path in self.fsdp_axes)
 
+    def repeats(self, path: str) -> int:
+        """How many full copies of each row block's contribution the
+        gradient of the leaf at ``path`` holds once it is summed over its
+        group (the EP group for an expert leaf, the FSDP axes and the
+        data-parallel axes they leave out for an FSDP leaf, the
+        data-parallel axes for any other): the size of the axes of that
+        group the "batch" rule does not split, whose ranks hold the same
+        rows.  ``model`` counts only for an FSDP leaf every ``model`` rank
+        uses whole (``fsdp_whole``): where each uses its heads or
+        columns, the sum adds parts, not copies."""
+        shape = mesh_shape(self.mesh)
+        over = set(self.dp)
+        if path in self.fsdp_axes and (path in self.fsdp_whole
+                                       or "model" not in
+                                       self.fsdp_kept[path]):
+            over |= set(self.fsdp_kept[path])
+        batch = set(batch_axes(self.mesh, self.rules))
+        return math.prod(shape[a] for a in over if a not in batch)
+
     def gather_params(self, tree, prefix: str = "", drop: int = 0):
         """``tree``, the subtree at ``prefix`` of the parameters with
         ``drop`` leading dims indexed away (a superblock's slice of the
-        stacked leaves: 1), with every FSDP leaf gathered whole over the
+        stacked leaves: 1), with every FSDP leaf gathered whole over its
         FSDP group (:func:`fsdp_gather`: differentiable, collective, in
         path order)."""
         from repro_torch.models.common import tree_leaves, tree_with_leaves
         out = {}
         for p, t in tree_leaves(tree):
-            dim = self.fsdp_axes.get(f"{prefix}/{p}" if prefix else p)
-            out[p] = t if dim is None else fsdp_gather(t, self.fsdp,
-                                                       dim - drop)
+            path = f"{prefix}/{p}" if prefix else p
+            dim = self.fsdp_axes.get(path)
+            out[p] = t if dim is None else fsdp_gather(
+                t, self.fsdp_comm(path), dim - drop)
         return tree_with_leaves(tree, out)
 
     # -- trees and leaves ---------------------------------------------------
@@ -704,16 +769,18 @@ class ExpertSharding:
         the global leaf's order: the EP virtual rank ``v`` whose experts
         it holds (None: not split over EP; with replicas only ``0 ..
         n_experts - 1``), its ``model`` coordinate ``m`` (None: not split
-        over ``model``), its FSDP shard ``f`` (None: not split by FSDP),
-        and the global rank that holds it (every other mesh coordinate
-        0, the writer's)."""
+        over ``model``), its FSDP shard ``f`` (None: not split by FSDP;
+        block ``f`` of the leaf's own kept axes, row-major), and the
+        global rank that holds it (every other mesh coordinate 0, the
+        writer's)."""
         shape = mesh_shape(self.mesh)
         ep = ep_axes(self.mesh) if path in self.axes and self.comm else ()
         vs = range(self.G if self.R == 1 else self.n_experts) if ep \
             else [None]
         ms = range(self.tp.size) if path in self.model_axes and self.tp \
             else [None]
-        fs = range(self.fsdp.p) if path in self.fsdp_axes else [None]
+        kept = self.fsdp_kept.get(path, ())
+        fs = range(self.fsdp_comm(path).p) if kept else [None]
         out = []
         for v in vs:
             coord, rest = {}, v
@@ -724,8 +791,7 @@ class ExpertSharding:
                     coord["model"] = m
                 for f in fs:
                     rest = f
-                    for a in reversed(self.fsdp_kept if f is not None
-                                      else ()):
+                    for a in reversed(kept if f is not None else ()):
                         coord[a], rest = rest % shape[a], rest // shape[a]
                     rank = int(self.mesh.mesh[tuple(
                         coord.get(a, 0) for a in self.mesh.mesh_dim_names)])
@@ -783,8 +849,9 @@ class ExpertSharding:
             t = t.narrow(axis, lo, n)
         dim = self.fsdp_axes.get(path)
         if dim is not None:
-            n = t.shape[dim] // self.fsdp.p
-            t = t.narrow(dim, self.fsdp.rank * n, n)
+            comm = self.fsdp_comm(path)
+            n = t.shape[dim] // comm.p
+            t = t.narrow(dim, comm.rank * n, n)
         dim = self.model_axes.get(path)
         if dim is not None:
             t = model_block(t, dim, self.model_groups.get(path, 1),
@@ -802,16 +869,16 @@ class ExpertSharding:
             shape[dim] *= self.tp.size
         dim = self.fsdp_axes.get(path)
         if dim is not None:
-            shape[dim] *= self.fsdp.p
+            shape[dim] *= self.fsdp_comm(path).p
         return tuple(shape)
 
     def gather(self, path: str, t):
         """The global leaf from every rank's slice (collective over the
-        FSDP group, the EP group, then ``model``; a whole leaf is
+        leaf's FSDP group, the EP group, then ``model``; a whole leaf is
         returned as it is)."""
         dim = self.fsdp_axes.get(path)
         if dim is not None:
-            t = fsdp_gather(t.detach(), self.fsdp, dim)
+            t = fsdp_gather(t.detach(), self.fsdp_comm(path), dim)
         axis = self.axes.get(path)
         if axis is not None and self.comm is not None:
             parts = _direct_allgather_impl(t.detach().contiguous(),
@@ -848,25 +915,32 @@ class ExpertSharding:
         dist.all_reduce(g, group=self.tp.pg)
         return g
 
-    def sum_fsdp_rest(self, path: str, g):
-        """An FSDP leaf's gradient (already summed over the FSDP group by
-        :func:`fsdp_gather`'s backward) summed over the batch axes the
-        FSDP split did not keep (collective over them); any other leaf's,
-        or where the split kept every batch axis, as it is."""
-        if path not in self.fsdp_axes or self.fsdp_rest is None:
+    def sum_dp(self, path: str, g):
+        """A leaf's gradient summed over the data-parallel axes it is not
+        summed over yet (collective over them): an FSDP leaf's over those
+        its kept axes leave out (the reduce-scatter of
+        :func:`fsdp_gather`'s backward summed it over the kept ones), any
+        other non-expert leaf's over every data-parallel axis; an expert
+        leaf's (the dispatch's backward summed it over the EP group), or
+        where nothing is left, as it is."""
+        if path in self.axes and self.comm is not None:
+            return g
+        group = self._rest[self.fsdp_kept[path]] \
+            if path in self.fsdp_axes else self.dp_group
+        if group is None:
             return g
         g = g.clone()
-        dist.all_reduce(g, group=self.fsdp_rest.pg)
+        dist.all_reduce(g, group=group.pg)
         return g
 
     def leaf_sq_sum(self, path: str, sq):
         """The global leaf's sum of squares from this rank's ``sq`` (any
-        shape, summed elementwise): over the FSDP group, the EP group
-        (each global expert once, ``/ R``) and over ``model`` where the
-        leaf is split (collective over those groups)."""
+        shape, summed elementwise): over the leaf's FSDP group, the EP
+        group (each global expert once, ``/ R``) and over ``model`` where
+        the leaf is split (collective over those groups)."""
         if path in self.fsdp_axes:
             sq = sq.clone()
-            dist.all_reduce(sq, group=self.fsdp.fact.group.pg)
+            dist.all_reduce(sq, group=self.fsdp_comm(path).fact.group.pg)
         if path in self.axes and self.comm is not None:
             sq = sq.clone()
             dist.all_reduce(sq, group=self.comm.fact.group.pg)
@@ -879,19 +953,17 @@ class ExpertSharding:
     def tree_sq_sum(self, sqs: list):
         """The global tree's sum of squares from ``(path, this rank's
         square sum)`` pairs, each global element counted once: at most
-        one all-reduce over the FSDP group (the FSDP leaves), one over
-        the EP group (the expert leaves, ``/ R``) and one over ``model``
-        (the split leaves), the same value on every rank."""
+        one all-reduce per FSDP group (its FSDP leaves), one over the EP
+        group (the expert leaves, ``/ R``) and one over ``model`` (the
+        split leaves), the same value on every rank."""
         zero = sqs[0][1].new_zeros(())
         whole, expert, tp_only, both = zero, zero, zero, zero
-        fsdp_only, fsdp_tp = zero, zero
+        fsdp = {kept: [zero, zero] for kept in self._fsdp}
         for path, sq in sqs:
             e, m = path in self.axes, path in self.model_axes
             if path in self.fsdp_axes:
-                if m:
-                    fsdp_tp = fsdp_tp + sq
-                else:
-                    fsdp_only = fsdp_only + sq
+                pair = fsdp[self.fsdp_kept[path]]
+                pair[int(m)] = pair[int(m)] + sq
             elif e and m:
                 both = both + sq
             elif e:
@@ -900,9 +972,9 @@ class ExpertSharding:
                 tp_only = tp_only + sq
             else:
                 whole = whole + sq
-        if self.fsdp is not None:
-            pair = torch.stack([fsdp_only, fsdp_tp])
-            dist.all_reduce(pair, group=self.fsdp.fact.group.pg)
+        for kept, (only, split) in fsdp.items():
+            pair = torch.stack([only, split])
+            dist.all_reduce(pair, group=self._fsdp[kept].fact.group.pg)
             whole, tp_only = whole + pair[0], tp_only + pair[1]
         if self.comm is not None:
             pair = torch.stack([expert, both])

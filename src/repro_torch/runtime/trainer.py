@@ -43,9 +43,11 @@ saves at the same step.  The elastic loop keeps three rules of its own:
   the policy decides on the maximum.  A device loss is decided on the
   clock the last step agreed on, since the old group has lost ranks.
 * **A lost rank leaves.**  On the ranks a ``DeviceLossError`` names,
-  ``run`` returns ``"lost"`` at once and they make no further collective
-  call; the survivors recover without them: ``rebuild_fn`` builds their
-  mesh (``core.cache`` creates its groups with the survivors alone) and
+  and on their partners in a group it broke (the ranks that share one's
+  EP coordinate, ``launch.mesh.survivor_layout``), ``run`` returns
+  ``"lost"`` at once and they make no further collective call; the
+  survivors recover without them: ``rebuild_fn`` builds their mesh
+  (``core.cache`` creates its groups with the survivors alone) and
   returns the parameters' layout on it, onto which ``try_restore``
   restores; the checkpoint's writer is then the survivor at mesh
   coordinate 0.
@@ -205,9 +207,18 @@ class Trainer:
         self.recoveries_done += 1
 
     def _lost(self, err: DeviceLossError) -> bool:
-        """Whether this rank is one the device loss took out."""
-        return self.sharding is not None and dist.is_initialized() \
-            and dist.get_rank() in err.devices
+        """Whether this rank leaves after the device loss: one it took
+        out, or a partner of one in a group the loss broke (a rank that
+        shares its EP coordinate: ``launch.mesh.survivor_layout``)."""
+        if self.sharding is None or not dist.is_initialized():
+            return False
+        from repro_torch.core.cache import mesh_shape
+        from repro_torch.launch.mesh import survivor_layout
+        mesh = self.sharding.mesh
+        _, _, leaving = survivor_layout(mesh_shape(mesh),
+                                        mesh.mesh.flatten().tolist(),
+                                        err.devices)
+        return dist.get_rank() in leaving
 
     # ---- main loop ----
     def run(self, max_steps: int | None = None):

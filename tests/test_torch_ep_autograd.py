@@ -18,8 +18,10 @@ world runs every check; each is then a test of its own.
   is elementwise, so chunking changes no sum), ``w``'s within 1e-12
   relative; forward and backward each make n_chunks x
   ``round_schedule``'s reorder passes per direction; without ``params``
-  under autograd it raises, as does a compute stage without the reverse
-  rounds.
+  under autograd it raises.  A compute stage without the reverse rounds
+  (``reverse=False``) against ``f(forward(x))``: output and input
+  gradient bit for bit, each direction n_chunks x ``round_schedule``'s
+  passes.
 * The ragged and sparse Alltoallv: the backward of ``forward(x, counts)``
   on the counted rows is ``reverse(g, recv_counts)``'s, bit for bit.
 * The repair: on the mesh, ``moe_block`` gives every leaf (router, w1,
@@ -184,12 +186,29 @@ def _overlap_checks(rank, mesh, torch):
         ok["needs_params"] = False
     except ValueError:
         ok["needs_params"] = True
+    # a compute stage without the reverse rounds (forward: rounds, then
+    # compute): output and gradient bit for bit those of the factorized
+    # composition f(forward(x)), each direction n_chunks x round_schedule's
+    # passes (the backward: the vjp, then the rounds in the reverse order)
+    stage = lambda c, _i=0: torch.sin(c) * 2.0
+    passes[0] = 0
+    for k, fn in real.items():
+        setattr(ops, k, counting(fn))
     try:
-        ov.overlap(x.clone().requires_grad_(True), f_plain, chunk_axis=2,
-                   reverse=False, params=())
-        ok["no_reverse_refused"] = False
-    except NotImplementedError:
-        ok["no_reverse_refused"] = True
+        xg = x.clone().requires_grad_(True)
+        y3 = ov.overlap(xg, stage, chunk_axis=2, reverse=False, params=())
+        forward_passes = passes[0]
+        (g3,) = torch.autograd.grad(y3, xg, ct)
+    finally:
+        for k, fn in real.items():
+            setattr(ops, k, fn)
+    xg = x.clone().requires_grad_(True)
+    y4 = stage(fa.forward(xg))
+    (g4,) = torch.autograd.grad(y4, xg, ct)
+    one_way = 3 * len(round_schedule((2, 2), ov.order))
+    ok["no_reverse_refused"] = (torch.equal(y3, y4) and torch.equal(g3, g4)
+                                and forward_passes == one_way
+                                and passes[0] == 2 * one_way)
     return ok
 
 

@@ -106,6 +106,52 @@ def test_unported_paths_raise():
     jamba = build_model(get_config("jamba-v0.1-52b", smoke=True).replace(
         use_ulysses=True))
     assert jamba.check_mesh(shape) is None
+    _rules_accepted(shape)
+
+
+def _rules_accepted(shape):
+    """The four rule sets the port once refused on (pod 2, data 2, model
+    2): ``make_train_step`` gets past its mesh checks (to the parameters'
+    layout, stubbed) and ``param_layout`` gives the layout, for the MoE
+    and the dense model: EP and FSDP outside the batch rule
+    (``batch=("data",)``), FSDP over ``model`` (``embed_fsdp``) and FSDP
+    over two axis sets (``vocab=("data",)``: the embedding's over
+    ``pod``, the other leaves' over ``pod, data``)."""
+    import pytest
+    from repro_torch.models import make_train_step, model_api
+    from repro_torch.models.common import param_layout
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.sharding import ShardingRules
+
+    class Accepted(Exception):
+        pass
+
+    def layout(specs, mesh, rules):
+        raise Accepted(param_layout(specs, mesh, rules))
+    moe = get_config(ARCH, smoke=True)
+    dense = moe.replace(family="dense", n_experts=0)
+    for cfg in (moe, dense):
+        model = build_model(cfg)
+        for kw in ({"batch": ("data",)}, {"embed_fsdp": ("model",)},
+                   {"vocab": ("data",)}):
+            rules = ShardingRules().override(**kw)
+            real, model_api.param_shardings = model_api.param_shardings, \
+                layout
+            try:
+                with pytest.raises(Accepted) as got:
+                    make_train_step(model, AdamW(), shape, rules)
+            finally:
+                model_api.param_shardings = real
+            lay = got.value.args[0]
+            assert lay == param_layout(model.specs(), shape, rules)
+            kept = set(lay["fsdp_kept"].values())
+            if "vocab" in kw:
+                assert lay["fsdp_kept"]["embed"] == ("pod",)
+                assert kept == {("pod",), ("pod", "data")}
+            elif "embed_fsdp" in kw:
+                assert kept == {("model",)}
+            else:
+                assert kept == {("pod", "data")}
 
 
 @pytest.mark.parametrize("seq,ok", [(16, True), (18, False)])

@@ -31,7 +31,7 @@ from torch_dist import run_world
 WORLDS = {4: ((2, 2), ("a", "b")), 6: ((2, 3), ("a", "b"))}
 CHECKS = ("forward", "reverse", "tiled", "overlap_reverse",
           "overlap_no_reverse", "overlap_chunk_axis", "passes",
-          "chunk_copies", "no_substitute")
+          "chunk_copies", "no_substitute", "overlap_no_reverse_grad")
 B = 6                          # block elements: 3 chunks divide, 4 do not
 TILED = (2, 2, 5)              # (rows, per-rank split, cols) of tiled input
 CHUNKED = (3, 4)               # block of the chunk_axis=2 case
@@ -53,6 +53,16 @@ def _tiled_input(p: int) -> np.ndarray:
 
 def _compute(chunk, _c):
     return 2 * chunk + 1
+
+
+def _grad_input(p: int) -> np.ndarray:
+    """Every rank's (p, B) f64 send buffer of the gradient cases."""
+    return np.random.default_rng(13).standard_normal((p, p, B))
+
+
+def _stage(chunk, _c=0):
+    """The gradient cases' compute stage (the reference audit's)."""
+    return (chunk.sin() if hasattr(chunk, "sin") else np.sin(chunk)) * 2.0
 
 
 def _cases(comm, torch):
@@ -79,6 +89,7 @@ def _world_checks(rank, n, dims, names):
     X = torch.from_numpy(_inputs(p, (B,)))
     x, want = X[rank].clone(), X[:, rank]
     X3 = torch.from_numpy(_inputs(p, CHUNKED))
+    XG = torch.from_numpy(_grad_input(p))
     x3 = X3[rank].clone()
     T = torch.from_numpy(_tiled_input(p))
     per = TILED[1]
@@ -86,7 +97,7 @@ def _world_checks(rank, n, dims, names):
                         for s in range(p)])
     mesh = cart_create(n, dims, names, device_type="cpu")
     ok = {c: True for c in CHECKS}
-    outs = {}
+    outs, grads = {}, {}
 
     calls = []
     saved = {name: getattr(kops, name) for name in
@@ -142,8 +153,23 @@ def _world_checks(rank, n, dims, names):
                 # strided chunks, each copied once, and joined once
                 ok["chunk_copies"] &= copied == (0 if nc == 1 else 2)
                 ok["chunk_copies"] &= joined == (0 if nc == 1 else 1)
+                # the compute stage without reverse rounds under
+                # autograd, f64: the gradient of sum(y ** 2) bit for bit
+                # the factorized composition's
+                g = {}
+                for key, pl in (("over", plan), ("fact", fact)):
+                    pl = comm.all_to_all((B,), torch.float64,
+                                         backend=pl.backend,
+                                         round_order=order, n_chunks=nc)
+                    xg = XG[rank].clone().requires_grad_(True)
+                    yg = pl.overlap(xg, _stage, reverse=False, params=()) \
+                        if key == "over" else _stage(pl.forward(xg))
+                    (g[key],) = torch.autograd.grad((yg ** 2).sum(), xg)
+                ok["overlap_no_reverse_grad"] &= torch.equal(g["over"],
+                                                             g["fact"])
                 if backend == "overlap" and order == (0, 1) and \
                         (variant, nc) in JAX_CASES:
+                    grads[(variant, nc)] = g["over"].numpy()
                     outs[(variant, nc)] = {
                         "forward": y.numpy(),
                         "reverse": plan.reverse(x).numpy(),
@@ -156,7 +182,7 @@ def _world_checks(rank, n, dims, names):
         for name, fn in saved.items():
             setattr(kops, name, fn)
 
-    return {k: bool(v) for k, v in ok.items()}, outs
+    return {k: bool(v) for k, v in ok.items()}, outs, grads
 
 
 _RESULTS: dict = {}
@@ -178,7 +204,7 @@ def world(request, tmp_path_factory):
 @pytest.mark.parametrize("check", CHECKS)
 def test_overlap_on_gloo(world, check):
     n, results = world
-    failed = [r for r, (ok, _) in enumerate(results) if not ok[check]]
+    failed = [r for r, (ok, *_) in enumerate(results) if not ok[check]]
     assert not failed, f"{check} wrong on ranks {failed} of the " \
         f"{WORLDS[n][0]} torus"
 
@@ -267,9 +293,71 @@ def test_overlap_matches_jax(tmp_path, tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     jax_out = np.load(tmp_path / "out.npz")
     for n in WORLDS:
-        for rank, (_, outs) in enumerate(_results(n, tmp_path_factory)):
+        for rank, (_, outs, _) in enumerate(_results(n, tmp_path_factory)):
             for (variant, nc), res in outs.items():
                 for key, y in res.items():
                     np.testing.assert_array_equal(
                         y, jax_out[f"{n}_{variant}_{nc}_{key}"][rank],
                         err_msg=f"{n} ranks {variant} n_chunks={nc} {key}")
+
+
+_JAX_GRAD_SCRIPT = r"""
+import sys
+import numpy as np
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.core.cache import cart_create
+from repro.core.plan import plan_all_to_all
+
+cases = eval(sys.argv[2])
+data = np.load(sys.argv[1])
+out = {}
+for n, dims, names in eval(sys.argv[3]):
+    X = jnp.asarray(data[f"X{n}"])
+    mesh = cart_create(jax.devices()[:n], dims, names)
+    spec = P(tuple(reversed(names)))
+    stage = lambda c, _i=0: jnp.sin(c) * 2.0
+    for variant, nc in cases:
+        plan = plan_all_to_all(mesh, names, X.shape[2:], X.dtype,
+                               backend="overlap", variant=variant,
+                               n_chunks=nc)
+        run = jax.shard_map(
+            lambda x: plan.overlap(x[0], stage, reverse=False)[None],
+            mesh=mesh, in_specs=spec, out_specs=spec)
+        g = jax.jit(jax.grad(lambda x: (run(x) ** 2).sum()))(X)
+        out[f"{n}_{variant}_{nc}"] = np.asarray(g)
+np.savez(sys.argv[4], **out)
+"""
+
+
+def test_overlap_no_reverse_grad_matches_jax(tmp_path, tmp_path_factory):
+    """``overlap(x, sin(c) * 2, reverse=False)`` under autograd, f64: each
+    rank's gradient of ``sum(y ** 2)`` against ``jax.grad`` of the
+    reference's overlap plan on the same torus, within 1e-12 relative
+    (``sin`` is XLA's on one side and torch's on the other)."""
+    arrays = {f"X{n}": _grad_input(math.prod(WORLDS[n][0]))
+              for n in WORLDS}
+    np.savez(tmp_path / "in.npz", **arrays)
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=6"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parents[1] / "src") \
+        + os.pathsep + env.get("PYTHONPATH", "")
+    worlds = [(n, dims, names) for n, (dims, names) in WORLDS.items()]
+    proc = subprocess.run([sys.executable, "-c", _JAX_GRAD_SCRIPT,
+                           str(tmp_path / "in.npz"), repr(JAX_CASES),
+                           repr(worlds), str(tmp_path / "out.npz")],
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    jax_out = np.load(tmp_path / "out.npz")
+    for n in WORLDS:
+        for rank, (*_, grads) in enumerate(_results(n, tmp_path_factory)):
+            assert set(grads) == set(JAX_CASES)
+            for (variant, nc), g in grads.items():
+                np.testing.assert_allclose(
+                    g, jax_out[f"{n}_{variant}_{nc}"][rank], rtol=1e-12,
+                    atol=1e-14,
+                    err_msg=f"{n} ranks {variant} n_chunks={nc}")

@@ -120,10 +120,11 @@ def test_recurrent_mixer_under_ulysses_is_refused(arch, monkeypatch):
     class Accepted(Exception):
         pass
 
-    def past_the_model_checks(mesh, rules):
+    def past_the_model_checks(specs, mesh, rules):
         raise Accepted(mesh)
-    # the step's first look at the mesh after the model's own check
-    monkeypatch.setattr(model_api, "check_ep_within_batch",
+    # the step's first call on the mesh after the model's own check: the
+    # parameters' layout
+    monkeypatch.setattr(model_api, "param_shardings",
                         past_the_model_checks)
     with pytest.raises(Accepted):
         make_train_step(model, AdamW(), shape)

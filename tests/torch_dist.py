@@ -114,9 +114,10 @@ def _block(a, dim, i, n):
 
 
 def fsdp_layout(mesh, sh, params, opt_state, global_params):
-    """This rank's FSDP split: the leaves and dims, the axes kept, the
-    expert leaves, and for each FSDP leaf whether it is block ``pod *
-    |data| + data`` (row-major over the kept axes) of the global leaf
+    """This rank's FSDP split: the leaves and dims, the axes kept (one
+    tuple where every leaf keeps the same, else per leaf), the expert
+    leaves, and for each FSDP leaf whether it is block ``pod * |data| +
+    data`` (row-major over the axes that leaf kept) of the global leaf
     (of this rank's ``model`` slice where ``model`` splits it too: of
     each column group of a paired leaf, side by side), with
     AdamW moments of its shape.  ``sh`` is the parameters'
@@ -125,9 +126,12 @@ def fsdp_layout(mesh, sh, params, opt_state, global_params):
     from repro_torch.models.common import tree_leaves
     shape = mesh_shape(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    f, size = 0, 1
-    for a in sh.fsdp_kept:
-        f, size = f * shape[a] + coord[a], size * shape[a]
+
+    def block_of(kept):
+        f, size = 0, 1
+        for a in kept:
+            f, size = f * shape[a] + coord[a], size * shape[a]
+        return f, size
     glob = dict(tree_leaves(global_params))
     mu = dict(tree_leaves(opt_state["mu"]))
     blocks = {}
@@ -141,8 +145,10 @@ def fsdp_layout(mesh, sh, params, opt_state, global_params):
                 [_block(g, dim, coord["model"], shape["model"]) for g in
                  np.split(want, sh.model_groups.get(p, 1), axis=dim)],
                 axis=dim)
-        want = _block(want, sh.fsdp_axes[p], f, size)
+        want = _block(want, sh.fsdp_axes[p], *block_of(sh.fsdp_kept[p]))
         blocks[p] = (np.array_equal(t.detach().numpy(), want)
                      and tuple(mu[p].shape) == tuple(t.shape))
-    return {"axes": dict(sh.fsdp_axes), "kept": sh.fsdp_kept,
+    kept = set(sh.fsdp_kept.values())
+    return {"axes": dict(sh.fsdp_axes),
+            "kept": kept.pop() if len(kept) == 1 else dict(sh.fsdp_kept),
             "blocks": blocks, "experts": sorted(sh.axes)}

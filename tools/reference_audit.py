@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
-"""What the JAX reference does at the inputs the port refuses with
-``NotImplementedError`` (ROADMAP.md §3 records the answers).
+"""What the JAX reference does at the inputs of the port's parity cases
+for the sharding rules and paths it once refused (ROADMAP.md §3 records
+the answers; ``tests/test_torch_rules_mesh.py``,
+``tests/test_torch_overlap.py`` and ``tests/test_torch_ep_autograd.py``
+hold the port against the reference there).
 
 Runs the JAX package alone, on 8 forced host CPU devices, and prints one
 line per input: whether the reference computes it and, for the training
@@ -16,10 +19,11 @@ and pod); FSDP outside the batch rule and an FSDP rule over ``model``
 (dense); FSDP over several axes (``vocab=data``: the embedding keeps
 ``pod``, the other leaves ``pod, data``); and, on a (2,2) torus, the
 overlap engine's compute stage with ``reverse=False`` under
-``jax.grad``, against the factorized composition.  The sixth site,
-``launch.mesh.survivor_mesh`` with a dim other than the EP dims above 1,
-needs no run: the reference's own elastic check recovers onto a (data 4,
-model 2) mesh (``tests/device_scripts/check_rebuild.py``).
+``jax.grad``, against the factorized composition.  The sixth path, a
+survivor mesh with a dim other than the EP dims above 1
+(``launch.mesh.survivor_mesh``), needs no run: the reference's own
+elastic check recovers onto a (data 4, model 2) mesh
+(``tests/device_scripts/check_rebuild.py``).
 """
 
 import numpy as np
