@@ -1379,28 +1379,91 @@ def _flash_sweep(gen):
         f"{taken}; each wgmma case through SIMT too)")
 
 
+# the backward's sweep: GQA, causal, windows, kv offsets (+ and -),
+# ragged S, Dh 16-128 and 80, fully masked rows, a near one-hot softmax
+_FLASH_BWD_SWEEP = (
+    ((1, 2, 2, 64, 64, 32), dict(causal=True)),
+    ((2, 4, 2, 32, 32, 16), dict(causal=True)),
+    ((1, 4, 1, 64, 64, 32), dict(causal=False)),
+    ((2, 6, 3, 48, 48, 64), dict(causal=False)),
+    ((1, 4, 2, 100, 100, 128), dict(causal=True)),
+    ((1, 2, 2, 64, 64, 32), dict(causal=True, window=8)),
+    ((1, 2, 2, 8, 64, 32), dict(causal=True, kv_offset=56)),
+    ((1, 4, 2, 37, 77, 64), dict(causal=True, kv_offset=40)),
+    ((2, 4, 4, 150, 150, 16), dict(causal=False, window=20)),
+    ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4)),
+    ((1, 2, 1, 40, 40, 128), dict(causal=True, kv_offset=-4)),
+    ((1, 4, 2, 130, 200, 128), dict(causal=True, window=50, kv_offset=70)),
+    ((1, 4, 2, 160, 160, 80), dict(causal=True, window=40)),
+    ((1, 4, 2, 37, 77, 80), dict(causal=True, kv_offset=40)),
+    ((1, 4, 2, 256, 256, 128), dict(causal=True, q_scale=100.0)))
+
+
+def _flash_train_shapes() -> list:
+    """The training paths' attention shapes, ``(B, Hq, Hkv, S, Dh, label,
+    window, causal, Skv)``: [train]'s first (the JSON line's main rows),
+    [train_ep]'s per rank at full and at the Trainer's cut width,
+    [train_tp]'s per rank (this rank's heads), [train_danube]'s (head dim
+    80, its window) and [train_encdec]'s whisper encoder and
+    cross-attention (non-causal, 448 queries against 1500 frames)."""
+    from repro_torch.configs import get_config
+    shapes = [(TRAIN_B, 32, 8, TRAIN_S, 128, "train", None, True, None)]
+    for t in _train_ep_geometry():
+        c = t["cfg"]
+        shapes.append((1, c.n_heads, c.n_kv_heads, TRAIN_EP_S,
+                       c.d_model // c.n_heads, t["label"], None, True, None))
+    for t in _train_tp_geometry():
+        shapes.append((1, t["Hq"], t["Hkv"], TRAIN_EP_S, t["cfg"].hd,
+                       t["label"], None, True, None))
+    dcfg = get_config(DANUBE)
+    shapes.append((TRAIN_DANUBE[1], dcfg.n_heads, dcfg.n_kv_heads,
+                   TRAIN_DANUBE[2], dcfg.hd, "train_danube", dcfg.window,
+                   True, None))
+    wcfg = get_config(WHISPER)
+    frames = wcfg.n_frontend_tokens
+    shapes.append((ENCDEC_B, wcfg.n_heads, wcfg.n_kv_heads, frames, wcfg.hd,
+                   f"train_encdec {WHISPER} encoder", None, False, None))
+    shapes.append((ENCDEC_B, wcfg.n_heads, wcfg.n_kv_heads, ENCDEC_S,
+                   wcfg.hd, f"train_encdec {WHISPER} cross-attention", None,
+                   False, frames))
+    return shapes
+
+
+def _bwd_variants(q, k, v, do) -> tuple:
+    """The backward variants a call is checked through: the one it takes
+    and, where that is wgmma, mma (forced) too."""
+    from repro_torch.kernels.flash_attention_bwd import choose
+    return tuple(dict.fromkeys((choose(q, k, v, others=(do,)), "mma"))) \
+        if q.dtype == torch.bfloat16 else ("simt",)
+
+
 def _flash_train_kernels(gen):
     """The flash forward that keeps lse and the FA2 backward against their
-    plain versions: at the training shapes, [train]'s, [train_ep]'s and
-    [train_tp]'s per rank at full and at cut width, and [train_danube]'s
-    (head dim 80, its window) (each forward variant as
-    :func:`_flash_rows` times it, with SDPA's forward and backward as the
-    library yardstick; the backward run twice must agree bit for bit) and
-    at GQA / window / kv-offset / ragged shapes in f32 and bf16, the
-    forward through the variant it takes and, for wgmma, SIMT too.  lse is
-    f32 (tolerance 1e-4); the bf16 backward rounds p and ds to bf16 as
-    they enter the tensor cores and dk / dv sum the group's query heads,
-    so it is held within ``tol`` of the largest |value| of each output."""
-    from repro_torch.configs import get_config
+    plain versions: at every training shape (:func:`_flash_train_shapes`;
+    each forward variant as :func:`_flash_rows` times it, and the
+    backward's wgmma and mma variants, each held within ``tol`` of the
+    largest |value| of each output, run twice bit for bit and timed, with
+    SDPA's forward and backward as the library yardstick) and at the
+    sweep's GQA / window / kv-offset / ragged shapes in f32 and bf16
+    (:data:`_FLASH_BWD_SWEEP`), the forward through the variant it takes
+    and, for wgmma, SIMT too, the backward through the variant it takes
+    and, for wgmma, mma too.  lse is f32 (tolerance 1e-4); the bf16
+    backward rounds p and ds to bf16 as they enter the tensor cores and
+    dk / dv sum the group's query heads, hence the tolerance of the
+    largest |value|."""
     from repro_torch.kernels.flash_attention import VARIANTS, choose
     from repro_torch.kernels.flash_attention_bwd import (
-        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-        flash_attention_fwd_plain)
+        VARIANTS_BWD, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd, flash_attention_fwd_plain)
     F = torch.nn.functional
     bf16, f32 = torch.bfloat16, torch.float32
     taken = dict.fromkeys(VARIANTS, 0)
+    taken_bwd = dict.fromkeys(VARIANTS_BWD, 0)
 
     def check(label, q, k, v, do, **kw):
+        """Forward variants and backward variants against the plain
+        versions; returns ``{variant: (max_abs_err, rel_norm_errs)}`` of
+        the backward."""
         out_p, lse_p = flash_attention_fwd_plain(q, k, v, **kw)
         which = choose(q, k, v)
         taken[which] += 1
@@ -1408,21 +1471,27 @@ def _flash_train_kernels(gen):
             out, lse = flash_attention_fwd(q, k, v, force=force, **kw)
             compare(f"{label} [{force}] out", out, out_p, TOL[q.dtype])
             compare(f"{label} [{force}] lse", lse, lse_p, TOL[f32])
-        got = flash_attention_bwd(q, k, v, out_p, lse_p, do, **kw)
         want = flash_attention_bwd_plain(q, k, v, out_p, lse_p, do, **kw)
-        bwd_err = max(compare(f"{label} d{n}", g, w, TOL[q.dtype],
+        errs = {}
+        for i, force in enumerate(_bwd_variants(q, k, v, do)):
+            taken_bwd[force] += i == 0
+            got = flash_attention_bwd(q, k, v, out_p, lse_p, do,
+                                      force=force, **kw)
+            err = max(compare(f"{label} [{force}] d{n}", g, w, TOL[q.dtype],
                               of_max=True)
                       for n, g, w in zip("qkv", got, want))
-        rel = [float((g.float() - w.float()).norm() / w.float().norm())
-               for g, w in zip(got, want)]
-        return bwd_err, rel
+            rel = [float((g.float() - w.float()).norm() / w.float().norm())
+                   for g, w in zip(got, want)]
+            errs[force] = (err, rel)
+        return errs
 
     def shape_rows(B, Hq, Hkv, S, Dh, label, window=None, causal=True,
                    Skv=None):
-        """The forward's rows (:func:`_flash_rows`) and the backward's at
-        one training shape (with ``window``: the library yardstick SDPA
-        with the window as a mask, k and v expanded; ``Skv``: kv rows of a
-        non-causal cross-attention, else S)."""
+        """The forward's rows (:func:`_flash_rows`) and the backward's
+        (wgmma and mma) at one training shape (with ``window``: the
+        library yardstick SDPA with the window as a mask, k and v
+        expanded; ``Skv``: kv rows of a non-causal cross-attention, else
+        S)."""
         Skv = Skv or S
         q, do = _randn(gen, B, Hq, S, Dh), _randn(gen, B, Hq, S, Dh)
         k, v = _randn(gen, B, Hkv, Skv, Dh), _randn(gen, B, Hkv, Skv, Dh)
@@ -1441,75 +1510,56 @@ def _flash_train_kernels(gen):
             flash_attention_fwd_plain,
             lambda q, k, v: F.scaled_dot_product_attention(
                 q, lib_k, lib_v, **lib_kw), "sdpa forward", q, k, v, **kw)
-        bwd_err, rel = check(f"flash train {shape}", q, k, v, do, **kw)
+        errs = check(f"flash train {shape}", q, k, v, do, **kw)
         out, lse = flash_attention_fwd(q, k, v, **kw)
-        runs = [flash_attention_bwd(q, k, v, out, lse, do, **kw)
-                for _ in range(2)]
-        if not all(torch.equal(x, y) for x, y in zip(*runs)):
-            fail(f"flash bwd {shape}: two runs on the same inputs differ")
-        del runs
         pairs = _pairs(S, Skv=Skv, **kw)
         bb_ms, bb_by = bound(2 * (4 * q.numel() + 4 * k.numel())
                              + 4 * lse.numel(), 10 * B * Hq * Dh * pairs)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, do, **kw))
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, lib_k, lib_v))
         o_lib = F.scaled_dot_product_attention(qs, ks, vs, **lib_kw)
-        bwd = {"shape": f"flash bwd {shape}", "max_abs_err": bwd_err,
-               "ms": cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse,
-                                                         do, **kw)),
-               "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(
-                   q, k, v, out, lse, do, **kw)),
-               "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                   o_lib, (qs, ks, vs), do, retain_graph=True)),
-               "bound_ms": bb_ms, "bound_by": bb_by, "rel_norm_err": rel}
-        log(f"[kernels] flash bwd {shape}: max_abs_err {bwd_err:.3g}, "
-            f"relative norm error dq/dk/dv "
-            f"{', '.join(f'{r:.2e}' for r in rel)}, two runs equal bit for "
-            f"bit, kernel {bwd['ms']:.3f} ms, plain {bwd['plain_ms']:.3f} "
-            f"ms, sdpa backward {bwd['library_ms']:.3f} ms, bound "
-            f"{bb_ms:.3f} ms ({bb_by})")
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qs, ks, vs), do, retain_graph=True))
+        del qs, ks, vs, o_lib
+        bwd = {}
+        for which in errs:
+            runs = [flash_attention_bwd(q, k, v, out, lse, do, force=which,
+                                        **kw) for _ in range(2)]
+            if not all(torch.equal(x, y) for x, y in zip(*runs)):
+                fail(f"flash bwd {shape} [{which}]: two runs on the same "
+                     f"inputs differ")
+            del runs
+            bwd[which] = {"shape": f"flash bwd {shape}", "variant": which,
+                          "max_abs_err": errs[which][0],
+                          "rel_norm_err": errs[which][1],
+                          "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bb_ms, "bound_by": bb_by}
+        # alternate the variants' timings (w, m, m, w) on the one card
+        order = list(bwd) + list(bwd)[::-1]
+        times = {which: [] for which in bwd}
+        for which in order:
+            times[which].append(cuda_ms(lambda: flash_attention_bwd(
+                q, k, v, out, lse, do, force=which, **kw)))
+        for which, row in bwd.items():
+            row["ms"] = sum(times[which]) / len(times[which])
+            row["ms_runs"] = times[which]
+            log(f"[kernels] flash bwd {shape} [{which}]: max_abs_err "
+                f"{row['max_abs_err']:.3g}, relative norm error dq/dk/dv "
+                f"{', '.join(f'{r:.2e}' for r in row['rel_norm_err'])}, two "
+                f"runs equal bit for bit, kernel {row['ms']:.3f} ms ("
+                f"{', '.join(f'{t:.3f}' for t in times[which])}), plain "
+                f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound "
+                f"{bb_ms:.3f} ms ({bb_by})")
+        del q, k, v, do, out, lse
         return fwd, bwd
 
-    # [train]'s shape first (the JSON line's main rows), then [train_ep]'s
-    # per rank at full width and at the Trainer's cut width
-    shapes = [(2, 32, 8, 2048, 128, "train")]
-    for t in _train_ep_geometry():
-        c = t["cfg"]
-        shapes.append((1, c.n_heads, c.n_kv_heads, TRAIN_EP_S,
-                       c.d_model // c.n_heads, t["label"]))
-    for t in _train_tp_geometry():     # this rank's heads under TP
-        shapes.append((1, t["Hq"], t["Hkv"], TRAIN_EP_S, t["cfg"].hd,
-                       t["label"]))
-    dcfg = get_config(DANUBE)          # [train_danube]: head dim 80
-    shapes.append((TRAIN_DANUBE[1], dcfg.n_heads, dcfg.n_kv_heads,
-                   TRAIN_DANUBE[2], dcfg.hd, "train_danube", dcfg.window))
-    wcfg = get_config(WHISPER)         # [train_encdec]: encoder, cross
-    frames = wcfg.n_frontend_tokens
-    shapes.append((ENCDEC_B, wcfg.n_heads, wcfg.n_kv_heads, frames, wcfg.hd,
-                   f"train_encdec {WHISPER} encoder", None, False))
-    shapes.append((ENCDEC_B, wcfg.n_heads, wcfg.n_kv_heads, ENCDEC_S,
-                   wcfg.hd, f"train_encdec {WHISPER} cross-attention", None,
-                   False, frames))
-    by_shape = [shape_rows(*sh) for sh in shapes]
+    by_shape = [shape_rows(*sh) for sh in _flash_train_shapes()]
+    torch.cuda.empty_cache()
     fwd, bwd = by_shape[0]
     n = 0
     for dtype in (f32, bf16):
-        for (Bb, Hq_, Hk_, Sq, Sk, D), kw in (
-                ((1, 2, 2, 64, 64, 32), dict(causal=True)),
-                ((2, 4, 2, 32, 32, 16), dict(causal=True)),
-                ((1, 4, 1, 64, 64, 32), dict(causal=False)),
-                ((2, 6, 3, 48, 48, 64), dict(causal=False)),
-                ((1, 4, 2, 100, 100, 128), dict(causal=True)),
-                ((1, 2, 2, 64, 64, 32), dict(causal=True, window=8)),
-                ((1, 2, 2, 8, 64, 32), dict(causal=True, kv_offset=56)),
-                ((1, 4, 2, 37, 77, 64), dict(causal=True, kv_offset=40)),
-                ((2, 4, 4, 150, 150, 16), dict(causal=False, window=20)),
-                ((1, 2, 1, 16, 16, 16), dict(causal=True, kv_offset=-4)),
-                ((1, 2, 1, 40, 40, 128), dict(causal=True, kv_offset=-4)),
-                ((1, 4, 2, 130, 200, 128),
-                 dict(causal=True, window=50, kv_offset=70)),
-                ((1, 4, 2, 160, 160, 80), dict(causal=True, window=40)),
-                ((1, 4, 2, 37, 77, 80), dict(causal=True, kv_offset=40)),
-                ((1, 4, 2, 256, 256, 128), dict(causal=True, q_scale=100.0))):
+        for (Bb, Hq_, Hk_, Sq, Sk, D), kw in _FLASH_BWD_SWEEP:
             kw = dict(kw)
             q_scale = kw.pop("q_scale", 1.0)
             check(f"flash train q{(Bb, Hq_, Sq, D)} kv{(Bb, Hk_, Sk, D)} "
@@ -1521,20 +1571,22 @@ def _flash_train_kernels(gen):
             n += 1
     log(f"[kernels] flash fwd+lse / bwd sweep: {n} cases (GQA, causal, "
         f"windows, kv offsets, ragged S, Dh 16-128 and 80, fully masked "
-        f"rows, a "
-        f"near one-hot softmax) agree (forward variants taken {taken}, the training shape "
-        f"included; each wgmma case through SIMT too)")
+        f"rows, a near one-hot softmax) agree (forward variants taken "
+        f"{taken}, backward variants taken {taken_bwd}, the training "
+        f"shapes included; each wgmma case through SIMT (forward) and mma "
+        f"(backward) too)")
     out = {f"flash_attention_fwd_{which}": dict(
         name=f"flash_attention_fwd_{which}", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention_bwd.py:83", **row,
         cases=[f[which] for f, _ in by_shape])
         for which, row in fwd.items()}
-    out["flash_attention_bwd"] = dict(
-        name="flash_attention_bwd", route="cuda",
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/kernels/flash_attention_bwd.py:205", **bwd,
-        cases=[b for _, b in by_shape])
+    for which, row in bwd.items():
+        out[f"flash_attention_bwd_{which}"] = dict(
+            name=f"flash_attention_bwd_{which}", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention_bwd.py:205", **row,
+            cases=[b[which] for _, b in by_shape if which in b])
     return out
 
 
@@ -3349,7 +3401,8 @@ def _train_ep_launches(cfg, plan, C: int) -> dict:
                            _dense_launches(plan, True, n))
     return _expected(flash_attention_fwd=2 * L,
                      flash_attention_fwd_wgmma=2 * L,
-                     flash_attention_bwd=L, grouped_matmul=gmm,
+                     flash_attention_bwd=L, flash_attention_bwd_wgmma=L,
+                     grouped_matmul=gmm,
                      grouped_matmul_wgmma=gmm,
                      **{op: (3 - kept) * L * v for op, v in passes.items()})
 
@@ -7376,6 +7429,7 @@ def _train_launches_per_step(cfg) -> dict:
     A, M = _attn_layers(cfg), _moe_layers(cfg)
     return _expected(flash_attention_fwd=2 * A,
                      flash_attention_fwd_wgmma=2 * A, flash_attention_bwd=A,
+                     flash_attention_bwd_wgmma=A,
                      grouped_matmul=(3 + 3 + 6) * M,
                      grouped_matmul_wgmma=(3 + 3 + 6) * M)
 
@@ -7807,7 +7861,7 @@ def phase_train_danube() -> tuple[dict, float]:
     L = cfg.n_layers
     per_step = _expected(flash_attention_fwd=2 * L,
                          flash_attention_fwd_wgmma=2 * L,
-                         flash_attention_bwd=L)
+                         flash_attention_bwd=L, flash_attention_bwd_wgmma=L)
     log(f"[train_danube] {cfg.name} d={cfg.d_model} heads {cfg.n_heads}/"
         f"{cfg.n_kv_heads} hd={cfg.hd} window={cfg.window} F={cfg.d_ff} "
         f"vocab={cfg.vocab} layers={L} remat={cfg.remat_policy}: "
@@ -8560,9 +8614,11 @@ def main() -> int:
                                      for path, counts in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
         # the SIMT gmm and flash serve f32, unaligned calls and (flash)
-        # head dims 16 and 32 only: every main-path call takes wgmma or
-        # decode, which the phases' counts check
-        entry["on_main_path"] = not name.endswith("_simt")
+        # head dims 16 and 32 only, the backward's mma bf16 head dims 16
+        # and 32: every main-path call takes wgmma or decode, which the
+        # phases' counts check
+        entry["on_main_path"] = not (name.endswith("_simt")
+                                     or name == "flash_attention_bwd_mma")
         if entry["on_main_path"] and entry["launches"] == 0:
             fail(f"{name} was not launched on the main path")
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -1,7 +1,7 @@
 // Host side of the port's TMA loads: 3-D tensor maps of bf16 encoded with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint(ByVersion)
-// so no -lcuda link is needed.  Shared by csrc/grouped_matmul.cu and
-// csrc/flash_attention.cu.
+// so no -lcuda link is needed.  Shared by csrc/grouped_matmul.cu,
+// csrc/flash_attention.cu and csrc/flash_attention_bwd.cu.
 
 #pragma once
 
